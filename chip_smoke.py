@@ -1,0 +1,650 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``hpfg_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and exits non-zero without one. It imports neither jax
+nor the JAX package. Phases, each of which fails the run on error:
+
+  1. the card's name and power limit (nvidia-smi), then the build of the
+     CUDA kernels from ``hpfg_tpu_torch/csrc`` (nvcc, with its seconds);
+  2. every hand-written kernel (A conv3x3_nhwc, B conv3x3_wgrad_nhwc,
+     C bn_act, D bn_act_bwd) against its plain PyTorch version on the card,
+     at the shapes the full-width UNet gives it (batch 32), in fp32 and bf16,
+     and the autograd Functions (FusedConvBlock, Conv3x3Plain) forward and
+     gradients against autograd through the plain block; hash dropout masks
+     bit-exact; kernel and plain times side by side, and in bf16 a third
+     time for each conv: the same conv by cuDNN in bf16 with its defaults
+     (tensor cores), the library kernel the hand kernels must beat;
+  3. the main path: Mean-Teacher training through ``Trainer.fit`` with the
+     values of configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width
+     UNet, 224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made
+     batches in the ACDC layout, 2 warm-up and 5 timed steps, with
+     ``F.conv2d`` / ``torch.conv2d`` patched to raise; the launch counters
+     must rise by what the model's structure predicts;
+  4. an eval-mode forward of one synthetic volume through the kernels,
+     against the same model on the CPU (plain versions).
+
+Tolerances, relative to the reference tensor's largest magnitude: fp32
+1e-4 (another summation order), bf16 2e-2 (bf16 rounding at other points);
+the whole 18-conv eval forward in bf16 5e-2, with at least 99% of the
+argmax predictions equal. Details go to chiprun_out/chip_smoke/.
+
+The last line of stdout is {"ok": true, "device": {...}}; the line before it
+lists the kernels with their main-path launch counts, errors and times.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
+BATCH = 32
+LABEL_BS, UNLABEL_BS, HW = 8, 24, 224
+WARMUP, STEPS = 2, 5
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MODEL_TOL, MODEL_AGREE = 5e-2, 0.99
+CONFIG = "configs/mean_teacher_unet_30k_224x224_ACDC.yaml"
+
+CONV_PY = "hpfg_tpu_torch/ops/conv_block.py"
+KERNELS = {
+    "conv3x3_nhwc": dict(route="cuda", source="hpfg_tpu_torch/csrc/conv3x3.cu",
+                         replaces="hpfg_tpu/ops/pallas/conv_block.py:734",
+                         also_replaces=["hpfg_tpu/ops/pallas/conv_block.py:785",
+                                        "hpfg_tpu/ops/pallas/conv_block.py:1176"]),
+    "conv3x3_wgrad_nhwc": dict(route="cuda",
+                               source="hpfg_tpu_torch/csrc/conv3x3.cu",
+                               replaces="hpfg_tpu/ops/pallas/conv_block.py:1192",
+                               also_replaces=[]),
+    "bn_act": dict(route="triton", source="hpfg_tpu_torch/ops/bn_act.py",
+                   replaces="hpfg_tpu/ops/pallas/conv_block.py:810",
+                   also_replaces=[]),
+    "bn_act_bwd": dict(route="triton", source="hpfg_tpu_torch/ops/bn_act.py",
+                       replaces="hpfg_tpu/ops/pallas/conv_block.py:1151",
+                       also_replaces=["hpfg_tpu/ops/pallas/conv_block.py:1166"]),
+}
+# the full-width UNet's ConvBlocks: (name, H=W, C in, F out, keep prob)
+BLOCKS = [("in_conv", 224, 1, 16, 0.95), ("down1", 112, 16, 32, 0.9),
+          ("down2", 56, 32, 64, 0.8), ("down3", 28, 64, 128, 0.7),
+          ("down4", 14, 128, 256, 0.5), ("up1", 28, 256, 128, None),
+          ("up2", 56, 128, 64, None), ("up3", 112, 64, 32, None),
+          ("up4", 224, 32, 16, None)]
+# plain convs: the logits head and the UpBlock 1x1 convs (run as 3x3)
+PLAIN = [("head", 224, 16, 4, False), ("up1.1x1", 14, 256, 128, True),
+         ("up2.1x1", 28, 128, 64, True), ("up3.1x1", 56, 64, 32, True),
+         ("up4.1x1", 112, 32, 16, True)]
+
+
+class Report:
+    """Collects comparisons and failures; writes the details to OUT_DIR."""
+
+    def __init__(self):
+        self.failures: list[str] = []
+        self.rows: list[dict] = []
+        os.makedirs(OUT_DIR, exist_ok=True)
+        self._log = open(os.path.join(OUT_DIR, "kernels.jsonl"), "w",
+                         encoding="utf-8")
+
+    def fail(self, msg: str) -> None:
+        self.failures.append(msg)
+        print(f"FAIL {msg}", flush=True)
+
+    def compare(self, kernel: str, what: str, dtype: str, got, ref,
+                ms=None, plain_ms=None, tol=None, cudnn_ms=None) -> float:
+        tol = TOL[dtype] if tol is None else tol
+        got, ref = got.float(), ref.float()
+        err = (got - ref).abs().max().item()
+        scale = max(ref.abs().max().item(), 1e-30)
+        rel = err / scale
+        row = dict(kernel=kernel, what=what, dtype=dtype, max_abs_err=err,
+                   rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                   cudnn_ms=cudnn_ms)
+        self.rows.append(row)
+        self._log.write(json.dumps(row) + "\n")
+        ok = rel <= tol and got.isfinite().all().item()
+        if not ok:
+            self.fail(f"{kernel} {what} {dtype}: rel err {rel:.3e} > {tol}")
+        return rel
+
+    def close(self):
+        self._log.close()
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(rep: Report, dev) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import bn_act as ba
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # hash dropout masks, bit-exact: an all-ones input through the prologue
+    # a=1, b=0 and a centre-tap identity conv outputs the mask itself
+    for keep in (0.95, 0.9, 0.8, 0.7, 0.5):
+        for hh, c in ((224, 16), (14, 256)):
+            x = torch.ones((4, hh, hh, c), device=dev)
+            eye = torch.zeros((3, 3, c, c), device=dev)
+            eye[1, 1] = torch.eye(c, device=dev)
+            ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            drop = cb.HashDropout(4242 + c, keep)
+            ref = cb.hash_mask(drop.seed, 4, hh, hh * c, keep, dev).view(
+                4, hh, hh, c)
+            got_in, _ = cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
+                                        drop=drop)
+            got_out, _ = cb.conv3x3_nhwc(x, eye, out_drop=drop)
+            for what, got in (("prologue", got_in), ("output", got_out)):
+                if not torch.equal(got, ref):
+                    rep.fail(f"hash mask ({what}) keep={keep} {hh}x{hh}x{c}:"
+                             f" {(got != ref).sum().item()} elements differ")
+    print("hash masks: bit-exact check done (prologue and output masks, "
+          "keep 0.95..0.5)", flush=True)
+
+    print(f"kernel vs plain: rel err (tol float32 {TOL['float32']}, bfloat16 "
+          f"{TOL['bfloat16']}) kernel/plain ms, batch {BATCH}; in bfloat16 a "
+          f"third time: the same conv by cuDNN in bf16 with its defaults",
+          flush=True)
+
+    def nchw(t):  # NHWC storage seen as NCHW (channels_last) for F.conv2d
+        return t.permute(0, 3, 1, 2)
+
+    def oihw(w):
+        return w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    def times(ms, pms, cms):
+        return f"{ms:.3f}/{pms:.3f}" + ("" if cms is None else f"/{cms:.3f}")
+
+    # one case per distinct conv shape; where an encoder and a decoder conv2
+    # share a shape, the encoder's (with dropout) is the one checked
+    conv_shapes = {}
+    for name, hh, c, f, keep in BLOCKS:
+        conv_shapes[(hh, c, f)] = (f"{name}.conv1", None)
+        conv_shapes.setdefault((hh, f, f), (f"{name}.conv2", keep or 1.0))
+    for name, hh, c, f, _ in PLAIN:
+        conv_shapes.setdefault((hh, c, f), (name, None))
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        for (hh, c, f), (name, keep) in sorted(conv_shapes.items()):
+            x = randn(BATCH, hh, hh, c).to(dt)
+            w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
+            bias = randn(f, scale=0.1)
+            dp = randn(BATCH, hh, hh, f).to(dt)
+            bf16 = dt == torch.bfloat16
+            line = [f"{dname} {name:>10} {hh:>3}^2 {c:>3}->{f:<3}"]
+            args = dict(bias=bias, want_stats=True)
+            if keep is not None:  # conv2: BN1 + LeakyReLU + dropout prologue
+                a, b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+                args.update(affine=(a, b), drop=(cb.HashDropout(77, keep)
+                                                 if keep < 1.0 else None))
+            y, st = cb.conv3x3_nhwc(x, w, **args)
+            y_r, st_r = cb.conv3x3_reference(x, w, **args)
+            ms = cuda_ms(lambda: cb.conv3x3_nhwc(x, w, **args))
+            pms = cuda_ms(lambda: cb.conv3x3_reference(x, w, **args))
+            # the conv alone (no prologue, statistics or mask) by cuDNN
+            w_c, bias_c = oihw(w), bias.to(dt)
+            cms = cuda_ms(lambda: F.conv2d(nchw(x), w_c, bias_c, padding=1)
+                          ) if bf16 else None
+            r1 = rep.compare("conv3x3_nhwc", f"{name} fwd", dname, y, y_r,
+                             ms, pms, cudnn_ms=cms)
+            r2 = rep.compare("conv3x3_nhwc", f"{name} stats", dname, st, st_r)
+            line.append(f"A fwd {max(r1, r2):.1e} {times(ms, pms, cms)}ms")
+
+            wf = cb.flip_transpose(w)
+            odrop = args.get("drop")
+            dx, _ = cb.conv3x3_nhwc(dp, wf, out_drop=odrop)
+            dx_r, _ = cb.conv3x3_reference(dp, wf, out_drop=odrop)
+            ms = cuda_ms(lambda: cb.conv3x3_nhwc(dp, wf, out_drop=odrop))
+            pms = cuda_ms(lambda: cb.conv3x3_reference(dp, wf,
+                                                       out_drop=odrop))
+            wf_c = oihw(wf)
+            cms = cuda_ms(lambda: F.conv2d(nchw(dp), wf_c, padding=1)
+                          ) if bf16 else None
+            r = rep.compare("conv3x3_nhwc", f"{name} dgrad", dname, dx, dx_r,
+                            ms, pms, cudnn_ms=cms)
+            line.append(f"A dgrad {r:.1e} {times(ms, pms, cms)}ms")
+
+            wargs = {k: args[k] for k in ("affine", "drop") if k in args}
+            dw = cb.conv3x3_wgrad_nhwc(x, dp, **wargs)
+            dw_r = cb.conv3x3_wgrad_reference(x, dp, **wargs)
+            ms = cuda_ms(lambda: cb.conv3x3_wgrad_nhwc(x, dp, **wargs))
+            pms = cuda_ms(lambda: cb.conv3x3_wgrad_reference(x, dp, **wargs))
+            cms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                nchw(x), (f, c, 3, 3), nchw(dp), padding=1)) if bf16 else None
+            r = rep.compare("conv3x3_wgrad_nhwc", f"{name} wgrad", dname, dw,
+                            dw_r, ms, pms, cudnn_ms=cms)
+            line.append(f"B {r:.1e} {times(ms, pms, cms)}ms")
+
+            if keep is not None:  # block output: BN2 + LeakyReLU fwd / bwd
+                g = randn(BATCH, hh, hh, f).to(dt)
+                a2, b2 = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
+                y = ba.bn_act(g, a2, b2)
+                ms = cuda_ms(lambda: ba.bn_act(g, a2, b2))
+                pms = cuda_ms(lambda: ba.bn_act_reference(g, a2, b2))
+                r = rep.compare("bn_act", f"{name} bn_act", dname, y,
+                                ba.bn_act_reference(g, a2, b2), ms, pms)
+                line.append(f"C {r:.1e} {ms:.3f}/{pms:.3f}ms")
+                m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
+                s, d = ba.bn_act_bwd(dp, g, a2, b2, m, inv)
+                s_r, d_r = ba.bn_act_bwd_reference(dp, g, a2, b2, m, inv)
+                ms = cuda_ms(lambda: ba.bn_act_bwd(dp, g, a2, b2, m, inv))
+                pms = cuda_ms(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
+                                                              m, inv))
+                r1 = rep.compare("bn_act_bwd", f"{name} sums", dname, s, s_r,
+                                 ms, pms)
+                r2 = rep.compare("bn_act_bwd", f"{name} dpre", dname, d, d_r)
+                line.append(f"D {max(r1, r2):.1e} {ms:.3f}/{pms:.3f}ms")
+            print(" | ".join(line), flush=True)
+            del x, w, dp, y, y_r, dx, dx_r
+            torch.cuda.empty_cache()
+
+
+def check_functions(rep: Report, dev) -> None:
+    """The ConvBlock Function's forward and backward (block_forward,
+    block_backward) and Conv3x3Plain on the card (kernels), at every block
+    of the UNet. Forward: fp32 against the plain block on the card, bf16
+    against the same forward on the CPU (plain versions, the same bf16
+    rounding points). Backward: the kernel backward and the plain backward
+    (on the CPU) from the SAME forward residuals, so both take the same
+    LeakyReLU-derivative branch at every element; an autograd reference
+    through its own forward would flip that branch wherever its forward
+    differs in the last bit from the kernels' near z = 0, and each flip moves
+    the gradients near it by O(1) (a kink, not an error)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cpu = torch.device("cpu")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def to_cpu(ts):
+        return [t.cpu() for t in ts]
+
+    grad_names = ("dx", "dw1", "dscale1", "dbias1", "dw2", "dscale2",
+                  "dbias2")
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        for name, hh, c, f, keep in BLOCKS:
+            p = [randn(3, 3, c, f, scale=(9 * c) ** -0.5),
+                 randn(f, scale=0.1), 1 + randn(f, scale=0.1),
+                 randn(f, scale=0.1), randn(3, 3, f, f, scale=(9 * f) ** -0.5),
+                 randn(f, scale=0.1), 1 + randn(f, scale=0.1),
+                 randn(f, scale=0.1)]
+            x = randn(BATCH, hh, hh, c).to(dt)
+            dy = randn(BATCH, hh, hh, f).to(dt)
+            drop = cb.HashDropout(99, keep) if keep else None
+            y, st, res = cb.block_forward(x, *p, None, True, drop)
+            if dt == torch.float32:
+                mask = (cb.hash_mask(99, BATCH, hh, hh * f, keep, dev).view(
+                    BATCH, hh, hh, f) if keep else None)
+                y_r, st_r = cb.conv_block_reference(x, *p, mask=mask)
+            else:
+                y_r, st_r, _ = cb.block_forward(x.cpu(), *to_cpu(p), None,
+                                                True, drop)
+            worst = max(
+                rep.compare("FusedConvBlock", f"{name} y", dname, y,
+                            y_r.to(dev)),
+                rep.compare("FusedConvBlock", f"{name} stats", dname,
+                            torch.cat(list(st)), torch.cat(to_cpu(st_r)).to(dev)))
+            args = (p[2], p[3], p[6], p[7])
+            grads = cb.block_backward(dy, res, *args, st, drop,
+                                      need_dx=c > 1)
+            grads_r = cb.block_backward(dy.cpu(), to_cpu(res), *to_cpu(args),
+                                        to_cpu(st), drop, need_dx=c > 1)
+            for gname, got, ref in zip(grad_names, grads, grads_r):
+                if got is not None:
+                    worst = max(worst, rep.compare(
+                        "FusedConvBlock", f"{name} {gname}", dname, got,
+                        ref.to(dev)))
+            print(f"{dname} FusedConvBlock {name:>8} fwd+bwd worst rel "
+                  f"{worst:.1e} (tol {TOL[dname]})", flush=True)
+            del x, dy, y, y_r, res, grads, grads_r
+            torch.cuda.empty_cache()
+
+        for name, hh, c, f, is_1x1 in PLAIN:
+            w = randn(3, 3, c, f, scale=(9 * c) ** -0.5)
+            if is_1x1:
+                w = F.pad(w[1:2, 1:2], (0, 0, 0, 0, 1, 1, 1, 1))
+            b = randn(f, scale=0.1)
+            x0 = randn(BATCH, hh, hh, c).to(dt)
+            dy = randn(BATCH, hh, hh, f).to(dt)
+            res = []
+            for kernel in (True, False):
+                x = x0.clone().requires_grad_(True)
+                wt = w.clone().requires_grad_(True)
+                bt = b.clone().requires_grad_(True)
+                if kernel:
+                    y = cb.conv3x3_plain(x, wt, bt)
+                else:
+                    y = (F.conv2d(x.float().permute(0, 3, 1, 2),
+                                  wt.to(dt).float().permute(3, 2, 0, 1),
+                                  padding=1).permute(0, 2, 3, 1) + bt)
+                (y.float() * dy.float()).sum().backward()
+                res.append((y.detach(), x.grad, wt.grad, bt.grad))
+            worst = max(rep.compare("Conv3x3Plain", f"{name} {k}", dname,
+                                    res[0][i], res[1][i])
+                        for i, k in enumerate(("y", "dx", "dw", "db")))
+            print(f"{dname} Conv3x3Plain {name:>8} fwd+grads worst rel "
+                  f"{worst:.1e} (tol {TOL[dname]})", flush=True)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+class ArrayLoader:
+    """In-memory stand-in for the BatchLoader: yields (image, label) numpy
+    batches; ``cycle`` repeats forever."""
+
+    def __init__(self, images, labels, batch_size):
+        self.images, self.labels, self.bs = images, labels, batch_size
+
+    def __iter__(self):
+        for i in range(0, len(self.images) - self.bs + 1, self.bs):
+            yield self.images[i:i + self.bs], self.labels[i:i + self.bs]
+
+    def cycle(self):
+        while True:
+            yield from self
+
+
+def load_config() -> dict:
+    import yaml
+
+    with open(os.path.join(REPO, CONFIG), encoding="utf-8") as f:
+        return yaml.safe_load(f)
+
+
+def predicted_launches(model, steps: int) -> dict:
+    """Kernel launches per Mean-Teacher step from the model's structure:
+    teacher forward + student forward + student backward."""
+    from hpfg_tpu_torch.models.layers import ConvBlock, UpBlock
+
+    blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
+    plain = sum(isinstance(m, UpBlock) for m in model.modules()) + 1
+    fwd_conv = 2 * blocks + plain
+    # backward: conv2 and plain dgrads, conv1 dgrads except the stem's
+    # (its input needs no gradient); every conv has a wgrad
+    bwd_conv = blocks + (blocks - 1) + plain
+    return {"conv3x3_nhwc": steps * (2 * fwd_conv + bwd_conv),
+            "conv3x3_wgrad_nhwc": steps * (2 * blocks + plain),
+            "bn_act": steps * 2 * blocks,
+            "bn_act_bwd": steps * 2 * blocks}
+
+
+def counters() -> dict:
+    from hpfg_tpu_torch.ops import bn_act as ba
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    return {"conv3x3_nhwc": cb.conv3x3_nhwc,
+            "conv3x3_wgrad_nhwc": cb.conv3x3_wgrad_nhwc,
+            "bn_act": ba.bn_act, "bn_act_bwd": ba.bn_act_bwd}
+
+
+def run_main_path(rep: Report, dev, card: str) -> tuple[dict, object]:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+    from hpfg_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config()
+    cfg.update(save_path=os.path.join(OUT_DIR, "run"))
+    dtype = torch.bfloat16 if cfg.get("precision") == "bf16" else torch.float32
+    rng = np.random.default_rng(0)
+    n_lab, n_unl = LABEL_BS * 2, UNLABEL_BS * 2
+    loaders = (
+        ArrayLoader(rng.normal(size=(n_lab, HW, HW, 1)).astype(np.float32),
+                    rng.integers(0, 4, (n_lab, HW, HW)).astype(np.int32),
+                    int(cfg["batch_size"])),
+        ArrayLoader(rng.normal(size=(n_unl, HW, HW, 1)).astype(np.float32),
+                    np.zeros((n_unl, HW, HW), np.int32),
+                    int(cfg["unlabel_batch_size"])),
+        [])
+    algo = build_algorithm(cfg["algorithm"], cfg, dtype=dtype, device=dev)
+    # metrics are read once, at the end of each fit: no sync inside the loop
+    trainer = Trainer(cfg, algo, loaders=loaders, workdir=cfg["save_path"],
+                      log_every=10 ** 6)
+
+    def forbidden(*_a, **_k):
+        raise RuntimeError("F.conv2d called on the main path")
+
+    saved = (F.conv2d, torch.conv2d)
+    F.conv2d = torch.conv2d = forbidden
+    try:
+        trainer.total_itrs = WARMUP
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.total_itrs = WARMUP + STEPS
+        t0 = time.perf_counter()
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+    finally:
+        F.conv2d, torch.conv2d = saved
+
+    losses = [m["loss"] for _, m in trainer.metrics_log]
+    if len(losses) != WARMUP + STEPS or not all(np.isfinite(losses)):
+        rep.fail(f"main path losses not all finite: {losses}")
+    print(f"main path: losses {[round(v, 5) for v in losses]}", flush=True)
+    expected = predicted_launches(algo.model, STEPS)
+    for k, n in launches.items():
+        print(f"launches {k}: {n} (predicted {expected[k]} = {STEPS} steps "
+              f"x {expected[k] // STEPS})", flush=True)
+        if n != expected[k]:
+            rep.fail(f"launch count {k}: {n} != predicted {expected[k]}")
+    profile_step(trainer, card)
+    ms = elapsed / STEPS * 1e3
+    imgs = (LABEL_BS + UNLABEL_BS) * STEPS / elapsed
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"main path: Mean-Teacher UNet 224^2 {LABEL_BS}+{UNLABEL_BS} bf16:"
+          f" {ms:.2f} ms/step, {imgs:.1f} img/s, peak {peak:.2f} GiB "
+          f"({card})", flush=True)
+    return launches, algo
+
+
+def profile_step(trainer, card: str) -> None:
+    """One more step under torch.profiler: device time by kernel name and
+    the device's busy share of the step's wall time (profiler on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.total_itrs += 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("profile: the profiler saw no device time", flush=True)
+        return
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        row = by_name.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.end - e.time_range.start
+    busy = sum(v[1] for v in by_name.values())
+    lines = [f"profile of one Mean-Teacher step ({card}): wall "
+             f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
+             f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)"]
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
+                     f"x{n:<4} {name[:110]}")
+    with open(os.path.join(OUT_DIR, "profile.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "step_trace.json"))
+    print("\n".join(lines[:25]), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: eval forward of a volume
+# ---------------------------------------------------------------------------
+
+def check_eval(rep: Report, dev, algo) -> None:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hpfg_tpu_torch.evals.volume import _resize_volume, predict_volume
+
+    rng = np.random.default_rng(3)
+    volume = rng.normal(size=(4, 256, 216)).astype(np.float32)
+    pred = predict_volume(algo.model, volume, (HW, HW), dev)
+    if pred.shape != volume.shape:
+        rep.fail(f"eval prediction shape {pred.shape} != {volume.shape}")
+    x = torch.from_numpy(np.ascontiguousarray(
+        _resize_volume(volume, (HW, HW), 0)[..., None]))
+    cpu_model = copy.deepcopy(algo.model).cpu()
+    with torch.no_grad():
+        logits = algo.model(x.to(dev), train=False).cpu()
+        ref = cpu_model(x, train=False)
+    rel = rep.compare("eval forward", "logits vs CPU plain", "bfloat16",
+                      logits, ref, tol=MODEL_TOL)
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"eval: volume {volume.shape} -> pred {pred.shape}; logits rel err "
+          f"{rel:.2e} (tol {MODEL_TOL}); argmax agreement {agree:.4f} "
+          f"(min {MODEL_AGREE})", flush=True)
+    if agree < MODEL_AGREE:
+        rep.fail(f"eval argmax agreement {agree:.4f} < {MODEL_AGREE}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    # Triton's compiled kernels stay inside the checkout
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
+        REPO, "hpfg_tpu_torch", "_build", "triton"))
+    try:
+        from hpfg_tpu_torch.ops._cuda import library
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here: {exc}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rep = Report()
+    t_start = time.perf_counter()
+
+    card = nvidia_smi_line()
+    print(f"card: {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    lib = library()
+    print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    phases = [("kernels", lambda: check_kernels(rep, dev)),
+              ("functions", lambda: check_functions(rep, dev))]
+    launches, algo = {}, None
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception as exc:  # a phase failure is reported, not fatal
+            rep.fail(f"phase {name} raised {type(exc).__name__}: {exc}")
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        launches, algo = run_main_path(rep, dev, card)
+    except Exception as exc:
+        rep.fail(f"phase main path raised {type(exc).__name__}: {exc}")
+    if algo is not None:
+        try:
+            check_eval(rep, dev, algo)
+        except Exception as exc:
+            rep.fail(f"phase eval raised {type(exc).__name__}: {exc}")
+    rep.close()
+
+    if any(launches.get(k, 0) == 0 for k in KERNELS):
+        rep.fail(f"a kernel was not launched on the main path: {launches}")
+    jax_side = sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("jax", "jaxlib", "flax", "hpfg_tpu"))
+    if jax_side:
+        rep.fail(f"JAX-side modules were imported: {jax_side[:5]}")
+    kernels = []
+    for name, meta in KERNELS.items():
+        rows = [r for r in rep.rows if r["kernel"] == name]
+        timed = [r for r in rows if r["ms"] is not None
+                 and r["dtype"] == "bfloat16"]
+        kernels.append(dict(
+            name=name, **meta, launches=launches.get(name, 0),
+            max_abs_err=max((r["max_abs_err"] for r in rows), default=None),
+            max_rel_err=max((r["rel_err"] for r in rows), default=None),
+            ms=sum(r["ms"] for r in timed),
+            plain_ms=sum(r["plain_ms"] for r in timed),
+            cudnn_bf16_ms=(sum(r["cudnn_ms"] for r in timed)
+                           if timed and timed[0]["cudnn_ms"] is not None
+                           else None),
+            timed_shapes=len(timed)))
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    if rep.failures:
+        print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)
+        for msg in rep.failures:
+            print(f"  {msg}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,35 @@
+"""Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet`` only).
+
+``build_model(cfg)`` reads a config mapping (``cfg.get``): ``model``,
+``in_channels``, ``num_classes`` and the ``feature_chns`` / ``dropout``
+hooks that scale the network for tests and benchmarks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hpfg_tpu_torch.models.unet import UNet
+
+#: models ported so far; the rest of the zoo is queued in ROADMAP.md
+MODELS = {"unet": UNet}
+
+
+def build_model(cfg, dtype: torch.dtype = torch.float32,
+                generator: torch.Generator | None = None) -> torch.nn.Module:
+    """Instantiate a model from a config block; parameters are initialized
+    from ``generator`` (torch's default init draws)."""
+    name = str(cfg.get("model")).lower()
+    if name not in MODELS:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to hpfg_tpu_torch yet "
+            "(see ROADMAP.md, Queue 1)")
+    kwargs = {}
+    if cfg.get("feature_chns") is not None:
+        kwargs["feature_chns"] = tuple(cfg.get("feature_chns"))
+    if cfg.get("dropout") is not None and \
+            not isinstance(cfg.get("dropout"), (int, float)):
+        kwargs["dropout"] = tuple(cfg.get("dropout"))
+    return MODELS[name](in_channels=int(cfg.get("in_channels", 1)),
+                        num_classes=int(cfg.get("num_classes", 4)),
+                        dtype=dtype, generator=generator, **kwargs)

@@ -1,0 +1,165 @@
+"""UNet building blocks (port of ``hpfg_tpu/models/layers.py``), NHWC.
+
+Module and parameter names follow the flax modules exactly (``conv1``,
+``bn1``, ``kernel``, ``scale``, ``mean``, ...), so a flax parameter path
+``encoder/in_conv/conv1/kernel`` is the state-dict key
+``encoder.in_conv.conv1.kernel`` here (``utils/jax_weights.py``). Conv
+kernels are HWIO ``[kh, kw, C, F]``; parameters and BN statistics are fp32;
+activations run in the module's compute dtype.
+
+Every convolution runs through the hand-written kernels
+(``ops/conv_block.py``): ConvBlocks through ``FusedConvBlock``, the 1x1 and
+logits convs through ``conv3x3_plain``. BatchNorm has no module of its own
+here: its statistics come out of the conv kernel's epilogue, and the
+running averages fold the biased batch variance with momentum 0.9, as flax
+does (``nn.BatchNorm2d`` would fold the unbiased one).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hpfg_tpu_torch.ops.conv_block import (
+    FusedConvBlock,
+    HashDropout,
+    conv3x3_plain,
+)
+
+BN_MOMENTUM = 0.9
+
+
+def _uniform(shape, bound: float, generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+class Conv(nn.Module):
+    """Conv parameters: ``kernel`` [k, k, C, F] and ``bias`` [F], with
+    torch's default init U(+-1/sqrt(fan_in)) for both (the JAX package's
+    TORCH_KERNEL_INIT / torch_bias_init)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 3,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(k * k * in_ch)
+        self.kernel = nn.Parameter(_uniform((k, k, in_ch, out_ch), bound,
+                                            generator))
+        self.bias = nn.Parameter(_uniform((out_ch,), bound, generator))
+
+
+class BatchNorm(nn.Module):
+    """BN state: ``scale``/``bias`` parameters and ``mean``/``var`` running
+    statistics (flax ``params/bnX`` and ``batch_stats/bnX``)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("mean", torch.zeros(ch))
+        self.register_buffer("var", torch.ones(ch))
+
+    @torch.no_grad()
+    def fold(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
+        """Running update, in place: new = 0.9*old + 0.1*batch (biased)."""
+        self.mean.mul_(BN_MOMENTUM).add_(batch_mean, alpha=1 - BN_MOMENTUM)
+        self.var.mul_(BN_MOMENTUM).add_(batch_var, alpha=1 - BN_MOMENTUM)
+
+
+class ConvBlock(nn.Module):
+    """conv3x3-BN-LeakyReLU-dropout-conv3x3-BN-LeakyReLU (flax ConvBlock),
+    one ``FusedConvBlock``. Dropout is the in-kernel hash dropout; its seed
+    is drawn from ``generator`` once per train-mode forward."""
+
+    def __init__(self, in_ch: int, features: int, dropout_p: float,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dropout_p = float(dropout_p)
+        self.dtype = dtype
+        self.conv1 = Conv(in_ch, features, 3, generator)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = Conv(features, features, 3, generator)
+        self.bn2 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, train: bool,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        drop = None
+        if train and self.dropout_p > 0.0:
+            seed = int(torch.randint(0, 1 << 23, (), generator=generator))
+            drop = HashDropout(seed, 1.0 - self.dropout_p)
+        run_stats = None
+        if not train:
+            run_stats = (self.bn1.mean, self.bn1.var, self.bn2.mean,
+                         self.bn2.var)
+        y, m1, v1, m2, v2 = FusedConvBlock.apply(
+            x.to(self.dtype).contiguous(), self.conv1.kernel,
+            self.conv1.bias, self.bn1.scale, self.bn1.bias,
+            self.conv2.kernel, self.conv2.bias, self.bn2.scale,
+            self.bn2.bias, run_stats, train, drop)
+        if train:
+            self.bn1.fold(m1, v1)
+            self.bn2.fold(m2, v2)
+        return y
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 / stride-2 max pool on NHWC (floor for odd sizes). On exact ties
+    torch routes the gradient to one element where the JAX pairwise max
+    splits it; ties have measure zero for continuous activations."""
+    return _nhwc(F.max_pool2d(_nchw(x), 2, 2))
+
+
+def resize_bilinear_align_corners(x: torch.Tensor,
+                                  out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with align_corners=True on NHWC."""
+    if tuple(x.shape[1:3]) == tuple(out_hw):
+        return x
+    return _nhwc(F.interpolate(_nchw(x), size=tuple(out_hw), mode="bilinear",
+                               align_corners=True))
+
+
+class DownBlock(nn.Module):
+    """2x2 max-pool then ConvBlock (flax DownBlock)."""
+
+    def __init__(self, in_ch: int, features: int, dropout_p: float,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = ConvBlock(in_ch, features, dropout_p, dtype, generator)
+
+    def forward(self, x, train: bool, generator=None):
+        return self.conv(max_pool_2x2(x), train, generator)
+
+
+class UpBlock(nn.Module):
+    """1x1 conv, bilinear x2 upsample (align_corners), concat(skip, up),
+    ConvBlock (flax UpBlock). The 1x1 conv runs as a 3x3 conv whose only
+    nonzero tap is the centre, so SAME semantics are exact and its weight
+    gradient is the centre tap's."""
+
+    def __init__(self, in_ch: int, skip_ch: int, skip_features: int,
+                 features: int, dropout_p: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1x1 = Conv(in_ch, skip_features, 1, generator)
+        self.conv = ConvBlock(skip_ch + skip_features, features, dropout_p,
+                              dtype, generator)
+
+    def forward(self, x, skip, train: bool, generator=None):
+        w3 = F.pad(self.conv1x1.kernel, (0, 0, 0, 0, 1, 1, 1, 1))
+        x = conv3x3_plain(x.to(self.dtype), w3, self.conv1x1.bias)
+        x = resize_bilinear_align_corners(x, tuple(skip.shape[1:3]))
+        return self.conv(torch.cat([skip, x], dim=-1), train, generator)

@@ -1,0 +1,128 @@
+"""The training loop (port of ``hpfg_tpu/train/trainer.py``, first slice).
+
+``Trainer.fit`` runs ``algorithm.step`` until ``total_itrs``, logs the
+step metrics every ``log_every`` iterations (one device read per flush)
+and evaluates every ``step_size`` iterations on the volume test loader,
+ending with a ``done: N iters`` line. Loaders come from
+``hpfg_tpu.data.build_loader`` unless the caller passes its own. Not ported
+yet (ROADMAP.md): checkpoints and resume, TensorBoard, the device cache,
+on-device augmentation and the prefetcher.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import torch
+
+from hpfg_tpu_torch.evals.volume import evaluate_volumes
+
+VOLUME_DATASETS = {"acdc", "sup_acdc", "synapse", "sup_synapse"}
+
+
+def get_logger(filename: str | None = None) -> logging.Logger:
+    """Console (and optionally file) logger, idempotent per process."""
+    logger = logging.getLogger("hpfg_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    fmt = logging.Formatter(
+        "[%(asctime)s][%(filename)s][line:%(lineno)d][%(levelname)s] "
+        "%(message)s")
+    if not logger.handlers:
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+    if filename and not any(getattr(h, "baseFilename", None)
+                            == os.path.abspath(filename)
+                            for h in logger.handlers):
+        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+        fh = logging.FileHandler(filename, encoding="utf-8")
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    return logger
+
+
+class Trainer:
+    def __init__(self, cfg, algorithm, loaders=None,
+                 workdir: str | None = None, log_every: int = 20):
+        self.cfg = cfg
+        self.algorithm = algorithm
+        self.workdir = workdir or cfg.get("save_path", "checkpoint/run")
+        self.logger = get_logger(os.path.join(self.workdir, "log.log"))
+        self.log_every = log_every
+        if loaders is None:
+            from hpfg_tpu.data import build_loader
+
+            loaders = build_loader(cfg)
+        self.loaders = loaders
+        self.test_loader = loaders[-1]
+        self.total_itrs = int(cfg.get("total_itrs"))
+        self.step_size = int(cfg.get("step_size"))
+        self.num_classes = int(cfg.get("num_classes", 4))
+        self.test_crop = tuple(cfg.get("test_crop_size",
+                                       cfg.get("train_crop_size")))
+        #: [(iter, {metric: float})] for every logged iteration
+        self.metrics_log: list[tuple[int, dict]] = []
+        #: [{"iter": n, "results": {model: (dice, hd95)}}]
+        self.history: list[dict] = []
+
+    def fit(self, eval_enabled: bool = True):
+        algo = self.algorithm
+        batches = algo.batches(self.loaders)
+        self.logger.info("start training %s for %d iterations", algo.name,
+                         self.total_itrs)
+        t_start = time.time()
+        start = algo.step_count
+        pending: list[tuple[int, dict]] = []
+        while algo.step_count < self.total_itrs:
+            metrics = algo.step(next(batches))
+            cur = algo.step_count
+            pending.append((cur, metrics))
+            if cur % self.log_every == 0 or cur == self.total_itrs:
+                last = self._flush_metrics(pending)
+                self.logger.info("iter %d/%d loss %.4f lr %.6f", cur,
+                                 self.total_itrs, last["loss"], last["lr"])
+            if eval_enabled and cur % self.step_size == 0:
+                self._flush_metrics(pending)
+                self.evaluate(cur)
+        elapsed = time.time() - t_start
+        done = algo.step_count - start
+        self.logger.info("done: %d iters in %.1fs (%.2f it/s)",
+                         algo.step_count, elapsed, done / max(elapsed, 1e-9))
+        return self.history
+
+    def _flush_metrics(self, pending: list) -> dict:
+        """One device read for the whole window of tensor metrics."""
+        if not pending:
+            return self.metrics_log[-1][1] if self.metrics_log else {}
+        names = sorted(pending[0][1])
+        tensors = [m[k] for _, m in pending for k in names
+                   if torch.is_tensor(m[k])]
+        host = (torch.stack([t.float() for t in tensors]).cpu().tolist()
+                if tensors else [])
+        it = iter(host)
+        for cur, m in pending:
+            row = {k: (next(it) if torch.is_tensor(m[k]) else float(m[k]))
+                   for k in names}
+            self.metrics_log.append((cur, row))
+        pending.clear()
+        return self.metrics_log[-1][1]
+
+    def evaluate(self, cur_itrs: int) -> dict:
+        dsname = str(self.cfg.get("datasets")).lower()
+        if dsname not in VOLUME_DATASETS:
+            raise NotImplementedError(
+                f"evaluation of {dsname!r} is not ported yet (ROADMAP.md)")
+        order = 3 if "synapse" in dsname else 0
+        results = {}
+        for name, model in self.algorithm.eval_models().items():
+            dice, hd95, _ = evaluate_volumes(
+                model, self.test_loader, self.num_classes, self.test_crop,
+                self.algorithm.device, zoom_order=order)
+            results[name] = (dice, hd95)
+            self.logger.info("iter %d %s dice %.4f hd95 %.4f", cur_itrs,
+                             name, dice, hd95)
+        self.history.append({"iter": cur_itrs, "results": results})
+        return results

@@ -62,3 +62,8 @@ def _restore_prng_impl():
     yield
     if jax.config.jax_default_prng_impl != impl:
         jax.config.update("jax_default_prng_impl", impl)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one)")

@@ -1,0 +1,152 @@
+"""The port's hand-written kernels (A conv3x3_nhwc, B conv3x3_wgrad_nhwc,
+C bn_act, D bn_act_bwd) against their plain PyTorch versions on a CUDA card,
+at small ragged shapes (20x20 images do not fill the 8x16 tiles).
+
+Marked ``gpu``: without a card every test skips. On the card (which has no
+jax, so the JAX-side conftest is left out):
+
+    python -m pytest tests/test_torch_gpu_kernels.py -q --noconftest -m gpu
+
+Tolerances, relative to the reference's largest magnitude: fp32 1e-4
+(another summation order), bf16 2e-2 (bf16 rounding of outputs that were
+summed in another order). Hash dropout masks are bit-exact.
+"""
+
+import pytest
+import torch
+
+from hpfg_tpu_torch.ops import bn_act as ba
+from hpfg_tpu_torch.ops import conv_block as cb
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(dev, *shape, scale=1.0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed + sum(shape))
+    return torch.randn(shape, generator=gen, device=dev) * scale
+
+
+def _close(got, ref, dtype):
+    got, ref = got.float(), ref.float().to(got.device)
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,f,prologue", [(1, 16, False), (16, 32, True),
+                                          (40, 20, True)])
+def test_conv3x3_matches_plain(dev, dtype, c, f, prologue):
+    x = _randn(dev, 2, 20, 20, c).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    kw = dict(bias=_randn(dev, f, scale=0.1), want_stats=True)
+    if prologue:
+        kw.update(affine=(1 + _randn(dev, c, scale=0.1),
+                          _randn(dev, c, scale=0.1)),
+                  drop=cb.HashDropout(7, 0.8))
+    y, st = cb.conv3x3_nhwc(x, w, **kw)
+    y_r, st_r = cb.conv3x3_reference(x, w, **kw)
+    _close(y, y_r, dtype)
+    _close(st, st_r, dtype)
+    dp = _randn(dev, 2, 20, 20, f).to(dtype)
+    wf = cb.flip_transpose(w)
+    out_drop = kw.get("drop")
+    _close(cb.conv3x3_nhwc(dp, wf, out_drop=out_drop)[0],
+           cb.conv3x3_reference(dp, wf, out_drop=out_drop)[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,f,act", [(1, 16, False), (16, 32, True),
+                                     (40, 20, True)])
+def test_wgrad_matches_plain(dev, dtype, c, f, act):
+    src = _randn(dev, 2, 20, 20, c).to(dtype)
+    dp = _randn(dev, 2, 20, 20, f).to(dtype)
+    kw = {}
+    if act:
+        kw = dict(affine=(1 + _randn(dev, c, scale=0.1),
+                          _randn(dev, c, scale=0.1)),
+                  drop=cb.HashDropout(9, 0.7))
+    _close(cb.conv3x3_wgrad_nhwc(src, dp, **kw),
+           cb.conv3x3_wgrad_reference(src, dp, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [4, 16, 48])
+def test_bn_act_and_bwd_match_plain(dev, dtype, f):
+    g = _randn(dev, 2, 20, 20, f).to(dtype)
+    dy = _randn(dev, 2, 20, 20, f, seed=1).to(dtype)
+    a, b = 1 + _randn(dev, f, scale=0.1), _randn(dev, f, scale=0.1, seed=1)
+    m, inv = _randn(dev, f, scale=0.1, seed=2), 1 + _randn(dev, f).abs()
+    _close(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b), dtype)
+    s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
+    s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
+    _close(s, s_r, dtype)
+    _close(d, d_r, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_backward_matches_plain(dev, dtype):
+    """The ConvBlock backward on kernels against the same backward on the
+    CPU (plain versions), from the same forward residuals."""
+    c, f = 16, 32
+    p = [_randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5),
+         _randn(dev, f, scale=0.1), 1 + _randn(dev, f, scale=0.1, seed=1),
+         _randn(dev, f, scale=0.1, seed=2),
+         _randn(dev, 3, 3, f, f, scale=(9 * f) ** -0.5),
+         _randn(dev, f, scale=0.1, seed=3), 1 + _randn(dev, f, scale=0.1,
+                                                       seed=4),
+         _randn(dev, f, scale=0.1, seed=5)]
+    x = _randn(dev, 2, 20, 20, c).to(dtype)
+    dy = _randn(dev, 2, 20, 20, f, seed=6).to(dtype)
+    drop = cb.HashDropout(11, 0.9)
+    y, st, res = cb.block_forward(x, *p, None, True, drop)
+    y_r, st_r, _ = cb.block_forward(x.cpu(), *(t.cpu() for t in p), None,
+                                    True, drop)
+    _close(y, y_r, dtype)
+    args = (p[2], p[3], p[6], p[7])
+    got = cb.block_backward(dy, res, *args, st, drop)
+    ref = cb.block_backward(dy.cpu(), [t.cpu() for t in res],
+                            *(t.cpu() for t in args),
+                            [t.cpu() for t in st], drop)
+    for g, r in zip(got, ref):
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("keep", [0.95, 0.5])
+def test_kernel_hash_masks_are_bit_exact(dev, keep):
+    c = 24
+    x = torch.ones((3, 20, 20, c), device=dev)
+    eye = torch.zeros((3, 3, c, c), device=dev)
+    eye[1, 1] = torch.eye(c, device=dev)
+    drop = cb.HashDropout(1234, keep)
+    ref = cb.hash_mask(drop.seed, 3, 20, 20 * c, keep, dev).view(3, 20, 20, c)
+    ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    assert torch.equal(cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
+                                       drop=drop)[0], ref)
+    assert torch.equal(cb.conv3x3_nhwc(x, eye, out_drop=drop)[0], ref)
+
+
+def test_wrappers_count_their_launches(dev):
+    x = _randn(dev, 1, 8, 8, 16)
+    w = _randn(dev, 3, 3, 16, 16)
+    v = torch.ones(16, device=dev)
+    before = [cb.conv3x3_nhwc.launches, cb.conv3x3_wgrad_nhwc.launches,
+              ba.bn_act.launches, ba.bn_act_bwd.launches]
+    cb.conv3x3_nhwc(x, w, want_stats=True)
+    cb.conv3x3_wgrad_nhwc(x, x)
+    ba.bn_act(x, v, v)
+    ba.bn_act_bwd(x, x, v, v, v, v)
+    after = [cb.conv3x3_nhwc.launches, cb.conv3x3_wgrad_nhwc.launches,
+             ba.bn_act.launches, ba.bn_act_bwd.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
