@@ -8,22 +8,32 @@ nor the JAX package. Phases, each of which fails the run on error:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
      CUDA kernels from ``hpfg_tpu_torch/csrc`` (nvcc, with its seconds);
-  2. every hand-written kernel (A conv3x3_nhwc, B conv3x3_wgrad_nhwc,
-     C bn_act, D bn_act_bwd) against its plain PyTorch version on the card,
-     at the shapes the full-width UNet gives it (batch 32), in fp32 and bf16,
-     and the autograd Functions (FusedConvBlock, Conv3x3Plain) forward and
-     gradients against autograd through the plain block; hash dropout masks
-     bit-exact; kernel and plain times side by side, and in bf16 a third
-     time for each conv: the same conv by cuDNN in bf16 with its defaults
-     (tensor cores), the library kernel the hand kernels must beat;
-  3. the main path: Mean-Teacher training through ``Trainer.fit`` with the
-     values of configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width
-     UNet, 224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made
-     batches in the ACDC layout, 2 warm-up and 5 timed steps, with
-     ``F.conv2d`` / ``torch.conv2d`` patched to raise; the launch counters
-     must rise by what the model's structure predicts;
-  4. an eval-mode forward of one synthetic volume through the kernels,
-     against the same model on the CPU (plain versions).
+  2. every hand-written kernel against its plain PyTorch version on the
+     card, at the shapes the full-width UNet gives it (batch 32), in fp32
+     and bf16: A conv3x3_nhwc, B conv3x3_wgrad_nhwc, C bn_act, D bn_act_bwd
+     (and its dpre-only entry) at every conv shape; K8 conv3x3_pair_nhwc,
+     K9 conv3x3_dgrad_pair and K10 conv3x3_wgrad_pair at the four UpBlock
+     shapes; K11 conv3x3_dgrad_reduce at every ConvBlock's conv2, with and
+     without the encoder's dropout; hash dropout masks bit-exact; then the
+     ConvBlock Function's forward and backward (pair inputs for the
+     UpBlocks) and Conv3x3Plain. Beside each kernel in bf16: its time, the
+     plain version's, and the one PyTorch library call that computes the
+     same conv (cuDNN: F.conv2d, conv2d_input, conv2d_weight; for K8 and K10
+     on the materialised concat; for K11 the dgrad alone, which does less
+     work), and the kernel's bound: the larger of its bytes over 3.35 TB/s
+     and its FLOPs over 989 TFLOP/s (H100 SXM bf16 peak);
+  3. the Mean-Teacher main path through ``Trainer.fit`` with the values of
+     configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width UNet,
+     224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
+     in the ACDC layout, 2 warm-up and 5 timed steps, with ``F.conv2d`` /
+     ``torch.conv2d`` patched to raise; the launch counters must rise by
+     what the model's structure predicts; one more step traced;
+  3b. the HPFG main path the same way, with the values of
+     configs/hpfg_unet_plus_30k_224x224_ACDC.yaml (two full-width UNet_Plus
+     students and the EMA teacher: three forwards and two backwards a step);
+  4. eval-mode forwards of one synthetic volume through the kernels, the
+     UNet's and UNet_Plus's ``val``, against the same models on the CPU
+     (plain versions).
 
 Tolerances, relative to the reference tensor's largest magnitude: fp32
 1e-4 (another summation order), bf16 2e-2 (bf16 rounding at other points);
@@ -31,7 +41,8 @@ the whole 18-conv eval forward in bf16 5e-2, with at least 99% of the
 argmax predictions equal. Details go to chiprun_out/chip_smoke/.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their main-path launch counts, errors and times.
+lists the kernels with their launch counts on the HPFG path (and on the
+Mean-Teacher path), errors, times and bounds.
 """
 
 from __future__ import annotations
@@ -49,26 +60,46 @@ LABEL_BS, UNLABEL_BS, HW = 8, 24, 224
 WARMUP, STEPS = 2, 5
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MODEL_TOL, MODEL_AGREE = 5e-2, 0.99
-CONFIG = "configs/mean_teacher_unet_30k_224x224_ACDC.yaml"
+MT_CONFIG = "configs/mean_teacher_unet_30k_224x224_ACDC.yaml"
+HPFG_CONFIG = "configs/hpfg_unet_plus_30k_224x224_ACDC.yaml"
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 
-CONV_PY = "hpfg_tpu_torch/ops/conv_block.py"
+CU = "hpfg_tpu_torch/csrc/conv3x3.cu"
+TRITON = "hpfg_tpu_torch/ops/bn_act.py"
+PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
 KERNELS = {
-    "conv3x3_nhwc": dict(route="cuda", source="hpfg_tpu_torch/csrc/conv3x3.cu",
-                         replaces="hpfg_tpu/ops/pallas/conv_block.py:734",
-                         also_replaces=["hpfg_tpu/ops/pallas/conv_block.py:785",
-                                        "hpfg_tpu/ops/pallas/conv_block.py:1176"]),
-    "conv3x3_wgrad_nhwc": dict(route="cuda",
-                               source="hpfg_tpu_torch/csrc/conv3x3.cu",
-                               replaces="hpfg_tpu/ops/pallas/conv_block.py:1192",
-                               also_replaces=[]),
-    "bn_act": dict(route="triton", source="hpfg_tpu_torch/ops/bn_act.py",
-                   replaces="hpfg_tpu/ops/pallas/conv_block.py:810",
-                   also_replaces=[]),
-    "bn_act_bwd": dict(route="triton", source="hpfg_tpu_torch/ops/bn_act.py",
-                       replaces="hpfg_tpu/ops/pallas/conv_block.py:1151",
-                       also_replaces=["hpfg_tpu/ops/pallas/conv_block.py:1166"]),
+    "conv3x3_nhwc": dict(route="cuda", source=CU, replaces=f"{PALLAS}:734",
+                         also_replaces=[f"{PALLAS}:785", f"{PALLAS}:1176",
+                                        f"{PALLAS}:746"],
+                         counters=["conv3x3_nhwc"]),
+    "conv3x3_wgrad_nhwc": dict(route="cuda", source=CU,
+                               replaces=f"{PALLAS}:1192", also_replaces=[],
+                               counters=["conv3x3_wgrad_nhwc"]),
+    "bn_act": dict(route="triton", source=TRITON, replaces=f"{PALLAS}:810",
+                   also_replaces=[], counters=["bn_act"]),
+    "bn_act_bwd": dict(route="triton", source=TRITON,
+                       replaces=f"{PALLAS}:1151",
+                       also_replaces=[f"{PALLAS}:1166"],
+                       counters=["bn_act_bwd", "bn_act_dpre"]),
+    "conv3x3_pair_nhwc": dict(route="cuda", source=CU,
+                              replaces=f"{PALLAS}:772", also_replaces=[],
+                              counters=["conv3x3_pair_nhwc"]),
+    "conv3x3_dgrad_pair": dict(route="cuda", source=CU,
+                               replaces=f"{PALLAS}:1364", also_replaces=[],
+                               counters=["conv3x3_dgrad_pair"]),
+    "conv3x3_wgrad_pair": dict(route="cuda", source=CU,
+                               replaces=f"{PALLAS}:1453", also_replaces=[],
+                               counters=["conv3x3_wgrad_pair"]),
+    "conv3x3_dgrad_reduce": dict(route="cuda", source=CU,
+                                 replaces=f"{PALLAS}:1525", also_replaces=[],
+                                 counters=["conv3x3_dgrad_reduce"],
+                                 library_note="conv2d_input alone: the dgrad"
+                                 " without the reduce, less work"),
 }
-# the full-width UNet's ConvBlocks: (name, H=W, C in, F out, keep prob)
+# the full-width UNet's ConvBlocks: (name, H=W, C in, F out, keep prob);
+# an UpBlock's C is its (skip, up) pair, F + F
 BLOCKS = [("in_conv", 224, 1, 16, 0.95), ("down1", 112, 16, 32, 0.9),
           ("down2", 56, 32, 64, 0.8), ("down3", 28, 64, 128, 0.7),
           ("down4", 14, 128, 256, 0.5), ("up1", 28, 256, 128, None),
@@ -78,6 +109,27 @@ BLOCKS = [("in_conv", 224, 1, 16, 0.95), ("down1", 112, 16, 32, 0.9),
 PLAIN = [("head", 224, 16, 4, False), ("up1.1x1", 14, 256, 128, True),
          ("up2.1x1", 28, 128, 64, True), ("up3.1x1", 56, 64, 32, True),
          ("up4.1x1", 112, 32, 16, True)]
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    HBM bandwidth and the operations over the bf16 peak, and which sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_work(hh, c, f, es, extra_elems=0, w_es=None):
+    """(FLOPs, bytes) of one SAME 3x3 conv between c and f channels at batch
+    BATCH (either direction: a dgrad is the conv from f to c): each input
+    read once, each output written once; ``extra_elems`` more elements of
+    ``es`` bytes (statistics, a residual); ``w_es``: bytes per weight
+    element when it differs from ``es`` (fp32 dW)."""
+    pix = BATCH * hh * hh
+    flops = 2 * pix * 9 * c * f
+    nbytes = (es * pix * (c + f) + (es if w_es is None else w_es) * 9 * c * f
+              + es * extra_elems)
+    return flops, nbytes
 
 
 class Report:
@@ -95,7 +147,10 @@ class Report:
         print(f"FAIL {msg}", flush=True)
 
     def compare(self, kernel: str, what: str, dtype: str, got, ref,
-                ms=None, plain_ms=None, tol=None, cudnn_ms=None) -> float:
+                ms=None, plain_ms=None, tol=None, library_ms=None,
+                work=None, main=True) -> float:
+        """``work``: (FLOPs, bytes) of the timed call; ``main``: the timed
+        call is one the main path makes (it enters the kernel's totals)."""
         tol = TOL[dtype] if tol is None else tol
         got, ref = got.float(), ref.float()
         err = (got - ref).abs().max().item()
@@ -103,7 +158,10 @@ class Report:
         rel = err / scale
         row = dict(kernel=kernel, what=what, dtype=dtype, max_abs_err=err,
                    rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                   cudnn_ms=cudnn_ms)
+                   library_ms=library_ms, main=main)
+        if work is not None:
+            row["flops"], row["bytes"] = work
+            row["bound_ms"], row["bound_by"] = bound(*work)
         self.rows.append(row)
         self._log.write(json.dumps(row) + "\n")
         ok = rel <= tol and got.isfinite().all().item()
@@ -138,11 +196,30 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def times(ms, pms, lms=None):
+    return f"{ms:.3f}/{pms:.3f}" + ("" if lms is None else f"/{lms:.3f}")
+
+
+def nchw(t):  # NHWC storage seen as NCHW (channels_last) for cuDNN
+    return t.permute(0, 3, 1, 2)
+
+
+def oihw(w):
+    import torch
+
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_kernels(rep: Report, dev) -> None:
+    """Kernels A to D at every distinct conv shape of the UNet. The UpBlock
+    conv1 rows run A and B over the materialised concat: the main path now
+    runs K8 to K10 there (see check_pair_kernels), so those rows are kept
+    as the single-source yardstick and stay out of the kernels' totals, as
+    does A's conv2 dgrad (K11 on the main path)."""
     import torch
     import torch.nn.functional as F
 
@@ -180,16 +257,6 @@ def check_kernels(rep: Report, dev) -> None:
           f"third time: the same conv by cuDNN in bf16 with its defaults",
           flush=True)
 
-    def nchw(t):  # NHWC storage seen as NCHW (channels_last) for F.conv2d
-        return t.permute(0, 3, 1, 2)
-
-    def oihw(w):
-        return w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-
-    def times(ms, pms, cms):
-        return f"{ms:.3f}/{pms:.3f}" + ("" if cms is None else f"/{cms:.3f}")
-
     # one case per distinct conv shape; where an encoder and a decoder conv2
     # share a shape, the encoder's (with dropout) is the one checked
     conv_shapes = {}
@@ -201,12 +268,15 @@ def check_kernels(rep: Report, dev) -> None:
 
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
+        es = dt.itemsize
         for (hh, c, f), (name, keep) in sorted(conv_shapes.items()):
             x = randn(BATCH, hh, hh, c).to(dt)
             w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
             bias = randn(f, scale=0.1)
             dp = randn(BATCH, hh, hh, f).to(dt)
             bf16 = dt == torch.bfloat16
+            concat = name.startswith("up") and name.endswith("conv1")
+            conv2 = name.endswith("conv2")
             line = [f"{dname} {name:>10} {hh:>3}^2 {c:>3}->{f:<3}"]
             args = dict(bias=bias, want_stats=True)
             if keep is not None:  # conv2: BN1 + LeakyReLU + dropout prologue
@@ -222,7 +292,8 @@ def check_kernels(rep: Report, dev) -> None:
             cms = cuda_ms(lambda: F.conv2d(nchw(x), w_c, bias_c, padding=1)
                           ) if bf16 else None
             r1 = rep.compare("conv3x3_nhwc", f"{name} fwd", dname, y, y_r,
-                             ms, pms, cudnn_ms=cms)
+                             ms, pms, library_ms=cms, main=not concat,
+                             work=conv_work(hh, c, f, es, 2 * f))
             r2 = rep.compare("conv3x3_nhwc", f"{name} stats", dname, st, st_r)
             line.append(f"A fwd {max(r1, r2):.1e} {times(ms, pms, cms)}ms")
 
@@ -236,8 +307,11 @@ def check_kernels(rep: Report, dev) -> None:
             wf_c = oihw(wf)
             cms = cuda_ms(lambda: F.conv2d(nchw(dp), wf_c, padding=1)
                           ) if bf16 else None
+            # the stem's dgrad never runs; a conv2's runs as K11
             r = rep.compare("conv3x3_nhwc", f"{name} dgrad", dname, dx, dx_r,
-                            ms, pms, cudnn_ms=cms)
+                            ms, pms, library_ms=cms,
+                            main=not (concat or conv2 or c == 1),
+                            work=conv_work(hh, f, c, es))
             line.append(f"A dgrad {r:.1e} {times(ms, pms, cms)}ms")
 
             wargs = {k: args[k] for k in ("affine", "drop") if k in args}
@@ -248,17 +322,20 @@ def check_kernels(rep: Report, dev) -> None:
             cms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                 nchw(x), (f, c, 3, 3), nchw(dp), padding=1)) if bf16 else None
             r = rep.compare("conv3x3_wgrad_nhwc", f"{name} wgrad", dname, dw,
-                            dw_r, ms, pms, cudnn_ms=cms)
+                            dw_r, ms, pms, library_ms=cms, main=not concat,
+                            work=conv_work(hh, c, f, es, w_es=4))
             line.append(f"B {r:.1e} {times(ms, pms, cms)}ms")
 
             if keep is not None:  # block output: BN2 + LeakyReLU fwd / bwd
+                n = BATCH * hh * hh * f
                 g = randn(BATCH, hh, hh, f).to(dt)
                 a2, b2 = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
                 y = ba.bn_act(g, a2, b2)
                 ms = cuda_ms(lambda: ba.bn_act(g, a2, b2))
                 pms = cuda_ms(lambda: ba.bn_act_reference(g, a2, b2))
                 r = rep.compare("bn_act", f"{name} bn_act", dname, y,
-                                ba.bn_act_reference(g, a2, b2), ms, pms)
+                                ba.bn_act_reference(g, a2, b2), ms, pms,
+                                work=(3 * n, 2 * es * n))
                 line.append(f"C {r:.1e} {ms:.3f}/{pms:.3f}ms")
                 m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
                 s, d = ba.bn_act_bwd(dp, g, a2, b2, m, inv)
@@ -267,38 +344,181 @@ def check_kernels(rep: Report, dev) -> None:
                 pms = cuda_ms(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
                                                               m, inv))
                 r1 = rep.compare("bn_act_bwd", f"{name} sums", dname, s, s_r,
-                                 ms, pms)
+                                 ms, pms, work=(17 * n, 3 * es * n))
                 r2 = rep.compare("bn_act_bwd", f"{name} dpre", dname, d, d_r)
                 line.append(f"D {max(r1, r2):.1e} {ms:.3f}/{pms:.3f}ms")
+                d = ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r)
+                ms = cuda_ms(lambda: ba.bn_act_dpre(dp, g, a2, b2, m, inv,
+                                                    s_r))
+                pms = cuda_ms(lambda: ba.bn_act_dpre_reference(
+                    dp, g, a2, b2, m, inv, s_r))
+                r = rep.compare("bn_act_bwd", f"{name} dpre-only", dname, d,
+                                ba.bn_act_dpre_reference(dp, g, a2, b2, m,
+                                                         inv, s_r),
+                                ms, pms, work=(9 * n, 3 * es * n))
+                line.append(f"D dpre {r:.1e} {ms:.3f}/{pms:.3f}ms")
             print(" | ".join(line), flush=True)
             del x, w, dp, y, y_r, dx, dx_r
             torch.cuda.empty_cache()
 
 
+def check_pair_kernels(rep: Report, dev) -> None:
+    """K8, K9 and K10 at the four UpBlock shapes, and K11 at every
+    ConvBlock's conv2 (the encoder's with and without its dropout), against
+    their plain versions; in bf16 beside the library call that computes the
+    same conv."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        es = dt.itemsize
+        bf16 = dt == torch.bfloat16
+        for name, hh, c, f, keep in BLOCKS:
+            if not name.startswith("up"):
+                continue
+            ca = cbh = c // 2
+            xa = randn(BATCH, hh, hh, ca).to(dt)
+            xb = randn(BATCH, hh, hh, cbh).to(dt)
+            w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
+            bias = randn(f, scale=0.1)
+            dp = randn(BATCH, hh, hh, f).to(dt)
+            line = [f"{dname} {name:>6}.conv1 {hh:>3}^2 {ca}+{cbh}->{f}"]
+            cat = torch.cat([xa, xb], dim=-1)
+            w_c = oihw(w)
+
+            def k8():
+                return cb.conv3x3_pair_nhwc(xa, xb, w, bias, want_stats=True)
+
+            def k8_plain():
+                return cb.conv3x3_pair_reference(xa, xb, w, bias,
+                                                 want_stats=True)
+
+            (y, st), (y_r, st_r) = k8(), k8_plain()
+            ms, pms = cuda_ms(k8), cuda_ms(k8_plain)
+            lms = cuda_ms(lambda: F.conv2d(nchw(cat), w_c, bias.to(dt),
+                                           padding=1)) if bf16 else None
+            r = max(rep.compare("conv3x3_pair_nhwc", f"{name} fwd", dname, y,
+                                y_r, ms, pms, library_ms=lms,
+                                work=conv_work(hh, c, f, es, 2 * f)),
+                    rep.compare("conv3x3_pair_nhwc", f"{name} stats", dname,
+                                st, st_r))
+            line.append(f"K8 {r:.1e} {times(ms, pms, lms)}ms")
+
+            wf = cb.flip_transpose(w)
+            got = cb.conv3x3_dgrad_pair(dp, wf, ca)
+            ref = cb.conv3x3_dgrad_pair_reference(dp, wf, ca)
+            ms = cuda_ms(lambda: cb.conv3x3_dgrad_pair(dp, wf, ca))
+            pms = cuda_ms(lambda: cb.conv3x3_dgrad_pair_reference(dp, wf, ca))
+            lms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+                (BATCH, c, hh, hh), w_c, nchw(dp), padding=1)
+                ) if bf16 else None
+            r = max(rep.compare("conv3x3_dgrad_pair", f"{name} dx_skip",
+                                dname, got[0], ref[0], ms, pms,
+                                library_ms=lms,
+                                work=conv_work(hh, f, c, es)),
+                    rep.compare("conv3x3_dgrad_pair", f"{name} dx_up", dname,
+                                got[1], ref[1]))
+            if not (got[0].is_contiguous() and got[1].is_contiguous()):
+                rep.fail(f"conv3x3_dgrad_pair {name}: outputs not contiguous")
+            line.append(f"K9 {r:.1e} {times(ms, pms, lms)}ms")
+
+            got = cb.conv3x3_wgrad_pair(xa, xb, dp)
+            ref = cb.conv3x3_wgrad_pair_reference(xa, xb, dp)
+            ms = cuda_ms(lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
+            pms = cuda_ms(lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))
+            lms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                nchw(cat), (f, c, 3, 3), nchw(dp), padding=1)
+                ) if bf16 else None
+            r = max(rep.compare("conv3x3_wgrad_pair", f"{name} dw_skip",
+                                dname, got[0], ref[0], ms, pms,
+                                library_ms=lms,
+                                work=conv_work(hh, c, f, es, w_es=4)),
+                    rep.compare("conv3x3_wgrad_pair", f"{name} dw_up", dname,
+                                got[1], ref[1]))
+            line.append(f"K10 {r:.1e} {times(ms, pms, lms)}ms")
+            print(" | ".join(line), flush=True)
+            del xa, xb, cat, dp, y, y_r, got, ref
+            torch.cuda.empty_cache()
+
+        # the main path's K11 calls: each encoder conv2 dgrad with its
+        # dropout, each decoder one (the same shapes) without; the encoder
+        # shapes without dropout are checked too
+        main_cases = {(hh, f, keep): name for name, hh, _, f, keep in BLOCKS}
+        cases = dict(main_cases)
+        for name, hh, _, f, keep in BLOCKS:
+            cases.setdefault((hh, f, None), name)
+        for (hh, f, kp), name in cases.items():
+            dp = randn(BATCH, hh, hh, f).to(dt)
+            w2 = randn(3, 3, f, f, scale=(9 * f) ** -0.5).to(dt)
+            wf = cb.flip_transpose(w2)
+            w2_c = oihw(w2)
+            pre = randn(BATCH, hh, hh, f).to(dt)
+            a, b = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
+            m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
+            drop = cb.HashDropout(88, kp) if kp else None
+
+            def k11():
+                return cb.conv3x3_dgrad_reduce(dp, wf, pre, a, b, m, inv,
+                                               out_drop=drop)
+
+            def k11_plain():
+                return cb.conv3x3_dgrad_reduce_reference(
+                    dp, wf, pre, a, b, m, inv, out_drop=drop)
+
+            (dd, s), (dd_r, s_r) = k11(), k11_plain()
+            ms, pms = cuda_ms(k11), cuda_ms(k11_plain)
+            lms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+                (BATCH, f, hh, hh), w2_c, nchw(dp), padding=1)
+                ) if bf16 else None
+            n = BATCH * hh * hh * f
+            flops, nbytes = conv_work(hh, f, f, es, n)
+            what = f"{name}.conv2 {'keep ' + str(kp) if kp else 'no drop'}"
+            r = max(rep.compare("conv3x3_dgrad_reduce", f"{what} dd",
+                                dname, dd, dd_r, ms, pms, library_ms=lms,
+                                work=(flops + 8 * n, nbytes),
+                                main=(hh, f, kp) in main_cases),
+                    rep.compare("conv3x3_dgrad_reduce", f"{what} sums",
+                                dname, s, s_r))
+            print(f"{dname} {what:>24} {hh:>3}^2 {f}->{f}: K11 {r:.1e} "
+                  f"{times(ms, pms, lms)}ms (library: the dgrad alone)",
+                  flush=True)
+            del dp, pre, dd, dd_r
+            torch.cuda.empty_cache()
+
+
 def check_functions(rep: Report, dev) -> None:
     """The ConvBlock Function's forward and backward (block_forward,
-    block_backward) and Conv3x3Plain on the card (kernels), at every block
-    of the UNet. Forward: fp32 against the plain block on the card, bf16
-    against the same forward on the CPU (plain versions, the same bf16
-    rounding points). Backward: the kernel backward and the plain backward
-    (on the CPU) from the SAME forward residuals, so both take the same
-    LeakyReLU-derivative branch at every element; an autograd reference
-    through its own forward would flip that branch wherever its forward
-    differs in the last bit from the kernels' near z = 0, and each flip moves
-    the gradients near it by O(1) (a kink, not an error)."""
+    block_backward; a (skip, up) pair for the UpBlocks) and Conv3x3Plain on
+    the card (kernels), at every block of the UNet. Forward: fp32 against
+    the plain block on the card, bf16 against the same forward on the CPU
+    (plain versions, the same bf16 rounding points). Backward: the kernel
+    backward and the plain backward (on the CPU) from the SAME forward
+    residuals, so both take the same LeakyReLU-derivative branch at every
+    element; an autograd reference through its own forward would flip that
+    branch wherever its forward differs in the last bit from the kernels'
+    near z = 0, and each flip moves the gradients near it by O(1) (a kink,
+    not an error)."""
     import torch
     import torch.nn.functional as F
 
     from hpfg_tpu_torch.ops import conv_block as cb
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    cpu = torch.device("cpu")
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     def to_cpu(ts):
-        return [t.cpu() for t in ts]
+        return [tuple(u.cpu() for u in t) if isinstance(t, tuple)
+                else t.cpu() for t in ts]
 
     grad_names = ("dx", "dw1", "dscale1", "dbias1", "dw2", "dscale2",
                   "dbias2")
@@ -313,32 +533,41 @@ def check_functions(rep: Report, dev) -> None:
             x = randn(BATCH, hh, hh, c).to(dt)
             dy = randn(BATCH, hh, hh, f).to(dt)
             drop = cb.HashDropout(99, keep) if keep else None
-            y, st, res = cb.block_forward(x, *p, None, True, drop)
+            pair = name.startswith("up")
+            xin = (x[..., :c // 2].contiguous(), x[..., c // 2:].contiguous()
+                   ) if pair else x
+            y, st, res = cb.block_forward(xin, *p, None, True, drop)
             if dt == torch.float32:
                 mask = (cb.hash_mask(99, BATCH, hh, hh * f, keep, dev).view(
                     BATCH, hh, hh, f) if keep else None)
                 y_r, st_r = cb.conv_block_reference(x, *p, mask=mask)
             else:
-                y_r, st_r, _ = cb.block_forward(x.cpu(), *to_cpu(p), None,
-                                                True, drop)
+                y_r, st_r, _ = cb.block_forward(to_cpu([xin])[0], *to_cpu(p),
+                                                None, True, drop)
             worst = max(
                 rep.compare("FusedConvBlock", f"{name} y", dname, y,
                             y_r.to(dev)),
                 rep.compare("FusedConvBlock", f"{name} stats", dname,
-                            torch.cat(list(st)), torch.cat(to_cpu(st_r)).to(dev)))
+                            torch.cat(list(st)),
+                            torch.cat(to_cpu(st_r)).to(dev)))
             args = (p[2], p[3], p[6], p[7])
             grads = cb.block_backward(dy, res, *args, st, drop,
                                       need_dx=c > 1)
             grads_r = cb.block_backward(dy.cpu(), to_cpu(res), *to_cpu(args),
                                         to_cpu(st), drop, need_dx=c > 1)
             for gname, got, ref in zip(grad_names, grads, grads_r):
-                if got is not None:
+                if got is None:
+                    continue
+                pairs = (zip(("_skip", "_up"), got, ref)
+                         if isinstance(got, tuple) else [("", got, ref)])
+                for sfx, g, r in pairs:
                     worst = max(worst, rep.compare(
-                        "FusedConvBlock", f"{name} {gname}", dname, got,
-                        ref.to(dev)))
-            print(f"{dname} FusedConvBlock {name:>8} fwd+bwd worst rel "
+                        "FusedConvBlock", f"{name} {gname}{sfx}", dname, g,
+                        r.to(dev)))
+            print(f"{dname} FusedConvBlock {name:>8} "
+                  f"{'(pair) ' if pair else ''}fwd+bwd worst rel "
                   f"{worst:.1e} (tol {TOL[dname]})", flush=True)
-            del x, dy, y, y_r, res, grads, grads_r
+            del x, xin, dy, y, y_r, res, grads, grads_r
             torch.cuda.empty_cache()
 
         for name, hh, c, f, is_1x1 in PLAIN:
@@ -370,7 +599,7 @@ def check_functions(rep: Report, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phases 3 and 3b: the main paths
 # ---------------------------------------------------------------------------
 
 class ArrayLoader:
@@ -389,28 +618,37 @@ class ArrayLoader:
             yield from self
 
 
-def load_config() -> dict:
+def load_config(path: str) -> dict:
     import yaml
 
-    with open(os.path.join(REPO, CONFIG), encoding="utf-8") as f:
+    with open(os.path.join(REPO, path), encoding="utf-8") as f:
         return yaml.safe_load(f)
 
 
-def predicted_launches(model, steps: int) -> dict:
-    """Kernel launches per Mean-Teacher step from the model's structure:
-    teacher forward + student forward + student backward."""
+def predicted_launches(model, steps: int, forwards: int,
+                       backwards: int) -> dict:
+    """Kernel launches per run from the model's structure: ``forwards``
+    train-mode forwards and ``backwards`` backwards of ``model`` a step.
+    A forward runs conv1 (K8 in an UpBlock, else A), conv2 (A) and C in
+    every ConvBlock, and A for each plain conv (the UpBlock 1x1s and the
+    head). A backward runs D, K11, B (conv2), D's dpre-only entry and conv1's
+    gradients (K9 and K10 in an UpBlock; else A, except at the stem, whose
+    input needs no gradient, and B) in every ConvBlock, and A and B for each
+    plain conv."""
     from hpfg_tpu_torch.models.layers import ConvBlock, UpBlock
 
     blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
-    plain = sum(isinstance(m, UpBlock) for m in model.modules()) + 1
-    fwd_conv = 2 * blocks + plain
-    # backward: conv2 and plain dgrads, conv1 dgrads except the stem's
-    # (its input needs no gradient); every conv has a wgrad
-    bwd_conv = blocks + (blocks - 1) + plain
-    return {"conv3x3_nhwc": steps * (2 * fwd_conv + bwd_conv),
-            "conv3x3_wgrad_nhwc": steps * (2 * blocks + plain),
-            "bn_act": steps * 2 * blocks,
-            "bn_act_bwd": steps * 2 * blocks}
+    pairs = sum(isinstance(m, UpBlock) for m in model.modules())
+    plain = pairs + 1
+    fwd = {"conv3x3_nhwc": 2 * blocks - pairs + plain,
+           "conv3x3_pair_nhwc": pairs, "bn_act": blocks}
+    bwd = {"conv3x3_nhwc": blocks - pairs - 1 + plain,
+           "conv3x3_wgrad_nhwc": blocks + (blocks - pairs) + plain,
+           "bn_act_bwd": blocks, "bn_act_dpre": blocks,
+           "conv3x3_dgrad_reduce": blocks, "conv3x3_dgrad_pair": pairs,
+           "conv3x3_wgrad_pair": pairs}
+    return {k: steps * (forwards * fwd.get(k, 0) + backwards * bwd.get(k, 0))
+            for k in counters()}
 
 
 def counters() -> dict:
@@ -419,10 +657,20 @@ def counters() -> dict:
 
     return {"conv3x3_nhwc": cb.conv3x3_nhwc,
             "conv3x3_wgrad_nhwc": cb.conv3x3_wgrad_nhwc,
-            "bn_act": ba.bn_act, "bn_act_bwd": ba.bn_act_bwd}
+            "bn_act": ba.bn_act, "bn_act_bwd": ba.bn_act_bwd,
+            "bn_act_dpre": ba.bn_act_dpre,
+            "conv3x3_pair_nhwc": cb.conv3x3_pair_nhwc,
+            "conv3x3_dgrad_pair": cb.conv3x3_dgrad_pair,
+            "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair,
+            "conv3x3_dgrad_reduce": cb.conv3x3_dgrad_reduce}
 
 
-def run_main_path(rep: Report, dev, card: str) -> tuple[dict, object]:
+def run_main_path(rep: Report, dev, card: str, config: str, label: str,
+                  model_attr: str, forwards: int, backwards: int):
+    """Train ``STEPS`` timed steps (after ``WARMUP``) of the config's
+    algorithm through Trainer.fit with conv2d forbidden, check the losses
+    and launch counts, trace one more step. Returns (launches, algorithm,
+    summary)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -430,8 +678,8 @@ def run_main_path(rep: Report, dev, card: str) -> tuple[dict, object]:
     from hpfg_tpu_torch.train.algorithms import build_algorithm
     from hpfg_tpu_torch.train.trainer import Trainer
 
-    cfg = load_config()
-    cfg.update(save_path=os.path.join(OUT_DIR, "run"))
+    cfg = load_config(config)
+    cfg.update(save_path=os.path.join(OUT_DIR, f"run_{label}"))
     dtype = torch.bfloat16 if cfg.get("precision") == "bf16" else torch.float32
     rng = np.random.default_rng(0)
     n_lab, n_unl = LABEL_BS * 2, UNLABEL_BS * 2
@@ -466,32 +714,41 @@ def run_main_path(rep: Report, dev, card: str) -> tuple[dict, object]:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         F.conv2d, torch.conv2d = saved
 
     losses = [m["loss"] for _, m in trainer.metrics_log]
     if len(losses) != WARMUP + STEPS or not all(np.isfinite(losses)):
-        rep.fail(f"main path losses not all finite: {losses}")
-    print(f"main path: losses {[round(v, 5) for v in losses]}", flush=True)
-    expected = predicted_launches(algo.model, STEPS)
+        rep.fail(f"{label} path losses not all finite: {losses}")
+    print(f"{label} path: losses {[round(v, 5) for v in losses]}", flush=True)
+    expected = predicted_launches(getattr(algo, model_attr), STEPS, forwards,
+                                  backwards)
     for k, n in launches.items():
-        print(f"launches {k}: {n} (predicted {expected[k]} = {STEPS} steps "
-              f"x {expected[k] // STEPS})", flush=True)
+        print(f"{label} launches {k}: {n} (predicted {expected[k]} = {STEPS}"
+              f" steps x {expected[k] // STEPS})", flush=True)
         if n != expected[k]:
-            rep.fail(f"launch count {k}: {n} != predicted {expected[k]}")
-    profile_step(trainer, card)
+            rep.fail(f"{label} launch count {k}: {n} != predicted "
+                     f"{expected[k]}")
+    for name, meta in KERNELS.items():
+        if sum(launches[c] for c in meta["counters"]) == 0:
+            rep.fail(f"{label} path: kernel {name} was not launched")
+    busy = profile_step(trainer, card, label)
     ms = elapsed / STEPS * 1e3
     imgs = (LABEL_BS + UNLABEL_BS) * STEPS / elapsed
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"main path: Mean-Teacher UNet 224^2 {LABEL_BS}+{UNLABEL_BS} bf16:"
-          f" {ms:.2f} ms/step, {imgs:.1f} img/s, peak {peak:.2f} GiB "
-          f"({card})", flush=True)
-    return launches, algo
+    print(f"{label} path: {algo.name} 224^2 {LABEL_BS}+{UNLABEL_BS} bf16: "
+          f"{ms:.2f} ms/step, {imgs:.1f} img/s ({LABEL_BS + UNLABEL_BS} "
+          f"images a step), peak {peak:.2f} GiB allocated ({card})",
+          flush=True)
+    summary = dict(ms_per_step=ms, img_per_s=imgs, peak_gib=peak,
+                   traced_busy_ms=busy)
+    return launches, algo, summary
 
 
-def profile_step(trainer, card: str) -> None:
+def profile_step(trainer, card: str, label: str):
     """One more step under torch.profiler: device time by kernel name and
-    the device's busy share of the step's wall time (profiler on)."""
+    the device's busy share of the step's wall time (profiler on). Returns
+    the busy ms, or None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -506,31 +763,33 @@ def profile_step(trainer, card: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print("profile: the profiler saw no device time", flush=True)
-        return
+        return None
     by_name: dict[str, list] = {}
     for e in kernels:
         row = by_name.setdefault(e.name, [0, 0.0])
         row[0] += 1
         row[1] += e.time_range.end - e.time_range.start
     busy = sum(v[1] for v in by_name.values())
-    lines = [f"profile of one Mean-Teacher step ({card}): wall "
+    lines = [f"profile of one {label} step ({card}): wall "
              f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
              f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)"]
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         lines.append(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
                      f"x{n:<4} {name[:110]}")
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w",
+    with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w",
               encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "step_trace.json"))
+    prof.export_chrome_trace(os.path.join(OUT_DIR,
+                                          f"step_trace_{label}.json"))
     print("\n".join(lines[:25]), flush=True)
+    return busy / 1e3
 
 
 # ---------------------------------------------------------------------------
 # phase 4: eval forward of a volume
 # ---------------------------------------------------------------------------
 
-def check_eval(rep: Report, dev, algo) -> None:
+def check_eval(rep: Report, dev, model, label: str) -> None:
     import copy
 
     import numpy as np
@@ -540,23 +799,55 @@ def check_eval(rep: Report, dev, algo) -> None:
 
     rng = np.random.default_rng(3)
     volume = rng.normal(size=(4, 256, 216)).astype(np.float32)
-    pred = predict_volume(algo.model, volume, (HW, HW), dev)
+    pred = predict_volume(model, volume, (HW, HW), dev)
     if pred.shape != volume.shape:
         rep.fail(f"eval prediction shape {pred.shape} != {volume.shape}")
     x = torch.from_numpy(np.ascontiguousarray(
         _resize_volume(volume, (HW, HW), 0)[..., None]))
-    cpu_model = copy.deepcopy(algo.model).cpu()
+    cpu_model = copy.deepcopy(model).cpu()
     with torch.no_grad():
-        logits = algo.model(x.to(dev), train=False).cpu()
-        ref = cpu_model(x, train=False)
-    rel = rep.compare("eval forward", "logits vs CPU plain", "bfloat16",
-                      logits, ref, tol=MODEL_TOL)
+        logits = model.val(x.to(dev)).cpu()
+        ref = cpu_model.val(x)
+    rel = rep.compare("eval forward", f"{label} val logits vs CPU plain",
+                      "bfloat16", logits, ref, tol=MODEL_TOL)
     agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    print(f"eval: volume {volume.shape} -> pred {pred.shape}; logits rel err "
-          f"{rel:.2e} (tol {MODEL_TOL}); argmax agreement {agree:.4f} "
-          f"(min {MODEL_AGREE})", flush=True)
+    print(f"eval {label}: volume {volume.shape} -> pred {pred.shape}; logits "
+          f"rel err {rel:.2e} (tol {MODEL_TOL}); argmax agreement "
+          f"{agree:.4f} (min {MODEL_AGREE})", flush=True)
     if agree < MODEL_AGREE:
-        rep.fail(f"eval argmax agreement {agree:.4f} < {MODEL_AGREE}")
+        rep.fail(f"eval {label} argmax agreement {agree:.4f} < "
+                 f"{MODEL_AGREE}")
+
+
+def kernel_line(rep: Report, paths: dict) -> list[dict]:
+    """The per-kernel summary: launches on each main path (the HPFG path's
+    under ``launches``), the largest error over every check, and the bf16
+    times and bounds summed over the timed main-path shapes."""
+    kernels = []
+    for name, meta in KERNELS.items():
+        rows = [r for r in rep.rows if r["kernel"] == name]
+        timed = [r for r in rows if r["ms"] is not None and r["main"]
+                 and r["dtype"] == "bfloat16"]
+        t_ops = sum(r["flops"] / BF16_FLOPS_PER_S * 1e3 for r in timed)
+        t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S * 1e3 for r in timed)
+        lib = [r["library_ms"] for r in timed]
+        by_path = {p: sum(launches.get(c, 0) for c in meta["counters"])
+                   for p, launches in paths.items()}
+        kernels.append(dict(
+            name=name, route=meta["route"], source=meta["source"],
+            replaces=meta["replaces"], also_replaces=meta["also_replaces"],
+            launches=by_path.get("hpfg", 0), launches_by_path=by_path,
+            max_abs_err=max((r["max_abs_err"] for r in rows), default=None),
+            max_rel_err=max((r["rel_err"] for r in rows), default=None),
+            ms=sum(r["ms"] for r in timed),
+            plain_ms=sum(r["plain_ms"] for r in timed),
+            bound_ms=sum(r["bound_ms"] for r in timed),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=(sum(lib) if lib and None not in lib else None),
+            **({"library_note": meta["library_note"]}
+               if "library_note" in meta else {}),
+            timed_shapes=len(timed)))
+    return kernels
 
 
 def main() -> int:
@@ -590,48 +881,46 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    phases = [("kernels", lambda: check_kernels(rep, dev)),
-              ("functions", lambda: check_functions(rep, dev))]
-    launches, algo = {}, None
-    for name, fn in phases:
+    def phase(name, fn):
         t0 = time.perf_counter()
         try:
-            fn()
+            return fn()
         except Exception as exc:  # a phase failure is reported, not fatal
             rep.fail(f"phase {name} raised {type(exc).__name__}: {exc}")
-        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-    try:
-        launches, algo = run_main_path(rep, dev, card)
-    except Exception as exc:
-        rep.fail(f"phase main path raised {type(exc).__name__}: {exc}")
-    if algo is not None:
-        try:
-            check_eval(rep, dev, algo)
-        except Exception as exc:
-            rep.fail(f"phase eval raised {type(exc).__name__}: {exc}")
+            return None
+        finally:
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+    phase("kernels", lambda: check_kernels(rep, dev))
+    phase("pair kernels", lambda: check_pair_kernels(rep, dev))
+    phase("functions", lambda: check_functions(rep, dev))
+    paths, summaries = {}, {}
+    for label, config, attr, fwd, bwd in (
+            ("mean_teacher", MT_CONFIG, "model", 2, 1),
+            ("hpfg", HPFG_CONFIG, "model1", 3, 2)):
+        out = phase(f"main path {label}", lambda: run_main_path(
+            rep, dev, card, config, label, attr, fwd, bwd))
+        if out is None:
+            continue
+        paths[label], algo, summaries[label] = out
+        model = getattr(algo, attr)
+        phase(f"eval {label}", lambda: check_eval(rep, dev, model, label))
+        del algo, model
+        torch.cuda.empty_cache()
     rep.close()
 
-    if any(launches.get(k, 0) == 0 for k in KERNELS):
-        rep.fail(f"a kernel was not launched on the main path: {launches}")
+    if set(paths) != {"mean_teacher", "hpfg"}:
+        rep.fail(f"main paths that ran: {sorted(paths)}")
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in
                       ("jax", "jaxlib", "flax", "hpfg_tpu"))
     if jax_side:
         rep.fail(f"JAX-side modules were imported: {jax_side[:5]}")
-    kernels = []
-    for name, meta in KERNELS.items():
-        rows = [r for r in rep.rows if r["kernel"] == name]
-        timed = [r for r in rows if r["ms"] is not None
-                 and r["dtype"] == "bfloat16"]
-        kernels.append(dict(
-            name=name, **meta, launches=launches.get(name, 0),
-            max_abs_err=max((r["max_abs_err"] for r in rows), default=None),
-            max_rel_err=max((r["rel_err"] for r in rows), default=None),
-            ms=sum(r["ms"] for r in timed),
-            plain_ms=sum(r["plain_ms"] for r in timed),
-            cudnn_bf16_ms=(sum(r["cudnn_ms"] for r in timed)
-                           if timed and timed[0]["cudnn_ms"] is not None
-                           else None),
-            timed_shapes=len(timed)))
+    kernels = kernel_line(rep, paths)
+    with open(os.path.join(OUT_DIR, "summary.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"card": card, "paths": summaries, "kernels": kernels}, f,
+                  indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:
         print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)

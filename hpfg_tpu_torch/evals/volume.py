@@ -4,15 +4,18 @@
 Slices of a volume are zoomed to the patch size once (scipy order-0 index
 map, as the reference), forwarded in eval mode in chunks through the same
 kernels as training (running BN statistics, no statistics epilogue),
-argmaxed on the device and zoomed back to native resolution. Dice and HD95
-come from ``hpfg_tpu.evals.metrics.calculate_metric_percase`` (numpy and
-scipy), imported when an evaluation runs.
+argmaxed on the device and zoomed back to native resolution. The forward
+is the model's ``val`` (eval-mode logits, for UNet and UNet_Plus alike).
+Dice and HD95 come from ``evals.metrics.calculate_metric_percase`` (numpy
+and scipy).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from hpfg_tpu_torch.evals.metrics import calculate_metric_percase
 
 DEFAULT_CHUNK = 16
 
@@ -49,7 +52,7 @@ def forward_slices(model: torch.nn.Module, slices: np.ndarray,
     for i in range(0, slices.shape[0], chunk):
         x = torch.from_numpy(np.ascontiguousarray(
             slices[i:i + chunk], dtype=np.float32)).to(device)
-        preds.append(model(x, train=False).argmax(-1).cpu())
+        preds.append(model.val(x).argmax(-1).cpu())
     return torch.cat(preds).numpy()
 
 
@@ -72,8 +75,6 @@ def evaluate_volumes(model: torch.nn.Module, volumes, num_classes: int,
     """Evaluate (image [D,H,W], label [D,H,W]) volumes. Returns
     (mean_dice, mean_hd95, per_class [C-1, 2]) with the reference's
     volume-then-class averaging."""
-    from hpfg_tpu.evals.metrics import calculate_metric_percase
-
     metric_sum = np.zeros((num_classes - 1, 2), dtype=np.float64)
     count = 0
     for image, label in volumes:

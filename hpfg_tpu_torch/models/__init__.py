@@ -1,4 +1,5 @@
-"""Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet`` only).
+"""Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet`` and
+``unet_plus``).
 
 ``build_model(cfg)`` reads a config mapping (``cfg.get``): ``model``,
 ``in_channels``, ``num_classes`` and the ``feature_chns`` / ``dropout``
@@ -9,10 +10,22 @@ from __future__ import annotations
 
 import torch
 
-from hpfg_tpu_torch.models.unet import UNet
+from hpfg_tpu_torch.models.unet import UNet, UNetPlus
 
 #: models ported so far; the rest of the zoo is queued in ROADMAP.md
-MODELS = {"unet": UNet}
+MODELS = {"unet": UNet, "unet_plus": UNetPlus}
+
+#: registry names whose forward returns (logits, h1, h2), which the
+#: feature-contrastive algorithms (hpfg) unpack; the JAX package's list
+FEATURE_MODELS = frozenset({
+    "unet_plus", "swinunet_plus", "segformer_plus", "cmt_plus",
+    "uniformer_plus",
+})
+
+
+def returns_features(name: str) -> bool:
+    """True when the registry model returns (logits, h1, h2)."""
+    return str(name).lower() in FEATURE_MODELS
 
 
 def build_model(cfg, dtype: torch.dtype = torch.float32,

@@ -7,9 +7,11 @@ Module and parameter names follow the flax modules exactly (``conv1``,
 kernels are HWIO ``[kh, kw, C, F]``; parameters and BN statistics are fp32;
 activations run in the module's compute dtype.
 
-Every convolution runs through the hand-written kernels
-(``ops/conv_block.py``): ConvBlocks through ``FusedConvBlock``, the 1x1 and
-logits convs through ``conv3x3_plain``. BatchNorm has no module of its own
+Every convolution of the UNet runs through the hand-written kernels
+(``ops/conv_block.py``): ConvBlocks through ``FusedConvBlock`` (the UpBlock's
+with its (skip, up) pair), the 1x1 and logits convs through
+``conv3x3_plain``. The projection necks of UNet_Plus are plain torch
+matmuls on at most [B, 4, 4, C]. BatchNorm has no module of its own
 here: its statistics come out of the conv kernel's epilogue, and the
 running averages fold the biased batch variance with momentum 0.9, as flax
 does (``nn.BatchNorm2d`` would fold the unbiased one).
@@ -84,8 +86,10 @@ class ConvBlock(nn.Module):
         self.conv2 = Conv(features, features, 3, generator)
         self.bn2 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor, train: bool,
+    def forward(self, x, train: bool,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """``x``: NHWC, or a pair (skip, up) whose channel concat is conv1's
+        input (the UpBlock); the concat is never materialised."""
         drop = None
         if train and self.dropout_p > 0.0:
             seed = int(torch.randint(0, 1 << 23, (), generator=generator))
@@ -94,11 +98,14 @@ class ConvBlock(nn.Module):
         if not train:
             run_stats = (self.bn1.mean, self.bn1.var, self.bn2.mean,
                          self.bn2.var)
+        x, x2 = x if isinstance(x, tuple) else (x, None)
+        if x2 is not None:
+            x2 = x2.to(self.dtype).contiguous()
         y, m1, v1, m2, v2 = FusedConvBlock.apply(
             x.to(self.dtype).contiguous(), self.conv1.kernel,
             self.conv1.bias, self.bn1.scale, self.bn1.bias,
             self.conv2.kernel, self.conv2.bias, self.bn2.scale,
-            self.bn2.bias, run_stats, train, drop)
+            self.bn2.bias, run_stats, train, drop, x2)
         if train:
             self.bn1.fold(m1, v1)
             self.bn2.fold(m2, v2)
@@ -143,10 +150,12 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """1x1 conv, bilinear x2 upsample (align_corners), concat(skip, up),
-    ConvBlock (flax UpBlock). The 1x1 conv runs as a 3x3 conv whose only
-    nonzero tap is the centre, so SAME semantics are exact and its weight
-    gradient is the centre tap's."""
+    """1x1 conv, bilinear x2 upsample (align_corners), then the ConvBlock
+    over (skip, up) (flax UpBlock). The pair goes to the ConvBlock as two
+    tensors: its conv1 reads their channel concat in place (K8) and its
+    backward returns a gradient for each (K9, K10). The 1x1 conv runs as a
+    3x3 conv whose only nonzero tap is the centre, so SAME semantics are
+    exact and its weight gradient is the centre tap's."""
 
     def __init__(self, in_ch: int, skip_ch: int, skip_features: int,
                  features: int, dropout_p: float = 0.0,
@@ -162,4 +171,69 @@ class UpBlock(nn.Module):
         w3 = F.pad(self.conv1x1.kernel, (0, 0, 0, 0, 1, 1, 1, 1))
         x = conv3x3_plain(x.to(self.dtype), w3, self.conv1x1.bias)
         x = resize_bilinear_align_corners(x, tuple(skip.shape[1:3]))
-        return self.conv(torch.cat([skip, x], dim=-1), train, generator)
+        return self.conv((skip, x), train, generator)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """torch-style adaptive average pooling on NHWC (windows
+    [floor(i*in/out), ceil((i+1)*in/out)), as the JAX package's separable
+    averaging matmuls), in x's dtype. One kernel on the NCHW view; the JAX
+    form's pooling matrices would be copied from the host at every call,
+    and each such copy waits for the device to drain."""
+    if tuple(x.shape[1:3]) == tuple(out_hw):
+        return x
+    return _nhwc(F.adaptive_avg_pool2d(_nchw(x), tuple(out_hw)))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, C], accumulated in fp32, returned in x's dtype."""
+    return x.float().mean((1, 2)).to(x.dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel`` [in, out] and ``bias`` [out], torch's
+    default init U(+-1/sqrt(in))."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_dim)
+        self.kernel = nn.Parameter(_uniform((in_dim, out_dim), bound,
+                                            generator))
+        self.bias = nn.Parameter(_uniform((out_dim,), bound, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., in] -> [..., out] in x's dtype (torch.matmul)."""
+        return torch.matmul(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+class ProjectionNeck(nn.Module):
+    """DenseCL projection neck (flax ProjectionNeck). Returns (global
+    [B, out_dim], dense [B, s*s, out_dim]): GAP -> Dense-ReLU-Dense, and
+    adaptive-avg-pool to (s, s) -> 1x1 conv-ReLU-1x1 conv, spatial-major.
+    Plain torch (matmuls on at most [B, 4, 4, C]), as the JAX package
+    leaves the neck to XLA; the 1x1 convs are ``Conv`` parameters
+    [1, 1, in, out] applied as matmuls."""
+
+    def __init__(self, in_ch: int, hid_dim: int = 2048, out_dim: int = 128,
+                 s: int = 4, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.s, self.out_dim, self.dtype = s, out_dim, dtype
+        self.mlp1 = Dense(in_ch, hid_dim, generator)
+        self.mlp2 = Dense(hid_dim, out_dim, generator)
+        self.conv1 = Conv(in_ch, hid_dim, 1, generator)
+        self.conv2 = Conv(hid_dim, out_dim, 1, generator)
+
+    def forward(self, x: torch.Tensor):
+        x = x.to(self.dtype)
+        g = self.mlp2(torch.relu(self.mlp1(global_avg_pool(x))))
+        d = adaptive_avg_pool(x, (self.s, self.s)) if self.s else x
+        d = self._conv1x1(torch.relu(self._conv1x1(d, self.conv1)),
+                          self.conv2)
+        return g, d.reshape(d.shape[0], -1, self.out_dim)
+
+    @staticmethod
+    def _conv1x1(x: torch.Tensor, conv: Conv) -> torch.Tensor:
+        return (torch.matmul(x, conv.kernel[0, 0].to(x.dtype))
+                + conv.bias.to(x.dtype))

@@ -1,8 +1,12 @@
-"""UNet (port of ``hpfg_tpu/models/unet.py``: ``UNet`` only).
+"""UNet and UNet_Plus (port of ``hpfg_tpu/models/unet.py``: ``UNet``,
+``UNetPlus``).
 
 Five levels, channels (16, 32, 64, 128, 256), encoder dropout
 (0.05, 0.1, 0.2, 0.3, 0.5), bilinear align-corners decoder upsampling and a
-3x3 logits head. NHWC in, fp32 NHWC logits out.
+3x3 logits head. NHWC in, fp32 NHWC logits out. ``UNetPlus`` adds the two
+DenseCL projection necks, on the bottleneck (hid 2048) and on the logits
+(hid 1024); its forward returns (logits, (g_high, d_high), (g_head,
+d_head)) and ``.val`` the logits only.
 """
 
 from __future__ import annotations
@@ -12,7 +16,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from hpfg_tpu_torch.models.layers import Conv, ConvBlock, DownBlock, UpBlock
+from hpfg_tpu_torch.models.layers import (
+    Conv,
+    ConvBlock,
+    DownBlock,
+    ProjectionNeck,
+    UpBlock,
+)
 from hpfg_tpu_torch.ops.conv_block import conv3x3_plain
 
 
@@ -89,3 +99,39 @@ class UNet(nn.Module):
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, train=False)
+
+
+class UNetPlus(nn.Module):
+    """UNet + the DenseCL projection necks (flax ``UNetPlus``; module names
+    ``dense_projection_high`` and ``dense_projection_head`` as in flax).
+    ``forward(x, train)`` returns (logits, (g_high, d_high), (g_head,
+    d_head)); ``val(x)`` the eval-mode logits alone."""
+
+    def __init__(self, in_channels: int = 1, num_classes: int = 4,
+                 feature_chns: Sequence[int] = (16, 32, 64, 128, 256),
+                 dropout: Sequence[float] = (0.05, 0.1, 0.2, 0.3, 0.5),
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = UNetEncoder(in_channels, feature_chns, dropout, dtype,
+                                   generator)
+        self.decoder = UNetDecoder(num_classes, feature_chns, dtype,
+                                   generator)
+        self.dense_projection_high = ProjectionNeck(
+            feature_chns[-1], hid_dim=2048, out_dim=128, s=4, dtype=dtype,
+            generator=generator)
+        self.dense_projection_head = ProjectionNeck(
+            num_classes, hid_dim=1024, out_dim=128, s=4, dtype=dtype,
+            generator=generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None):
+        feature = self.encoder(x.to(self.dtype), train, generator)
+        logits = self.decoder(feature, train, generator)
+        high = self.dense_projection_high(feature[-1])
+        head = self.dense_projection_head(logits.to(self.dtype))
+        return logits, high, head
+
+    def val(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.encoder(x.to(self.dtype), False), False)

@@ -35,10 +35,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "hpfg_tile_h": [],
     "hpfg_tile_w": [],
-    "hpfg_conv3x3_nhwc": [_P, _P, _P, _P, _P, _I, _U, _U, _F, _I, _U, _U, _F,
-                          _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "hpfg_conv3x3_wgrad_nhwc": [_P, _P, _P, _P, _I, _U, _U, _F, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _P],
+    "hpfg_conv3x3_nhwc": [_P, _P, _I, _P, _P, _P, _P, _I, _U, _U, _F, _I, _U,
+                          _U, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                          _I, _I, _I, _I, _P],
+    "hpfg_conv3x3_wgrad_nhwc": [_P, _P, _I, _P, _P, _P, _I, _U, _U, _F, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_colsum_f32": [_P, _P, _I, _I, _I, _P],
 }
 

@@ -4,7 +4,9 @@ Replaces (hpfg_tpu/ops/pallas/conv_block.py):
   * ``bn_act``     -> ``_bn_act_kernel`` (K3): y = lrelu(a*g + b);
   * ``bn_act_bwd`` -> ``_bwd_reduce_kernel`` (K4) + ``_dpre_kernel`` (K5):
     per-channel S0 = sum(dz), S1 = sum(dz*xhat) with dz = dy*lrelu'(a*pre+b)
-    and xhat = (pre-mean)*inv, then dpre = a*(dz - S0/N - xhat*S1/N).
+    and xhat = (pre-mean)*inv, then dpre = a*(dz - S0/N - xhat*S1/N);
+  * ``bn_act_dpre`` -> ``_dpre_kernel`` (K5) alone, for the stage whose
+    S0, S1 the conv2 dgrad already reduced in its epilogue (K11).
 
 What bounds them on an H100: these are memory-bound passes over a
 [B*H*W, F] activation (one or two reads, one write) with a handful of FLOPs
@@ -46,18 +48,28 @@ def bn_act_reference(g: torch.Tensor, a: torch.Tensor,
     return torch.where(z >= 0, z, z * LRELU_SLOPE).to(g.dtype)
 
 
+def _dz_xhat(dy, pre, a, b, mean, inv):
+    pf = pre.float()
+    z = pf * a + b
+    dz = dy.float() * torch.where(z >= 0, 1.0, LRELU_SLOPE)
+    return dz, (pf - mean) * inv
+
+
+def bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums):
+    """The elementwise pass alone: dpre = a*(dz - S0/N - xhat*S1/N) from
+    given sums [2, F] fp32, in dy's dtype."""
+    dz, xhat = _dz_xhat(dy, pre, a, b, mean, inv)
+    n = dy.numel() // dy.shape[-1]
+    return (a * (dz - sums[0] / n - xhat * (sums[1] / n))).to(dy.dtype)
+
+
 def bn_act_bwd_reference(dy, pre, a, b, mean, inv):
     """Train-mode BN + LeakyReLU backward. Returns (sums [2, F] fp32 =
     [dbias, dscale], dpre in dy's dtype)."""
-    dyf, pf = dy.float(), pre.float()
-    z = pf * a + b
-    dz = dyf * torch.where(z >= 0, 1.0, LRELU_SLOPE)
-    xhat = (pf - mean) * inv
+    dz, xhat = _dz_xhat(dy, pre, a, b, mean, inv)
     dims = tuple(range(dy.dim() - 1))
     sums = torch.stack([dz.sum(dims), (dz * xhat).sum(dims)])
-    n = dy.numel() // dy.shape[-1]
-    dpre = a * (dz - sums[0] / n - xhat * (sums[1] / n))
-    return sums, dpre.to(dy.dtype)
+    return sums, bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums)
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +247,43 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
                               BLOCK_F=block_f, num_warps=4,
                               enable_fp_fusion=False)
     sums = colsum(part)
-    dpre = torch.empty_like(dy)
-    k["dpre"][(nblocks,)](dy, pre, a, b, mean, inv, sums, dpre, p, f,
-                          1.0 / p, BLOCK_P=block_p, BLOCK_F=block_f,
-                          num_warps=4, enable_fp_fusion=False)
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
     bn_act_bwd.launches += 1
     return sums.view(2, f), dpre
+
+
+@launch_counter
+def bn_act_dpre(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+                sums: torch.Tensor) -> torch.Tensor:
+    """Kernel D's elementwise pass alone, from sums [2, F] fp32 that another
+    kernel already reduced (the conv2 dgrad's reduce epilogue,
+    ``conv_block.conv3x3_dgrad_reduce``). Returns dpre in dy's dtype."""
+    if dy.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"bn_act_dpre: unsupported dtype {dy.dtype}")
+    _check("dy", dy)
+    _check("pre", pre, like=dy)
+    _check_vecs(dy, a=a, b=b, mean=mean, inv=inv)
+    _check("sums", sums, dtype=torch.float32, shape=(2, dy.shape[-1]))
+    if sums.device != dy.device:
+        raise ValueError(f"sums: on {sums.device}, data on {dy.device}")
+    if dy.device.type == "cpu":
+        return bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums)
+    _require_cuda(dy)
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
+    bn_act_dpre.launches += 1
+    return dpre
+
+
+def _dpre(dy, pre, a, b, mean, inv, sums):
+    f = dy.shape[-1]
+    p = dy.numel() // f
+    block_p, block_f = _blocks(f)
+    dpre = torch.empty_like(dy)
+    _kernels()["dpre"][(_cdiv(p, block_p),)](
+        dy, pre, a, b, mean, inv, sums, dpre, p, f, 1.0 / p,
+        BLOCK_P=block_p, BLOCK_F=block_f, num_warps=4, enable_fp_fusion=False)
+    return dpre
 
 
 def _require_cuda(t: torch.Tensor) -> None:

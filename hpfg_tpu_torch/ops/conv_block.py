@@ -1,22 +1,27 @@
 """Fused UNet ConvBlock and plain 3x3 conv on hand-written Hopper kernels.
 
-Port of ``hpfg_tpu/ops/pallas/conv_block.py``. The block is
-conv3x3 -> BN -> LeakyReLU -> hash dropout -> conv3x3 -> BN -> LeakyReLU on
-NHWC activations with HWIO ``[3, 3, C, F]`` weights. Train mode runs it as
-three kernel launches, as on the TPU:
+Port of ``hpfg_tpu/ops/pallas/conv_block.py`` in the JAX package's default
+configuration (dual-input UpBlock conv1, dual backward, fold-reduce). The
+block is conv3x3 -> BN -> LeakyReLU -> hash dropout -> conv3x3 -> BN ->
+LeakyReLU on NHWC activations with HWIO ``[3, 3, C, F]`` weights. Its input
+is one tensor, or a pair ``(skip, up)`` whose channel concat conv1 reads
+without materialising it (the UpBlock). Train mode runs it as three kernel
+launches, as on the TPU:
 
   1. conv1 + bias, with per-channel [sum, sum^2] of the fp32 result
-     (``conv3x3_nhwc``, kernel A);
+     (``conv3x3_nhwc``, kernel A; for a pair ``conv3x3_pair_nhwc``, K8);
   2. BN1 affine + LeakyReLU + dropout fused into conv2's operand load, then
      conv2 + bias + statistics (``conv3x3_nhwc`` with a prologue);
   3. BN2 affine + LeakyReLU (``bn_act``, kernel C).
 
-The backward (``FusedConvBlock.backward``) follows the Pallas ``_bwd``:
-BN2 backward (``bn_act_bwd``, kernel D), conv2's input gradient
-(kernel A on the flipped, transposed weights, times the forward dropout
-mask), conv2's weight gradient (``conv3x3_wgrad_nhwc``, kernel B, which
-recomputes lrelu(BN1(h))*mask from the conv1 output), BN1 backward, then
-conv1's input and weight gradients.
+The backward (``block_backward``) follows the Pallas ``_bwd``: BN2 backward
+(``bn_act_bwd``, kernel D); conv2's input gradient times the forward dropout
+mask with BN1's backward reduction in its epilogue (``conv3x3_dgrad_reduce``,
+K11); conv2's weight gradient (``conv3x3_wgrad_nhwc``, kernel B, which
+recomputes lrelu(BN1(h))*mask from the conv1 output); BN1's elementwise
+backward from those sums (``bn_act_dpre``); then conv1's input and weight
+gradients (kernels A and B, or for a pair ``conv3x3_dgrad_pair``, K9, and
+``conv3x3_wgrad_pair``, K10).
 
 Every kernel wrapper takes its plain PyTorch version (``*_reference``) for
 CPU tensors only; a CUDA tensor launches the kernel or raises. Each wrapper
@@ -38,7 +43,13 @@ from hpfg_tpu_torch.ops._cuda import (
     ptr,
     stream,
 )
-from hpfg_tpu_torch.ops.bn_act import LRELU_SLOPE, bn_act, bn_act_bwd
+from hpfg_tpu_torch.ops.bn_act import (
+    LRELU_SLOPE,
+    bn_act,
+    bn_act_bwd,
+    bn_act_bwd_reference,
+    bn_act_dpre,
+)
 
 BN_EPS = 1e-5
 
@@ -141,6 +152,28 @@ def conv3x3_reference(x, w, bias=None, affine=None, drop=None,
     return o.to(dtype).contiguous(), stats
 
 
+def conv3x3_pair_reference(xa, xb, w, bias=None, want_stats=False):
+    """Plain version of K8: kernel A's plain version on the materialised
+    channel concat (xa || xb)."""
+    return conv3x3_reference(torch.cat([xa, xb], dim=-1), w, bias,
+                             want_stats=want_stats)
+
+
+def conv3x3_dgrad_pair_reference(dp, wf, ca):
+    """Plain version of K9: two dgrads, one per half of the flip-transposed
+    weights wf [3,3,F,Ca+Cb]."""
+    return (conv3x3_reference(dp, wf[..., :ca])[0],
+            conv3x3_reference(dp, wf[..., ca:])[0])
+
+
+def conv3x3_dgrad_reduce_reference(dp, wf, pre, a, b, mean, inv,
+                                   out_drop=None):
+    """Plain version of K11: the dgrad (times the dropout mask), then the BN
+    backward reduction of the ROUNDED dgrad against ``pre``."""
+    dd, _ = conv3x3_reference(dp, wf, out_drop=out_drop)
+    return dd, bn_act_bwd_reference(dd, pre, a, b, mean, inv)[0]
+
+
 def conv3x3_wgrad_reference(src, dp, affine=None, drop=None):
     """Plain version of kernel B: dW[ky, kx, c, f] =
     sum_{b,y,x} src'[b, y+ky-1, x+kx-1, c] * dp[b, y, x, f] in fp32."""
@@ -150,6 +183,11 @@ def conv3x3_wgrad_reference(src, dp, affine=None, drop=None):
     taps = [torch.einsum("bhwc,bhwf->cf", s[:, ky:ky + h, kx:kx + w], d)
             for ky in range(3) for kx in range(3)]
     return torch.stack(taps).view(3, 3, c, dp.shape[-1])
+
+
+def conv3x3_wgrad_pair_reference(xa, xb, dp):
+    """Plain version of K10: kernel B's plain version once per half."""
+    return conv3x3_wgrad_reference(xa, dp), conv3x3_wgrad_reference(xb, dp)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +201,26 @@ def _check_act(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported dtype {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous NHWC")
+
+
+def _check_like(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
+    """``t``: NHWC over ``ref``'s batch and pixels, dtype and device."""
+    _check_act(name, t)
+    if t.shape[:3] != ref.shape[:3] or t.dtype != ref.dtype or \
+            t.device != ref.device:
+        raise ValueError(f"{name}: expected [{', '.join(map(str, ref.shape[:3]))}"
+                         f", C] {ref.dtype} on {ref.device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_weight(w: torch.Tensor, x: torch.Tensor, c: int) -> int:
+    if (w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c) or w.dtype != x.dtype
+            or not w.is_contiguous()):
+        raise ValueError(f"w: expected contiguous [3, 3, {c}, F] {x.dtype}, "
+                         f"got {tuple(w.shape)} {w.dtype}")
+    if w.device != x.device:
+        raise ValueError("w and x on different devices")
+    return w.shape[3]
 
 
 def _check_vec(name: str, v, n: int, device) -> None:
@@ -188,6 +246,31 @@ def _prologue_args(affine, drop, c, device):
             drop.scale]
 
 
+def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
+                 reduce=None, y2=None, want_sums=False):
+    """One launch of the CUDA conv kernel (csrc/conv3x3.cu
+    ``hpfg_conv3x3_nhwc``) into the preallocated output(s) ``y`` (and
+    ``y2``). ``reduce`` = (pre, a, b, mean, inv) selects K11's epilogue.
+    Returns the [2, F] column sums of the per-block partials when
+    ``want_sums``, else None."""
+    lib = library(x.device)
+    b, h, wd, c1 = x.shape
+    c, f = w.shape[2], w.shape[3]
+    part = None
+    if want_sums:
+        tiles = -(-h // lib.tile_h) * -(-wd // lib.tile_w)
+        part = torch.empty((b * tiles, 2 * f), dtype=torch.float32,
+                           device=x.device)
+    om = ([1, out_drop.seed, out_drop.thresh, out_drop.scale]
+          if out_drop is not None else [0, 0, 0, 0.0])
+    red = [ptr(t) for t in reduce] if reduce is not None else [None] * 5
+    lib.call("hpfg_conv3x3_nhwc", ptr(x), ptr(x2), c1, ptr(w), ptr(bias),
+             *(pro or [None, None, 0, 0, 0, 0.0]), *om, *red, ptr(y), ptr(y2),
+             y.shape[-1], ptr(part), b, h, wd, c, f,
+             int(x.dtype == torch.bfloat16), stream(x))
+    return colsum(part).view(2, f) if want_sums else None
+
+
 @launch_counter
 def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
                  want_stats=False):
@@ -201,31 +284,104 @@ def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
     result when ``want_stats``, else None)."""
     _check_act("x", x)
     b, h, wd, c = x.shape
-    if (w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c) or w.dtype != x.dtype
-            or not w.is_contiguous()):
-        raise ValueError(f"w: expected contiguous [3, 3, {c}, F] {x.dtype}, "
-                         f"got {tuple(w.shape)} {w.dtype}")
-    f = w.shape[3]
-    if w.device != x.device:
-        raise ValueError("w and x on different devices")
+    f = _check_weight(w, x, c)
     _check_vec("bias", bias, f, x.device)
     pro = _prologue_args(affine, drop, c, x.device)
     if x.device.type == "cpu":
         return conv3x3_reference(x, w, bias, affine, drop, out_drop,
                                  want_stats)
-    lib = library(x.device)
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
-    tiles = -(-h // lib.tile_h) * -(-wd // lib.tile_w)
-    part = (torch.empty((b * tiles, 2 * f), dtype=torch.float32,
-                        device=x.device) if want_stats else None)
-    om = ([1, out_drop.seed, out_drop.thresh, out_drop.scale]
-          if out_drop is not None else [0, 0, 0, 0.0])
-    lib.call("hpfg_conv3x3_nhwc", ptr(x), ptr(w), ptr(bias), *pro, *om,
-             ptr(y), ptr(part), b, h, wd, c, f,
-             int(x.dtype == torch.bfloat16), stream(x))
+    stats = _launch_conv(x, w, y, bias=bias, pro=pro, out_drop=out_drop,
+                         want_sums=want_stats)
     conv3x3_nhwc.launches += 1
-    stats = colsum(part).view(2, f) if want_stats else None
     return y, stats
+
+
+@launch_counter
+def conv3x3_pair_nhwc(xa, xb, w, bias=None, want_stats=False):
+    """K8: kernel A over the implicit channel concat of ``xa`` [B,H,W,Ca]
+    and ``xb`` [B,H,W,Cb] (the UpBlock's skip and upsampled halves) with
+    ``w`` [3,3,Ca+Cb,F]; the concat is never materialised. Returns (y, [2, F]
+    statistics or None) as kernel A."""
+    _check_act("xa", xa)
+    _check_like("xb", xb, xa)
+    b, h, wd, ca = xa.shape
+    f = _check_weight(w, xa, ca + xb.shape[-1])
+    _check_vec("bias", bias, f, xa.device)
+    if xa.device.type == "cpu":
+        return conv3x3_pair_reference(xa, xb, w, bias, want_stats)
+    y = torch.empty((b, h, wd, f), dtype=xa.dtype, device=xa.device)
+    stats = _launch_conv(xa, w, y, x2=xb, bias=bias, want_sums=want_stats)
+    conv3x3_pair_nhwc.launches += 1
+    return y, stats
+
+
+@launch_counter
+def conv3x3_dgrad_pair(dp, wf, ca: int):
+    """K9: the pair conv's input gradients from ``dp`` [B,H,W,F] and the
+    flip-transposed weights ``wf`` [3,3,F,Ca+Cb], in one pass: returns
+    (dx_skip [B,H,W,Ca], dx_up [B,H,W,Cb]), each contiguous."""
+    _check_act("dp", dp)
+    b, h, wd, f = dp.shape
+    c = _check_weight(wf, dp, f)
+    if not 0 < ca < c:
+        raise ValueError(f"split {ca} outside (0, {c})")
+    if dp.device.type == "cpu":
+        return conv3x3_dgrad_pair_reference(dp, wf, ca)
+    dxa = torch.empty((b, h, wd, ca), dtype=dp.dtype, device=dp.device)
+    dxb = torch.empty((b, h, wd, c - ca), dtype=dp.dtype, device=dp.device)
+    _launch_conv(dp, wf, dxa, y2=dxb)
+    conv3x3_dgrad_pair.launches += 1
+    return dxa, dxb
+
+
+@launch_counter
+def conv3x3_dgrad_reduce(dp, wf, pre, a, b, mean, inv, out_drop=None):
+    """K11: conv2's input gradient ``dd`` = conv(dp, wf) times
+    ``out_drop``'s mask (kernel A in dgrad form), with the previous stage's
+    train-BN backward reduction in its epilogue: per channel
+    S0 = sum(dz), S1 = sum(dz * xhat) where dz = dd * lrelu'(a*pre + b) and
+    xhat = (pre - mean) * inv, taken on dd as stored (rounded to its dtype).
+    ``pre`` [B,H,W,C] is that stage's conv output, a/b/mean/inv fp32 [C].
+    Returns (dd [B,H,W,C], sums [2, C] fp32 = [dbias, dscale]);
+    ``bn_act_dpre`` finishes that stage's backward from them."""
+    _check_act("dp", dp)
+    bb, h, wd, f = dp.shape
+    c = _check_weight(wf, dp, f)
+    _check_like("pre", pre, dp)
+    if pre.shape[-1] != c:
+        raise ValueError(f"pre: expected {c} channels, got {pre.shape[-1]}")
+    for name, v in (("a", a), ("b", b), ("mean", mean), ("inv", inv)):
+        _check_vec(name, v, c, dp.device)
+    if dp.device.type == "cpu":
+        return conv3x3_dgrad_reduce_reference(dp, wf, pre, a, b, mean, inv,
+                                              out_drop)
+    dd = torch.empty((bb, h, wd, c), dtype=dp.dtype, device=dp.device)
+    sums = _launch_conv(dp, wf, dd, out_drop=out_drop,
+                        reduce=(pre, a, b, mean, inv), want_sums=True)
+    conv3x3_dgrad_reduce.launches += 1
+    return dd, sums
+
+
+def _launch_wgrad(src, dp, *, src2=None, pro=None):
+    """One launch of the CUDA wgrad kernel (``hpfg_conv3x3_wgrad_nhwc``),
+    then the fixed-order column sum: [9 * C * F] fp32, [3,3,C1,F] then
+    [3,3,C-C1,F] for a pair (C1 = src's channels)."""
+    lib = library(src.device)
+    b, h, wd, c1 = src.shape
+    c = c1 + (0 if src2 is None else src2.shape[-1])
+    f = dp.shape[3]
+    total = b * -(-h // lib.tile_h) * -(-wd // lib.tile_w)
+    bn = 16 if f <= 16 else 32
+    ch_tiles = -(-c // WGRAD_CC) * -(-f // bn)
+    per_block = max(1, -(-total * ch_tiles // WGRAD_TARGET_BLOCKS))
+    rows = -(-total // per_block)
+    part = torch.empty((rows, 9 * c * f), dtype=torch.float32,
+                       device=src.device)
+    lib.call("hpfg_conv3x3_wgrad_nhwc", ptr(src), ptr(src2), c1, ptr(dp),
+             *(pro or [None, None, 0, 0, 0, 0.0]), ptr(part), b, h, wd, c, f,
+             per_block, int(src.dtype == torch.bfloat16), stream(src))
+    return colsum(part)
 
 
 @launch_counter
@@ -236,29 +392,30 @@ def conv3x3_wgrad_nhwc(src, dp, affine=None, drop=None):
     is ``dp`` [B,H,W,F] (same dtype). Per-block partials over spatial tiles,
     then a fixed-order column sum."""
     _check_act("src", src)
-    _check_act("dp", dp)
-    b, h, wd, c = src.shape
-    if dp.shape[:3] != src.shape[:3] or dp.dtype != src.dtype or \
-            dp.device != src.device:
-        raise ValueError(f"dp: expected [B,H,W,F] {src.dtype} matching src, "
-                         f"got {tuple(dp.shape)} {dp.dtype}")
-    f = dp.shape[3]
+    _check_like("dp", dp, src)
+    c, f = src.shape[3], dp.shape[3]
     pro = _prologue_args(affine, drop, c, src.device)
     if src.device.type == "cpu":
         return conv3x3_wgrad_reference(src, dp, affine, drop)
-    lib = library(src.device)
-    total = b * -(-h // lib.tile_h) * -(-wd // lib.tile_w)
-    bn = 16 if f <= 16 else 32
-    ch_tiles = -(-c // WGRAD_CC) * -(-f // bn)
-    per_block = max(1, -(-total * ch_tiles // WGRAD_TARGET_BLOCKS))
-    rows = -(-total // per_block)
-    part = torch.empty((rows, 9 * c * f), dtype=torch.float32,
-                       device=src.device)
-    lib.call("hpfg_conv3x3_wgrad_nhwc", ptr(src), ptr(dp), *pro,
-             ptr(part), b, h, wd, c, f, per_block,
-             int(src.dtype == torch.bfloat16), stream(src))
+    dw = _launch_wgrad(src, dp, pro=pro).view(3, 3, c, f)
     conv3x3_wgrad_nhwc.launches += 1
-    return colsum(part).view(3, 3, c, f)
+    return dw
+
+
+@launch_counter
+def conv3x3_wgrad_pair(xa, xb, dp):
+    """K10: the pair conv's weight gradients (identity operands) in one
+    launch: returns (dW_skip [3,3,Ca,F], dW_up [3,3,Cb,F]) fp32."""
+    _check_act("xa", xa)
+    _check_like("xb", xb, xa)
+    _check_like("dp", dp, xa)
+    ca, cb, f = xa.shape[3], xb.shape[3], dp.shape[3]
+    if xa.device.type == "cpu":
+        return conv3x3_wgrad_pair_reference(xa, xb, dp)
+    dw = _launch_wgrad(xa, dp, src2=xb)
+    conv3x3_wgrad_pair.launches += 1
+    return (dw[:9 * ca * f].view(3, 3, ca, f),
+            dw[9 * ca * f:].view(3, 3, cb, f))
 
 
 # ---------------------------------------------------------------------------
@@ -293,17 +450,25 @@ def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
                   run_stats, train: bool, drop):
     """ConvBlock forward on kernels A and C (conv_block.py ``_forward``).
 
-    ``x`` NHWC in the compute dtype; weights and BN parameters fp32.
-    ``run_stats`` (mean1, var1, mean2, var2) normalizes in eval mode;
-    ``drop`` is a :class:`HashDropout` or None. Returns (y, stats, residuals):
-    stats are the batch statistics in train mode (copies of ``run_stats`` in
-    eval mode) and residuals (x, w1, w2 in the compute dtype, conv1 output h,
-    conv2 output g) feed :func:`block_backward`."""
-    dtype = x.dtype
+    ``x`` NHWC in the compute dtype, or a pair (skip, up) of such tensors
+    whose channel concat is conv1's input (kernel K8); weights and BN
+    parameters fp32. ``run_stats`` (mean1, var1, mean2, var2) normalizes in
+    eval mode; ``drop`` is a :class:`HashDropout` or None. Returns (y, stats,
+    residuals): stats are the batch statistics in train mode (copies of
+    ``run_stats`` in eval mode) and residuals (x, w1, w2 in the compute
+    dtype, conv1 output h, conv2 output g) feed :func:`block_backward`."""
+    pair = isinstance(x, (tuple, list))
+    x0 = x[0] if pair else x
+    dtype = x0.dtype
     w1c = w1.to(dtype).contiguous()
     w2c = w2.to(dtype).contiguous()
-    n = x.numel() // x.shape[-1]
-    h, s1 = conv3x3_nhwc(x, w1c, b1.float().contiguous(), want_stats=train)
+    n = x0.numel() // x0.shape[-1]
+    if pair:
+        h, s1 = conv3x3_pair_nhwc(x[0], x[1], w1c, b1.float().contiguous(),
+                                  want_stats=train)
+    else:
+        h, s1 = conv3x3_nhwc(x, w1c, b1.float().contiguous(),
+                             want_stats=train)
     if train:
         mean1, var1 = finalize_stats(s1, n)
     else:
@@ -321,12 +486,16 @@ def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
 
 
 def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
-                   need_dx: bool = True):
-    """Train-mode ConvBlock backward on kernels A, B and D, in the order of
-    conv_block.py ``_bwd``: BN2 backward, conv2 dgrad (times the forward
-    dropout mask) and wgrad (recomputing lrelu(BN1(h))*mask), BN1 backward,
-    conv1 dgrad (only if ``need_dx``) and wgrad. Returns (dx or None, dw1,
-    dscale1, dbias1, dw2, dscale2, dbias2)."""
+                   need_dx=True):
+    """Train-mode ConvBlock backward, in the order of conv_block.py ``_bwd``
+    with its default folds: BN2 backward (D), conv2 dgrad times the forward
+    dropout mask with BN1's backward reduce in its epilogue (K11), conv2
+    wgrad recomputing lrelu(BN1(h))*mask (B), BN1's elementwise backward
+    (D, dpre only), conv1 dgrad (A; K9 for a pair) and wgrad (B; K10 for a
+    pair). ``need_dx``: whether conv1's input needs a gradient (a pair of
+    flags for a pair input). Returns (dx, dw1, dscale1, dbias1, dw2,
+    dscale2, dbias2); dx is None where no gradient is needed, and a pair
+    (dx_skip, dx_up) for a pair input."""
     x, w1c, w2c, h, g = residuals
     mean1, var1, mean2, var2 = stats
     dy = dy.to(h.dtype).contiguous()
@@ -336,12 +505,22 @@ def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
     s2, dg = bn_act_bwd(dy, g, a2, c2, mean2.float().contiguous(), inv2)
     a1, c1 = bn_affine(scale1, bias1, mean1, var1)
     inv1 = (1.0 / torch.sqrt(var1 + BN_EPS)).float().contiguous()
-    dd, _ = conv3x3_nhwc(dg, flip_transpose(w2c), out_drop=drop)
+    m1 = mean1.float().contiguous()
+    dd, s1 = conv3x3_dgrad_reduce(dg, flip_transpose(w2c), h, a1, c1, m1,
+                                  inv1, out_drop=drop)
     dw2 = conv3x3_wgrad_nhwc(h, dg, affine=(a1, c1), drop=drop)
 
-    s1, dh = bn_act_bwd(dd, h, a1, c1, mean1.float().contiguous(), inv1)
-    dx = conv3x3_nhwc(dh, flip_transpose(w1c))[0] if need_dx else None
-    dw1 = conv3x3_wgrad_nhwc(x, dh)
+    dh = bn_act_dpre(dd, h, a1, c1, m1, inv1, s1)
+    if isinstance(x, (tuple, list)):
+        need = (need_dx, need_dx) if isinstance(need_dx, bool) else need_dx
+        dx = None
+        if any(need):
+            dx = conv3x3_dgrad_pair(dh, flip_transpose(w1c), x[0].shape[-1])
+            dx = tuple(d if nd else None for d, nd in zip(dx, need))
+        dw1 = torch.cat(conv3x3_wgrad_pair(x[0], x[1], dh), dim=2)
+    else:
+        dx = conv3x3_nhwc(dh, flip_transpose(w1c))[0] if need_dx else None
+        dw1 = conv3x3_wgrad_nhwc(x, dh)
     return dx, dw1, s1[1], s1[0], dw2, s2[1], s2[0]
 
 
@@ -349,20 +528,23 @@ class FusedConvBlock(torch.autograd.Function):
     """The fused ConvBlock (conv_block.py ``fused_conv_block``).
 
     apply(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2, run_stats, train,
-    drop) -> (y, mean1, var1, mean2, var2); see :func:`block_forward`. No
+    drop, x2=None) -> (y, mean1, var1, mean2, var2); see
+    :func:`block_forward`. With ``x2`` the input is the pair (x, x2): skip
+    and upsampled halves of an UpBlock, each with its own gradient. No
     gradient flows through the returned statistics; the backward is train
     mode only, and the conv-bias gradients are exactly zero (the biases feed
     BN, whose batch mean absorbs them)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
-                run_stats, train, drop):
-        y, stats, residuals = block_forward(x, w1, b1, scale1, bias1, w2, b2,
-                                            scale2, bias2, run_stats, train,
-                                            drop)
+                run_stats, train, drop, x2=None):
+        inp = x if x2 is None else (x, x2)
+        y, stats, residuals = block_forward(inp, w1, b1, scale1, bias1, w2,
+                                            b2, scale2, bias2, run_stats,
+                                            train, drop)
         ctx.train, ctx.drop = train, drop
-        ctx.save_for_backward(*residuals, scale1, bias1, scale2, bias2,
-                              *stats)
+        ctx.save_for_backward(x, x2, *residuals[1:], scale1, bias1, scale2,
+                              bias2, *stats)
         ctx.mark_non_differentiable(*stats)
         return (y, *stats)
 
@@ -370,13 +552,18 @@ class FusedConvBlock(torch.autograd.Function):
     def backward(ctx, dy, *_unused):
         if not ctx.train:
             raise RuntimeError("FusedConvBlock backward: train mode only")
-        saved = ctx.saved_tensors
+        x, x2, *saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        pair = x2 is not None
+        residuals = ((x, x2) if pair else x, *saved[:4])
+        need_dx = (needs[0], needs[12]) if pair else needs[0]
         dx, dw1, dscale1, dbias1, dw2, dscale2, dbias2 = block_backward(
-            dy, saved[:5], *saved[5:9], saved[9:], ctx.drop,
-            need_dx=ctx.needs_input_grad[0])
+            dy, residuals, *saved[4:8], saved[8:], ctx.drop, need_dx=need_dx)
+        dx, dx2 = dx if pair and dx is not None else (dx, None)
         zero = torch.zeros_like(dbias1)
-        return (dx, dw1, zero, dscale1, dbias1, dw2, zero.clone(), dscale2,
-                dbias2, None, None, None)
+        grads = (dx, dw1, zero, dscale1, dbias1, dw2, zero.clone(), dscale2,
+                 dbias2, None, None, None, dx2)
+        return grads[:len(needs)]
 
 
 class Conv3x3Plain(torch.autograd.Function):

@@ -73,3 +73,39 @@ def softmax_mse_loss(input_logits: torch.Tensor, target_logits: torch.Tensor,
         a = torch.softmax(input_logits.float(), dim=-1)
         b = torch.softmax(target_logits.float(), dim=-1)
     return (a - b) ** 2
+
+
+def _l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12
+                  ) -> torch.Tensor:
+    norm = torch.sqrt((x * x).sum(dim, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
+
+
+def _nt_xent(out_1: torch.Tensor, out_2: torch.Tensor,
+             temperature: float) -> torch.Tensor:
+    """SimCLR NT-Xent over the 2B x 2B similarity matrix of normalised rows
+    out_1, out_2 [B, D]; the diagonal is zeroed, which leaves the row sums
+    of the masked-select form."""
+    b = out_1.shape[0]
+    out = torch.cat([out_1, out_2], dim=0)
+    sim = torch.exp(out @ out.T / temperature)
+    sim = sim * (1.0 - torch.eye(2 * b, dtype=sim.dtype, device=sim.device))
+    pos = torch.exp((out_1 * out_2).sum(-1) / temperature)
+    pos = torch.cat([pos, pos], dim=0)
+    return (-torch.log(pos / sim.sum(-1))).mean()
+
+
+def dense_contrastive_loss(student, teacher,
+                           temperature: float = 0.7) -> torch.Tensor:
+    """HPFG's dense contrastive loss between projection-neck outputs
+    (global [B, D], dense [B, S, D]) of a student and its teacher (the
+    teacher side is detached): 0.5 * (NT-Xent of the global vectors +
+    NT-Xent of the flattened, per-position normalised dense maps)."""
+    sg, sd = student
+    tg, td = (t.detach() for t in teacher)
+    sg = _l2_normalize(sg.float(), -1)
+    tg = _l2_normalize(tg.float(), -1)
+    sd = _l2_normalize(sd.float(), -1).reshape(sd.shape[0], -1)
+    td = _l2_normalize(td.float(), -1).reshape(td.shape[0], -1)
+    return 0.5 * (_nt_xent(sg, tg, temperature)
+                  + _nt_xent(sd, td, temperature))

@@ -6,11 +6,11 @@ Usage:
         --set data_path=... --set total_itrs=100 --set step_size=50
 
 Reads the same YAML configs and dotted ``--set`` overrides as the JAX
-runner (``hpfg_tpu.config.parse_config``) and runs the data preflight
-(``hpfg_tpu.data.preflight``) where it imports. ``device`` (default
-``cuda``) picks the card; a CPU run must ask for ``--set device=cpu``: the
-runner never falls back to the CPU by itself. ``precision: bf16`` computes
-in bf16 with fp32 parameters and BN statistics.
+runner (the port's ``config.parse_config``) and checks the data tree first
+(``data.preflight``). ``device`` (default ``cuda``) picks the card; a CPU
+run must ask for ``--set device=cpu``: the runner never falls back to the
+CPU by itself. ``precision: bf16`` computes in bf16 with fp32 parameters and
+BN statistics.
 """
 
 from __future__ import annotations
@@ -23,19 +23,14 @@ DEFAULT_CONFIG = "configs/mean_teacher_unet_30k_224x224_ACDC.yaml"
 
 
 def run(argv=None, default_config: str = DEFAULT_CONFIG):
-    from hpfg_tpu.config import parse_config
-
+    from hpfg_tpu_torch.config import parse_config
+    from hpfg_tpu_torch.data.preflight import preflight_or_raise
     from hpfg_tpu_torch.train.algorithms import build_algorithm
     from hpfg_tpu_torch.train.trainer import Trainer
 
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = parse_config("hpfg_tpu_torch trainer", default_config, argv)
-    try:
-        from hpfg_tpu.data.preflight import preflight_or_raise
-    except ImportError:
-        preflight_or_raise = None
-    if preflight_or_raise is not None:
-        preflight_or_raise(cfg)
+    preflight_or_raise(cfg)
 
     device = torch.device(str(cfg.get("device", "cuda")))
     if device.type == "cuda" and not torch.cuda.is_available():

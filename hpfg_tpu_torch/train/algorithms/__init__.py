@@ -1,7 +1,7 @@
 """Training algorithms (port of ``hpfg_tpu/train/algorithms``).
 
 Each algorithm owns its modules and optimizer and advances one iteration
-per ``step(batch)``. Only Mean-Teacher is ported so far (ROADMAP.md)."""
+per ``step(batch)``. Ported so far: Mean-Teacher and HPFG (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import importlib
 
 ALGORITHMS: dict[str, type] = {}
 
-_MODULES = ("mean_teacher",)
+_MODULES = ("mean_teacher", "hpfg")
 
 
 def register(names):

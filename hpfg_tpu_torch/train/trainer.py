@@ -4,9 +4,9 @@
 step metrics every ``log_every`` iterations (one device read per flush)
 and evaluates every ``step_size`` iterations on the volume test loader,
 ending with a ``done: N iters`` line. Loaders come from
-``hpfg_tpu.data.build_loader`` unless the caller passes its own. Not ported
-yet (ROADMAP.md): checkpoints and resume, TensorBoard, the device cache,
-on-device augmentation and the prefetcher.
+the port's ``data.build_loader`` unless the caller passes its own. Not
+ported yet (ROADMAP.md): checkpoints and resume, TensorBoard, the device
+cache, on-device augmentation and the prefetcher.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class Trainer:
         self.logger = get_logger(os.path.join(self.workdir, "log.log"))
         self.log_every = log_every
         if loaders is None:
-            from hpfg_tpu.data import build_loader
+            from hpfg_tpu_torch.data.builder import build_loader
 
             loaders = build_loader(cfg)
         self.loaders = loaders
@@ -75,15 +75,24 @@ class Trainer:
                          self.total_itrs)
         t_start = time.time()
         start = algo.step_count
+        t_window, iter_window = t_start, start
         pending: list[tuple[int, dict]] = []
         while algo.step_count < self.total_itrs:
-            metrics = algo.step(next(batches))
+            batch = next(batches)
+            images = sum(len(v) for k, v in batch.items() if "img" in k
+                         or k == "image")
+            metrics = algo.step(batch)
             cur = algo.step_count
             pending.append((cur, metrics))
             if cur % self.log_every == 0 or cur == self.total_itrs:
                 last = self._flush_metrics(pending)
-                self.logger.info("iter %d/%d loss %.4f lr %.6f", cur,
-                                 self.total_itrs, last["loss"], last["lr"])
+                now = time.time()
+                self.logger.info(
+                    "iter %d/%d loss %.4f (%.1f img/s window, %.1f avg)",
+                    cur, self.total_itrs, last.get("loss", float("nan")),
+                    (cur - iter_window) * images / max(now - t_window, 1e-9),
+                    (cur - start) * images / max(now - t_start, 1e-9))
+                t_window, iter_window = now, cur
             if eval_enabled and cur % self.step_size == 0:
                 self._flush_metrics(pending)
                 self.evaluate(cur)

@@ -6,7 +6,8 @@ flax ``params/encoder/in_conv/conv1/kernel`` becomes the state-dict key
 ``encoder.in_conv.conv1.kernel`` and ``batch_stats/.../bn1/mean`` the
 buffer ``....bn1.mean``. No transposition is needed. Inputs are nested dicts
 of numpy-convertible arrays (``jax.device_get`` of a flax variable tree), so
-this module needs no jax.
+this module needs no jax. Flax ``Dense`` kernels are ``[in, out]``, and the
+port's ``Dense`` keeps that layout too.
 """
 
 from __future__ import annotations
@@ -58,3 +59,19 @@ def module_arrays(module: torch.nn.Module) -> dict[str, np.ndarray]:
     like ``flatten_tree`` of the flax variables."""
     return {k: v.detach().float().cpu().numpy()
             for k, v in module.state_dict().items()}
+
+
+#: the model fields of the JAX algorithm states and the port's algorithms
+#: (Mean-Teacher: model, ema; HPFG: model1, model2, ema)
+STATE_MODELS = ("model", "model1", "model2", "ema")
+
+
+def load_jax_state(algorithm, state) -> None:
+    """Load every model of a JAX algorithm state (a host copy, e.g.
+    ``jax.device_get(state)``) into the port's algorithm: each field of
+    STATE_MODELS that both have, parameters and BN statistics."""
+    for name in STATE_MODELS:
+        if hasattr(state, name) and hasattr(algorithm, name):
+            mstate = getattr(state, name)
+            load_jax_weights(getattr(algorithm, name), mstate.params,
+                             mstate.batch_stats)

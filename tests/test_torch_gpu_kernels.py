@@ -1,6 +1,9 @@
 """The port's hand-written kernels (A conv3x3_nhwc, B conv3x3_wgrad_nhwc,
-C bn_act, D bn_act_bwd) against their plain PyTorch versions on a CUDA card,
-at small ragged shapes (20x20 images do not fill the 8x16 tiles).
+C bn_act, D bn_act_bwd and bn_act_dpre, K8 conv3x3_pair_nhwc, K9
+conv3x3_dgrad_pair, K10 conv3x3_wgrad_pair, K11 conv3x3_dgrad_reduce)
+against their plain PyTorch versions on a CUDA card, at small ragged shapes
+(20x20 images do not fill the 8x16 tiles; channel splits that are not
+multiples of the 16-channel tile).
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -96,9 +99,58 @@ def test_bn_act_and_bwd_match_plain(dev, dtype, f):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_block_backward_matches_plain(dev, dtype):
+@pytest.mark.parametrize("ca,cu,f", [(16, 16, 16), (16, 32, 16),
+                                     (24, 8, 20)])
+def test_pair_kernels_match_plain(dev, dtype, ca, cu, f):
+    """K8 (forward + statistics), K9 (both input gradients) and K10 (both
+    weight gradients) against their plain versions."""
+    xa = _randn(dev, 2, 20, 20, ca).to(dtype)
+    xb = _randn(dev, 2, 20, 20, cu, seed=1).to(dtype)
+    w = _randn(dev, 3, 3, ca + cu, f, scale=(9 * (ca + cu)) ** -0.5).to(dtype)
+    bias = _randn(dev, f, scale=0.1)
+    y, st = cb.conv3x3_pair_nhwc(xa, xb, w, bias, want_stats=True)
+    y_r, st_r = cb.conv3x3_pair_reference(xa, xb, w, bias, want_stats=True)
+    _close(y, y_r, dtype)
+    _close(st, st_r, dtype)
+    dp = _randn(dev, 2, 20, 20, f, seed=2).to(dtype)
+    wf = cb.flip_transpose(w)
+    for got, ref in zip(cb.conv3x3_dgrad_pair(dp, wf, ca),
+                        cb.conv3x3_dgrad_pair_reference(dp, wf, ca)):
+        assert got.is_contiguous()
+        _close(got, ref, dtype)
+    for got, ref in zip(cb.conv3x3_wgrad_pair(xa, xb, dp),
+                        cb.conv3x3_wgrad_pair_reference(xa, xb, dp)):
+        _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,f,keep", [(16, 16, 0.8), (32, 16, None),
+                                      (20, 40, 0.5)])
+def test_dgrad_reduce_and_dpre_match_plain(dev, dtype, c, f, keep):
+    """K11 (dgrad x dropout mask with the BN-backward reduce epilogue) and
+    D's dpre-only entry against their plain versions."""
+    dp = _randn(dev, 2, 20, 20, f).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    pre = _randn(dev, 2, 20, 20, c, seed=1).to(dtype)
+    a, b = 1 + _randn(dev, c, scale=0.1), _randn(dev, c, scale=0.1, seed=1)
+    m, inv = _randn(dev, c, scale=0.1, seed=2), 1 + _randn(dev, c).abs()
+    drop = None if keep is None else cb.HashDropout(5, keep)
+    wf = cb.flip_transpose(w)
+    dd, s = cb.conv3x3_dgrad_reduce(dp, wf, pre, a, b, m, inv, out_drop=drop)
+    dd_r, s_r = cb.conv3x3_dgrad_reduce_reference(dp, wf, pre, a, b, m, inv,
+                                                  out_drop=drop)
+    _close(dd, dd_r, dtype)
+    _close(s, s_r, dtype)
+    _close(ba.bn_act_dpre(dd, pre, a, b, m, inv, s),
+           ba.bn_act_dpre_reference(dd, pre, a, b, m, inv, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pair", [False, True])
+def test_block_backward_matches_plain(dev, dtype, pair):
     """The ConvBlock backward on kernels against the same backward on the
-    CPU (plain versions), from the same forward residuals."""
+    CPU (plain versions), from the same forward residuals; with a pair
+    input (16 + 16 channels) it runs K8 to K11."""
     c, f = 16, 32
     p = [_randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5),
          _randn(dev, f, scale=0.1), 1 + _randn(dev, f, scale=0.1, seed=1),
@@ -110,17 +162,25 @@ def test_block_backward_matches_plain(dev, dtype):
     x = _randn(dev, 2, 20, 20, c).to(dtype)
     dy = _randn(dev, 2, 20, 20, f, seed=6).to(dtype)
     drop = cb.HashDropout(11, 0.9)
+    if pair:
+        x = (x[..., :8].contiguous(), x[..., 8:].contiguous())
     y, st, res = cb.block_forward(x, *p, None, True, drop)
-    y_r, st_r, _ = cb.block_forward(x.cpu(), *(t.cpu() for t in p), None,
+    y_r, st_r, _ = cb.block_forward(_cpu(x), *(t.cpu() for t in p), None,
                                     True, drop)
     _close(y, y_r, dtype)
     args = (p[2], p[3], p[6], p[7])
     got = cb.block_backward(dy, res, *args, st, drop)
-    ref = cb.block_backward(dy.cpu(), [t.cpu() for t in res],
+    ref = cb.block_backward(dy.cpu(), [_cpu(t) for t in res],
                             *(t.cpu() for t in args),
                             [t.cpu() for t in st], drop)
     for g, r in zip(got, ref):
-        _close(g, r, dtype)
+        for gi, ri in zip(*((g, r) if pair and isinstance(g, tuple)
+                            else ((g,), (r,)))):
+            _close(gi, ri, dtype)
+
+
+def _cpu(t):
+    return tuple(u.cpu() for u in t) if isinstance(t, tuple) else t.cpu()
 
 
 @pytest.mark.parametrize("keep", [0.95, 0.5])
@@ -140,13 +200,19 @@ def test_kernel_hash_masks_are_bit_exact(dev, keep):
 def test_wrappers_count_their_launches(dev):
     x = _randn(dev, 1, 8, 8, 16)
     w = _randn(dev, 3, 3, 16, 16)
+    w2 = _randn(dev, 3, 3, 32, 16)
     v = torch.ones(16, device=dev)
-    before = [cb.conv3x3_nhwc.launches, cb.conv3x3_wgrad_nhwc.launches,
-              ba.bn_act.launches, ba.bn_act_bwd.launches]
+    fns = [cb.conv3x3_nhwc, cb.conv3x3_wgrad_nhwc, ba.bn_act, ba.bn_act_bwd,
+           ba.bn_act_dpre, cb.conv3x3_pair_nhwc, cb.conv3x3_dgrad_pair,
+           cb.conv3x3_wgrad_pair, cb.conv3x3_dgrad_reduce]
+    before = [fn.launches for fn in fns]
     cb.conv3x3_nhwc(x, w, want_stats=True)
     cb.conv3x3_wgrad_nhwc(x, x)
     ba.bn_act(x, v, v)
-    ba.bn_act_bwd(x, x, v, v, v, v)
-    after = [cb.conv3x3_nhwc.launches, cb.conv3x3_wgrad_nhwc.launches,
-             ba.bn_act.launches, ba.bn_act_bwd.launches]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    s, _ = ba.bn_act_bwd(x, x, v, v, v, v)
+    ba.bn_act_dpre(x, x, v, v, v, v, s)
+    cb.conv3x3_pair_nhwc(x, x, w2)
+    cb.conv3x3_dgrad_pair(x, cb.flip_transpose(w2), 16)
+    cb.conv3x3_wgrad_pair(x, x, x)
+    cb.conv3x3_dgrad_reduce(x, w, x, v, v, v, v)
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [1] * 9

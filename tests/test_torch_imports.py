@@ -1,8 +1,9 @@
 """The port stands apart from JAX: importing ``hpfg_tpu_torch`` and running
-one tiny Mean-Teacher step on the CPU loads neither ``jax`` nor the JAX
-package, the kernel wrappers take their plain versions for CPU tensors
-(their launch counters stay 0), and a tensor on neither the CPU nor a CUDA
-device is refused instead of falling back.
+one tiny Mean-Teacher step on the CPU, or its CLI's training and evaluation
+of Mean-Teacher and HPFG on a synthetic ACDC tree, loads neither ``jax`` nor
+the JAX package; the kernel wrappers take their plain versions for CPU
+tensors (their launch counters stay 0), and a tensor on neither the CPU nor
+a CUDA device is refused instead of falling back.
 """
 
 import json
@@ -47,7 +48,12 @@ print(json.dumps({
                        if k == "hpfg_tpu" or k.startswith("hpfg_tpu.")),
     "launches": [conv_block.conv3x3_nhwc.launches,
                  conv_block.conv3x3_wgrad_nhwc.launches,
-                 bn_act.bn_act.launches, bn_act.bn_act_bwd.launches]}))
+                 bn_act.bn_act.launches, bn_act.bn_act_bwd.launches,
+                 bn_act.bn_act_dpre.launches,
+                 conv_block.conv3x3_pair_nhwc.launches,
+                 conv_block.conv3x3_dgrad_pair.launches,
+                 conv_block.conv3x3_wgrad_pair.launches,
+                 conv_block.conv3x3_dgrad_reduce.launches]}))
 """
 
 
@@ -59,11 +65,68 @@ def test_port_step_imports_no_jax_and_launches_no_kernel():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] == [] and out["hpfg_tpu"] == []
     assert out["loss"] == out["loss"] and out["loss"] > 0
-    assert out["launches"] == [0, 0, 0, 0]
+    assert out["launches"] == [0] * 9
+
+
+_CLI = r"""
+import json, sys
+from hpfg_tpu_torch.run import run
+
+root, save = sys.argv[1], sys.argv[2]
+common = ["--set", f"data_path={root}", "--set", "device=cpu",
+          "--set", "precision=fp32", "--set", "label_num=0.25",
+          "--set", "batch_size=2", "--set", "unlabel_batch_size=4",
+          "--set", "train_crop_size=[32,32]", "--set", "test_crop_size=[32,32]",
+          "--set", "total_itrs=4", "--set", "step_size=2"]
+runs = {}
+for name, cfg, extra in (
+        ("mean_teacher", "configs/mean_teacher_unet_30k_224x224_ACDC.yaml",
+         ["--set", "feature_chns=[8,8,8,8,8]"]),
+        ("hpfg", "configs/hpfg_unet_plus_30k_224x224_ACDC.yaml",
+         ["--set", "model1.feature_chns=[8,8,8,8,8]",
+          "--set", "model2.feature_chns=[8,8,8,8,8]"])):
+    t = run(["--config", cfg, "--set", f"save_path={save}/{name}", *common,
+             *extra])
+    runs[name] = {"steps": t.algorithm.step_count,
+                  "evals": [h["iter"] for h in t.history],
+                  "models": sorted(t.history[-1]["results"]),
+                  "losses": [m["loss"] for _, m in t.metrics_log]}
+print(json.dumps({
+    "runs": runs,
+    "jax_side": sorted(k for k in sys.modules
+                       if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                              "hpfg_tpu"))}))
+"""
+
+
+def test_port_cli_trains_and_evaluates_without_jax(synthetic_acdc, tmp_path):
+    """The CLI trains and evaluates 4 iterations of Mean-Teacher and of
+    HPFG in a fresh process; no jax, flax or hpfg_tpu module loads."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI, synthetic_acdc, str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["jax_side"] == []
+    assert out["runs"]["mean_teacher"]["models"] == ["model1", "model2"]
+    assert out["runs"]["hpfg"]["models"] == ["ema", "model1", "model2"]
+    for r in out["runs"].values():
+        assert r["steps"] == 4 and r["evals"] == [2, 4]
+        assert all(v == v and v > 0 for v in r["losses"])
+    with open(tmp_path / "hpfg" / "log.log", encoding="utf-8") as f:
+        log = f.read()
+    assert "img/s" in log and "done: 4 iters" in log
 
 
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_WRAPPERS = (tcb.conv3x3_nhwc, tcb.conv3x3_wgrad_nhwc, tba.bn_act,
+             tba.bn_act_bwd, tba.bn_act_dpre, tcb.conv3x3_pair_nhwc,
+             tcb.conv3x3_dgrad_pair, tcb.conv3x3_wgrad_pair,
+             tcb.conv3x3_dgrad_reduce)
 
 
 @pytest.mark.parametrize("call", [
@@ -71,11 +134,19 @@ def _meta(*shape, dtype=torch.float32):
     lambda: tcb.conv3x3_wgrad_nhwc(_meta(1, 8, 8, 4), _meta(1, 8, 8, 8)),
     lambda: tba.bn_act(_meta(1, 8, 8, 8), _meta(8), _meta(8)),
     lambda: tba.bn_act_bwd(*(_meta(1, 8, 8, 8),) * 2, *(_meta(8),) * 4),
-], ids=["conv3x3", "wgrad", "bn_act", "bn_act_bwd"])
+    lambda: tba.bn_act_dpre(*(_meta(1, 8, 8, 8),) * 2, *(_meta(8),) * 4,
+                            _meta(2, 8)),
+    lambda: tcb.conv3x3_pair_nhwc(_meta(1, 8, 8, 4), _meta(1, 8, 8, 4),
+                                  _meta(3, 3, 8, 8)),
+    lambda: tcb.conv3x3_dgrad_pair(_meta(1, 8, 8, 8), _meta(3, 3, 8, 12), 4),
+    lambda: tcb.conv3x3_wgrad_pair(_meta(1, 8, 8, 4), _meta(1, 8, 8, 4),
+                                   _meta(1, 8, 8, 8)),
+    lambda: tcb.conv3x3_dgrad_reduce(_meta(1, 8, 8, 8), _meta(3, 3, 8, 4),
+                                     _meta(1, 8, 8, 4), *(_meta(4),) * 4),
+], ids=["conv3x3", "wgrad", "bn_act", "bn_act_bwd", "bn_act_dpre",
+        "pair_fwd", "dgrad_pair", "wgrad_pair", "dgrad_reduce"])
 def test_wrappers_refuse_non_cuda_devices(call):
-    before = (tcb.conv3x3_nhwc.launches, tcb.conv3x3_wgrad_nhwc.launches,
-              tba.bn_act.launches, tba.bn_act_bwd.launches)
+    before = [fn.launches for fn in _WRAPPERS]
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    assert (tcb.conv3x3_nhwc.launches, tcb.conv3x3_wgrad_nhwc.launches,
-            tba.bn_act.launches, tba.bn_act_bwd.launches) == before
+    assert [fn.launches for fn in _WRAPPERS] == before
