@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash.cuh"
+
 namespace {
 
 constexpr float kSlope = 0.01f;
@@ -112,19 +114,6 @@ struct Reduce {
   const float* m;
   const float* inv;
 };
-
-__device__ __forceinline__ float hash_keep(uint32_t seed, uint32_t thresh,
-                                           float scale, int image, int row,
-                                           int lanes, int lane) {
-  uint32_t v = (uint32_t)(row * lanes + lane);
-  uint32_t x = v + (seed + (uint32_t)image * 0x9E3779B9u);
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x < thresh ? scale : 0.f;
-}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T v);

@@ -1,19 +1,24 @@
-"""Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet`` and
-``unet_plus``).
+"""Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet``,
+``unet_plus``, ``swinunet``, ``swinunet_plus`` and ``swinunet_lidc``).
 
 ``build_model(cfg)`` reads a config mapping (``cfg.get``): ``model``,
-``in_channels``, ``num_classes`` and the ``feature_chns`` / ``dropout``
-hooks that scale the network for tests and benchmarks.
+``in_channels``, ``num_classes``, ``train_crop_size`` (the SwinUNets' image
+size) and hooks that scale the network for tests and benchmarks: the UNets'
+``feature_chns`` / ``dropout``, the SwinUNets' ``embed_dim``, ``depths``,
+``num_heads``, ``window_size``, ``drop_rate``, ``attn_drop_rate`` and
+``drop_path_rate``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hpfg_tpu_torch.models.swinunet import build_swinunet
 from hpfg_tpu_torch.models.unet import UNet, UNetPlus
 
 #: models ported so far; the rest of the zoo is queued in ROADMAP.md
-MODELS = {"unet": UNet, "unet_plus": UNetPlus}
+MODELS = {"unet": UNet, "unet_plus": UNetPlus, "swinunet": build_swinunet,
+          "swinunet_plus": build_swinunet, "swinunet_lidc": build_swinunet}
 
 #: registry names whose forward returns (logits, h1, h2), which the
 #: feature-contrastive algorithms (hpfg) unpack; the JAX package's list
@@ -22,27 +27,46 @@ FEATURE_MODELS = frozenset({
     "uniformer_plus",
 })
 
+#: the SwinUNet hooks: config key -> type
+_SWIN_HOOKS = {"embed_dim": int, "depths": tuple, "num_heads": tuple,
+               "window_size": int, "drop_rate": float,
+               "attn_drop_rate": float, "drop_path_rate": float}
+
 
 def returns_features(name: str) -> bool:
     """True when the registry model returns (logits, h1, h2)."""
     return str(name).lower() in FEATURE_MODELS
 
 
+def _image_size(cfg) -> int:
+    size = cfg.get("train_crop_size", 224)
+    if isinstance(size, (list, tuple)):
+        return int(size[0])
+    return int(size)
+
+
 def build_model(cfg, dtype: torch.dtype = torch.float32,
                 generator: torch.Generator | None = None) -> torch.nn.Module:
     """Instantiate a model from a config block; parameters are initialized
-    from ``generator`` (torch's default init draws)."""
+    from ``generator``."""
     name = str(cfg.get("model")).lower()
     if name not in MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported to hpfg_tpu_torch yet "
             "(see ROADMAP.md, Queue 1)")
+    in_channels = int(cfg.get("in_channels", 1))
+    num_classes = int(cfg.get("num_classes", 4))
+    if name.startswith("swinunet"):
+        hooks = {k: conv(cfg.get(k)) for k, conv in _SWIN_HOOKS.items()
+                 if cfg.get(k) is not None}
+        return build_swinunet(name, _image_size(cfg), in_channels,
+                              num_classes, dtype=dtype, generator=generator,
+                              **hooks)
     kwargs = {}
     if cfg.get("feature_chns") is not None:
         kwargs["feature_chns"] = tuple(cfg.get("feature_chns"))
     if cfg.get("dropout") is not None and \
             not isinstance(cfg.get("dropout"), (int, float)):
         kwargs["dropout"] = tuple(cfg.get("dropout"))
-    return MODELS[name](in_channels=int(cfg.get("in_channels", 1)),
-                        num_classes=int(cfg.get("num_classes", 4)),
+    return MODELS[name](in_channels=in_channels, num_classes=num_classes,
                         dtype=dtype, generator=generator, **kwargs)

@@ -191,20 +191,106 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel`` [in, out] and ``bias`` [out], torch's
-    default init U(+-1/sqrt(in))."""
+    """flax ``nn.Dense``: ``kernel`` [in, out] and ``bias`` [out] (none when
+    ``use_bias`` is False). Init: torch's default U(+-1/sqrt(in)) for both,
+    or with ``std`` the truncated normal of :func:`trunc_normal` for the
+    kernel and a zero bias (the SwinUNet's ``_DENSE_INIT``)."""
 
     def __init__(self, in_dim: int, out_dim: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_bias: bool = True, std: float | None = None):
         super().__init__()
         bound = 1.0 / math.sqrt(in_dim)
-        self.kernel = nn.Parameter(_uniform((in_dim, out_dim), bound,
-                                            generator))
-        self.bias = nn.Parameter(_uniform((out_dim,), bound, generator))
+        if std is None:
+            kernel = _uniform((in_dim, out_dim), bound, generator)
+        else:
+            kernel = trunc_normal((in_dim, out_dim), std, generator)
+        self.kernel = nn.Parameter(kernel)
+        self.bias = None
+        if use_bias:
+            self.bias = nn.Parameter(
+                _uniform((out_dim,), bound, generator) if std is None
+                else torch.zeros(out_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., in] -> [..., out] in x's dtype (torch.matmul)."""
-        return torch.matmul(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
+        y = torch.matmul(x, self.kernel.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+def trunc_normal(shape, std: float,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``truncated_normal(stddev=std, lower=-2, upper=2)``
+    (``trunc_normal_init``): a standard normal truncated to [-2, 2], drawn
+    by inverting its CDF, times ``std``. The values lie in [-2 std, 2 std]
+    and their std is 0.8796 std: JAX does not rescale by the truncation's
+    std, and ``torch.nn.init.trunc_normal_`` truncates at +-2 absolute, not
+    at +-2 std."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    z = torch.erfinv(lo + (hi - lo) * u) * math.sqrt(2.0)
+    return (z.clamp(-2.0, 2.0) * std).float()
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=1e-6, dtype=float32)``: ``scale`` and
+    ``bias`` [C]; statistics and result in fp32 whatever x's dtype, with
+    flax's fast variance E[x^2] - E[x]^2 clamped at 0."""
+
+    def __init__(self, ch: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+def device_uniform(shape, generator: torch.Generator | None,
+                   device) -> torch.Tensor:
+    """U[0, 1) draws made on ``device`` from a seed that ``generator``
+    draws on the host: the draw needs no host-to-device copy (a copy from
+    pageable memory would drain the card's queue)."""
+    seed = int(torch.randint(0, 1 << 62, (), generator=generator))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)``: in train mode each element is kept with
+    probability 1 - rate and scaled by 1/(1 - rate), else zeroed."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = device_uniform(x.shape, generator, x.device)
+    return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (flax ``DropPath``): in train mode each
+    sample's branch is kept with probability 1 - rate and scaled by
+    1/(1 - rate), else zeroed; one Bernoulli draw per sample."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, train: bool,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        u = device_uniform(shape, generator, x.device)
+        return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
 class ProjectionNeck(nn.Module):

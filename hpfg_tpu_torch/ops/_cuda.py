@@ -24,7 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("conv3x3.cu",)
+SOURCES = ("conv3x3.cu", "window_attention.cu")
+HEADERS = ("hash.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -41,6 +42,12 @@ _SIGNATURES = {
     "hpfg_conv3x3_wgrad_nhwc": [_P, _P, _I, _P, _P, _P, _I, _U, _U, _F, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_colsum_f32": [_P, _P, _I, _I, _I, _P],
+    "hpfg_attn_max_l": [],
+    "hpfg_attn_max_d": [],
+    "hpfg_window_attention_fwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
+                                  _U, _U, _F, _I, _I, _P],
+    "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _I, _U, _U, _F, _I, _I, _I, _P],
 }
 
 
@@ -58,6 +65,8 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         self.tile_h = self.lib.hpfg_tile_h()
         self.tile_w = self.lib.hpfg_tile_w()
+        self.attn_max_l = self.lib.hpfg_attn_max_l()
+        self.attn_max_d = self.lib.hpfg_attn_max_d()
 
     def call(self, name: str, *args) -> None:
         """Call one launcher; raise if the launch was refused."""
@@ -77,7 +86,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

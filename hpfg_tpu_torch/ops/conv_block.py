@@ -88,24 +88,32 @@ def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def hash_mask(seed: int, batch: int, h: int, lanes: int, keep: float,
-              device=None) -> torch.Tensor:
-    """The pre-scaled dropout mask [batch, h, lanes] (1/keep or 0, fp32) the
-    kernels regenerate: murmur3-style finalizer of
-    v = row*lanes + lane plus (seed + image*0x9E3779B9), in uint32
-    (conv_block.py ``_hash_mask``; ``lanes`` = W*C of the masked tensor)."""
+def hash_keep(seed: int, b_idx: torch.Tensor, v: torch.Tensor,
+              keep: float) -> torch.Tensor:
+    """The pre-scaled keep mask (1/keep or 0, fp32) of the hash the kernels
+    share (``csrc/hash.cuh``; conv_block.py ``_hash_mask``): the murmur3-style
+    finalizer of v plus (seed + b_idx*0x9E3779B9), in uint32. ``b_idx`` (the
+    image, or an attention mask's window block and head) and ``v`` (row *
+    lanes + lane) are non-negative int64 tensors that broadcast together."""
     spec = HashDropout(seed, keep)
-    rows = torch.arange(h, dtype=torch.int64, device=device).view(1, h, 1)
-    lane = torch.arange(lanes, dtype=torch.int64, device=device).view(1, 1, -1)
-    img = torch.arange(batch, dtype=torch.int64, device=device).view(-1, 1, 1)
-    v = (rows * lanes + lane) & _M32
-    x = (v + ((int(seed) + img * _GOLD) & _M32)) & _M32
+    x = ((v & _M32) + ((int(seed) + b_idx * _GOLD) & _M32)) & _M32
     x = x ^ (x >> 16)
     x = _mul32(x, _MUR1)
     x = x ^ (x >> 13)
     x = _mul32(x, _MUR2)
     x = x ^ (x >> 16)
     return torch.where(x < spec.thresh, spec.scale, 0.0).to(torch.float32)
+
+
+def hash_mask(seed: int, batch: int, h: int, lanes: int, keep: float,
+              device=None) -> torch.Tensor:
+    """The pre-scaled dropout mask [batch, h, lanes] (1/keep or 0, fp32) the
+    conv kernels regenerate: :func:`hash_keep` of v = row*lanes + lane with
+    the image as ``b_idx`` (``lanes`` = W*C of the masked tensor)."""
+    rows = torch.arange(h, dtype=torch.int64, device=device).view(1, h, 1)
+    lane = torch.arange(lanes, dtype=torch.int64, device=device).view(1, 1, -1)
+    img = torch.arange(batch, dtype=torch.int64, device=device).view(-1, 1, 1)
+    return hash_keep(seed, img, rows * lanes + lane, keep)
 
 
 def _nhwc_mask(drop: HashDropout, shape, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Training algorithms (port of ``hpfg_tpu/train/algorithms``).
 
 Each algorithm owns its modules and optimizer and advances one iteration
-per ``step(batch)``. Ported so far: Mean-Teacher and HPFG (ROADMAP.md)."""
+per ``step(batch)``. Ported so far: Mean-Teacher, HPFG and S4CVNet
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import importlib
 
 ALGORITHMS: dict[str, type] = {}
 
-_MODULES = ("mean_teacher", "hpfg")
+_MODULES = ("mean_teacher", "hpfg", "s4cvnet")
 
 
 def register(names):

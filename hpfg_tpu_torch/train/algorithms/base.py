@@ -36,15 +36,22 @@ class Algorithm:
     Subclasses define ``step(batch) -> metrics`` (metrics are 0-d tensors or
     floats, read by the trainer when it logs), ``batches(loaders)`` and
     ``eval_models() -> {name: module}``. ``cfg`` is any mapping with
-    ``get``."""
+    ``get``. The algorithm runs on the card unless the caller asks for
+    another ``device``; without a card the default raises, it never builds
+    on the CPU by itself."""
 
     name: str = "base"
 
     def __init__(self, cfg, dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"algorithm {self.name!r}: device {self.device} asked for "
+                "(the default) but no CUDA device is available; pass "
+                "device='cpu' for a CPU run")
         self.num_classes = int(cfg.get("num_classes", 4))
         crop = cfg.get("train_crop_size", [224, 224])
         self.crop = (tuple(crop) if isinstance(crop, (list, tuple))

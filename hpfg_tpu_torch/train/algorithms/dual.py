@@ -31,7 +31,7 @@ class DualAlgorithm(Algorithm):
     #: (logits, h1, h2) output of both students
     requires_features = False
 
-    def __init__(self, cfg, dtype=torch.float32, device="cpu"):
+    def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)
         cfg1, cfg2 = cfg.get("model1"), cfg.get("model2")
         flat = {k: cfg.get(k) for k in self._FLAT_KEYS

@@ -54,7 +54,7 @@ class HPFG(DualAlgorithm):
     cps_scale: float = 7.0
     backbone_keys = ("encoder", "decoder")
 
-    def __init__(self, cfg, dtype=torch.float32, device="cpu"):
+    def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)
         self.ema = tree_copy(self.model2)
         for p in self.ema.parameters():

@@ -30,7 +30,7 @@ from hpfg_tpu_torch.train.optim import build_optimizer, set_lr
 class MeanTeacher(Algorithm):
     name = "mean_teacher"
 
-    def __init__(self, cfg, dtype=torch.float32, device="cpu"):
+    def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)
         self.model = self._build(cfg)
         self.ema = tree_copy(self.model)

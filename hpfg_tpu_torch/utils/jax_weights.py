@@ -62,7 +62,8 @@ def module_arrays(module: torch.nn.Module) -> dict[str, np.ndarray]:
 
 
 #: the model fields of the JAX algorithm states and the port's algorithms
-#: (Mean-Teacher: model, ema; HPFG: model1, model2, ema)
+#: (Mean-Teacher: model, ema; HPFG and S4CVNet: model1, model2, ema). A
+#: model without BatchNorm (the SwinUNet) has empty ``batch_stats``.
 STATE_MODELS = ("model", "model1", "model2", "ema")
 
 

@@ -1,9 +1,11 @@
 """The port's hand-written kernels (A conv3x3_nhwc, B conv3x3_wgrad_nhwc,
 C bn_act, D bn_act_bwd and bn_act_dpre, K8 conv3x3_pair_nhwc, K9
-conv3x3_dgrad_pair, K10 conv3x3_wgrad_pair, K11 conv3x3_dgrad_reduce)
-against their plain PyTorch versions on a CUDA card, at small ragged shapes
-(20x20 images do not fill the 8x16 tiles; channel splits that are not
-multiples of the 16-channel tile).
+conv3x3_dgrad_pair, K10 conv3x3_wgrad_pair, K11 conv3x3_dgrad_reduce, K13
+window_attention_fwd, K14 window_attention_bwd) against their plain PyTorch
+versions on a CUDA card, at small ragged shapes (20x20 images do not fill
+the 8x16 tiles; channel splits that are not multiples of the 16-channel
+tile; windows of 9, 49 and 64 tokens, window counts that are not multiples
+of the hash's 16-window block).
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -12,7 +14,9 @@ jax, so the JAX-side conftest is left out):
 
 Tolerances, relative to the reference's largest magnitude: fp32 1e-4
 (another summation order), bf16 2e-2 (bf16 rounding of outputs that were
-summed in another order). Hash dropout masks are bit-exact.
+summed in another order). Hash dropout masks (the ConvBlock's and the
+attention's) are bit-exact, and the attention's bias gradient is bitwise
+the same from run to run.
 """
 
 import pytest
@@ -20,6 +24,7 @@ import torch
 
 from hpfg_tpu_torch.ops import bn_act as ba
 from hpfg_tpu_torch.ops import conv_block as cb
+from hpfg_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.gpu
 
@@ -216,3 +221,80 @@ def test_wrappers_count_their_launches(dev):
     cb.conv3x3_wgrad_pair(x, x, x)
     cb.conv3x3_dgrad_reduce(x, w, x, v, v, v, v)
     assert [fn.launches - b for fn, b in zip(fns, before)] == [1] * 9
+
+
+def _attn_inputs(dev, dtype, bn, l, n_mask, heads=3, d=32):
+    c = heads * d
+    qkv = _randn(dev, bn, l, 3 * c).to(dtype)
+    bias = _randn(dev, heads, l, l, scale=0.5, seed=1)
+    mask = torch.where(_randn(dev, n_mask, l, l, seed=2) > 0.8, -100.0, 0.0)
+    do = _randn(dev, bn, l, c, seed=3).to(dtype)
+    return qkv, bias, mask, do
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l", [9, 49, 64])
+@pytest.mark.parametrize("bn,n_mask", [(6, 3), (19, 1), (2048, 64)])
+def test_window_attention_matches_plain(dev, dtype, l, bn, n_mask):
+    """K13 (output) and K14 (dq, dk, dv, dbias) against their plain
+    versions, shifted (a per-image mask) and unshifted, with attention
+    dropout at keep 0.9 and without."""
+    heads = 3
+    qkv, bias, mask, do = _attn_inputs(dev, dtype, bn, l, n_mask, heads)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    for m in (None, mask):
+        for drop in (None, cb.HashDropout(321, 0.9)):
+            _close(wa.window_attention_fwd(qkv, bias, m, heads, drop),
+                   wa.window_attention_reference(q, k, v, bias, m, heads,
+                                                 drop), dtype)
+            dqkv, dbias = wa.window_attention_bwd(qkv, bias, m, do, heads,
+                                                  drop)
+            *ref, dbias_r = wa.window_attention_bwd_reference(
+                q, k, v, bias, m, do, heads, drop)
+            for got, r in zip(dqkv.split(q.shape[-1], dim=-1), ref):
+                _close(got, r, dtype)
+            _close(dbias, dbias_r, dtype)
+
+
+@pytest.mark.parametrize("bn", [6, 19, 40])
+def test_attention_dropout_mask_is_bit_exact(dev, bn):
+    """q = k = 0 makes every probability fl(1/L); v[j] = e_j (D = 64 >= L)
+    then makes K13's output the probabilities times the dropout mask, one
+    product each, so it must equal fl(1/L) * attn_drop_mask bit for bit."""
+    heads, d, l, keep = 2, 64, 49, 0.9
+    qkv = torch.zeros((bn, l, 3 * heads * d), device=dev)
+    for h in range(heads):
+        qkv[:, :, 2 * heads * d + h * d:2 * heads * d + h * d + l] = \
+            torch.eye(l, device=dev)
+    drop = cb.HashDropout(4242, keep)
+    out = wa.window_attention_fwd(qkv, torch.zeros((heads, l, l), device=dev),
+                                  None, heads, drop).view(bn, l, heads, d)
+    p = torch.tensor(1.0, device=dev) / l
+    ref = wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev) * p
+    assert torch.equal(out[..., :l].permute(0, 2, 1, 3), ref)
+    assert not out[..., l:].any()
+
+
+@pytest.mark.parametrize("drop", [None, 0.9])
+def test_attention_bias_gradient_is_reproducible(dev, drop):
+    qkv, bias, mask, do = _attn_inputs(dev, torch.bfloat16, 512, 49, 16, 6)
+    drop = None if drop is None else cb.HashDropout(77, drop)
+    runs = [wa.window_attention_bwd(qkv, bias, mask, do, 6, drop)
+            for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0], runs[1][0])
+
+
+def test_attention_function_launches_both_kernels(dev):
+    """The autograd Function runs K13 forward and K14 backward, once each,
+    and its gradients are the wrappers' results."""
+    qkv, bias, mask, do = _attn_inputs(dev, torch.float32, 8, 16, 4, 2, 8)
+    fns = (wa.window_attention_fwd, wa.window_attention_bwd)
+    before = [fn.launches for fn in fns]
+    x = qkv.clone().requires_grad_(True)
+    b = bias.clone().requires_grad_(True)
+    out = wa.window_attention(x, b, mask, 2)
+    out.backward(do)
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1]
+    dqkv, dbias = wa.window_attention_bwd(qkv, bias, mask, do, 2)
+    assert torch.equal(x.grad, dqkv) and torch.equal(b.grad, dbias)

@@ -1,9 +1,11 @@
 """The port stands apart from JAX: importing ``hpfg_tpu_torch`` and running
 one tiny Mean-Teacher step on the CPU, or its CLI's training and evaluation
-of Mean-Teacher and HPFG on a synthetic ACDC tree, loads neither ``jax`` nor
-the JAX package; the kernel wrappers take their plain versions for CPU
-tensors (their launch counters stay 0), and a tensor on neither the CPU nor
-a CUDA device is refused instead of falling back.
+of Mean-Teacher, HPFG and S4CVNet on a synthetic ACDC tree, loads neither
+``jax`` nor the JAX package; the kernel wrappers take their plain versions
+for CPU tensors (their launch counters stay 0), and a tensor on neither the
+CPU nor a CUDA device is refused instead of falling back. The algorithms
+run on the card unless the caller asks for the CPU: without a card their
+default raises.
 """
 
 import json
@@ -16,6 +18,8 @@ import torch
 
 from hpfg_tpu_torch.ops import bn_act as tba
 from hpfg_tpu_torch.ops import conv_block as tcb
+from hpfg_tpu_torch.ops import window_attention as twa
+from hpfg_tpu_torch.train import algorithms as talgos
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -84,7 +88,12 @@ for name, cfg, extra in (
          ["--set", "feature_chns=[8,8,8,8,8]"]),
         ("hpfg", "configs/hpfg_unet_plus_30k_224x224_ACDC.yaml",
          ["--set", "model1.feature_chns=[8,8,8,8,8]",
-          "--set", "model2.feature_chns=[8,8,8,8,8]"])):
+          "--set", "model2.feature_chns=[8,8,8,8,8]"]),
+        ("s4cvnet", "configs/s4cvnet_unet_30k_224x224_ACDC.yaml",
+         ["--set", "model1.feature_chns=[8,8,8,8,8]",
+          "--set", "model2.embed_dim=8", "--set", "model2.depths=[2,2]",
+          "--set", "model2.num_heads=[1,2]",
+          "--set", "model2.window_size=2"])):
     t = run(["--config", cfg, "--set", f"save_path={save}/{name}", *common,
              *extra])
     runs[name] = {"steps": t.algorithm.step_count,
@@ -100,8 +109,9 @@ print(json.dumps({
 
 
 def test_port_cli_trains_and_evaluates_without_jax(synthetic_acdc, tmp_path):
-    """The CLI trains and evaluates 4 iterations of Mean-Teacher and of
-    HPFG in a fresh process; no jax, flax or hpfg_tpu module loads."""
+    """The CLI trains and evaluates 4 iterations of Mean-Teacher, of HPFG
+    and of S4CVNet (a two-stage SwinUNet of width 8 as model2) in a fresh
+    process; no jax, flax or hpfg_tpu module loads."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _CLI, synthetic_acdc, str(tmp_path)],
@@ -111,6 +121,7 @@ def test_port_cli_trains_and_evaluates_without_jax(synthetic_acdc, tmp_path):
     assert out["jax_side"] == []
     assert out["runs"]["mean_teacher"]["models"] == ["model1", "model2"]
     assert out["runs"]["hpfg"]["models"] == ["ema", "model1", "model2"]
+    assert out["runs"]["s4cvnet"]["models"] == ["ema", "model1", "model2"]
     for r in out["runs"].values():
         assert r["steps"] == 4 and r["evals"] == [2, 4]
         assert all(v == v and v > 0 for v in r["losses"])
@@ -126,7 +137,8 @@ def _meta(*shape, dtype=torch.float32):
 _WRAPPERS = (tcb.conv3x3_nhwc, tcb.conv3x3_wgrad_nhwc, tba.bn_act,
              tba.bn_act_bwd, tba.bn_act_dpre, tcb.conv3x3_pair_nhwc,
              tcb.conv3x3_dgrad_pair, tcb.conv3x3_wgrad_pair,
-             tcb.conv3x3_dgrad_reduce)
+             tcb.conv3x3_dgrad_reduce, twa.window_attention_fwd,
+             twa.window_attention_bwd)
 
 
 @pytest.mark.parametrize("call", [
@@ -143,10 +155,41 @@ _WRAPPERS = (tcb.conv3x3_nhwc, tcb.conv3x3_wgrad_nhwc, tba.bn_act,
                                    _meta(1, 8, 8, 8)),
     lambda: tcb.conv3x3_dgrad_reduce(_meta(1, 8, 8, 8), _meta(3, 3, 8, 4),
                                      _meta(1, 8, 8, 4), *(_meta(4),) * 4),
+    lambda: twa.window_attention_fwd(_meta(4, 9, 24), _meta(2, 9, 9), None,
+                                     2),
+    lambda: twa.window_attention_bwd(_meta(4, 9, 24), _meta(2, 9, 9),
+                                     _meta(2, 9, 9), _meta(4, 9, 8), 2),
 ], ids=["conv3x3", "wgrad", "bn_act", "bn_act_bwd", "bn_act_dpre",
-        "pair_fwd", "dgrad_pair", "wgrad_pair", "dgrad_reduce"])
+        "pair_fwd", "dgrad_pair", "wgrad_pair", "dgrad_reduce",
+        "attention_fwd", "attention_bwd"])
 def test_wrappers_refuse_non_cuda_devices(call):
     before = [fn.launches for fn in _WRAPPERS]
     with pytest.raises(ValueError, match="CUDA"):
         call()
     assert [fn.launches for fn in _WRAPPERS] == before
+
+
+_TINY_CFG = dict(
+    num_classes=4, in_channels=1, train_crop_size=[16, 16], batch_size=1,
+    unlabel_batch_size=1, seed=0, total_itrs=10, step_size=5,
+    model="unet", feature_chns=[8] * 5, opt="sgd", lr=0.01, sched="medical",
+    model1=dict(model="unet", feature_chns=[8] * 5, opt="sgd", lr=0.01),
+    model2=dict(model="unet", feature_chns=[8] * 5, opt="sgd", lr=0.01))
+
+
+@pytest.mark.parametrize("name", ["mean_teacher", "hpfg", "s4cvnet"])
+def test_algorithms_default_to_the_card(name, monkeypatch):
+    """Every constructor defaults to ``device="cuda"``; without a card the
+    default raises and asks for ``device="cpu"``, it never builds on the
+    CPU by itself."""
+    import inspect
+
+    from hpfg_tpu_torch.train.algorithms.base import Algorithm
+    from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        talgos.build_algorithm(name, _TINY_CFG)
+    for c in (talgos.ALGORITHMS[name], DualAlgorithm, Algorithm):
+        assert inspect.signature(c.__init__).parameters["device"].default \
+            == "cuda", c
