@@ -14,7 +14,9 @@ nor the JAX package. Phases, each of which fails the run on error:
      (and its dpre-only entry) at every conv shape; K8 conv3x3_pair_nhwc,
      K9 conv3x3_dgrad_pair and K10 conv3x3_wgrad_pair at the four UpBlock
      shapes; K11 conv3x3_dgrad_reduce at every ConvBlock's conv2, with and
-     without the encoder's dropout; hash dropout masks bit-exact; then the
+     without the encoder's dropout; hash dropout masks bit-exact in fp32
+     and bf16; the statistics, K11's sums and B's and K10's dW bitwise the
+     same in two runs; each conv row's achieved TFLOP/s; then the
      ConvBlock Function's forward and backward (pair inputs for the
      UpBlocks) and Conv3x3Plain. Beside each kernel in bf16: its time, the
      plain version's, and the one PyTorch library call that computes the
@@ -62,6 +64,7 @@ over the paths, errors, times and bounds.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -219,23 +222,44 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
+def cuda_ms(fn, reps: int = 10, rounds: int = 3) -> float:
+    """ms per call: CUDA events around ``reps`` back-to-back calls after a
+    warm-up call, the least of ``rounds`` such rounds."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    best = float("inf")
+    for _ in range(rounds):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def times(ms, pms, lms=None):
     return f"{ms:.3f}/{pms:.3f}" + ("" if lms is None else f"/{lms:.3f}")
+
+
+def rate(work, ms) -> str:
+    """Achieved TFLOP/s of a timed call beside its bound in ms."""
+    b, by = bound(*work)
+    return f"{work[0] / ms / 1e9:.1f} TFLOP/s (bound {b:.3f} ms, {by})"
+
+
+def same_twice(rep: Report, what: str, fn) -> None:
+    """Fail unless two runs of ``fn`` give bitwise equal tensors (sums of
+    per-block partials in a fixed order)."""
+    import torch
+
+    a, b = fn(), fn()
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        rep.fail(f"{what}: two runs differ")
 
 
 def nchw(t):  # NHWC storage seen as NCHW (channels_last) for cuDNN
@@ -270,25 +294,28 @@ def check_kernels(rep: Report, dev) -> None:
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     # hash dropout masks, bit-exact: an all-ones input through the prologue
-    # a=1, b=0 and a centre-tap identity conv outputs the mask itself
-    for keep in (0.95, 0.9, 0.8, 0.7, 0.5):
+    # a=1, b=0 and a centre-tap identity conv outputs the mask itself (one
+    # product each: in bf16 the fp32 mask rounded to bf16)
+    for dt, keep in itertools.product((torch.float32, torch.bfloat16),
+                                      (0.95, 0.9, 0.8, 0.7, 0.5)):
         for hh, c in ((224, 16), (14, 256)):
-            x = torch.ones((4, hh, hh, c), device=dev)
-            eye = torch.zeros((3, 3, c, c), device=dev)
-            eye[1, 1] = torch.eye(c, device=dev)
+            x = torch.ones((4, hh, hh, c), device=dev, dtype=dt)
+            eye = torch.zeros((3, 3, c, c), device=dev, dtype=dt)
+            eye[1, 1] = torch.eye(c, device=dev, dtype=dt)
             ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
             drop = cb.HashDropout(4242 + c, keep)
             ref = cb.hash_mask(drop.seed, 4, hh, hh * c, keep, dev).view(
-                4, hh, hh, c)
+                4, hh, hh, c).to(dt)
             got_in, _ = cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
                                         drop=drop)
             got_out, _ = cb.conv3x3_nhwc(x, eye, out_drop=drop)
             for what, got in (("prologue", got_in), ("output", got_out)):
                 if not torch.equal(got, ref):
-                    rep.fail(f"hash mask ({what}) keep={keep} {hh}x{hh}x{c}:"
-                             f" {(got != ref).sum().item()} elements differ")
+                    rep.fail(f"hash mask ({what}) keep={keep} {hh}x{hh}x{c} "
+                             f"{dt}: {(got != ref).sum().item()} elements "
+                             f"differ")
     print("hash masks: bit-exact check done (prologue and output masks, "
-          "keep 0.95..0.5)", flush=True)
+          "keep 0.95..0.5, float32 and bfloat16)", flush=True)
 
     print(f"kernel vs plain: rel err (tol float32 {TOL['float32']}, bfloat16 "
           f"{TOL['bfloat16']}) kernel/plain ms, batch {BATCH}; in bfloat16 a "
@@ -333,7 +360,10 @@ def check_kernels(rep: Report, dev) -> None:
                              ms, pms, library_ms=cms, main=not concat,
                              work=conv_work(hh, c, f, es, 2 * f))
             r2 = rep.compare("conv3x3_nhwc", f"{name} stats", dname, st, st_r)
-            line.append(f"A fwd {max(r1, r2):.1e} {times(ms, pms, cms)}ms")
+            same_twice(rep, f"conv3x3_nhwc {name} stats {dname}",
+                       lambda: (cb.conv3x3_nhwc(x, w, **args)[1],))
+            line.append(f"A fwd {max(r1, r2):.1e} {times(ms, pms, cms)}ms "
+                        f"{rate(conv_work(hh, c, f, es, 2 * f), ms)}")
 
             wf = cb.flip_transpose(w)
             odrop = args.get("drop")
@@ -350,7 +380,8 @@ def check_kernels(rep: Report, dev) -> None:
                             ms, pms, library_ms=cms,
                             main=not (concat or conv2 or c == 1),
                             work=conv_work(hh, f, c, es))
-            line.append(f"A dgrad {r:.1e} {times(ms, pms, cms)}ms")
+            line.append(f"A dgrad {r:.1e} {times(ms, pms, cms)}ms "
+                        f"{rate(conv_work(hh, f, c, es), ms)}")
 
             wargs = {k: args[k] for k in ("affine", "drop") if k in args}
             dw = cb.conv3x3_wgrad_nhwc(x, dp, **wargs)
@@ -362,7 +393,10 @@ def check_kernels(rep: Report, dev) -> None:
             r = rep.compare("conv3x3_wgrad_nhwc", f"{name} wgrad", dname, dw,
                             dw_r, ms, pms, library_ms=cms, main=not concat,
                             work=conv_work(hh, c, f, es, w_es=4))
-            line.append(f"B {r:.1e} {times(ms, pms, cms)}ms")
+            same_twice(rep, f"conv3x3_wgrad_nhwc {name} {dname}",
+                       lambda: (cb.conv3x3_wgrad_nhwc(x, dp, **wargs),))
+            line.append(f"B {r:.1e} {times(ms, pms, cms)}ms "
+                        f"{rate(conv_work(hh, c, f, es, w_es=4), ms)}")
 
             if keep is not None:  # block output: BN2 + LeakyReLU fwd / bwd
                 n = BATCH * hh * hh * f
@@ -448,7 +482,8 @@ def check_pair_kernels(rep: Report, dev) -> None:
                                 work=conv_work(hh, c, f, es, 2 * f)),
                     rep.compare("conv3x3_pair_nhwc", f"{name} stats", dname,
                                 st, st_r))
-            line.append(f"K8 {r:.1e} {times(ms, pms, lms)}ms")
+            line.append(f"K8 {r:.1e} {times(ms, pms, lms)}ms "
+                        f"{rate(conv_work(hh, c, f, es, 2 * f), ms)}")
 
             wf = cb.flip_transpose(w)
             got = cb.conv3x3_dgrad_pair(dp, wf, ca)
@@ -466,7 +501,8 @@ def check_pair_kernels(rep: Report, dev) -> None:
                                 got[1], ref[1]))
             if not (got[0].is_contiguous() and got[1].is_contiguous()):
                 rep.fail(f"conv3x3_dgrad_pair {name}: outputs not contiguous")
-            line.append(f"K9 {r:.1e} {times(ms, pms, lms)}ms")
+            line.append(f"K9 {r:.1e} {times(ms, pms, lms)}ms "
+                        f"{rate(conv_work(hh, f, c, es), ms)}")
 
             got = cb.conv3x3_wgrad_pair(xa, xb, dp)
             ref = cb.conv3x3_wgrad_pair_reference(xa, xb, dp)
@@ -481,7 +517,10 @@ def check_pair_kernels(rep: Report, dev) -> None:
                                 work=conv_work(hh, c, f, es, w_es=4)),
                     rep.compare("conv3x3_wgrad_pair", f"{name} dw_up", dname,
                                 got[1], ref[1]))
-            line.append(f"K10 {r:.1e} {times(ms, pms, lms)}ms")
+            same_twice(rep, f"conv3x3_wgrad_pair {name} {dname}",
+                       lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
+            line.append(f"K10 {r:.1e} {times(ms, pms, lms)}ms "
+                        f"{rate(conv_work(hh, c, f, es, w_es=4), ms)}")
             print(" | ".join(line), flush=True)
             del xa, xb, cat, dp, y, y_r, got, ref
             torch.cuda.empty_cache()
@@ -525,9 +564,12 @@ def check_pair_kernels(rep: Report, dev) -> None:
                                 main=(hh, f, kp) in main_cases),
                     rep.compare("conv3x3_dgrad_reduce", f"{what} sums",
                                 dname, s, s_r))
+            same_twice(rep, f"conv3x3_dgrad_reduce {what} sums {dname}",
+                       lambda: (k11()[1],))
             print(f"{dname} {what:>24} {hh:>3}^2 {f}->{f}: K11 {r:.1e} "
-                  f"{times(ms, pms, lms)}ms (library: the dgrad alone)",
-                  flush=True)
+                  f"{times(ms, pms, lms)}ms "
+                  f"{rate((flops + 8 * n, nbytes), ms)} (library: the dgrad "
+                  f"alone)", flush=True)
             del dp, pre, dd, dd_r
             torch.cuda.empty_cache()
 
@@ -962,7 +1004,7 @@ def run_main_path(rep: Report, dev, card: str, config: str, label: str,
         if (label in meta.get("paths", ALL_PATHS)
                 and sum(launches[c] for c in meta["counters"]) == 0):
             rep.fail(f"{label} path: kernel {name} was not launched")
-    busy = profile_step(trainer, card, label)
+    busy, conv = profile_step(trainer, card, label)
     ms = elapsed / STEPS * 1e3
     imgs = (LABEL_BS + UNLABEL_BS) * STEPS / elapsed
     print(f"{label} path: {algo.name} 224^2 {LABEL_BS}+{UNLABEL_BS} bf16: "
@@ -970,14 +1012,15 @@ def run_main_path(rep: Report, dev, card: str, config: str, label: str,
           f"images a step), peak {peak:.2f} GiB allocated ({card})",
           flush=True)
     summary = dict(ms_per_step=ms, img_per_s=imgs, peak_gib=peak,
-                   traced_busy_ms=busy)
+                   traced_busy_ms=busy, traced_conv_ms=conv)
     return launches, algo, summary
 
 
 def profile_step(trainer, card: str, label: str):
     """One more step under torch.profiler: device time by kernel name and
     the device's busy share of the step's wall time (profiler on). Returns
-    the busy ms, or None when the profiler saw no device time."""
+    (busy ms, ms of the conv kernels A, B and K8-K11), or (None, None) when
+    the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -995,16 +1038,19 @@ def profile_step(trainer, card: str, label: str):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print("profile: the profiler saw no device time", flush=True)
-        return None
+        return None, None
     by_name: dict[str, list] = {}
     for e in kernels:
         row = by_name.setdefault(e.name, [0, 0.0])
         row[0] += 1
         row[1] += e.time_range.end - e.time_range.start
     busy = sum(v[1] for v in by_name.values())
+    conv = sum(v[1] for k, v in by_name.items()
+               if "conv3x3" in k or "wgrad" in k)
     lines = [f"profile of one {label} step ({card}): wall "
              f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
-             f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)"]
+             f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), conv "
+             f"kernels {conv / 1e3:.2f} ms"]
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         lines.append(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
                      f"x{n:<4} {name[:110]}")
@@ -1014,7 +1060,7 @@ def profile_step(trainer, card: str, label: str):
     prof.export_chrome_trace(os.path.join(OUT_DIR,
                                           f"step_trace_{label}.json"))
     print("\n".join(lines[:25]), flush=True)
-    return busy / 1e3
+    return busy / 1e3, conv / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1083,6 +1129,41 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
     return kernels
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's -Xptxas=-v log: its name
+    (with its template arguments), registers, and spill stores/loads."""
+    import re
+
+    def demangle(sym: str) -> str:
+        for i, ch in enumerate(sym):  # <length><name> with name *_kernel
+            if not ch.isdigit():
+                continue
+            j = i
+            while j < len(sym) and sym[j].isdigit():
+                j += 1
+            name = sym[j:j + int(sym[i:j])]
+            if name.endswith("_kernel") and name[0].isalpha():
+                rest = sym[j + len(name):]
+                args = [("float" if rest.startswith("If") else
+                         "bf16" if rest.startswith("I13__nv_bfloat16") else
+                         "")] + re.findall(r"Li(\d+)E", rest[:rest.find("Ev")])
+                args = [a for a in args if a]
+                return name + (f"<{', '.join(args)}>" if args else "")
+        return sym
+
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = demangle(m.group(1))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1110,9 +1191,8 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     lib = library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(lib.build_log):
+        print(f"  ptxas: {line}")
 
     def phase(name, fn):
         t0 = time.perf_counter()

@@ -36,6 +36,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "hpfg_tile_h": [],
     "hpfg_tile_w": [],
+    "hpfg_wgrad_cm": [_I, _I],
+    "hpfg_wgrad_bn": [_I, _I],
     "hpfg_conv3x3_nhwc": [_P, _P, _I, _P, _P, _P, _P, _I, _U, _U, _F, _I, _U,
                           _U, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                           _I, _I, _I, _I, _P],
@@ -63,10 +65,16 @@ class KernelLibrary:
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        self.tile_h = self.lib.hpfg_tile_h()
-        self.tile_w = self.lib.hpfg_tile_w()
+        # the conv and wgrad kernels' output tile (rows, columns)
+        self.tile = (self.lib.hpfg_tile_h(), self.lib.hpfg_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()
         self.attn_max_d = self.lib.hpfg_attn_max_d()
+
+    def wgrad_tile(self, c: int, f: int, bf16: bool) -> tuple[int, int]:
+        """The wgrad kernel's (input, output) channel tile for ``c`` input
+        and ``f`` output channels in that dtype."""
+        return (self.lib.hpfg_wgrad_cm(c, int(bf16)),
+                self.lib.hpfg_wgrad_bn(f, int(bf16)))
 
     def call(self, name: str, *args) -> None:
         """Call one launcher; raise if the launch was refused."""

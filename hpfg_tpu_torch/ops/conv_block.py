@@ -58,10 +58,10 @@ _GOLD = 0x9E3779B9
 _MUR1 = 0x85EBCA6B
 _MUR2 = 0xC2B2AE35
 
-# channels per block in the wgrad kernel (csrc/conv3x3.cu CC)
-WGRAD_CC = 16
 # blocks the wgrad kernel aims for (a few waves of the H100's 132 SMs)
 WGRAD_TARGET_BLOCKS = 2048
+# the most bytes its per-block dW partials may take
+WGRAD_PART_BYTES = 2 ** 25
 
 
 @dataclass(frozen=True)
@@ -254,6 +254,26 @@ def _prologue_args(affine, drop, c, device):
             drop.scale]
 
 
+def conv_tiles(b: int, h: int, w: int, tile: tuple[int, int]) -> int:
+    """Output tiles of a conv launch over [b, h, w] pixels: its grid's
+    spatial extent, so the rows of its per-block statistics partials."""
+    return b * -(-h // tile[0]) * -(-w // tile[1])
+
+
+def wgrad_split(b: int, h: int, w: int, c: int, f: int,
+                tile: tuple[int, int], cm: int, bn: int) -> tuple[int, int]:
+    """(tiles per block, partial rows) of a wgrad launch: the fewest tiles
+    per block that keep the grid (rows x channel tiles of ``cm`` x ``bn``)
+    within WGRAD_TARGET_BLOCKS and the [rows, 9*c*f] fp32 partials within
+    WGRAD_PART_BYTES (at least one row)."""
+    total = conv_tiles(b, h, w, tile)
+    ch_tiles = -(-c // cm) * -(-f // bn)
+    max_rows = max(1, WGRAD_PART_BYTES // (4 * 9 * c * f))
+    per_block = max(1, -(-total * ch_tiles // WGRAD_TARGET_BLOCKS),
+                    -(-total // max_rows))
+    return per_block, -(-total // per_block)
+
+
 def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
                  reduce=None, y2=None, want_sums=False):
     """One launch of the CUDA conv kernel (csrc/conv3x3.cu
@@ -266,9 +286,8 @@ def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
     c, f = w.shape[2], w.shape[3]
     part = None
     if want_sums:
-        tiles = -(-h // lib.tile_h) * -(-wd // lib.tile_w)
-        part = torch.empty((b * tiles, 2 * f), dtype=torch.float32,
-                           device=x.device)
+        part = torch.empty((conv_tiles(b, h, wd, lib.tile), 2 * f),
+                           dtype=torch.float32, device=x.device)
     om = ([1, out_drop.seed, out_drop.thresh, out_drop.scale]
           if out_drop is not None else [0, 0, 0, 0.0])
     red = [ptr(t) for t in reduce] if reduce is not None else [None] * 5
@@ -379,16 +398,14 @@ def _launch_wgrad(src, dp, *, src2=None, pro=None):
     b, h, wd, c1 = src.shape
     c = c1 + (0 if src2 is None else src2.shape[-1])
     f = dp.shape[3]
-    total = b * -(-h // lib.tile_h) * -(-wd // lib.tile_w)
-    bn = 16 if f <= 16 else 32
-    ch_tiles = -(-c // WGRAD_CC) * -(-f // bn)
-    per_block = max(1, -(-total * ch_tiles // WGRAD_TARGET_BLOCKS))
-    rows = -(-total // per_block)
+    bf16 = src.dtype == torch.bfloat16
+    per_block, rows = wgrad_split(b, h, wd, c, f, lib.tile,
+                                  *lib.wgrad_tile(c, f, bf16))
     part = torch.empty((rows, 9 * c * f), dtype=torch.float32,
                        device=src.device)
     lib.call("hpfg_conv3x3_wgrad_nhwc", ptr(src), ptr(src2), c1, ptr(dp),
              *(pro or [None, None, 0, 0, 0, 0.0]), ptr(part), b, h, wd, c, f,
-             per_block, int(src.dtype == torch.bfloat16), stream(src))
+             per_block, int(bf16), stream(src))
     return colsum(part)
 
 

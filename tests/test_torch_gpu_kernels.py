@@ -54,7 +54,8 @@ def _close(got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,f,prologue", [(1, 16, False), (16, 32, True),
-                                          (40, 20, True)])
+                                          (40, 20, True), (4, 16, False),
+                                          (16, 4, False), (24, 136, True)])
 def test_conv3x3_matches_plain(dev, dtype, c, f, prologue):
     x = _randn(dev, 2, 20, 20, c).to(dtype)
     w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
@@ -76,7 +77,8 @@ def test_conv3x3_matches_plain(dev, dtype, c, f, prologue):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,f,act", [(1, 16, False), (16, 32, True),
-                                     (40, 20, True)])
+                                     (40, 20, True), (4, 16, False),
+                                     (16, 4, False), (48, 72, True)])
 def test_wgrad_matches_plain(dev, dtype, c, f, act):
     src = _randn(dev, 2, 20, 20, c).to(dtype)
     dp = _randn(dev, 2, 20, 20, f).to(dtype)
@@ -105,7 +107,8 @@ def test_bn_act_and_bwd_match_plain(dev, dtype, f):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ca,cu,f", [(16, 16, 16), (16, 32, 16),
-                                     (24, 8, 20)])
+                                     (24, 8, 20), (12, 20, 24),
+                                     (128, 128, 128)])
 def test_pair_kernels_match_plain(dev, dtype, ca, cu, f):
     """K8 (forward + statistics), K9 (both input gradients) and K10 (both
     weight gradients) against their plain versions."""
@@ -188,18 +191,88 @@ def _cpu(t):
     return tuple(u.cpu() for u in t) if isinstance(t, tuple) else t.cpu()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("keep", [0.95, 0.5])
-def test_kernel_hash_masks_are_bit_exact(dev, keep):
+def test_kernel_hash_masks_are_bit_exact(dev, keep, dtype):
+    """An all-ones input through the prologue a = 1, b = 0 and a centre-tap
+    identity conv outputs the mask itself: one product each, so in bf16 it
+    is the fp32 mask rounded to bf16, bit for bit."""
     c = 24
-    x = torch.ones((3, 20, 20, c), device=dev)
-    eye = torch.zeros((3, 3, c, c), device=dev)
-    eye[1, 1] = torch.eye(c, device=dev)
+    x = torch.ones((3, 20, 20, c), device=dev, dtype=dtype)
+    eye = torch.zeros((3, 3, c, c), device=dev, dtype=dtype)
+    eye[1, 1] = torch.eye(c, device=dev, dtype=dtype)
     drop = cb.HashDropout(1234, keep)
-    ref = cb.hash_mask(drop.seed, 3, 20, 20 * c, keep, dev).view(3, 20, 20, c)
+    ref = cb.hash_mask(drop.seed, 3, 20, 20 * c, keep, dev).view(
+        3, 20, 20, c).to(dtype)
     ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
     assert torch.equal(cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
                                        drop=drop)[0], ref)
     assert torch.equal(cb.conv3x3_nhwc(x, eye, out_drop=drop)[0], ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,c,f", [(14, 32, 64), (7, 128, 256),
+                                    (14, 1, 16), (28, 20, 4)])
+def test_conv_forms_at_small_stages(dev, dtype, hw, c, f):
+    """Images smaller than or ragged against the 8x16 tile (the UNet's 14^2
+    and 28^2 stages, a 7^2 one), with the stem's C = 1 and the head's F = 4:
+    A with its prologue and statistics, A's dgrad with the output mask, B,
+    and the pair kernels K8-K10 split at c // 2 (not a multiple of 16)."""
+    x = _randn(dev, 3, hw, hw, c).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    dp = _randn(dev, 3, hw, hw, f, seed=1).to(dtype)
+    aff = (1 + _randn(dev, c, scale=0.1), _randn(dev, c, scale=0.1))
+    drop = cb.HashDropout(3, 0.7)
+    kw = dict(bias=_randn(dev, f, scale=0.1), want_stats=True, affine=aff,
+              drop=drop)
+    for got, ref in zip(cb.conv3x3_nhwc(x, w, **kw),
+                        cb.conv3x3_reference(x, w, **kw)):
+        _close(got, ref, dtype)
+    wf = cb.flip_transpose(w)
+    _close(cb.conv3x3_nhwc(dp, wf, out_drop=drop)[0],
+           cb.conv3x3_reference(dp, wf, out_drop=drop)[0], dtype)
+    _close(cb.conv3x3_wgrad_nhwc(x, dp, affine=aff, drop=drop),
+           cb.conv3x3_wgrad_reference(x, dp, affine=aff, drop=drop), dtype)
+    if c < 2:
+        return
+    xa, xb = x[..., :c // 2].contiguous(), x[..., c // 2:].contiguous()
+    for got, ref in zip(cb.conv3x3_pair_nhwc(xa, xb, w, kw["bias"], True),
+                        cb.conv3x3_pair_reference(xa, xb, w, kw["bias"],
+                                                  True)):
+        _close(got, ref, dtype)
+    for got, ref in zip(cb.conv3x3_dgrad_pair(dp, wf, c // 2),
+                        cb.conv3x3_dgrad_pair_reference(dp, wf, c // 2)):
+        _close(got, ref, dtype)
+    for got, ref in zip(cb.conv3x3_wgrad_pair(xa, xb, dp),
+                        cb.conv3x3_wgrad_pair_reference(xa, xb, dp)):
+        _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_block_sums_are_reproducible(dev, dtype):
+    """The forward statistics, K11's sums, B's dW and K10's dW are summed
+    from per-block partials in a fixed order: two runs agree bit for bit."""
+    c, f = 32, 64
+    x = _randn(dev, 4, 40, 40, c).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    dp = _randn(dev, 4, 40, 40, f, seed=1).to(dtype)
+    pre = _randn(dev, 4, 40, 40, c, seed=2).to(dtype)
+    aff = (1 + _randn(dev, c, scale=0.1), _randn(dev, c, scale=0.1))
+    v = 1 + _randn(dev, c, scale=0.1, seed=3).abs()
+    drop = cb.HashDropout(8, 0.8)
+    xa, xb = x[..., :8].contiguous(), x[..., 8:].contiguous()
+    wf = cb.flip_transpose(w)
+
+    def run():
+        return (cb.conv3x3_nhwc(x, w, affine=aff, drop=drop,
+                                want_stats=True)[1],
+                cb.conv3x3_dgrad_reduce(dp, wf, pre, *aff, aff[1], v,
+                                        out_drop=drop)[1],
+                cb.conv3x3_wgrad_nhwc(x, dp, affine=aff, drop=drop),
+                *cb.conv3x3_wgrad_pair(xa, xb, dp))
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_count_their_launches(dev):
