@@ -28,10 +28,12 @@ nor the JAX package. Phases, each of which fails the run on error:
      window_attention_bwd against their plain versions at the four stage
      shapes of the full-width SwinUNet (batch 32), unshifted and shifted,
      with attention dropout (keep 0.9) and without, in fp32 and bf16; the
-     attention dropout mask bit-exact (Bn 19 and 2048); dbias bitwise the
-     same in two runs. In bf16 without dropout, beside each: its time, the
-     plain version's, F.scaled_dot_product_attention with attn_mask = bias
-     + mask (K13) and that call's autograd backward (K14), and the bound;
+     attention dropout mask bit-exact in K13's output and K14's dv, in fp32
+     and bf16 (Bn 19 and 2048); dbias bitwise the same in two runs. In bf16
+     without dropout, beside each: its time, the plain version's,
+     F.scaled_dot_product_attention with attn_mask = bias + mask (K13) and
+     that call's autograd backward (K14), the bound and the achieved
+     TFLOP/s and GB/s;
   3. the Mean-Teacher main path through ``Trainer.fit`` with the values of
      configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width UNet,
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
@@ -247,9 +249,10 @@ def times(ms, pms, lms=None):
 
 
 def rate(work, ms) -> str:
-    """Achieved TFLOP/s of a timed call beside its bound in ms."""
+    """Achieved TFLOP/s and GB/s of a timed call beside its bound in ms."""
     b, by = bound(*work)
-    return f"{work[0] / ms / 1e9:.1f} TFLOP/s (bound {b:.3f} ms, {by})"
+    return (f"{work[0] / ms / 1e9:.1f} TFLOP/s {work[1] / ms / 1e6:.0f} GB/s "
+            f"(bound {b:.3f} ms, {by})")
 
 
 def same_twice(rep: Report, what: str, fn) -> None:
@@ -598,11 +601,12 @@ def check_attention_kernels(rep: Report, dev) -> None:
     """K13 and K14 against their plain versions at the four stage shapes of
     the full-width SwinUNet (batch 32), unshifted and shifted (the stage's
     own shift mask), with attention dropout at keep 0.9 and without, in
-    fp32 and bf16; the dropout mask bit-exact (q = k = 0, v the identity:
-    K13's output is then fl(1/L) times the mask); dbias bitwise the same in
-    two runs. In bf16 without dropout: the kernel's time, the plain
-    version's, one SDPA call (K13) and its autograd backward (K14), and
-    the bound."""
+    fp32 and bf16; the dropout mask bit-exact in both dtypes (q = k = 0, v
+    and do the identity: K13's output and K14's dv are then fl(1/L) times
+    the mask, rounded once to the dtype); dbias bitwise the same in two
+    runs. In bf16 without dropout: the kernel's time, the plain version's,
+    one SDPA call (K13) and its autograd backward (K14), the bound and the
+    achieved rates."""
     import torch
 
     from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
@@ -617,22 +621,33 @@ def check_attention_kernels(rep: Report, dev) -> None:
 
     # dropout masks, bit-exact, at Bn multiples of 16 and not
     heads, d = 2, 64
-    for bn in (19, 2048):
+    for dt, bn in itertools.product((torch.float32, torch.bfloat16),
+                                    (19, 2048)):
         qkv = torch.zeros((bn, l, 3 * heads * d), device=dev)
+        do = torch.zeros((bn, l, heads * d), device=dev)
         for h in range(heads):
             o = 2 * heads * d + h * d
             qkv[:, :, o:o + l] = torch.eye(l, device=dev)
+            do[:, :, h * d:h * d + l] = torch.eye(l, device=dev)
+        qkv, do = qkv.to(dt), do.to(dt)
         drop = HashDropout(4321 + bn, 0.9)
-        out = wa.window_attention_fwd(
-            qkv, torch.zeros((heads, l, l), device=dev), None, heads,
-            drop).view(bn, l, heads, d)
-        ref = wa.attn_drop_mask(drop.seed, bn, heads, l, drop.keep, dev) * (
-            torch.tensor(1.0, device=dev) / l)
-        if not (torch.equal(out[..., :l].permute(0, 2, 1, 3), ref)
-                and not out[..., l:].any()):
-            rep.fail(f"attention dropout mask Bn={bn}: not bit-exact")
-    print("attention dropout masks: bit-exact check done (Bn 19 and 2048, "
-          "keep 0.9)", flush=True)
+        zero_bias = torch.zeros((heads, l, l), device=dev)
+        out = wa.window_attention_fwd(qkv, zero_bias, None, heads,
+                                      drop).view(bn, l, heads, d)
+        dv = wa.window_attention_bwd(qkv, zero_bias, None, do, heads,
+                                     drop)[0][..., 2 * heads * d:]
+        dv = dv.reshape(bn, l, heads, d)
+        ref = (wa.attn_drop_mask(drop.seed, bn, heads, l, drop.keep, dev)
+               * (torch.tensor(1.0, device=dev) / l)).to(dt)
+        # [Bn, L, H, D] -> [Bn, H, i, j]: out[w, i, h, j], dv[w, j, h, i]
+        for name, got, perm in (("K13 output", out, (0, 2, 1, 3)),
+                                ("K14 dv", dv, (0, 2, 3, 1))):
+            if not (torch.equal(got[..., :l].permute(*perm), ref)
+                    and not got[..., l:].any()):
+                rep.fail(f"attention dropout mask {name} {dt} Bn={bn}: "
+                         "not bit-exact")
+    print("attention dropout masks: bit-exact check done (K13 output and "
+          "K14 dv, fp32 and bf16, Bn 19 and 2048, keep 0.9)", flush=True)
 
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
@@ -704,7 +719,14 @@ def check_attention_kernels(rep: Report, dev) -> None:
                     line.append(f"{tag}: K13 {r:.1e} K14 {rb:.1e}" + (
                         f" {times(ms, pms, lms)} / {times(bms, bpms, blms)}ms"
                         if timed else ""))
+                    if timed:
+                        rates = ("  K13 " + rate(attn_work(
+                            bn, heads, l, ATTN_D, es, n_mask, False), ms)
+                            + "; K14 " + rate(attn_work(
+                                bn, heads, l, ATTN_D, es, n_mask, True), bms))
                 print(" | ".join(line), flush=True)
+                if bf16:
+                    print(rates, flush=True)
             del qkv, do, q, k, v
             torch.cuda.empty_cache()
 

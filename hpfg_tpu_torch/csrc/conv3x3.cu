@@ -102,6 +102,7 @@
 #include <algorithm>
 
 #include "hash.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -446,71 +447,16 @@ __global__ void colsum_kernel(const float* __restrict__ in,
 // bf16: implicit GEMMs on the tensor cores (mma.sync m16n8k16, fp32 sums)
 // ---------------------------------------------------------------------------
 //
-// bf16 tensors are handled as their raw 16-bit patterns (uint16_t) and
-// converted with bf2f / f2bf, so no bf16 class crosses the staging code.
-// Every staged tile in shared memory is pixel-major with its channels
-// contiguous, in 16-byte groups of 8 channels, and every row (a pixel of a
-// halo, a channel of a weight tile, a pixel of a dp tile) is padded by 16
-// bytes: the eight rows one ldmatrix phase reads (eight consecutive pixels
-// or channels) then fall on eight different 16-byte bank groups, at every
-// tap shift, and a tap's rows sit at a constant offset from tap 0's.
+// The tensor-core helpers (bf2f / f2bf, cp.async, ldmatrix, mma_bf16) are in
+// mma.cuh. Every staged tile in shared memory is pixel-major with its
+// channels contiguous, in 16-byte groups of 8 channels, and every row (a
+// pixel of a halo, a channel of a weight tile, a pixel of a dp tile) is
+// padded by 16 bytes: the eight rows one ldmatrix phase reads (eight
+// consecutive pixels or channels) then fall on eight different 16-byte bank
+// groups, at every tap shift, and a tap's rows sit at a constant offset from
+// tap 0's.
 
 constexpr int KC = 16;  // input channels per K chunk of the bf16 conv
-
-__device__ __forceinline__ float bf2f(uint32_t h) {
-  return __uint_as_float(h << 16);
-}
-__device__ __forceinline__ uint32_t f2bf(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid (src
-// must still be a mapped address: callers pass the tensor's base then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, col-major): bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Element offset of channel group g of halo pixel p in a tile of G groups
 // (8 channels each) per pixel, rows padded by one group.

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("conv3x3.cu", "window_attention.cu")
-HEADERS = ("hash.cuh",)
+HEADERS = ("hash.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,9 +47,9 @@ _SIGNATURES = {
     "hpfg_attn_max_l": [],
     "hpfg_attn_max_d": [],
     "hpfg_window_attention_fwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
-                                  _U, _U, _F, _I, _I, _P],
+                                  _U, _U, _F, _I, _I, _I, _I, _P],
     "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _I, _U, _U, _F, _I, _I, _I, _P],
+                                  _F, _I, _U, _U, _F, _I, _I, _I, _I, _P],
 }
 
 

@@ -22,12 +22,18 @@ seed in [0, 2^23)) is the JAX package's in-kernel hash, keyed on
 b_idx = (w // blk) * 1024 + h and row = (w % blk) * L + i with
 blk = min(16, Bn), whatever tile the kernels use.
 
+Both kernels run on a grid of (CTAs, heads) in which a CTA walks a run of
+windows of one head and one mask class (``attention_walk``); in bf16 they
+compute every product on the tensor cores, in fp32 on the CUDA cores.
+
 Each wrapper takes its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. Each counts its launches in
 ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,8 +50,39 @@ from hpfg_tpu_torch.ops.conv_block import HashDropout, hash_keep
 #: windows per hash block (the TPU kernel's WINDOW_BLOCK): part of the
 #: dropout hash's index formula, not a tile size of the CUDA kernels
 WINDOW_BLOCK = 16
-#: K14 CTAs to aim for (each walks a run of windows of one head)
-BWD_TARGET_CTAS = 1056
+#: CTAs to aim for in a K13 or K14 launch (8 per SM of an H100)
+TARGET_CTAS = 1056
+
+
+class AttentionWalk(NamedTuple):
+    """How K13 and K14 split Bn windows x H heads over CTAs: the grid is
+    (``ctas``, H), CTA ``x`` of head h walks ``windows(x)``, and K14 writes
+    one dbias partial row per CTA, so its partial buffer has ``ctas``
+    rows of H * L * L. The kernels' ``Walk`` (csrc/window_attention.cu)
+    computes the same windows."""
+
+    windows_per_cta: int
+    ctas: int
+    n_mask: int
+    bn: int
+
+    def windows(self, x: int) -> list[int]:
+        """The windows of CTA x, in the order it walks them: all share
+        w % n_mask, so the CTA reads one mask[w % n_mask] for its run."""
+        per = self.bn // self.n_mask
+        b0 = (x // self.n_mask) * self.windows_per_cta
+        return [x % self.n_mask + self.n_mask * b
+                for b in range(b0, min(b0 + self.windows_per_cta, per))]
+
+
+def attention_walk(bn: int, heads: int, n_mask: int) -> AttentionWalk:
+    """The walk of K13 and K14 for Bn windows, H heads and a mask of n_mask
+    windows per image (1 when unshifted): the shortest run of windows per
+    CTA that keeps the grid within about TARGET_CTAS CTAs, each CTA taking
+    windows of one mask class r = w % n_mask, consecutive in the batch."""
+    per = bn // n_mask
+    wpc = min(per, max(1, -(-bn * heads // TARGET_CTAS)))
+    return AttentionWalk(wpc, n_mask * -(-per // wpc), n_mask, bn)
 
 
 def attn_drop_mask(seed: int, bn: int, heads: int, l: int, keep: float,
@@ -182,9 +219,11 @@ def window_attention_fwd(qkv, bias, mask, heads: int,
         q, k, v = qkv.split(c, dim=-1)
         return window_attention_reference(q, k, v, bias, mask, heads, drop)
     lib, args = _kernel_args(qkv, mask, heads, drop)
+    n_mask = 1 if mask is None else mask.shape[0]
+    walk = attention_walk(bn, heads, n_mask)
     out = torch.empty((bn, l, c), dtype=qkv.dtype, device=qkv.device)
     lib.call("hpfg_window_attention_fwd", ptr(qkv), ptr(bias), ptr(mask),
-             1 if mask is None else mask.shape[0], ptr(out), *args,
+             n_mask, ptr(out), *args, walk.windows_per_cta, walk.ctas,
              int(qkv.dtype == torch.bfloat16), stream(qkv))
     window_attention_fwd.launches += 1
     return out
@@ -207,15 +246,15 @@ def window_attention_bwd(qkv, bias, mask, do, heads: int,
                                                       do, heads, drop)
         return torch.cat(dqkv, dim=-1), dbias
     lib, args = _kernel_args(qkv, mask, heads, drop)
-    wpc = max(1, -(-bn * heads // BWD_TARGET_CTAS))
-    ctas = -(-bn // wpc)
+    n_mask = 1 if mask is None else mask.shape[0]
+    walk = attention_walk(bn, heads, n_mask)
     dqkv = torch.empty_like(qkv)
-    part = torch.empty((ctas, heads * l * l), dtype=torch.float32,
+    part = torch.empty((walk.ctas, heads * l * l), dtype=torch.float32,
                        device=qkv.device)
     lib.call("hpfg_window_attention_bwd", ptr(qkv), ptr(bias), ptr(mask),
-             1 if mask is None else mask.shape[0], ptr(do), ptr(dqkv),
-             ptr(part), *args, wpc, int(qkv.dtype == torch.bfloat16),
-             stream(qkv))
+             n_mask, ptr(do), ptr(dqkv), ptr(part), *args,
+             walk.windows_per_cta, walk.ctas,
+             int(qkv.dtype == torch.bfloat16), stream(qkv))
     window_attention_bwd.launches += 1
     return dqkv, colsum(part).view(heads, l, l)
 

@@ -4,8 +4,10 @@ conv3x3_dgrad_pair, K10 conv3x3_wgrad_pair, K11 conv3x3_dgrad_reduce, K13
 window_attention_fwd, K14 window_attention_bwd) against their plain PyTorch
 versions on a CUDA card, at small ragged shapes (20x20 images do not fill
 the 8x16 tiles; channel splits that are not multiples of the 16-channel
-tile; windows of 9, 49 and 64 tokens, window counts that are not multiples
-of the hash's 16-window block).
+tile; windows of 9, 16, 49 and 64 tokens, head widths of 8 to 64 (not all
+multiples of the 16-wide MMA step, one not a multiple of the 8-element
+copy piece), window counts that are not multiples of the hash's 16-window
+block).
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -15,8 +17,9 @@ jax, so the JAX-side conftest is left out):
 Tolerances, relative to the reference's largest magnitude: fp32 1e-4
 (another summation order), bf16 2e-2 (bf16 rounding of outputs that were
 summed in another order). Hash dropout masks (the ConvBlock's and the
-attention's) are bit-exact, and the attention's bias gradient is bitwise
-the same from run to run.
+attention's, forward and backward, in fp32 and bf16) are bit-exact, and
+the attention's output and bias gradient are bitwise the same from run to
+run.
 """
 
 import pytest
@@ -305,15 +308,11 @@ def _attn_inputs(dev, dtype, bn, l, n_mask, heads=3, d=32):
     return qkv, bias, mask, do
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("l", [9, 49, 64])
-@pytest.mark.parametrize("bn,n_mask", [(6, 3), (19, 1), (2048, 64)])
-def test_window_attention_matches_plain(dev, dtype, l, bn, n_mask):
+def _attention_matches_plain(dev, dtype, l, bn, n_mask, heads=3, d=32):
     """K13 (output) and K14 (dq, dk, dv, dbias) against their plain
     versions, shifted (a per-image mask) and unshifted, with attention
     dropout at keep 0.9 and without."""
-    heads = 3
-    qkv, bias, mask, do = _attn_inputs(dev, dtype, bn, l, n_mask, heads)
+    qkv, bias, mask, do = _attn_inputs(dev, dtype, bn, l, n_mask, heads, d)
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     for m in (None, mask):
         for drop in (None, cb.HashDropout(321, 0.9)):
@@ -329,33 +328,84 @@ def test_window_attention_matches_plain(dev, dtype, l, bn, n_mask):
             _close(dbias, dbias_r, dtype)
 
 
-@pytest.mark.parametrize("bn", [6, 19, 40])
-def test_attention_dropout_mask_is_bit_exact(dev, bn):
-    """q = k = 0 makes every probability fl(1/L); v[j] = e_j (D = 64 >= L)
-    then makes K13's output the probabilities times the dropout mask, one
-    product each, so it must equal fl(1/L) * attn_drop_mask bit for bit."""
-    heads, d, l, keep = 2, 64, 49, 0.9
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l", [9, 49, 64])
+@pytest.mark.parametrize("bn,n_mask", [(6, 3), (19, 1), (2048, 64)])
+def test_window_attention_matches_plain(dev, dtype, l, bn, n_mask):
+    _attention_matches_plain(dev, dtype, l, bn, n_mask)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 12, 16, 40, 64])
+def test_window_attention_matches_plain_head_widths(dev, dtype, d):
+    """Head widths other than the SwinUNet's 32: padded to the 16-wide MMA
+    step (8, 12, 40), one 16-wide step (16), four (64), and one not a
+    multiple of the 8-element copy piece (12, staged element by element),
+    at L = 16 with Bn = 19 windows and n_mask = 1."""
+    _attention_matches_plain(dev, dtype, 16, 19, 1, heads=4, d=d)
+
+
+def _mask_inputs(dev, dtype, bn, heads, d, l):
+    """q = k = 0 (every probability fl(1/L)) and the identity in the first
+    L channels of each head's v and do, so K13's output and K14's dv are
+    the probabilities times the dropout mask, one product each."""
     qkv = torch.zeros((bn, l, 3 * heads * d), device=dev)
+    do = torch.zeros((bn, l, heads * d), device=dev)
     for h in range(heads):
         qkv[:, :, 2 * heads * d + h * d:2 * heads * d + h * d + l] = \
             torch.eye(l, device=dev)
+        do[:, :, h * d:h * d + l] = torch.eye(l, device=dev)
+    return qkv.to(dtype), do.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bn", [6, 19, 40])
+def test_attention_dropout_mask_is_bit_exact(dev, dtype, bn):
+    """K13's output (v = the identity, D = 64 >= L) equals fl(1/L) *
+    attn_drop_mask bit for bit, rounded once to the dtype: the kernel
+    normalises and applies the mask in fp32 and rounds P once."""
+    heads, d, l, keep = 2, 64, 49, 0.9
+    qkv, _ = _mask_inputs(dev, dtype, bn, heads, d, l)
     drop = cb.HashDropout(4242, keep)
     out = wa.window_attention_fwd(qkv, torch.zeros((heads, l, l), device=dev),
                                   None, heads, drop).view(bn, l, heads, d)
     p = torch.tensor(1.0, device=dev) / l
-    ref = wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev) * p
+    ref = (wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev) * p).to(dtype)
     assert torch.equal(out[..., :l].permute(0, 2, 1, 3), ref)
     assert not out[..., l:].any()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bn", [6, 19, 40])
+def test_attention_backward_dropout_mask_is_bit_exact(dev, dtype, bn):
+    """K14's dv = (P o M)^T do with do = the identity: dv[j][i] is
+    fl(1/L) * attn_drop_mask[i][j] bit for bit, rounded once to the dtype,
+    so K14 regenerates the forward's mask at every (i, j)."""
+    heads, d, l, keep = 2, 64, 49, 0.9
+    qkv, do = _mask_inputs(dev, dtype, bn, heads, d, l)
+    drop = cb.HashDropout(4242, keep)
+    dqkv, _ = wa.window_attention_bwd(
+        qkv, torch.zeros((heads, l, l), device=dev), None, do, heads, drop)
+    dv = dqkv[..., 2 * heads * d:].reshape(bn, l, heads, d)
+    p = torch.tensor(1.0, device=dev) / l
+    ref = (wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev) * p).to(dtype)
+    assert torch.equal(dv[..., :l].permute(0, 2, 3, 1), ref)
+    assert not dv[..., l:].any()
+
+
 @pytest.mark.parametrize("drop", [None, 0.9])
 def test_attention_bias_gradient_is_reproducible(dev, drop):
+    """K13's output and K14's dqkv and dbias are bitwise the same in two
+    runs (dbias: per-CTA partials summed in a fixed order)."""
     qkv, bias, mask, do = _attn_inputs(dev, torch.bfloat16, 512, 49, 16, 6)
     drop = None if drop is None else cb.HashDropout(77, drop)
     runs = [wa.window_attention_bwd(qkv, bias, mask, do, 6, drop)
             for _ in range(2)]
     assert torch.equal(runs[0][1], runs[1][1])
     assert torch.equal(runs[0][0], runs[1][0])
+    outs = [wa.window_attention_fwd(qkv, bias, mask, 6, drop)
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_attention_function_launches_both_kernels(dev):
