@@ -15,8 +15,9 @@ nor the JAX package. Phases, each of which fails the run on error:
      K9 conv3x3_dgrad_pair and K10 conv3x3_wgrad_pair at the four UpBlock
      shapes; K11 conv3x3_dgrad_reduce at every ConvBlock's conv2, with and
      without the encoder's dropout; hash dropout masks bit-exact in fp32
-     and bf16; the statistics, K11's sums and B's and K10's dW bitwise the
-     same in two runs; each conv row's achieved TFLOP/s; then the
+     and bf16; C bitwise equal to its plain version; the statistics, K11's
+     sums, D's sums and B's and K10's dW bitwise the same in two runs; each
+     row's achieved TFLOP/s and GB/s; then the
      ConvBlock Function's forward and backward (pair inputs for the
      UpBlocks) and Conv3x3Plain. Beside each kernel in bf16: its time, the
      plain version's, and the one PyTorch library call that computes the
@@ -39,7 +40,9 @@ nor the JAX package. Phases, each of which fails the run on error:
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
      in the ACDC layout, 2 warm-up and 5 timed steps, with ``F.conv2d`` /
      ``torch.conv2d`` patched to raise; the launch counters must rise by
-     what the model's structure predicts; one more step traced;
+     what the model's structure predicts; one more step traced (device
+     busy time, the conv kernels' and C's and D's time, and the count of
+     device kernels, copies and memsets in the step);
   3b. the HPFG main path the same way, with the values of
      configs/hpfg_unet_plus_30k_224x224_ACDC.yaml (two full-width UNet_Plus
      students and the EMA teacher: three forwards and two backwards a step);
@@ -88,7 +91,7 @@ BF16_FLOPS_PER_S = 989e12
 
 CU = "hpfg_tpu_torch/csrc/conv3x3.cu"
 ATTN_CU = "hpfg_tpu_torch/csrc/window_attention.cu"
-TRITON = "hpfg_tpu_torch/ops/bn_act.py"
+BN_CU = "hpfg_tpu_torch/csrc/bn_act.cu"
 PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
 ATTN_PALLAS = "hpfg_tpu/ops/pallas/window_attention.py"
 S4_CONFIG = "configs/s4cvnet_unet_30k_224x224_ACDC.yaml"
@@ -108,9 +111,9 @@ KERNELS = {
     "conv3x3_wgrad_nhwc": dict(route="cuda", source=CU,
                                replaces=f"{PALLAS}:1192", also_replaces=[],
                                counters=["conv3x3_wgrad_nhwc"]),
-    "bn_act": dict(route="triton", source=TRITON, replaces=f"{PALLAS}:810",
+    "bn_act": dict(route="cuda", source=BN_CU, replaces=f"{PALLAS}:810",
                    also_replaces=[], counters=["bn_act"]),
-    "bn_act_bwd": dict(route="triton", source=TRITON,
+    "bn_act_bwd": dict(route="cuda", source=BN_CU,
                        replaces=f"{PALLAS}:1151",
                        also_replaces=[f"{PALLAS}:1166"],
                        counters=["bn_act_bwd", "bn_act_dpre"]),
@@ -408,10 +411,14 @@ def check_kernels(rep: Report, dev) -> None:
                 y = ba.bn_act(g, a2, b2)
                 ms = cuda_ms(lambda: ba.bn_act(g, a2, b2))
                 pms = cuda_ms(lambda: ba.bn_act_reference(g, a2, b2))
-                r = rep.compare("bn_act", f"{name} bn_act", dname, y,
-                                ba.bn_act_reference(g, a2, b2), ms, pms,
-                                work=(3 * n, 2 * es * n))
-                line.append(f"C {r:.1e} {ms:.3f}/{pms:.3f}ms")
+                y_r = ba.bn_act_reference(g, a2, b2)
+                r = rep.compare("bn_act", f"{name} bn_act", dname, y, y_r,
+                                ms, pms, work=(3 * n, 2 * es * n))
+                if not torch.equal(y, y_r):
+                    rep.fail(f"bn_act {name} {dname}: not bitwise equal to "
+                             f"the plain version")
+                line.append(f"C {r:.1e} bitwise {times(ms, pms)}ms "
+                            f"{rate((3 * n, 2 * es * n), ms)}")
                 m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
                 s, d = ba.bn_act_bwd(dp, g, a2, b2, m, inv)
                 s_r, d_r = ba.bn_act_bwd_reference(dp, g, a2, b2, m, inv)
@@ -421,7 +428,10 @@ def check_kernels(rep: Report, dev) -> None:
                 r1 = rep.compare("bn_act_bwd", f"{name} sums", dname, s, s_r,
                                  ms, pms, work=(17 * n, 3 * es * n))
                 r2 = rep.compare("bn_act_bwd", f"{name} dpre", dname, d, d_r)
-                line.append(f"D {max(r1, r2):.1e} {ms:.3f}/{pms:.3f}ms")
+                same_twice(rep, f"bn_act_bwd {name} sums {dname}",
+                           lambda: (ba.bn_act_bwd(dp, g, a2, b2, m, inv)[0],))
+                line.append(f"D {max(r1, r2):.1e} {times(ms, pms)}ms "
+                            f"{rate((17 * n, 3 * es * n), ms)}")
                 d = ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r)
                 ms = cuda_ms(lambda: ba.bn_act_dpre(dp, g, a2, b2, m, inv,
                                                     s_r))
@@ -431,7 +441,8 @@ def check_kernels(rep: Report, dev) -> None:
                                 ba.bn_act_dpre_reference(dp, g, a2, b2, m,
                                                          inv, s_r),
                                 ms, pms, work=(9 * n, 3 * es * n))
-                line.append(f"D dpre {r:.1e} {ms:.3f}/{pms:.3f}ms")
+                line.append(f"D dpre {r:.1e} {times(ms, pms)}ms "
+                            f"{rate((9 * n, 3 * es * n), ms)}")
             print(" | ".join(line), flush=True)
             del x, w, dp, y, y_r, dx, dx_r
             torch.cuda.empty_cache()
@@ -1026,7 +1037,7 @@ def run_main_path(rep: Report, dev, card: str, config: str, label: str,
         if (label in meta.get("paths", ALL_PATHS)
                 and sum(launches[c] for c in meta["counters"]) == 0):
             rep.fail(f"{label} path: kernel {name} was not launched")
-    busy, conv = profile_step(trainer, card, label)
+    busy, conv, bn, step_launches = profile_step(trainer, card, label)
     ms = elapsed / STEPS * 1e3
     imgs = (LABEL_BS + UNLABEL_BS) * STEPS / elapsed
     print(f"{label} path: {algo.name} 224^2 {LABEL_BS}+{UNLABEL_BS} bf16: "
@@ -1034,15 +1045,17 @@ def run_main_path(rep: Report, dev, card: str, config: str, label: str,
           f"images a step), peak {peak:.2f} GiB allocated ({card})",
           flush=True)
     summary = dict(ms_per_step=ms, img_per_s=imgs, peak_gib=peak,
-                   traced_busy_ms=busy, traced_conv_ms=conv)
+                   traced_busy_ms=busy, traced_conv_ms=conv,
+                   traced_bn_ms=bn, traced_device_launches=step_launches)
     return launches, algo, summary
 
 
 def profile_step(trainer, card: str, label: str):
     """One more step under torch.profiler: device time by kernel name and
     the device's busy share of the step's wall time (profiler on). Returns
-    (busy ms, ms of the conv kernels A, B and K8-K11), or (None, None) when
-    the profiler saw no device time."""
+    (busy ms, ms of the conv kernels A, B and K8-K11, ms of kernels C and D,
+    device kernels, copies and memsets in the step), or Nones when the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1060,7 +1073,7 @@ def profile_step(trainer, card: str, label: str):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print("profile: the profiler saw no device time", flush=True)
-        return None, None
+        return None, None, None, None
     by_name: dict[str, list] = {}
     for e in kernels:
         row = by_name.setdefault(e.name, [0, 0.0])
@@ -1069,10 +1082,14 @@ def profile_step(trainer, card: str, label: str):
     busy = sum(v[1] for v in by_name.values())
     conv = sum(v[1] for k, v in by_name.items()
                if "conv3x3" in k or "wgrad" in k)
+    bn = sum(v[1] for k, v in by_name.items()
+             if any(f"bn_{n}_kernel" in k for n in ("act", "reduce", "dpre")))
+    launches = sum(v[0] for v in by_name.values())
     lines = [f"profile of one {label} step ({card}): wall "
              f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
              f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), conv "
-             f"kernels {conv / 1e3:.2f} ms"]
+             f"kernels {conv / 1e3:.2f} ms, C and D {bn / 1e3:.3f} ms; "
+             f"{launches} device kernels, copies and memsets in the step"]
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         lines.append(f"  {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
                      f"x{n:<4} {name[:110]}")
@@ -1082,7 +1099,7 @@ def profile_step(trainer, card: str, label: str):
     prof.export_chrome_trace(os.path.join(OUT_DIR,
                                           f"step_trace_{label}.json"))
     print("\n".join(lines[:25]), flush=True)
-    return busy / 1e3, conv / 1e3
+    return busy / 1e3, conv / 1e3, bn / 1e3, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1168,7 +1185,8 @@ def ptxas_summary(log: str) -> list[str]:
                 rest = sym[j + len(name):]
                 args = [("float" if rest.startswith("If") else
                          "bf16" if rest.startswith("I13__nv_bfloat16") else
-                         "")] + re.findall(r"Li(\d+)E", rest[:rest.find("Ev")])
+                         "")] + re.findall(r"L[ib](\d+)E",
+                                           rest[:rest.find("Ev")])
                 args = [a for a in args if a]
                 return name + (f"<{', '.join(args)}>" if args else "")
         return sym
@@ -1193,9 +1211,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    # Triton's compiled kernels stay inside the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
-        REPO, "hpfg_tpu_torch", "_build", "triton"))
     try:
         from hpfg_tpu_torch.ops._cuda import library
     except ImportError as exc:

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("conv3x3.cu", "window_attention.cu")
+SOURCES = ("conv3x3.cu", "window_attention.cu", "bn_act.cu")
 HEADERS = ("hash.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "hpfg_tile_h": [],
     "hpfg_tile_w": [],
@@ -50,6 +51,12 @@ _SIGNATURES = {
                                   _U, _U, _F, _I, _I, _I, _I, _P],
     "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _I, _U, _U, _F, _I, _I, _I, _I, _P],
+    "hpfg_bn_ctas_per_sm": [_I, _I, _I],
+    "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
+    "hpfg_bn_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                       _I, _I, _I, _L, _P],
+    "hpfg_bn_dpre": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _L, _P],
 }
 
 
@@ -69,12 +76,25 @@ class KernelLibrary:
         self.tile = (self.lib.hpfg_tile_h(), self.lib.hpfg_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()
         self.attn_max_d = self.lib.hpfg_attn_max_d()
+        self._bn_occupancy: dict[tuple[int, bool, int], int] = {}
 
     def wgrad_tile(self, c: int, f: int, bf16: bool) -> tuple[int, int]:
         """The wgrad kernel's (input, output) channel tile for ``c`` input
         and ``f`` output channels in that dtype."""
         return (self.lib.hpfg_wgrad_cm(c, int(bf16)),
                 self.lib.hpfg_wgrad_bn(f, int(bf16)))
+
+    def bn_ctas_per_sm(self, kernel: int, bf16: bool, unroll: int) -> int:
+        """CTAs an SM holds of the BN kernel ``kernel`` (0 C, 1 D's reduce,
+        2 dpre) in that dtype with ``unroll`` steps a turn, from the
+        occupancy API of the current device."""
+        key = (kernel, bf16, unroll)
+        if key not in self._bn_occupancy:
+            n = self.lib.hpfg_bn_ctas_per_sm(kernel, int(bf16), unroll)
+            if n <= 0:
+                raise RuntimeError(f"hpfg_bn_ctas_per_sm: CUDA error {-n}")
+            self._bn_occupancy[key] = n
+        return self._bn_occupancy[key]
 
     def call(self, name: str, *args) -> None:
         """Call one launcher; raise if the launch was refused."""

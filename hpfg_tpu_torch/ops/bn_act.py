@@ -1,4 +1,4 @@
-"""BatchNorm-affine + LeakyReLU forward and backward: Triton kernels.
+"""BatchNorm-affine + LeakyReLU forward and backward: kernels C and D.
 
 Replaces (hpfg_tpu/ops/pallas/conv_block.py):
   * ``bn_act``     -> ``_bn_act_kernel`` (K3): y = lrelu(a*g + b);
@@ -8,34 +8,28 @@ Replaces (hpfg_tpu/ops/pallas/conv_block.py):
   * ``bn_act_dpre`` -> ``_dpre_kernel`` (K5) alone, for the stage whose
     S0, S1 the conv2 dgrad already reduced in its epilogue (K11).
 
-What bounds them on an H100: these are memory-bound passes over a
-[B*H*W, F] activation (one or two reads, one write) with a handful of FLOPs
-per element, so HBM bandwidth (3.35 TB/s) is the roofline. The design works
-on the flattened NHWC view in 2-D blocks of [rows, F] whose loads are
-contiguous and coalesced, keeps the per-channel vectors in registers, and
-reduces per program into one [S0, S1] partial, summed in a fixed order by
-the column-sum pass that kernels A and B use too (``_cuda.colsum``, CUDA;
-deterministic, no atomics). Triton fits: no tensor-core work and
-no shared-memory tiling to steer. Kernels launch with FMA contraction off
-(``enable_fp_fusion=False``), so z = a*pre + b rounds as the plain version
-rounds it and both take the same LeakyReLU-derivative branch.
+The kernels are CUDA C++ in ``csrc/bn_act.cu`` (``bn_act_kernel``,
+``bn_reduce_kernel``, ``bn_dpre_kernel``), which says what bounds them on an
+H100 (bytes) and how they are built: one persistent streaming walk in which
+each thread owns a fixed group of channels (``bn_walk`` sizes it), 16-byte
+accesses, and D's cross-CTA sum finished inside its reduce kernel by the
+last CTA to arrive, in a fixed order. A full ``bn_act_bwd`` is two launches
+(reduce, dpre); ``bn_act`` and ``bn_act_dpre`` one each.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; for a CUDA
-tensor it launches the Triton kernel or raises. ``triton`` is imported at the
-first launch, never at import time. (No ``from __future__ import
-annotations`` here: Triton reads the ``tl.constexpr`` annotations.)
+tensor it launches its kernel or raises.
 """
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
-from hpfg_tpu_torch.ops._cuda import colsum, launch_counter
+from hpfg_tpu_torch.ops._cuda import launch_counter, library, ptr, stream
 
 LRELU_SLOPE = 0.01
-
-# triton.language, bound by _kernels() at the first launch: the kernel
-# bodies resolve ``tl`` through this module's globals.
-tl = None
-_KERNELS = None
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -73,99 +67,96 @@ def bn_act_bwd_reference(dy, pre, a, b, mean, inv):
 
 
 # ---------------------------------------------------------------------------
-# Triton kernels
+# the kernels' walk (csrc/bn_act.cu)
 # ---------------------------------------------------------------------------
 
-def _kernels():
-    global tl, _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
-    import triton
-    import triton.language
-
-    tl = triton.language
-
-    @triton.jit
-    def bn_act_kernel(g_ptr, a_ptr, b_ptr, y_ptr, P, F,
-                      BLOCK_P: tl.constexpr, BLOCK_F: tl.constexpr):
-        rows = (tl.program_id(0) * BLOCK_P
-                + tl.arange(0, BLOCK_P)).to(tl.int64)
-        cols = tl.arange(0, BLOCK_F)
-        cmask = cols < F
-        mask = (rows[:, None] < P) & cmask[None, :]
-        offs = rows[:, None] * F + cols[None, :]
-        a = tl.load(a_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        z = g * a[None, :] + b[None, :]
-        y = tl.where(z >= 0, z, z * 0.01)
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def bwd_reduce_kernel(dy_ptr, pre_ptr, a_ptr, b_ptr, m_ptr, inv_ptr,
-                          part_ptr, P, F, rows_per_prog,
-                          BLOCK_P: tl.constexpr, BLOCK_F: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_F)
-        cmask = cols < F
-        a = tl.load(a_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        m = tl.load(m_ptr + cols, mask=cmask, other=0.0)
-        inv = tl.load(inv_ptr + cols, mask=cmask, other=0.0)
-        s0 = tl.zeros([BLOCK_P, BLOCK_F], tl.float32)
-        s1 = tl.zeros([BLOCK_P, BLOCK_F], tl.float32)
-        start = pid * rows_per_prog
-        for r0 in range(start, start + rows_per_prog, BLOCK_P):
-            rows = (r0 + tl.arange(0, BLOCK_P)).to(tl.int64)
-            mask = (rows[:, None] < P) & cmask[None, :]
-            offs = rows[:, None] * F + cols[None, :]
-            dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            pre = tl.load(pre_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            z = pre * a[None, :] + b[None, :]
-            dz = dy * tl.where(z >= 0, 1.0, 0.01)
-            xhat = (pre - m[None, :]) * inv[None, :]
-            s0 += dz
-            s1 += dz * xhat
-        base = part_ptr + pid * 2 * F
-        tl.store(base + cols, tl.sum(s0, axis=0), mask=cmask)
-        tl.store(base + F + cols, tl.sum(s1, axis=0), mask=cmask)
-
-    @triton.jit
-    def dpre_kernel(dy_ptr, pre_ptr, a_ptr, b_ptr, m_ptr, inv_ptr, s_ptr,
-                    out_ptr, P, F, inv_n,
-                    BLOCK_P: tl.constexpr, BLOCK_F: tl.constexpr):
-        rows = (tl.program_id(0) * BLOCK_P
-                + tl.arange(0, BLOCK_P)).to(tl.int64)
-        cols = tl.arange(0, BLOCK_F)
-        cmask = cols < F
-        mask = (rows[:, None] < P) & cmask[None, :]
-        offs = rows[:, None] * F + cols[None, :]
-        a = tl.load(a_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        m = tl.load(m_ptr + cols, mask=cmask, other=0.0)
-        inv = tl.load(inv_ptr + cols, mask=cmask, other=0.0)
-        u = tl.load(s_ptr + cols, mask=cmask, other=0.0) * inv_n
-        v = tl.load(s_ptr + F + cols, mask=cmask, other=0.0) * inv_n
-        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        pre = tl.load(pre_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        z = pre * a[None, :] + b[None, :]
-        dz = dy * tl.where(z >= 0, 1.0, 0.01)
-        xhat = (pre - m[None, :]) * inv[None, :]
-        out = a[None, :] * (dz - u[None, :] - xhat * v[None, :])
-        tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty), mask=mask)
-
-    _KERNELS = dict(bn_act=bn_act_kernel, bwd_reduce=bwd_reduce_kernel,
-                    dpre=dpre_kernel)
-    return _KERNELS
+CTA_THREADS = 256  # bn_act.cu NT
+# The reduce loads the last L2_KEEP_BYTES of dy + pre with an L2 evict_last
+# policy (the rows dpre, walking in reverse, reads first) and the rest with
+# evict_first; 0: no hints.
+L2_KEEP_BYTES = 0
+DPRE_REVERSE = True
+DPRE_EVICT_FIRST = False
+C_REVERSE = False
+# steps a thread loads before it uses the first: C, D's reduce, dpre
+UNROLL = (4, 4, 4)
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+class BnWalk(NamedTuple):
+    """How kernels C and D split a [P, F] activation over CTAs: a thread
+    owns ``vec`` contiguous channels (one of G = F / vec groups), a CTA
+    covers ``cols`` groups of ``rows_per_step`` rows a step, the grid is
+    (``ctas``, ``chunks``) with chunk y taking groups [y*cols, (y+1)*cols),
+    and CTA x walks steps x, x + ctas, ... of ``steps``. D's reduce writes
+    one partial row of ``part_width`` floats per CTA x."""
+
+    vec: int
+    cols: int
+    rows_per_step: int
+    steps: int
+    ctas: int
+    chunks: int
+    part_width: int
+    p: int
+
+    def rows(self, x: int) -> list[int]:
+        """The rows CTA x walks, in its order (each with every chunk)."""
+        r = self.rows_per_step
+        return [row for s in range(x, self.steps, self.ctas)
+                for row in range(s * r, min(s * r + r, self.p))]
 
 
-def _blocks(f: int) -> tuple[int, int]:
-    block_f = max(16, 1 << (f - 1).bit_length())
-    return max(1, 4096 // block_f), block_f
+def bn_walk(p: int, f: int, elem_bytes: int, sms: int, ctas_per_sm: int,
+            reduce: bool = False, aligned: bool = True) -> BnWalk:
+    """The walk of kernels C and D over p rows of f channels of
+    ``elem_bytes`` each, on ``sms`` SMs holding ``ctas_per_sm`` CTAs each.
+    The vector path (16 bytes a thread) needs f % V == 0 and 16-byte aligned
+    pointers, else one element a thread. The grid fills the card; D's reduce
+    also takes at most about sqrt(p * elem_bytes / 4) CTAs, which balances
+    the bytes each CTA streams (2 f es p / ctas) against the partial bytes
+    the last CTA reads back (8 f ctas)."""
+    v = 16 // elem_bytes
+    vec = v if aligned and f % v == 0 else 1
+    groups = f // vec
+    cols = min(groups, CTA_THREADS)
+    chunks = -(-groups // cols)
+    rows = CTA_THREADS // cols
+    steps = -(-p // rows)
+    ctas = min(steps, sms * ctas_per_sm // chunks)
+    if reduce:
+        ctas = min(ctas, math.isqrt(p * elem_bytes // 4))
+    return BnWalk(vec, cols, rows, steps, max(1, ctas), chunks,
+                  -(-2 * f // 4) * 4, p)
+
+
+_SMS: dict[int, int] = {}
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _walk(kernel: int, t: torch.Tensor, *others: torch.Tensor) -> BnWalk:
+    """bn_walk for kernel ``kernel`` (0 C, 1 D's reduce, 2 dpre) on ``t``
+    [..., F] and the other tensors of the call (the vector path needs every
+    pointer 16-byte aligned)."""
+    lib = library(t.device)
+    dev = t.device.index
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    f = t.shape[-1]
+    bf16 = t.dtype == torch.bfloat16
+    aligned = all(x.data_ptr() % 16 == 0 for x in (t, *others))
+    return bn_walk(t.numel() // f, f, t.element_size(), _SMS[dev],
+                   lib.bn_ctas_per_sm(kernel, bf16, UNROLL[kernel]),
+                   reduce=kernel == 1, aligned=aligned)
+
+
+def _counter(device: torch.device) -> torch.Tensor:
+    """The device's ticket counter of D's reduce: allocated zeroed once,
+    reset to 0 by the last CTA of every call."""
+    dev = device.index
+    if dev not in _COUNTERS:
+        _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32,
+                                     device=torch.device("cuda", dev))
+    return _COUNTERS[dev]
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor | None = None,
@@ -207,14 +198,12 @@ def bn_act(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if g.device.type == "cpu":
         return bn_act_reference(g, a, b)
     _require_cuda(g)
-    k = _kernels()
-    f = g.shape[-1]
-    p = g.numel() // f
     y = torch.empty_like(g)
-    block_p, block_f = _blocks(f)
-    k["bn_act"][(_cdiv(p, block_p),)](
-        g, a, b, y, p, f, BLOCK_P=block_p, BLOCK_F=block_f, num_warps=4,
-        enable_fp_fusion=False)
+    w = _walk(0, g, y, a, b)
+    library(g.device).call(
+        "hpfg_bn_act", ptr(g), ptr(a), ptr(b), ptr(y), w.p, g.shape[-1],
+        int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
+        UNROLL[0], int(C_REVERSE), stream(g))
     bn_act.launches += 1
     return y
 
@@ -233,23 +222,21 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     if dy.device.type == "cpu":
         return bn_act_bwd_reference(dy, pre, a, b, mean, inv)
     _require_cuda(dy)
-    k = _kernels()
     f = dy.shape[-1]
-    p = dy.numel() // f
-    block_p, block_f = _blocks(f)
-    nblocks = _cdiv(p, block_p)
-    nprog = min(nblocks, 1024)
-    rows_per_prog = _cdiv(nblocks, nprog) * block_p
-    nprog = _cdiv(p, rows_per_prog)
-    part = torch.empty((nprog, 2 * f), dtype=torch.float32, device=dy.device)
-    k["bwd_reduce"][(nprog,)](dy, pre, a, b, mean, inv, part, p, f,
-                              rows_per_prog, BLOCK_P=block_p,
-                              BLOCK_F=block_f, num_warps=4,
-                              enable_fp_fusion=False)
-    sums = colsum(part)
-    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
+    w = _walk(1, dy, pre, a, b, mean, inv)
+    part = torch.empty((w.ctas, w.part_width), dtype=torch.float32,
+                       device=dy.device)
+    sums = torch.empty((2, f), dtype=torch.float32, device=dy.device)
+    keep_steps = L2_KEEP_BYTES // (2 * w.rows_per_step * f * dy.element_size())
+    keep_from = w.steps - keep_steps if keep_steps else w.steps
+    library(dy.device).call(
+        "hpfg_bn_reduce", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
+        ptr(inv), ptr(part), ptr(sums), ptr(_counter(dy.device)), w.p, f,
+        int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
+        UNROLL[1], w.part_width, keep_from, stream(dy))
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums, keep_from)
     bn_act_bwd.launches += 1
-    return sums.view(2, f), dpre
+    return sums, dpre
 
 
 @launch_counter
@@ -270,19 +257,22 @@ def bn_act_dpre(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     if dy.device.type == "cpu":
         return bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums)
     _require_cuda(dy)
-    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums, None)
     bn_act_dpre.launches += 1
     return dpre
 
 
-def _dpre(dy, pre, a, b, mean, inv, sums):
-    f = dy.shape[-1]
-    p = dy.numel() // f
-    block_p, block_f = _blocks(f)
+def _dpre(dy, pre, a, b, mean, inv, sums, keep_from):
+    """Launch dpre; ``keep_from``: the first step the reduce just loaded with
+    evict_last (None: no reduce before it)."""
     dpre = torch.empty_like(dy)
-    _kernels()["dpre"][(_cdiv(p, block_p),)](
-        dy, pre, a, b, mean, inv, sums, dpre, p, f, 1.0 / p,
-        BLOCK_P=block_p, BLOCK_F=block_f, num_warps=4, enable_fp_fusion=False)
+    w = _walk(2, dy, pre, dpre, a, b, mean, inv, sums)
+    library(dy.device).call(
+        "hpfg_bn_dpre", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
+        ptr(inv), ptr(sums), ptr(dpre), w.p, dy.shape[-1],
+        int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
+        UNROLL[2], int(DPRE_REVERSE), int(DPRE_EVICT_FIRST),
+        w.steps if keep_from is None else keep_from, stream(dy))
     return dpre
 
 

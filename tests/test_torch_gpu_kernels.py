@@ -94,15 +94,93 @@ def test_wgrad_matches_plain(dev, dtype, c, f, act):
            cb.conv3x3_wgrad_reference(src, dp, **kw), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("f", [4, 16, 48])
-def test_bn_act_and_bwd_match_plain(dev, dtype, f):
-    g = _randn(dev, 2, 20, 20, f).to(dtype)
-    dy = _randn(dev, 2, 20, 20, f, seed=1).to(dtype)
+def _bn_inputs(dev, dtype, shape, seed=0):
+    f = shape[-1]
+    g = _randn(dev, *shape, seed=seed).to(dtype)
+    dy = _randn(dev, *shape, seed=seed + 1).to(dtype)
     a, b = 1 + _randn(dev, f, scale=0.1), _randn(dev, f, scale=0.1, seed=1)
     m, inv = _randn(dev, f, scale=0.1, seed=2), 1 + _randn(dev, f).abs()
-    _close(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b), dtype)
+    return g, dy, a, b, m, inv
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [4, 12, 16, 20, 48, 256])
+def test_bn_act_and_bwd_match_plain(dev, dtype, f):
+    """C bitwise equal to its plain version; D within tolerance. P = 800
+    rows is not a multiple of any CTA's rows a step (F = 4 and 12 in bf16
+    and F = 4 * odd in fp32 or bf16 take other group counts; F = 4, 12, 20
+    in bf16 take the element path)."""
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (2, 20, 20, f))
+    assert torch.equal(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b))
     s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
+    s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
+    _close(s, s_r, dtype)
+    _close(d, d_r, dtype)
+    # dpre from given sums rounds as the plain version: bitwise equal
+    assert torch.equal(ba.bn_act_dpre(dy, g, a, b, m, inv, s_r),
+                       ba.bn_act_dpre_reference(dy, g, a, b, m, inv, s_r))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [4, 16, 256])
+def test_bn_dpre_branch_is_exact(dev, dtype, f):
+    """Zero sums, mean 0 and inv 0: dpre = a*dz, with dz = dy or 0.01*dy by
+    the sign of z = a*pre + b. A few pre values put z exactly on 0 and one
+    step to either side; the kernel must take the plain version's branch at
+    every element (an FMA-contracted z would not)."""
+    g, dy, a, b, _, _ = _bn_inputs(dev, dtype, (2, 20, 20, f))
+    b = (-a * g[0, 0, 0].float()).contiguous()  # z = fl(fl(a*p0) + b) = 0
+    p0 = g[0, 0, 0].cpu()
+    for i, to in ((1, float("inf")), (2, -float("inf"))):
+        g[0, 0, i] = torch.nextafter(p0, torch.full_like(p0, to)).to(dev)
+    zeros = torch.zeros(f, device=dev)
+    sums = torch.zeros(2, f, device=dev)
+    got = ba.bn_act_dpre(dy, g, a, b, zeros, zeros, sums)
+    ref = ba.bn_act_dpre_reference(dy, g, a, b, zeros, zeros, sums)
+    assert torch.equal(got, ref)
+    assert torch.equal(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bn_reduce_last_cta_finish_is_reproducible(dev, dtype):
+    """A P that gives every reduce CTA several steps, run three times back
+    to back: the sums bitwise the same each time (the last CTA sums the
+    partials in a fixed order and resets the device's counter), within
+    tolerance of the plain version."""
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (16, 112, 112, 32))
+    runs = [ba.bn_act_bwd(dy, g, a, b, m, inv) for _ in range(3)]
+    w = ba.bn_walk(16 * 112 * 112, 32, g.element_size(),
+                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                   1, reduce=True)
+    assert w.steps > 2 * w.ctas
+    for s, d in runs[1:]:
+        assert torch.equal(s, runs[0][0])
+        assert torch.equal(d, runs[0][1])
+    s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
+    _close(runs[0][0], s_r, dtype)
+    _close(runs[0][1], d_r, dtype)
+    assert int(ba._counter(dev).item()) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [16, 48])
+def test_bn_element_path_on_misaligned_views(dev, dtype, f):
+    """Tensors that start one element past a 16-byte boundary take the
+    element path (contiguous views of a larger buffer) and agree with the
+    plain version: C bitwise, D within tolerance."""
+    n = 2 * 20 * 20 * f
+
+    def shifted(t):
+        buf = torch.empty(n + 1, device=dev, dtype=dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (2, 20, 20, f))
+    gs, dys = shifted(g), shifted(dy)
+    assert torch.equal(ba.bn_act(gs, a, b), ba.bn_act_reference(g, a, b))
+    s, d = ba.bn_act_bwd(dys, gs, a, b, m, inv)
     s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
     _close(s, s_r, dtype)
     _close(d, d_r, dtype)
