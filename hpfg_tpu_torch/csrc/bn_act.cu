@@ -120,36 +120,21 @@ struct Pack {
   }
 };
 
-enum Hint { HINT_NONE = 0, HINT_EVICT_FIRST = 1, HINT_EVICT_LAST = 2 };
-
-static __device__ __forceinline__ uint64_t policy(Hint h) {
-  uint64_t p = 0;
-  if (h == HINT_EVICT_LAST)
-    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-                 : "=l"(p));
-  else if (h == HINT_EVICT_FIRST)
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-                 : "=l"(p));
-  return p;
-}
-
-// A load with an L2 eviction policy on the vector path (a plain load on the
-// element path and for HINT_NONE).
-template <typename Raw>
-static __device__ __forceinline__ Raw load(const Raw* p, Hint h,
-                                           uint64_t pol) {
-  if constexpr (std::is_same_v<Raw, uint4>) {
-    if (h != HINT_NONE) {
-      Raw r;
-      asm volatile(
-          "ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-          : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-          : "l"(p), "l"(pol));
-      return r;
-    }
-  }
-  return *p;
-}
+// Compile-time settings that scripts/tune_bn_act.py varies: the steps a
+// thread loads before it uses the first (U), and the CTAs an SM must hold
+// of D's two kernels (0: as many as their registers allow).
+#ifndef BN_UNROLL
+#define BN_UNROLL 4
+#endif
+#ifndef BN_D_MIN_CTAS
+#define BN_D_MIN_CTAS 0
+#endif
+constexpr int U = BN_UNROLL;
+#if BN_D_MIN_CTAS
+#define BN_D_BOUNDS __launch_bounds__(NT, BN_D_MIN_CTAS)
+#else
+#define BN_D_BOUNDS __launch_bounds__(NT)
+#endif
 
 // The walk shared by the three kernels (ops/bn_act.py bn_walk computes the
 // same): G = F/V channel groups; a CTA covers cols = min(G, NT) of them
@@ -172,16 +157,15 @@ struct Walk {
 
   // offsets (in accesses) and validity of the U steps of the turn that
   // starts at step s00; ``reverse`` walks the rows from the last step
-  template <int U, int N>
+  template <int N>
   __device__ __forceinline__ void turn(long long P, int F, int ch,
                                        long long s00, bool reverse,
-                                       long long (&off)[U], bool (&ok)[U],
-                                       long long (&step)[U]) const {
+                                       long long (&off)[U],
+                                       bool (&ok)[U]) const {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long s = s00 + (long long)u * gridDim.x;
-      step[u] = reverse ? steps - 1 - s : s;
-      const long long row = step[u] * R + rr;
+      const long long row = (reverse ? steps - 1 - s : s) * R + rr;
       ok[u] = active && s < steps && row < P;
       off[u] = (row * F + ch) / N;
     }
@@ -208,19 +192,12 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ v, int ch,
   }
 }
 
-// an L2 line that D's reduce loaded with evict_last back to evict_normal
-static __device__ __forceinline__ void demote(const void* p) {
-  if ((reinterpret_cast<uintptr_t>(p) & 127) == 0)
-    asm volatile("applypriority.global.L2::evict_normal [%0], 128;" ::"l"(p)
-                 : "memory");
-}
-
 // kernel C: y = lrelu(a*g + b)
-template <bool BF16, bool VEC, int U>
+template <bool BF16, bool VEC>
 __global__ void __launch_bounds__(NT)
     bn_act_kernel(const void* __restrict__ g_, const float* __restrict__ a_,
                   const float* __restrict__ b_, void* __restrict__ y_,
-                  long long P, int F, int reverse) {
+                  long long P, int F) {
   using PK = Pack<BF16, VEC>;
   using Raw = typename PK::Raw;
   constexpr int N = PK::N;
@@ -229,11 +206,11 @@ __global__ void __launch_bounds__(NT)
   const Raw* g = static_cast<const Raw*>(g_);
   Raw* y = static_cast<Raw*>(y_);
   Raw in[U];
-  long long off[U], step[U];
+  long long off[U];
   bool ok[U];
   long long s00 = blockIdx.x;
   // the first turn's loads go out before the per-channel vectors
-  w.turn<U, N>(P, F, ch, s00, reverse, off, ok, step);
+  w.turn<N>(P, F, ch, s00, false, off, ok);
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (ok[u]) in[u] = g[off[u]];
@@ -257,7 +234,7 @@ __global__ void __launch_bounds__(NT)
     }
     s00 += (long long)U * gridDim.x;
     if (s00 >= w.steps) break;
-    w.turn<U, N>(P, F, ch, s00, reverse, off, ok, step);
+    w.turn<N>(P, F, ch, s00, false, off, ok);
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (ok[u]) in[u] = g[off[u]];
@@ -267,16 +244,14 @@ __global__ void __launch_bounds__(NT)
 // D's reduce: per-CTA [S0, S1] partials, the last CTA sums them.
 // part: [gridDim.x, PW] fp32 (PW = 2F rounded up to 4: S0 then S1 then
 // padding); sums: [2, F] fp32; counter: a zeroed unsigned.
-// Steps s >= keep_from load with evict_last, those below with evict_first
-// (keep_from >= steps: no hint).
-template <bool BF16, bool VEC, int U>
-__global__ void __launch_bounds__(NT)
+template <bool BF16, bool VEC>
+__global__ void BN_D_BOUNDS
     bn_reduce_kernel(const void* __restrict__ dy_, const void* __restrict__ pre_,
                      const float* __restrict__ a_, const float* __restrict__ b_,
                      const float* __restrict__ m_,
                      const float* __restrict__ inv_, float* __restrict__ part,
                      float* __restrict__ sums, unsigned* __restrict__ counter,
-                     long long P, int F, int PW, long long keep_from) {
+                     long long P, int F, int PW) {
   using PK = Pack<BF16, VEC>;
   using Raw = typename PK::Raw;
   constexpr int N = PK::N;
@@ -284,24 +259,19 @@ __global__ void __launch_bounds__(NT)
   const int ch = w.c * N;
   const Raw* dy = static_cast<const Raw*>(dy_);
   const Raw* pre = static_cast<const Raw*>(pre_);
-  const bool hinted = keep_from < w.steps;
-  const uint64_t keep = policy(hinted ? HINT_EVICT_LAST : HINT_NONE);
-  const uint64_t pass = policy(hinted ? HINT_EVICT_FIRST : HINT_NONE);
   Raw in_dy[U], in_pre[U];
-  long long off[U], step[U];
+  long long off[U];
   bool ok[U];
   auto fetch = [&]() {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;
-      const bool k = step[u] >= keep_from;
-      const Hint h = !hinted ? HINT_NONE : k ? HINT_EVICT_LAST : HINT_EVICT_FIRST;
-      in_dy[u] = load(dy + off[u], h, k ? keep : pass);
-      in_pre[u] = load(pre + off[u], h, k ? keep : pass);
+      in_dy[u] = dy[off[u]];
+      in_pre[u] = pre[off[u]];
     }
   };
   long long s00 = blockIdx.x;
-  w.turn<U, N>(P, F, ch, s00, false, off, ok, step);
+  w.turn<N>(P, F, ch, s00, false, off, ok);
   fetch();
   float a[N], b[N], m[N], inv[N], s0[N], s1[N];
 #pragma unroll
@@ -330,7 +300,7 @@ __global__ void __launch_bounds__(NT)
     }
     s00 += (long long)U * gridDim.x;
     if (s00 >= w.steps) break;
-    w.turn<U, N>(P, F, ch, s00, false, off, ok, step);
+    w.turn<N>(P, F, ch, s00, false, off, ok);
     fetch();
   }
 
@@ -424,17 +394,15 @@ __global__ void __launch_bounds__(NT)
   if (t == 0) *counter = 0u;
 }
 
-// D's elementwise pass: dpre = a*(dz - S0/N - xhat*S1/N). Steps s >=
-// keep_from were loaded by the reduce with evict_last: their L2 lines go
-// back to evict_normal here (keep_from >= steps: none).
-template <bool BF16, bool VEC, int U>
-__global__ void __launch_bounds__(NT)
+// D's elementwise pass: dpre = a*(dz - S0/N - xhat*S1/N), walking the
+// steps from the last, so it first reads what the reduce read last.
+template <bool BF16, bool VEC>
+__global__ void BN_D_BOUNDS
     bn_dpre_kernel(const void* __restrict__ dy_, const void* __restrict__ pre_,
                    const float* __restrict__ a_, const float* __restrict__ b_,
                    const float* __restrict__ m_, const float* __restrict__ inv_,
                    const float* __restrict__ sums, void* __restrict__ out_,
-                   long long P, int F, int reverse, int evict_first,
-                   long long keep_from) {
+                   long long P, int F) {
   using PK = Pack<BF16, VEC>;
   using Raw = typename PK::Raw;
   constexpr int N = PK::N;
@@ -443,25 +411,19 @@ __global__ void __launch_bounds__(NT)
   const Raw* dy = static_cast<const Raw*>(dy_);
   const Raw* pre = static_cast<const Raw*>(pre_);
   Raw* out = static_cast<Raw*>(out_);
-  const Hint h = evict_first ? HINT_EVICT_FIRST : HINT_NONE;
-  const uint64_t pol = policy(h);
   Raw in_dy[U], in_pre[U];
-  long long off[U], step[U];
+  long long off[U];
   bool ok[U];
   auto fetch = [&]() {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;
-      in_dy[u] = load(dy + off[u], h, pol);
-      in_pre[u] = load(pre + off[u], h, pol);
-      if (VEC && step[u] >= keep_from) {
-        demote(dy + off[u]);
-        demote(pre + off[u]);
-      }
+      in_dy[u] = dy[off[u]];
+      in_pre[u] = pre[off[u]];
     }
   };
   long long s00 = blockIdx.x;
-  w.turn<U, N>(P, F, ch, s00, reverse, off, ok, step);
+  w.turn<N>(P, F, ch, s00, true, off, ok);
   fetch();
   float a[N], b[N], m[N], inv[N], u0[N], u1[N];
   if (w.active) {
@@ -497,44 +459,37 @@ __global__ void __launch_bounds__(NT)
     }
     s00 += (long long)U * gridDim.x;
     if (s00 >= w.steps) break;
-    w.turn<U, N>(P, F, ch, s00, reverse, off, ok, step);
+    w.turn<N>(P, F, ch, s00, true, off, ok);
     fetch();
   }
 }
 
-template <bool BF16, int U>
+template <bool BF16>
 int occupancy(int kernel) {
   int n = 0;
   cudaError_t e;
   if (kernel == 0)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bn_act_kernel<BF16, true, U>, NT, 0);
+        &n, bn_act_kernel<BF16, true>, NT, 0);
   else if (kernel == 1)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bn_reduce_kernel<BF16, true, U>, NT, 0);
+        &n, bn_reduce_kernel<BF16, true>, NT, 0);
   else
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bn_dpre_kernel<BF16, true, U>, NT, 0);
+        &n, bn_dpre_kernel<BF16, true>, NT, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-#define BN_LAUNCH(KERNEL, U, ...)                                  \
-  do {                                                             \
-    if (is_bf16 && vec)                                            \
-      KERNEL<true, true, U><<<grid, NT, 0, s>>>(__VA_ARGS__);      \
-    else if (is_bf16)                                              \
-      KERNEL<true, false, U><<<grid, NT, 0, s>>>(__VA_ARGS__);     \
-    else if (vec)                                                  \
-      KERNEL<false, true, U><<<grid, NT, 0, s>>>(__VA_ARGS__);     \
-    else                                                           \
-      KERNEL<false, false, U><<<grid, NT, 0, s>>>(__VA_ARGS__);    \
-  } while (0)
-#define BN_DISPATCH(KERNEL, ...)                                   \
-  do {                                                             \
-    if (unroll == 8)                                               \
-      BN_LAUNCH(KERNEL, 8, __VA_ARGS__);                           \
-    else                                                           \
-      BN_LAUNCH(KERNEL, 4, __VA_ARGS__);                           \
+#define BN_DISPATCH(KERNEL, ...)                                  \
+  do {                                                            \
+    if (is_bf16 && vec)                                           \
+      KERNEL<true, true><<<grid, NT, 0, s>>>(__VA_ARGS__);        \
+    else if (is_bf16)                                             \
+      KERNEL<true, false><<<grid, NT, 0, s>>>(__VA_ARGS__);       \
+    else if (vec)                                                 \
+      KERNEL<false, true><<<grid, NT, 0, s>>>(__VA_ARGS__);       \
+    else                                                          \
+      KERNEL<false, false><<<grid, NT, 0, s>>>(__VA_ARGS__);      \
   } while (0)
 
 }  // namespace
@@ -542,23 +497,20 @@ int occupancy(int kernel) {
 extern "C" {
 
 // CTAs of 256 threads an SM can hold of kernel 0 (C), 1 (D's reduce) or 2
-// (dpre), vector path, in bf16 or fp32, with ``unroll`` steps a turn; a
-// negative value is a CUDA error.
-int hpfg_bn_ctas_per_sm(int kernel, int is_bf16, int unroll) {
-  if (unroll == 8)
-    return is_bf16 ? occupancy<true, 8>(kernel) : occupancy<false, 8>(kernel);
-  return is_bf16 ? occupancy<true, 4>(kernel) : occupancy<false, 4>(kernel);
+// (dpre), vector path, in bf16 or fp32; a negative value is a CUDA error.
+int hpfg_bn_ctas_per_sm(int kernel, int is_bf16) {
+  return is_bf16 ? occupancy<true>(kernel) : occupancy<false>(kernel);
 }
 
 // g, y [P, F] (bf16 when is_bf16, else fp32); a, b [F] fp32; vec: 16-byte
 // path (F % V == 0, every pointer 16-byte aligned); grid (ctas, chunks).
 int hpfg_bn_act(const void* g, const void* a, const void* b, void* y,
                 long long P, int F, int is_bf16, int vec, int ctas,
-                int chunks, int unroll, int reverse, void* stream) {
+                int chunks, void* stream) {
   const dim3 grid(ctas, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(bn_act_kernel, g, static_cast<const float*>(a),
-              static_cast<const float*>(b), y, P, F, reverse);
+              static_cast<const float*>(b), y, P, F);
   return (int)cudaGetLastError();
 }
 
@@ -567,15 +519,15 @@ int hpfg_bn_act(const void* g, const void* a, const void* b, void* y,
 int hpfg_bn_reduce(const void* dy, const void* pre, const void* a,
                    const void* b, const void* mean, const void* inv,
                    void* part, void* sums, void* counter, long long P, int F,
-                   int is_bf16, int vec, int ctas, int chunks, int unroll,
-                   int PW, long long keep_from, void* stream) {
+                   int is_bf16, int vec, int ctas, int chunks, int PW,
+                   void* stream) {
   const dim3 grid(ctas, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(bn_reduce_kernel, dy, pre, static_cast<const float*>(a),
               static_cast<const float*>(b), static_cast<const float*>(mean),
               static_cast<const float*>(inv), static_cast<float*>(part),
               static_cast<float*>(sums), static_cast<unsigned*>(counter), P,
-              F, PW, keep_from);
+              F, PW);
   return (int)cudaGetLastError();
 }
 
@@ -583,15 +535,13 @@ int hpfg_bn_reduce(const void* dy, const void* pre, const void* a,
 int hpfg_bn_dpre(const void* dy, const void* pre, const void* a,
                  const void* b, const void* mean, const void* inv,
                  const void* sums, void* out, long long P, int F, int is_bf16,
-                 int vec, int ctas, int chunks, int unroll, int reverse,
-                 int evict_first, long long keep_from, void* stream) {
+                 int vec, int ctas, int chunks, void* stream) {
   const dim3 grid(ctas, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(bn_dpre_kernel, dy, pre, static_cast<const float*>(a),
               static_cast<const float*>(b), static_cast<const float*>(mean),
               static_cast<const float*>(inv),
-              static_cast<const float*>(sums), out, P, F, reverse,
-              evict_first, keep_from);
+              static_cast<const float*>(sums), out, P, F);
   return (int)cudaGetLastError();
 }
 

@@ -71,15 +71,6 @@ def bn_act_bwd_reference(dy, pre, a, b, mean, inv):
 # ---------------------------------------------------------------------------
 
 CTA_THREADS = 256  # bn_act.cu NT
-# The reduce loads the last L2_KEEP_BYTES of dy + pre with an L2 evict_last
-# policy (the rows dpre, walking in reverse, reads first) and the rest with
-# evict_first; 0: no hints.
-L2_KEEP_BYTES = 0
-DPRE_REVERSE = True
-DPRE_EVICT_FIRST = False
-C_REVERSE = False
-# steps a thread loads before it uses the first: C, D's reduce, dpre
-UNROLL = (4, 4, 4)
 
 
 class BnWalk(NamedTuple):
@@ -145,8 +136,8 @@ def _walk(kernel: int, t: torch.Tensor, *others: torch.Tensor) -> BnWalk:
     bf16 = t.dtype == torch.bfloat16
     aligned = all(x.data_ptr() % 16 == 0 for x in (t, *others))
     return bn_walk(t.numel() // f, f, t.element_size(), _SMS[dev],
-                   lib.bn_ctas_per_sm(kernel, bf16, UNROLL[kernel]),
-                   reduce=kernel == 1, aligned=aligned)
+                   lib.bn_ctas_per_sm(kernel, bf16), reduce=kernel == 1,
+                   aligned=aligned)
 
 
 def _counter(device: torch.device) -> torch.Tensor:
@@ -203,7 +194,7 @@ def bn_act(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     library(g.device).call(
         "hpfg_bn_act", ptr(g), ptr(a), ptr(b), ptr(y), w.p, g.shape[-1],
         int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
-        UNROLL[0], int(C_REVERSE), stream(g))
+        stream(g))
     bn_act.launches += 1
     return y
 
@@ -227,14 +218,12 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     part = torch.empty((w.ctas, w.part_width), dtype=torch.float32,
                        device=dy.device)
     sums = torch.empty((2, f), dtype=torch.float32, device=dy.device)
-    keep_steps = L2_KEEP_BYTES // (2 * w.rows_per_step * f * dy.element_size())
-    keep_from = w.steps - keep_steps if keep_steps else w.steps
     library(dy.device).call(
         "hpfg_bn_reduce", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
         ptr(inv), ptr(part), ptr(sums), ptr(_counter(dy.device)), w.p, f,
         int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
-        UNROLL[1], w.part_width, keep_from, stream(dy))
-    dpre = _dpre(dy, pre, a, b, mean, inv, sums, keep_from)
+        w.part_width, stream(dy))
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
     bn_act_bwd.launches += 1
     return sums, dpre
 
@@ -257,22 +246,19 @@ def bn_act_dpre(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     if dy.device.type == "cpu":
         return bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums)
     _require_cuda(dy)
-    dpre = _dpre(dy, pre, a, b, mean, inv, sums, None)
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
     bn_act_dpre.launches += 1
     return dpre
 
 
-def _dpre(dy, pre, a, b, mean, inv, sums, keep_from):
-    """Launch dpre; ``keep_from``: the first step the reduce just loaded with
-    evict_last (None: no reduce before it)."""
+def _dpre(dy, pre, a, b, mean, inv, sums):
     dpre = torch.empty_like(dy)
     w = _walk(2, dy, pre, dpre, a, b, mean, inv, sums)
     library(dy.device).call(
         "hpfg_bn_dpre", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
         ptr(inv), ptr(sums), ptr(dpre), w.p, dy.shape[-1],
         int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
-        UNROLL[2], int(DPRE_REVERSE), int(DPRE_EVICT_FIRST),
-        w.steps if keep_from is None else keep_from, stream(dy))
+        stream(dy))
     return dpre
 
 

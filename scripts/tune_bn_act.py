@@ -1,11 +1,17 @@
 """Time kernels C and D (``hpfg_tpu_torch/csrc/bn_act.cu``) on one CUDA card
-at the five main-path shapes of the full-width UNet (bf16, batch 32), under
-each setting of the walk's knobs in ``ops/bn_act.py`` (C's row order, dpre's
-row order and load policy, the share of dy + pre the reduce loads with an L2
-evict_last policy), beside the plain versions and, given the checkout of an
-earlier tree, that tree's ``ops/bn_act.py`` kernels in the same process.
+at the five main-path shapes of the full-width UNet (bf16, batch 32), in
+several builds of the source and walks, beside the plain versions and,
+given the checkout of an earlier tree, that tree's ``ops/bn_act.py``
+kernels in the same process.
 
     python3 scripts/tune_bn_act.py [EARLIER_CHECKOUT]
+
+The variants (VARIANTS below): the repo's build; builds with other values
+of the source's compile-time settings (``-DBN_UNROLL``, the steps a thread
+loads before it uses the first; ``-DBN_D_MIN_CTAS``, the CTAs an SM must
+hold of D's kernels); and the repo's build with a grid of one turn per CTA
+for C and dpre (``one-turn``: as many CTAs as turns, not the resident
+CTAs). All are built in parallel with the repo's other sources.
 
 Two times per case, in ms per call:
   * host: ``chip_smoke.cuda_ms``, CUDA events around 10 back-to-back wrapper
@@ -14,19 +20,21 @@ Two times per case, in ms per call:
   * device: the kernels' own time (every device kernel of the call, summed)
     from torch.profiler, the median of 10 calls, each after a 64 MB write
     that leaves the L2 cache without the call's inputs.
-Each setting's outputs are checked against the plain version first (C
-bitwise, D's sums and dpre within 2e-2 of the largest magnitude; a failure
-prints MISMATCH). Prints one line per case and the totals over the shapes;
-the numbers go to chiprun_out/tune_bn_act.json. Needs nvcc and one card;
-imports no JAX.
+At 14^2 also the host's enqueue time of a call (``enqueue``). Each variant's
+outputs are checked against the plain version first (C bitwise, D's sums
+and dpre within 2e-2 of the largest magnitude; a failure prints MISMATCH).
+Prints one line per case and the totals over the shapes; the numbers go to
+chiprun_out/tune_bn_act.json. Needs nvcc and one card; imports no JAX.
 """
 
 import importlib.util
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -40,18 +48,61 @@ from hpfg_tpu_torch.ops import bn_act as ba  # noqa: E402
 
 SHAPES = [(224, 16), (112, 32), (56, 64), (28, 128), (14, 256)]
 MB = 2 ** 20
-# (name, UNROLL, C_REVERSE, DPRE_REVERSE, DPRE_EVICT_FIRST, L2_KEEP_BYTES)
-SETTINGS = [("u4", (4, 4, 4), False, True, False, 0),
-            ("u8", (8, 8, 8), False, True, False, 0),
-            ("u8 C-reverse", (8, 8, 8), True, True, False, 0),
-            ("u8 dpre-forward", (8, 8, 8), False, False, False, 0),
-            ("u4 keep32", (4, 4, 4), False, True, True, 32 * MB),
-            ("u8 keep32", (8, 8, 8), False, True, True, 32 * MB)]
+# (name, extra nvcc flags or None for the repo's build, one turn per CTA)
+VARIANTS = [("repo", None, False),
+            ("one-turn", None, True),
+            ("unroll2", ["-DBN_UNROLL=2"], False),
+            ("d-3-ctas", ["-DBN_D_MIN_CTAS=3"], False)]
 
 
-def use(setting):
-    _, ba.UNROLL, ba.C_REVERSE, ba.DPRE_REVERSE, ba.DPRE_EVICT_FIRST, \
-        ba.L2_KEEP_BYTES = setting
+def build(variants):
+    """The library of each variant: the repo's for None, else a build of
+    the repo's sources with the extra flags, all compiled at once."""
+    libs, procs = {}, {}
+    for name, flags, _ in variants:
+        if flags is None:
+            libs[name] = _cuda.library()
+            continue
+        out = _cuda.BUILD_ROOT / f"tune_{name}" / "libhpfg_kernels.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-o", str(out),
+               *(str(_cuda.CSRC / s) for s in _cuda.SOURCES)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       out)
+    for name, (p, out) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            print(f"BUILD FAIL {name}\n{log[-3000:]}", flush=True)
+            continue
+        libs[name] = _cuda.KernelLibrary(Path(out), 0.0, log)
+    for name, lib in libs.items():
+        for line in cs.ptxas_summary(lib.build_log):
+            if line.startswith("bn_") and "<1, 1>" in line:
+                print(f"  {name} ptxas: {line}", flush=True)
+        print(f"  {name} ctas per SM (C, reduce, dpre) bf16: "
+              f"{[lib.bn_ctas_per_sm(k, True) for k in range(3)]}",
+              flush=True)
+    return libs
+
+
+BN_WALK = ba.bn_walk
+UNROLL = 4  # the repo's BN_UNROLL
+
+
+def one_turn_walk(p, f, elem_bytes, sms, ctas_per_sm, reduce=False,
+                  aligned=True):
+    """bn_walk with a grid of one turn (UNROLL steps) per CTA for C and
+    dpre; the reduce keeps its walk."""
+    w = BN_WALK(p, f, elem_bytes, sms, ctas_per_sm, reduce, aligned)
+    return w if reduce else w._replace(ctas=max(1, -(-w.steps // UNROLL)))
+
+
+def use(libs, name, base):
+    """Switch the wrappers to variant ``name`` (the earlier tree and the
+    plain versions run on the repo's build)."""
+    _cuda._LIB = libs.get(name, base)
+    ba.bn_walk = one_turn_walk if name == "one-turn" else BN_WALK
 
 
 def device_ms(fn, flush, calls=10):
@@ -64,40 +115,21 @@ def device_ms(fn, flush, calls=10):
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-    per_call = []
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     # a call's kernels are the device events between two flushes
-    cur = None
+    per_call, cur = [], None
     for e in sorted(events, key=lambda e: e.time_range.start):
         if "fill" in e.name.lower():  # the flush
             if cur is not None:
                 per_call.append(cur)
             cur = 0.0
-            continue
-        if cur is not None:
+        elif cur is not None:
             cur += e.time_range.end - e.time_range.start
     if cur is not None:
         per_call.append(cur)
     return statistics.median(per_call) / 1e3 if per_call else float("nan")
-
-
-def load_earlier(checkout):
-    """The earlier tree's ops/bn_act.py as a module (its Triton kernels
-    compile into this checkout's _build/triton)."""
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
-        REPO, "hpfg_tpu_torch", "_build", "triton"))
-    path = os.path.join(checkout, "hpfg_tpu_torch", "ops", "bn_act.py")
-    spec = importlib.util.spec_from_file_location("earlier_bn_act", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def rel(got, ref):
-    got, ref = got.float(), ref.float()
-    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
 def host_us(fn, calls=200):
@@ -113,25 +145,38 @@ def host_us(fn, calls=200):
     return (t1 - t0) / calls * 1e6
 
 
+def load_earlier(checkout):
+    """The earlier tree's ops/bn_act.py as a module (Triton kernels, which
+    compile into this checkout's _build/triton)."""
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
+        REPO, "hpfg_tpu_torch", "_build", "triton"))
+    path = os.path.join(checkout, "hpfg_tpu_torch", "ops", "bn_act.py")
+    spec = importlib.util.spec_from_file_location("earlier_bn_act", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rel(got, ref):
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
 def main():
     earlier = load_earlier(sys.argv[1]) if len(sys.argv) > 1 else None
     dev = torch.device("cuda", 0)
     print(cs.nvidia_smi_line(), flush=True)
-    lib = _cuda.library()
-    for line in cs.ptxas_summary(lib.build_log):
-        if line.startswith("bn_"):
-            print(f"  ptxas: {line}", flush=True)
-    print("ctas per SM (C, reduce, dpre) bf16, unroll 4 and 8:",
-          [[lib.bn_ctas_per_sm(k, True, u) for k in range(3)]
-           for u in (4, 8)], flush=True)
+    built = build(VARIANTS)
+    base = built["repo"]
+    libs = {name: base if one else built[name]
+            for name, _, one in VARIANTS if one or name in built}
     junk = torch.empty(64 * MB // 4, device=dev)
 
     def flush():
         junk.fill_(1.0)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    names = [st[0] for st in SETTINGS] + (["earlier"] if earlier else []) \
-        + ["plain"]
+    names = list(libs) + (["earlier"] if earlier else []) + ["plain"]
     res = {}
     for hh, f in SHAPES:
         shape = (cs.BATCH, hh, hh, f)
@@ -144,18 +189,10 @@ def main():
         s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
         y_r = ba.bn_act_reference(g, a, b)
         n = g.numel()
-        calls = {}
-        for st in SETTINGS:
-            use(st)
-            if not torch.equal(ba.bn_act(g, a, b), y_r):
-                print(f"MISMATCH C {hh}^2 {st[0]}", flush=True)
-            s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
-            if max(rel(s, s_r), rel(d, d_r)) > 2e-2:
-                print(f"MISMATCH D {hh}^2 {st[0]}", flush=True)
-            calls[st[0]] = dict(
-                C=lambda: ba.bn_act(g, a, b),
-                D=lambda: ba.bn_act_bwd(dy, g, a, b, m, inv),
-                dpre=lambda: ba.bn_act_dpre(dy, g, a, b, m, inv, s_r))
+        mine = dict(C=lambda: ba.bn_act(g, a, b),
+                    D=lambda: ba.bn_act_bwd(dy, g, a, b, m, inv),
+                    dpre=lambda: ba.bn_act_dpre(dy, g, a, b, m, inv, s_r))
+        calls = {name: mine for name in libs}
         if earlier is not None:
             calls["earlier"] = dict(
                 C=lambda: earlier.bn_act(g, a, b),
@@ -165,23 +202,26 @@ def main():
             C=lambda: ba.bn_act_reference(g, a, b),
             D=lambda: ba.bn_act_bwd_reference(dy, g, a, b, m, inv),
             dpre=lambda: ba.bn_act_dpre_reference(dy, g, a, b, m, inv, s_r))
+        for name in libs:
+            use(libs, name, base)
+            if not torch.equal(ba.bn_act(g, a, b), y_r):
+                print(f"MISMATCH C {hh}^2 {name}", flush=True)
+            s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
+            if max(rel(s, s_r), rel(d, d_r)) > 2e-2:
+                print(f"MISMATCH D {hh}^2 {name}", flush=True)
         nbytes = dict(C=4 * n, D=6 * n, dpre=6 * n)
         # host-inclusive times first, before any profiler runs
         rows = {name: {} for name in names}
         for name in names:
-            if name in dict((st[0], st) for st in SETTINGS):
-                use(next(st for st in SETTINGS if st[0] == name))
+            use(libs, name, base)
             for k, fn in calls[name].items():
                 rows[name][k] = [cs.cuda_ms(fn), float("nan"), nbytes[k],
                                  host_us(fn) if hh == 14 else float("nan")]
-        for name in names:
-            if name == "plain":
-                continue
-            if name in dict((st[0], st) for st in SETTINGS):
-                use(next(st for st in SETTINGS if st[0] == name))
+        for name in names[:-1]:
+            use(libs, name, base)
             for k, fn in calls[name].items():
                 rows[name][k][1] = device_ms(fn, flush)
-        use(SETTINGS[0])
+        use(libs, "repo", base)
         for name in names:
             res[f"{hh} {name}"] = rows[name]
             parts = []
@@ -191,9 +231,9 @@ def main():
                              f"(bound {bound:.4f}, {nb / d_ms / 1e6:.0f} GB/s"
                              + ("" if hus != hus else f", enqueue {hus:.1f} us")
                              + ")")
-            print(f"{hh:>3}^2 F={f:<3} {name:>16}: " + " | ".join(parts),
+            print(f"{hh:>3}^2 F={f:<3} {name:>10}: " + " | ".join(parts),
                   flush=True)
-        del g, dy, s_r, d_r, y_r, calls
+        del g, dy, s_r, d_r, y_r, calls, mine
         torch.cuda.empty_cache()
     tot = {}
     for key, row in res.items():
@@ -204,7 +244,7 @@ def main():
             t[1] += d_ms
             t[2] += nb / cs.HBM_BYTES_PER_S * 1e3
     for name, row in tot.items():
-        print(f"TOTAL {name:>16}: " + " | ".join(
+        print(f"TOTAL {name:>10}: " + " | ".join(
             f"{k} host {v[0]:.4f} device {v[1]:.4f} bound {v[2]:.4f}"
             for k, v in row.items()), flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
