@@ -129,6 +129,12 @@ struct Pack {
 #ifndef BN_D_MIN_CTAS
 #define BN_D_MIN_CTAS 0
 #endif
+// 1: turn k takes the U consecutive steps kU .. kU+U-1 and CTA x walks
+// turns x, x + gridDim.x, ...; 0: CTA x's turn takes U steps gridDim.x
+// apart
+#ifndef BN_BLOCKED
+#define BN_BLOCKED 0
+#endif
 constexpr int U = BN_UNROLL;
 #if BN_D_MIN_CTAS
 #define BN_D_BOUNDS __launch_bounds__(NT, BN_D_MIN_CTAS)
@@ -155,16 +161,31 @@ struct Walk {
     active = rr < R && c < G;
   }
 
-  // offsets (in accesses) and validity of the U steps of the turn that
-  // starts at step s00; ``reverse`` walks the rows from the last step
+  // the CTA's next turn after turn k; false past the last step
+  __device__ __forceinline__ bool next(long long& k) const {
+#if BN_BLOCKED
+    k += gridDim.x;
+    return k * U < steps;
+#else
+    k += (long long)U * gridDim.x;
+    return k < steps;
+#endif
+  }
+
+  // offsets (in accesses) and validity of the U steps of turn k (the CTA's
+  // first is blockIdx.x); ``reverse`` walks the rows from the last step
   template <int N>
   __device__ __forceinline__ void turn(long long P, int F, int ch,
-                                       long long s00, bool reverse,
+                                       long long k, bool reverse,
                                        long long (&off)[U],
                                        bool (&ok)[U]) const {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const long long s = s00 + (long long)u * gridDim.x;
+#if BN_BLOCKED
+      const long long s = k * U + u;
+#else
+      const long long s = k + (long long)u * gridDim.x;
+#endif
       const long long row = (reverse ? steps - 1 - s : s) * R + rr;
       ok[u] = active && s < steps && row < P;
       off[u] = (row * F + ch) / N;
@@ -208,9 +229,9 @@ __global__ void __launch_bounds__(NT)
   Raw in[U];
   long long off[U];
   bool ok[U];
-  long long s00 = blockIdx.x;
+  long long k = blockIdx.x;
   // the first turn's loads go out before the per-channel vectors
-  w.turn<N>(P, F, ch, s00, false, off, ok);
+  w.turn<N>(P, F, ch, k, false, off, ok);
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (ok[u]) in[u] = g[off[u]];
@@ -232,9 +253,8 @@ __global__ void __launch_bounds__(NT)
       }
       y[off[u]] = PK::pack(x);
     }
-    s00 += (long long)U * gridDim.x;
-    if (s00 >= w.steps) break;
-    w.turn<N>(P, F, ch, s00, false, off, ok);
+    if (!w.next(k)) break;
+    w.turn<N>(P, F, ch, k, false, off, ok);
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (ok[u]) in[u] = g[off[u]];
@@ -270,8 +290,8 @@ __global__ void BN_D_BOUNDS
       in_pre[u] = pre[off[u]];
     }
   };
-  long long s00 = blockIdx.x;
-  w.turn<N>(P, F, ch, s00, false, off, ok);
+  long long k = blockIdx.x;
+  w.turn<N>(P, F, ch, k, false, off, ok);
   fetch();
   float a[N], b[N], m[N], inv[N], s0[N], s1[N];
 #pragma unroll
@@ -298,9 +318,8 @@ __global__ void BN_D_BOUNDS
         s1[j] += dz * xhat;
       }
     }
-    s00 += (long long)U * gridDim.x;
-    if (s00 >= w.steps) break;
-    w.turn<N>(P, F, ch, s00, false, off, ok);
+    if (!w.next(k)) break;
+    w.turn<N>(P, F, ch, k, false, off, ok);
     fetch();
   }
 
@@ -377,8 +396,8 @@ __global__ void BN_D_BOUNDS
     fin[t] = acc;
     __syncthreads();
     if (q == 0 && j < WQ) {
-      for (int k = 1; k < Q; ++k) {
-        const float4 v = fin[k * WQ + j];
+      for (int i = 1; i < Q; ++i) {
+        const float4 v = fin[i * WQ + j];
         acc.x += v.x;
         acc.y += v.y;
         acc.z += v.z;
@@ -422,8 +441,8 @@ __global__ void BN_D_BOUNDS
       in_pre[u] = pre[off[u]];
     }
   };
-  long long s00 = blockIdx.x;
-  w.turn<N>(P, F, ch, s00, true, off, ok);
+  long long k = blockIdx.x;
+  w.turn<N>(P, F, ch, k, true, off, ok);
   fetch();
   float a[N], b[N], m[N], inv[N], u0[N], u1[N];
   if (w.active) {
@@ -457,9 +476,8 @@ __global__ void BN_D_BOUNDS
       }
       out[off[u]] = PK::pack(d);
     }
-    s00 += (long long)U * gridDim.x;
-    if (s00 >= w.steps) break;
-    w.turn<N>(P, F, ch, s00, true, off, ok);
+    if (!w.next(k)) break;
+    w.turn<N>(P, F, ch, k, true, off, ok);
     fetch();
   }
 }

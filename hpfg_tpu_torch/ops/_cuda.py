@@ -166,7 +166,9 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of ``t``'s device, as the raw handle (the call
+    builds no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 COLSUM_ROWS = 256

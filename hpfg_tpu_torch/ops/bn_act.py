@@ -122,22 +122,28 @@ def bn_walk(p: int, f: int, elem_bytes: int, sms: int, ctas_per_sm: int,
 
 _SMS: dict[int, int] = {}
 _COUNTERS: dict[int, torch.Tensor] = {}
+_WALKS: dict[tuple, BnWalk] = {}
 
 
-def _walk(kernel: int, t: torch.Tensor, *others: torch.Tensor) -> BnWalk:
-    """bn_walk for kernel ``kernel`` (0 C, 1 D's reduce, 2 dpre) on ``t``
-    [..., F] and the other tensors of the call (the vector path needs every
-    pointer 16-byte aligned)."""
+def _walk(kernel: int, t: torch.Tensor, ptrs: tuple[int, ...]):
+    """(library, bn_walk) for kernel ``kernel`` (0 C, 1 D's reduce, 2 dpre)
+    on ``t`` [..., F] whose call passes the pointers ``ptrs`` (the vector
+    path needs every one 16-byte aligned). Walks are cached by shape."""
     lib = library(t.device)
-    dev = t.device.index
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     f = t.shape[-1]
-    bf16 = t.dtype == torch.bfloat16
-    aligned = all(x.data_ptr() % 16 == 0 for x in (t, *others))
-    return bn_walk(t.numel() // f, f, t.element_size(), _SMS[dev],
-                   lib.bn_ctas_per_sm(kernel, bf16), reduce=kernel == 1,
-                   aligned=aligned)
+    dev = t.device.index
+    occ = lib.bn_ctas_per_sm(kernel, t.dtype == torch.bfloat16)
+    aligned = not any(q & 15 for q in ptrs)
+    key = (kernel, t.numel(), f, t.element_size(), dev, occ, aligned)
+    w = _WALKS.get(key)
+    if w is None:
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        w = _WALKS[key] = bn_walk(t.numel() // f, f, t.element_size(),
+                                  _SMS[dev], occ, reduce=kernel == 1,
+                                  aligned=aligned)
+    return lib, w
 
 
 def _counter(device: torch.device) -> torch.Tensor:
@@ -190,11 +196,11 @@ def bn_act(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return bn_act_reference(g, a, b)
     _require_cuda(g)
     y = torch.empty_like(g)
-    w = _walk(0, g, y, a, b)
-    library(g.device).call(
-        "hpfg_bn_act", ptr(g), ptr(a), ptr(b), ptr(y), w.p, g.shape[-1],
-        int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
-        stream(g))
+    ptrs = (ptr(g), ptr(a), ptr(b), ptr(y))
+    lib, w = _walk(0, g, ptrs)
+    lib.call("hpfg_bn_act", *ptrs, w.p, g.shape[-1],
+             int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
+             w.chunks, stream(g))
     bn_act.launches += 1
     return y
 
@@ -214,15 +220,16 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
         return bn_act_bwd_reference(dy, pre, a, b, mean, inv)
     _require_cuda(dy)
     f = dy.shape[-1]
-    w = _walk(1, dy, pre, a, b, mean, inv)
-    part = torch.empty((w.ctas, w.part_width), dtype=torch.float32,
-                       device=dy.device)
-    sums = torch.empty((2, f), dtype=torch.float32, device=dy.device)
-    library(dy.device).call(
-        "hpfg_bn_reduce", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
-        ptr(inv), ptr(part), ptr(sums), ptr(_counter(dy.device)), w.p, f,
-        int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
-        w.part_width, stream(dy))
+    ptrs = (ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean), ptr(inv))
+    lib, w = _walk(1, dy, ptrs)
+    # one buffer: the CTAs' partial rows, then the sums [2, F]
+    buf = torch.empty(w.ctas * w.part_width + 2 * f, dtype=torch.float32,
+                      device=dy.device)
+    sums = buf[w.ctas * w.part_width:].view(2, f)
+    lib.call("hpfg_bn_reduce", *ptrs, ptr(buf), ptr(sums),
+             ptr(_counter(dy.device)), w.p, f,
+             int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
+             w.chunks, w.part_width, stream(dy))
     dpre = _dpre(dy, pre, a, b, mean, inv, sums)
     bn_act_bwd.launches += 1
     return sums, dpre
@@ -253,12 +260,12 @@ def bn_act_dpre(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
 
 def _dpre(dy, pre, a, b, mean, inv, sums):
     dpre = torch.empty_like(dy)
-    w = _walk(2, dy, pre, dpre, a, b, mean, inv, sums)
-    library(dy.device).call(
-        "hpfg_bn_dpre", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
-        ptr(inv), ptr(sums), ptr(dpre), w.p, dy.shape[-1],
-        int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas, w.chunks,
-        stream(dy))
+    ptrs = (ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean), ptr(inv),
+            ptr(sums), ptr(dpre))
+    lib, w = _walk(2, dy, ptrs)
+    lib.call("hpfg_bn_dpre", *ptrs, w.p, dy.shape[-1],
+             int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
+             w.chunks, stream(dy))
     return dpre
 
 

@@ -9,9 +9,10 @@ kernels in the same process.
 The variants (VARIANTS below): the repo's build; builds with other values
 of the source's compile-time settings (``-DBN_UNROLL``, the steps a thread
 loads before it uses the first; ``-DBN_D_MIN_CTAS``, the CTAs an SM must
-hold of D's kernels); and the repo's build with a grid of one turn per CTA
-for C and dpre (``one-turn``: as many CTAs as turns, not the resident
-CTAs). All are built in parallel with the repo's other sources.
+hold of D's kernels; ``-DBN_BLOCKED``, turns of consecutive steps); and
+either with a grid of one turn per CTA for C and dpre (``one-turn``: as
+many CTAs as turns, not the resident CTAs). The builds are compiled in
+parallel with the repo's other sources.
 
 Two times per case, in ms per call:
   * host: ``chip_smoke.cuda_ms``, CUDA events around 10 back-to-back wrapper
@@ -48,34 +49,38 @@ from hpfg_tpu_torch.ops import bn_act as ba  # noqa: E402
 
 SHAPES = [(224, 16), (112, 32), (56, 64), (28, 128), (14, 256)]
 MB = 2 ** 20
-# (name, extra nvcc flags or None for the repo's build, one turn per CTA)
-VARIANTS = [("repo", None, False),
-            ("one-turn", None, True),
-            ("unroll2", ["-DBN_UNROLL=2"], False),
-            ("d-3-ctas", ["-DBN_D_MIN_CTAS=3"], False)]
+# (name, extra nvcc flags, one turn per CTA); variants with the same flags
+# share a build, the repo's is the one without flags
+VARIANTS = [("repo", (), False),
+            ("one-turn", (), True),
+            ("blocked", ("-DBN_BLOCKED=1",), False),
+            ("blocked-one-turn", ("-DBN_BLOCKED=1",), True)]
 
 
 def build(variants):
-    """The library of each variant: the repo's for None, else a build of
-    the repo's sources with the extra flags, all compiled at once."""
+    """The library of each set of flags: the repo's for none, else a build
+    of the repo's sources with the extra flags, all compiled at once."""
     libs, procs = {}, {}
-    for name, flags, _ in variants:
-        if flags is None:
-            libs[name] = _cuda.library()
+    for _, flags, _ in variants:
+        if not flags:
+            libs[flags] = _cuda.library()
             continue
-        out = _cuda.BUILD_ROOT / f"tune_{name}" / "libhpfg_kernels.so"
+        if flags in procs:
+            continue
+        tag = "".join(c for c in "_".join(flags) if c.isalnum() or c == "_")
+        out = _cuda.BUILD_ROOT / f"tune{tag}" / "libhpfg_kernels.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-o", str(out),
                *(str(_cuda.CSRC / s) for s in _cuda.SOURCES)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       out)
-    for name, (p, out) in procs.items():
+        procs[flags] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), out)
+    for flags, (p, out) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
-            print(f"BUILD FAIL {name}\n{log[-3000:]}", flush=True)
+            print(f"BUILD FAIL {flags}\n{log[-3000:]}", flush=True)
             continue
-        libs[name] = _cuda.KernelLibrary(Path(out), 0.0, log)
+        libs[flags] = _cuda.KernelLibrary(Path(out), 0.0, log)
     for name, lib in libs.items():
         for line in cs.ptxas_summary(lib.build_log):
             if line.startswith("bn_") and "<1, 1>" in line:
@@ -87,7 +92,7 @@ def build(variants):
 
 
 BN_WALK = ba.bn_walk
-UNROLL = 4  # the repo's BN_UNROLL
+UNROLL = 4  # bn_act.cu BN_UNROLL
 
 
 def one_turn_walk(p, f, elem_bytes, sms, ctas_per_sm, reduce=False,
@@ -102,7 +107,9 @@ def use(libs, name, base):
     """Switch the wrappers to variant ``name`` (the earlier tree and the
     plain versions run on the repo's build)."""
     _cuda._LIB = libs.get(name, base)
-    ba.bn_walk = one_turn_walk if name == "one-turn" else BN_WALK
+    one = any(v[0] == name and v[2] for v in VARIANTS)
+    ba.bn_walk = one_turn_walk if one else BN_WALK
+    ba._WALKS.clear()
 
 
 def device_ms(fn, flush, calls=10):
@@ -167,9 +174,9 @@ def main():
     dev = torch.device("cuda", 0)
     print(cs.nvidia_smi_line(), flush=True)
     built = build(VARIANTS)
-    base = built["repo"]
-    libs = {name: base if one else built[name]
-            for name, _, one in VARIANTS if one or name in built}
+    base = built[()]
+    libs = {name: built[flags] for name, flags, _ in VARIANTS
+            if flags in built}
     junk = torch.empty(64 * MB // 4, device=dev)
 
     def flush():
