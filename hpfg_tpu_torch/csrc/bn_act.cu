@@ -120,33 +120,29 @@ struct Pack {
   }
 };
 
-// Compile-time settings that scripts/tune_bn_act.py varies: the steps a
-// thread loads before it uses the first (U), and the CTAs an SM must hold
-// of D's two kernels (0: as many as their registers allow).
+// The steps of a turn: a thread issues the loads of U steps before it uses
+// the first (the library exports it; scripts/tune_bn_act.py builds other
+// values with -DBN_UNROLL). C's CTAs an SM must hold (0: as many as
+// its registers allow), likewise for tuning.
 #ifndef BN_UNROLL
 #define BN_UNROLL 4
 #endif
-#ifndef BN_D_MIN_CTAS
-#define BN_D_MIN_CTAS 0
-#endif
-// 1: turn k takes the U consecutive steps kU .. kU+U-1 and CTA x walks
-// turns x, x + gridDim.x, ...; 0: CTA x's turn takes U steps gridDim.x
-// apart
-#ifndef BN_BLOCKED
-#define BN_BLOCKED 0
+#ifndef BN_C_MIN_CTAS
+#define BN_C_MIN_CTAS 0
 #endif
 constexpr int U = BN_UNROLL;
-#if BN_D_MIN_CTAS
-#define BN_D_BOUNDS __launch_bounds__(NT, BN_D_MIN_CTAS)
+#if BN_C_MIN_CTAS
+#define BN_C_BOUNDS __launch_bounds__(NT, BN_C_MIN_CTAS)
 #else
-#define BN_D_BOUNDS __launch_bounds__(NT)
+#define BN_C_BOUNDS __launch_bounds__(NT)
 #endif
 
 // The walk shared by the three kernels (ops/bn_act.py bn_walk computes the
 // same): G = F/V channel groups; a CTA covers cols = min(G, NT) of them
 // (group chunk blockIdx.y) and R = NT/cols rows a step; thread t owns row
-// t / cols of each step and group blockIdx.y*cols + t % cols; CTA x walks
-// steps x, x + gridDim.x, ..., U of them a turn.
+// t / cols of each step and group blockIdx.y*cols + t % cols; turn k is the
+// U consecutive steps kU .. kU+U-1, and CTA x walks turns x, x + gridDim.x,
+// ... (C and dpre launch one CTA per turn, the reduce a persistent grid).
 struct Walk {
   int cols, R, rr, c;
   long long steps;
@@ -163,13 +159,8 @@ struct Walk {
 
   // the CTA's next turn after turn k; false past the last step
   __device__ __forceinline__ bool next(long long& k) const {
-#if BN_BLOCKED
     k += gridDim.x;
     return k * U < steps;
-#else
-    k += (long long)U * gridDim.x;
-    return k < steps;
-#endif
   }
 
   // offsets (in accesses) and validity of the U steps of turn k (the CTA's
@@ -181,11 +172,7 @@ struct Walk {
                                        bool (&ok)[U]) const {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-#if BN_BLOCKED
       const long long s = k * U + u;
-#else
-      const long long s = k + (long long)u * gridDim.x;
-#endif
       const long long row = (reverse ? steps - 1 - s : s) * R + rr;
       ok[u] = active && s < steps && row < P;
       off[u] = (row * F + ch) / N;
@@ -215,7 +202,7 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ v, int ch,
 
 // kernel C: y = lrelu(a*g + b)
 template <bool BF16, bool VEC>
-__global__ void __launch_bounds__(NT)
+__global__ void BN_C_BOUNDS
     bn_act_kernel(const void* __restrict__ g_, const float* __restrict__ a_,
                   const float* __restrict__ b_, void* __restrict__ y_,
                   long long P, int F) {
@@ -265,7 +252,7 @@ __global__ void __launch_bounds__(NT)
 // part: [gridDim.x, PW] fp32 (PW = 2F rounded up to 4: S0 then S1 then
 // padding); sums: [2, F] fp32; counter: a zeroed unsigned.
 template <bool BF16, bool VEC>
-__global__ void BN_D_BOUNDS
+__global__ void __launch_bounds__(NT)
     bn_reduce_kernel(const void* __restrict__ dy_, const void* __restrict__ pre_,
                      const float* __restrict__ a_, const float* __restrict__ b_,
                      const float* __restrict__ m_,
@@ -416,7 +403,7 @@ __global__ void BN_D_BOUNDS
 // D's elementwise pass: dpre = a*(dz - S0/N - xhat*S1/N), walking the
 // steps from the last, so it first reads what the reduce read last.
 template <bool BF16, bool VEC>
-__global__ void BN_D_BOUNDS
+__global__ void __launch_bounds__(NT)
     bn_dpre_kernel(const void* __restrict__ dy_, const void* __restrict__ pre_,
                    const float* __restrict__ a_, const float* __restrict__ b_,
                    const float* __restrict__ m_, const float* __restrict__ inv_,
@@ -483,18 +470,10 @@ __global__ void BN_D_BOUNDS
 }
 
 template <bool BF16>
-int occupancy(int kernel) {
+int reduce_occupancy() {
   int n = 0;
-  cudaError_t e;
-  if (kernel == 0)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bn_act_kernel<BF16, true>, NT, 0);
-  else if (kernel == 1)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bn_reduce_kernel<BF16, true>, NT, 0);
-  else
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, bn_dpre_kernel<BF16, true>, NT, 0);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, bn_reduce_kernel<BF16, true>, NT, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
@@ -514,10 +493,13 @@ int occupancy(int kernel) {
 
 extern "C" {
 
-// CTAs of 256 threads an SM can hold of kernel 0 (C), 1 (D's reduce) or 2
-// (dpre), vector path, in bf16 or fp32; a negative value is a CUDA error.
-int hpfg_bn_ctas_per_sm(int kernel, int is_bf16) {
-  return is_bf16 ? occupancy<true>(kernel) : occupancy<false>(kernel);
+// The steps of a turn, U: the walk's unit (ops/bn_act.py bn_walk).
+int hpfg_bn_steps_per_turn() { return U; }
+
+// CTAs of 256 threads an SM can hold of D's reduce (vector path) in bf16
+// or fp32: its persistent grid; a negative value is a CUDA error.
+int hpfg_bn_reduce_ctas_per_sm(int is_bf16) {
+  return is_bf16 ? reduce_occupancy<true>() : reduce_occupancy<false>();
 }
 
 // g, y [P, F] (bf16 when is_bf16, else fp32); a, b [F] fp32; vec: 16-byte

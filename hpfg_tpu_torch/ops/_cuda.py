@@ -51,7 +51,8 @@ _SIGNATURES = {
                                   _U, _U, _F, _I, _I, _I, _I, _P],
     "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _I, _U, _U, _F, _I, _I, _I, _I, _P],
-    "hpfg_bn_ctas_per_sm": [_I, _I],
+    "hpfg_bn_steps_per_turn": [],
+    "hpfg_bn_reduce_ctas_per_sm": [_I],
     "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "hpfg_bn_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                        _I, _I, _P],
@@ -76,7 +77,8 @@ class KernelLibrary:
         self.tile = (self.lib.hpfg_tile_h(), self.lib.hpfg_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()
         self.attn_max_d = self.lib.hpfg_attn_max_d()
-        self._bn_occupancy: dict[tuple[int, bool], int] = {}
+        self.bn_steps_per_turn = self.lib.hpfg_bn_steps_per_turn()
+        self._bn_occupancy: dict[bool, int] = {}
 
     def wgrad_tile(self, c: int, f: int, bf16: bool) -> tuple[int, int]:
         """The wgrad kernel's (input, output) channel tile for ``c`` input
@@ -84,17 +86,16 @@ class KernelLibrary:
         return (self.lib.hpfg_wgrad_cm(c, int(bf16)),
                 self.lib.hpfg_wgrad_bn(f, int(bf16)))
 
-    def bn_ctas_per_sm(self, kernel: int, bf16: bool) -> int:
-        """CTAs an SM holds of the BN kernel ``kernel`` (0 C, 1 D's reduce,
-        2 dpre) in that dtype, from the occupancy API of the current
-        device."""
-        key = (kernel, bf16)
-        if key not in self._bn_occupancy:
-            n = self.lib.hpfg_bn_ctas_per_sm(kernel, int(bf16))
+    def bn_reduce_ctas_per_sm(self, bf16: bool) -> int:
+        """CTAs an SM holds of D's reduce kernel in that dtype, from the
+        occupancy API of the current device."""
+        if bf16 not in self._bn_occupancy:
+            n = self.lib.hpfg_bn_reduce_ctas_per_sm(int(bf16))
             if n <= 0:
-                raise RuntimeError(f"hpfg_bn_ctas_per_sm: CUDA error {-n}")
-            self._bn_occupancy[key] = n
-        return self._bn_occupancy[key]
+                raise RuntimeError(
+                    f"hpfg_bn_reduce_ctas_per_sm: CUDA error {-n}")
+            self._bn_occupancy[bf16] = n
+        return self._bn_occupancy[bf16]
 
     def call(self, name: str, *args) -> None:
         """Call one launcher; raise if the launch was refused."""

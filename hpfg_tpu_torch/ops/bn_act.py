@@ -76,15 +76,17 @@ CTA_THREADS = 256  # bn_act.cu NT
 class BnWalk(NamedTuple):
     """How kernels C and D split a [P, F] activation over CTAs: a thread
     owns ``vec`` contiguous channels (one of G = F / vec groups), a CTA
-    covers ``cols`` groups of ``rows_per_step`` rows a step, the grid is
+    covers ``cols`` groups of ``rows_per_step`` rows a step, turn k is the
+    ``turn_steps`` consecutive steps from k * turn_steps, the grid is
     (``ctas``, ``chunks``) with chunk y taking groups [y*cols, (y+1)*cols),
-    and CTA x walks steps x, x + ctas, ... of ``steps``. D's reduce writes
+    and CTA x walks turns x, x + ctas, ... of ``turns``. D's reduce writes
     one partial row of ``part_width`` floats per CTA x."""
 
     vec: int
     cols: int
     rows_per_step: int
-    steps: int
+    turn_steps: int
+    turns: int
     ctas: int
     chunks: int
     part_width: int
@@ -92,31 +94,35 @@ class BnWalk(NamedTuple):
 
     def rows(self, x: int) -> list[int]:
         """The rows CTA x walks, in its order (each with every chunk)."""
-        r = self.rows_per_step
-        return [row for s in range(x, self.steps, self.ctas)
-                for row in range(s * r, min(s * r + r, self.p))]
+        span = self.turn_steps * self.rows_per_step
+        return [row for k in range(x, self.turns, self.ctas)
+                for row in range(k * span, min(k * span + span, self.p))]
 
 
-def bn_walk(p: int, f: int, elem_bytes: int, sms: int, ctas_per_sm: int,
-            reduce: bool = False, aligned: bool = True) -> BnWalk:
+def bn_walk(p: int, f: int, elem_bytes: int, aligned: bool = True,
+            resident: int | None = None, turn_steps: int = 4) -> BnWalk:
     """The walk of kernels C and D over p rows of f channels of
-    ``elem_bytes`` each, on ``sms`` SMs holding ``ctas_per_sm`` CTAs each.
-    The vector path (16 bytes a thread) needs f % V == 0 and 16-byte aligned
-    pointers, else one element a thread. The grid fills the card; D's reduce
-    also takes at most about sqrt(p * elem_bytes / 4) CTAs, which balances
-    the bytes each CTA streams (2 f es p / ctas) against the partial bytes
-    the last CTA reads back (8 f ctas)."""
+    ``elem_bytes`` each, in turns of ``turn_steps`` steps (the library's
+    ``bn_steps_per_turn``). The vector path (16 bytes a thread) needs f % V == 0
+    and 16-byte aligned pointers, else one element a thread. C and dpre
+    (``resident`` None) launch one CTA per turn. D's reduce, whose CTAs
+    each write a partial row, takes a persistent grid: at most the
+    ``resident`` CTAs the card holds at once, and at most about
+    sqrt(p * elem_bytes / 4), which balances the bytes each CTA streams
+    (2 f es p / ctas) against the partial bytes the last CTA reads back
+    (8 f ctas)."""
     v = 16 // elem_bytes
     vec = v if aligned and f % v == 0 else 1
     groups = f // vec
     cols = min(groups, CTA_THREADS)
     chunks = -(-groups // cols)
     rows = CTA_THREADS // cols
-    steps = -(-p // rows)
-    ctas = min(steps, sms * ctas_per_sm // chunks)
-    if reduce:
-        ctas = min(ctas, math.isqrt(p * elem_bytes // 4))
-    return BnWalk(vec, cols, rows, steps, max(1, ctas), chunks,
+    turns = -(-p // (rows * turn_steps))
+    ctas = turns
+    if resident is not None:
+        ctas = min(turns, resident // chunks,
+                   math.isqrt(p * elem_bytes // 4))
+    return BnWalk(vec, cols, rows, turn_steps, turns, max(1, ctas), chunks,
                   -(-2 * f // 4) * 4, p)
 
 
@@ -125,24 +131,26 @@ _COUNTERS: dict[int, torch.Tensor] = {}
 _WALKS: dict[tuple, BnWalk] = {}
 
 
-def _walk(kernel: int, t: torch.Tensor, ptrs: tuple[int, ...]):
-    """(library, bn_walk) for kernel ``kernel`` (0 C, 1 D's reduce, 2 dpre)
-    on ``t`` [..., F] whose call passes the pointers ``ptrs`` (the vector
-    path needs every one 16-byte aligned). Walks are cached by shape."""
+def _walk(reduce: bool, t: torch.Tensor, ptrs: tuple[int, ...]):
+    """(library, bn_walk) for C or dpre, or D's reduce, on ``t`` [..., F]
+    whose call passes the pointers ``ptrs`` (the vector path needs every one
+    16-byte aligned). Walks are cached by shape."""
     lib = library(t.device)
     f = t.shape[-1]
     dev = t.device.index
-    occ = lib.bn_ctas_per_sm(kernel, t.dtype == torch.bfloat16)
     aligned = not any(q & 15 for q in ptrs)
-    key = (kernel, t.numel(), f, t.element_size(), dev, occ, aligned)
+    key = (reduce, t.numel(), f, t.element_size(), dev, aligned)
     w = _WALKS.get(key)
     if w is None:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
+        resident = None
+        if reduce:
+            if dev not in _SMS:
+                _SMS[dev] = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+            resident = _SMS[dev] * lib.bn_reduce_ctas_per_sm(
+                t.dtype == torch.bfloat16)
         w = _WALKS[key] = bn_walk(t.numel() // f, f, t.element_size(),
-                                  _SMS[dev], occ, reduce=kernel == 1,
-                                  aligned=aligned)
+                                  aligned, resident, lib.bn_steps_per_turn)
     return lib, w
 
 
@@ -165,7 +173,7 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor | None = None,
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape:
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
@@ -173,11 +181,13 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor | None = None,
 
 
 def _check_vecs(ref: torch.Tensor, **vecs) -> None:
-    f = ref.shape[-1]
+    """Each vector fp32 [F], contiguous, on ref's device."""
+    shape, dev = (ref.shape[-1],), ref.device
     for name, v in vecs.items():
-        _check(name, v, dtype=torch.float32, shape=(f,))
-        if v.device != ref.device:
-            raise ValueError(f"{name}: on {v.device}, data on {ref.device}")
+        if (v.dtype != torch.float32 or v.shape != shape or v.device != dev
+                or not v.is_contiguous()):
+            _check(name, v, dtype=torch.float32, shape=shape)
+            raise ValueError(f"{name}: on {v.device}, data on {dev}")
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +207,7 @@ def bn_act(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _require_cuda(g)
     y = torch.empty_like(g)
     ptrs = (ptr(g), ptr(a), ptr(b), ptr(y))
-    lib, w = _walk(0, g, ptrs)
+    lib, w = _walk(False, g, ptrs)
     lib.call("hpfg_bn_act", *ptrs, w.p, g.shape[-1],
              int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, stream(g))
@@ -221,7 +231,7 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     _require_cuda(dy)
     f = dy.shape[-1]
     ptrs = (ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean), ptr(inv))
-    lib, w = _walk(1, dy, ptrs)
+    lib, w = _walk(True, dy, ptrs)
     # one buffer: the CTAs' partial rows, then the sums [2, F]
     buf = torch.empty(w.ctas * w.part_width + 2 * f, dtype=torch.float32,
                       device=dy.device)
@@ -262,7 +272,7 @@ def _dpre(dy, pre, a, b, mean, inv, sums):
     dpre = torch.empty_like(dy)
     ptrs = (ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean), ptr(inv),
             ptr(sums), ptr(dpre))
-    lib, w = _walk(2, dy, ptrs)
+    lib, w = _walk(False, dy, ptrs)
     lib.call("hpfg_bn_dpre", *ptrs, w.p, dy.shape[-1],
              int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, stream(dy))

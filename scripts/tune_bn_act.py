@@ -6,13 +6,11 @@ kernels in the same process.
 
     python3 scripts/tune_bn_act.py [EARLIER_CHECKOUT]
 
-The variants (VARIANTS below): the repo's build; builds with other values
-of the source's compile-time settings (``-DBN_UNROLL``, the steps a thread
-loads before it uses the first; ``-DBN_D_MIN_CTAS``, the CTAs an SM must
-hold of D's kernels; ``-DBN_BLOCKED``, turns of consecutive steps); and
-either with a grid of one turn per CTA for C and dpre (``one-turn``: as
-many CTAs as turns, not the resident CTAs). The builds are compiled in
-parallel with the repo's other sources.
+The variants (VARIANTS below): the repo's build and builds with other
+values of the source's compile-time settings (``-DBN_UNROLL``, the steps of
+a turn, whose loads a thread issues before it uses the first;
+``-DBN_C_MIN_CTAS``, the CTAs an SM must hold of C), compiled in parallel
+with the repo's other sources.
 
 Two times per case, in ms per call:
   * host: ``chip_smoke.cuda_ms``, CUDA events around 10 back-to-back wrapper
@@ -49,19 +47,18 @@ from hpfg_tpu_torch.ops import bn_act as ba  # noqa: E402
 
 SHAPES = [(224, 16), (112, 32), (56, 64), (28, 128), (14, 256)]
 MB = 2 ** 20
-# (name, extra nvcc flags, one turn per CTA); variants with the same flags
-# share a build, the repo's is the one without flags
-VARIANTS = [("repo", (), False),
-            ("one-turn", (), True),
-            ("blocked", ("-DBN_BLOCKED=1",), False),
-            ("blocked-one-turn", ("-DBN_BLOCKED=1",), True)]
+# (name, extra nvcc flags); the repo's build is the one without flags
+VARIANTS = [("repo", ()),
+            ("unroll2", ("-DBN_UNROLL=2",)),
+            ("c-6-ctas", ("-DBN_C_MIN_CTAS=6",)),
+            ("c-8-ctas", ("-DBN_C_MIN_CTAS=8",))]
 
 
 def build(variants):
     """The library of each set of flags: the repo's for none, else a build
     of the repo's sources with the extra flags, all compiled at once."""
     libs, procs = {}, {}
-    for _, flags, _ in variants:
+    for _, flags in variants:
         if not flags:
             libs[flags] = _cuda.library()
             continue
@@ -85,30 +82,15 @@ def build(variants):
         for line in cs.ptxas_summary(lib.build_log):
             if line.startswith("bn_") and "<1, 1>" in line:
                 print(f"  {name} ptxas: {line}", flush=True)
-        print(f"  {name} ctas per SM (C, reduce, dpre) bf16: "
-              f"{[lib.bn_ctas_per_sm(k, True) for k in range(3)]}",
-              flush=True)
+        print(f"  {name} reduce CTAs per SM, bf16: "
+              f"{lib.bn_reduce_ctas_per_sm(True)}", flush=True)
     return libs
-
-
-BN_WALK = ba.bn_walk
-UNROLL = 4  # bn_act.cu BN_UNROLL
-
-
-def one_turn_walk(p, f, elem_bytes, sms, ctas_per_sm, reduce=False,
-                  aligned=True):
-    """bn_walk with a grid of one turn (UNROLL steps) per CTA for C and
-    dpre; the reduce keeps its walk."""
-    w = BN_WALK(p, f, elem_bytes, sms, ctas_per_sm, reduce, aligned)
-    return w if reduce else w._replace(ctas=max(1, -(-w.steps // UNROLL)))
 
 
 def use(libs, name, base):
     """Switch the wrappers to variant ``name`` (the earlier tree and the
     plain versions run on the repo's build)."""
     _cuda._LIB = libs.get(name, base)
-    one = any(v[0] == name and v[2] for v in VARIANTS)
-    ba.bn_walk = one_turn_walk if one else BN_WALK
     ba._WALKS.clear()
 
 
@@ -175,8 +157,7 @@ def main():
     print(cs.nvidia_smi_line(), flush=True)
     built = build(VARIANTS)
     base = built[()]
-    libs = {name: built[flags] for name, flags, _ in VARIANTS
-            if flags in built}
+    libs = {name: built[flags] for name, flags in VARIANTS if flags in built}
     junk = torch.empty(64 * MB // 4, device=dev)
 
     def flush():

@@ -173,55 +173,59 @@ def _cover(w: ba.BnWalk, p: int, f: int) -> np.ndarray:
     by a thread of some CTA."""
     hits = np.zeros((p, f), np.int64)
     groups = f // w.vec
+    u = w.turn_steps
     for y in range(w.chunks):
         for t in range(ba.CTA_THREADS):
             rr, c = t // w.cols, y * w.cols + t % w.cols
             if rr >= w.rows_per_step or c >= groups:
                 continue
             for x in range(w.ctas):
-                for s in range(x, w.steps, w.ctas):
-                    row = s * w.rows_per_step + rr
-                    if row < p:
-                        hits[row, c * w.vec:(c + 1) * w.vec] += 1
+                for k in range(x, w.turns, w.ctas):
+                    for s in range(k * u, k * u + u):
+                        row = s * w.rows_per_step + rr
+                        if row < p:
+                            hits[row, c * w.vec:(c + 1) * w.vec] += 1
     return hits
 
 
-def _invariants(w: ba.BnWalk, p, f, es, sms, occ, reduce, aligned):
+def _invariants(w: ba.BnWalk, p, f, es, resident, aligned):
     v = 16 // es
     assert w.vec == (v if aligned and f % v == 0 else 1)
     assert w.cols * w.rows_per_step <= ba.CTA_THREADS
     assert (w.chunks - 1) * w.cols < f // w.vec <= w.chunks * w.cols
-    assert w.steps * w.rows_per_step >= p > (w.steps - 1) * w.rows_per_step
-    assert 1 <= w.ctas and (w.ctas * w.chunks <= sms * occ or w.ctas == 1)
-    # no CTA idle: each walks at least one step, so it writes its partial
-    assert w.ctas <= max(w.steps, 1)
-    if reduce:
+    span = w.rows_per_step * w.turn_steps
+    assert w.turns * span >= p > (w.turns - 1) * span
+    # no CTA idle: each walks at least one turn, so it writes its partial
+    assert 1 <= w.ctas <= max(w.turns, 1)
+    if resident is None:  # C and dpre: one CTA per turn
+        assert w.ctas == max(w.turns, 1)
+    else:  # the reduce: within the resident CTAs and the sqrt balance
+        assert w.ctas * w.chunks <= resident or w.ctas == 1
         assert w.ctas <= max(1, math.isqrt(p * es // 4))
     assert w.part_width >= 2 * f and w.part_width % 4 == 0
 
 
 @pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("resident", [None, 264])
 @pytest.mark.parametrize("es", [2, 4])
 @pytest.mark.parametrize("p,f", SMALL)
-def test_bn_walk_covers_every_element_once(p, f, es, reduce, aligned):
-    w = ba.bn_walk(p, f, es, 132, 2, reduce=reduce, aligned=aligned)
-    _invariants(w, p, f, es, 132, 2, reduce, aligned)
+def test_bn_walk_covers_every_element_once(p, f, es, resident, aligned):
+    w = ba.bn_walk(p, f, es, aligned, resident)
+    _invariants(w, p, f, es, resident, aligned)
     assert (_cover(w, p, f) == 1).all()
 
 
-@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("resident", [None, 132, 264, 528])
 @pytest.mark.parametrize("es", [2, 4])
 @pytest.mark.parametrize("p,f", MAIN)
-def test_bn_walk_main_path_rows(p, f, es, reduce):
+def test_bn_walk_main_path_rows(p, f, es, resident):
     """Every row in exactly one CTA's walk, every CTA with rows (a
-    partial row each), the grid within the card's resident CTAs."""
-    for occ in (2, 4, 8):
-        w = ba.bn_walk(p, f, es, 132, occ, reduce=reduce)
-        _invariants(w, p, f, es, 132, occ, reduce, True)
-        assert w.vec == 16 // es and w.chunks == 1
-        rows = [w.rows(x) for x in range(w.ctas)]
-        assert all(rows)
-        flat = np.concatenate(rows)
-        assert len(flat) == p
-        assert (np.bincount(flat, minlength=p) == 1).all()
+    partial row each), the reduce's grid within the card's resident CTAs."""
+    w = ba.bn_walk(p, f, es, True, resident)
+    _invariants(w, p, f, es, resident, True)
+    assert w.vec == 16 // es and w.chunks == 1
+    rows = [w.rows(x) for x in range(w.ctas)]
+    assert all(rows)
+    flat = np.concatenate(rows)
+    assert len(flat) == p
+    assert (np.bincount(flat, minlength=p) == 1).all()

@@ -149,10 +149,9 @@ def test_bn_reduce_last_cta_finish_is_reproducible(dev, dtype):
     tolerance of the plain version."""
     g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (16, 112, 112, 32))
     runs = [ba.bn_act_bwd(dy, g, a, b, m, inv) for _ in range(3)]
-    w = ba.bn_walk(16 * 112 * 112, 32, g.element_size(),
-                   torch.cuda.get_device_properties(dev).multi_processor_count,
-                   1, reduce=True)
-    assert w.steps > 2 * w.ctas
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w = ba.bn_walk(16 * 112 * 112, 32, g.element_size(), resident=sms * 2)
+    assert w.turns > 2 * w.ctas
     for s, d in runs[1:]:
         assert torch.equal(s, runs[0][0])
         assert torch.equal(d, runs[0][1])
