@@ -16,37 +16,39 @@
 // What bounds them on an H100: bytes. Each pass moves 2 (C), 4 (D's reduce)
 // or 6 (dpre) bytes of bf16 per element of the NHWC activation [P, F] for a
 // handful of FLOPs, so HBM's 3.35 TB/s is the roofline; the per-channel
-// vectors are fp32 [F]. At the small stages (14^2, 28^2 at batch 32: 3-6 MB)
-// a call lasts a few microseconds, and launch and tail costs count as much
-// as the stream.
+// vectors are fp32 [F]. At the small stages (14^2, 28^2 at batch 32: 3-6 MB
+// a tensor) a call lasts a few microseconds, and latency and the tail count
+// as much as the stream.
 //
 // What the design does about it:
-//   * one streaming walk for all three kernels: a thread owns one fixed
-//     group of V contiguous channels (V = 8 in bf16, 4 in fp32: 16 bytes),
-//     a CTA of 256 threads covers 256/G rows of G = F/V groups per step, and
-//     a persistent grid (a few CTAs an SM, from the occupancy API) walks the
-//     steps with a stride of whole steps. A thread's channels never change,
-//     so its per-channel vectors sit in registers for the whole walk and no
-//     element needs a % F. F above 256 groups splits over grid.y;
-//   * U = 4 steps a turn: a thread issues its U independent 16-byte loads of
-//     each input before it uses the first, so each SM keeps tens of KB in
-//     flight; stores are 16 bytes;
+//   * one walk for all three kernels: a thread owns one fixed group of V
+//     contiguous channels (V = 8 in bf16, 4 in fp32: 16 bytes), and a CTA
+//     of 256 threads covers 256/G rows of G = F/V groups a step. A turn is
+//     U = 4 consecutive steps; a thread issues its U 16-byte loads of each
+//     input before it uses the first, and its first turn's loads before it
+//     reads its per-channel vectors (16-byte loads, then registers for the
+//     CTA's life). No element needs a % F. F above 256 groups splits over
+//     grid.y. Stores are 16 bytes;
+//   * C and dpre launch one CTA per turn, so a CTA streams 4 KB-16 KB of
+//     consecutive rows and exits; D's reduce takes a persistent grid (its
+//     resident CTAs, from the occupancy API, and at most about
+//     sqrt(P*es/4) of them: ops/bn_act.py bn_walk), since each of its CTAs
+//     writes a partial row that the last CTA reads back;
 //   * where F % V != 0 or a pointer is not 16-byte aligned, the same walk
 //     runs with V = 1 (the element path);
 //   * D's reduce finishes its own sums: a CTA sums its threads' fp32
 //     [S0, S1] through shared memory in a fixed tree, writes one partial
 //     row, fences and takes a ticket from a per-device counter; the CTA
-//     that arrives last sums every partial row in a fixed order, writes
-//     sums [2, F] and resets the counter for the next call on the stream.
-//     No float atomics: the sums are bitwise the same from run to run. A
-//     full backward is two launches (reduce, dpre), and the reduce takes
-//     about sqrt(P*es/4) CTAs (ops/bn_act.py bn_walk), which balances the
-//     bytes each CTA streams against the partial bytes the last CTA reads;
+//     that arrives last sums every partial row in a fixed order (16-byte
+//     loads, 16 in flight a thread), writes sums [2, F] and resets the
+//     counter for the next call on the stream. No float atomics: the sums
+//     are bitwise the same from run to run, and a full backward is two
+//     launches (reduce, dpre);
 //   * dy and pre are read twice by a full backward (5 passes against the
-//     bound's 3). dpre walks the rows in reverse, so it first reads the rows
-//     the reduce read last, which are still in the 50 MB L2; the reduce
-//     loads the rows dpre reads first with an L2 evict_last policy and the
-//     rest with evict_first (keep_from below; ops/bn_act.py L2_KEEP_BYTES);
+//     bound's 3): dpre walks the rows from the last, so it first reads what
+//     the reduce read last, while that is still in the 50 MB L2. L2
+//     eviction-priority hints (evict_last on the rows dpre reads first,
+//     demoted after dpre's read) were slower and are not used (PERF.md);
 //   * rounding as the plain version (ops/bn_act.py *_reference): z = a*pre
 //     + b rounds as a multiply then an add (__fmul_rn / __fadd_rn: nvcc
 //     would contract it to an FMA), so the z >= 0 branch of lrelu' agrees
@@ -74,7 +76,6 @@ constexpr float SLOPE = 0.01f;
 template <bool BF16, bool VEC>
 struct Pack {
   static constexpr int N = VEC ? (BF16 ? 8 : 4) : 1;
-  static constexpr int ES = BF16 ? 2 : 4;
   using Raw = std::conditional_t<VEC, uint4,
                                  std::conditional_t<BF16, uint16_t, float>>;
 
@@ -122,20 +123,11 @@ struct Pack {
 
 // The steps of a turn: a thread issues the loads of U steps before it uses
 // the first (the library exports it; scripts/tune_bn_act.py builds other
-// values with -DBN_UNROLL). C's CTAs an SM must hold (0: as many as
-// its registers allow), likewise for tuning.
+// values with -DBN_UNROLL).
 #ifndef BN_UNROLL
 #define BN_UNROLL 4
 #endif
-#ifndef BN_C_MIN_CTAS
-#define BN_C_MIN_CTAS 0
-#endif
 constexpr int U = BN_UNROLL;
-#if BN_C_MIN_CTAS
-#define BN_C_BOUNDS __launch_bounds__(NT, BN_C_MIN_CTAS)
-#else
-#define BN_C_BOUNDS __launch_bounds__(NT)
-#endif
 
 // The walk shared by the three kernels (ops/bn_act.py bn_walk computes the
 // same): G = F/V channel groups; a CTA covers cols = min(G, NT) of them
@@ -202,7 +194,7 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ v, int ch,
 
 // kernel C: y = lrelu(a*g + b)
 template <bool BF16, bool VEC>
-__global__ void BN_C_BOUNDS
+__global__ void __launch_bounds__(NT)
     bn_act_kernel(const void* __restrict__ g_, const float* __restrict__ a_,
                   const float* __restrict__ b_, void* __restrict__ y_,
                   long long P, int F) {

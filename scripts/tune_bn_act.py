@@ -7,10 +7,9 @@ kernels in the same process.
     python3 scripts/tune_bn_act.py [EARLIER_CHECKOUT]
 
 The variants (VARIANTS below): the repo's build and builds with other
-values of the source's compile-time settings (``-DBN_UNROLL``, the steps of
-a turn, whose loads a thread issues before it uses the first;
-``-DBN_C_MIN_CTAS``, the CTAs an SM must hold of C), compiled in parallel
-with the repo's other sources.
+values of the source's compile-time setting ``-DBN_UNROLL`` (the steps of
+a turn, whose loads a thread issues before it uses the first), compiled in
+parallel with the repo's other sources.
 
 Two times per case, in ms per call:
   * host: ``chip_smoke.cuda_ms``, CUDA events around 10 back-to-back wrapper
@@ -49,9 +48,7 @@ SHAPES = [(224, 16), (112, 32), (56, 64), (28, 128), (14, 256)]
 MB = 2 ** 20
 # (name, extra nvcc flags); the repo's build is the one without flags
 VARIANTS = [("repo", ()),
-            ("unroll2", ("-DBN_UNROLL=2",)),
-            ("c-6-ctas", ("-DBN_C_MIN_CTAS=6",)),
-            ("c-8-ctas", ("-DBN_C_MIN_CTAS=8",))]
+            ("unroll2", ("-DBN_UNROLL=2",))]
 
 
 def build(variants):
