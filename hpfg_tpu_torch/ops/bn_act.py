@@ -10,11 +10,13 @@ Replaces (hpfg_tpu/ops/pallas/conv_block.py):
 
 The kernels are CUDA C++ in ``csrc/bn_act.cu`` (``bn_act_kernel``,
 ``bn_reduce_kernel``, ``bn_dpre_kernel``), which says what bounds them on an
-H100 (bytes) and how they are built: one persistent streaming walk in which
-each thread owns a fixed group of channels (``bn_walk`` sizes it), 16-byte
-accesses, and D's cross-CTA sum finished inside its reduce kernel by the
-last CTA to arrive, in a fixed order. A full ``bn_act_bwd`` is two launches
-(reduce, dpre); ``bn_act`` and ``bn_act_dpre`` one each.
+H100 (bytes) and how they are built: one streaming walk in which each
+thread owns a fixed group of channels and loads four steps of rows before
+it uses the first (``bn_walk`` sizes it: one CTA per turn for C and dpre, a
+persistent grid for D's reduce), 16-byte accesses, and D's cross-CTA sum
+finished inside its reduce kernel by the last CTA to arrive, in a fixed
+order. A full ``bn_act_bwd`` is two launches (reduce, dpre); ``bn_act`` and
+``bn_act_dpre`` one each.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; for a CUDA
 tensor it launches its kernel or raises.

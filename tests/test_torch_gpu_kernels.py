@@ -104,12 +104,12 @@ def _bn_inputs(dev, dtype, shape, seed=0):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("f", [4, 12, 16, 20, 48, 256])
+@pytest.mark.parametrize("f", [4, 12, 16, 20, 48, 256, 300])
 def test_bn_act_and_bwd_match_plain(dev, dtype, f):
     """C bitwise equal to its plain version; D within tolerance. P = 800
-    rows is not a multiple of any CTA's rows a step (F = 4 and 12 in bf16
-    and F = 4 * odd in fp32 or bf16 take other group counts; F = 4, 12, 20
-    in bf16 take the element path)."""
+    rows is not a multiple of any CTA's rows a turn; F = 4, 12, 20 and 300
+    in bf16 take the element path, and F = 300 there has 300 channel
+    groups, more than a CTA's 256: two chunks of the grid's y."""
     g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (2, 20, 20, f))
     assert torch.equal(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b))
     s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
