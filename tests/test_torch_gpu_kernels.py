@@ -19,7 +19,8 @@ Tolerances, relative to the reference's largest magnitude: fp32 1e-4
 summed in another order). Hash dropout masks (the ConvBlock's and the
 attention's, forward and backward, in fp32 and bf16) are bit-exact, and
 the attention's output and bias gradient are bitwise the same from run to
-run.
+run. C, and D's dpre from given sums, round as their plain versions and
+are bitwise equal to them; D's sums are bitwise the same from run to run.
 """
 
 import pytest
