@@ -27,8 +27,10 @@
 //     U = 4 consecutive steps; a thread issues its U 16-byte loads of each
 //     input before it uses the first, and its first turn's loads before it
 //     reads its per-channel vectors (16-byte loads, then registers for the
-//     CTA's life). No element needs a % F. F above 256 groups splits over
-//     grid.y. Stores are 16 bytes;
+//     CTA's life). No element needs a % F. The walk's sizes come from the
+//     host (ops/bn_act.py bn_walk), so no 64-bit division stands before a
+//     thread's first load. F above 256 groups splits over grid.y. Stores
+//     are 16 bytes;
 //   * C and dpre launch one CTA per turn, so a CTA streams 4 KB-16 KB of
 //     consecutive rows and exits; D's reduce takes a persistent grid (its
 //     resident CTAs, from the occupancy API, and at most about
@@ -122,52 +124,56 @@ struct Pack {
 };
 
 // The steps of a turn: a thread issues the loads of U steps before it uses
-// the first (the library exports it; scripts/tune_bn_act.py builds other
-// values with -DBN_UNROLL).
-#ifndef BN_UNROLL
-#define BN_UNROLL 4
-#endif
-constexpr int U = BN_UNROLL;
+// the first (ops/bn_act.py TURN_STEPS).
+constexpr int U = 4;
 
-// The walk shared by the three kernels (ops/bn_act.py bn_walk computes the
-// same): G = F/V channel groups; a CTA covers cols = min(G, NT) of them
-// (group chunk blockIdx.y) and R = NT/cols rows a step; thread t owns row
-// t / cols of each step and group blockIdx.y*cols + t % cols; turn k is the
-// U consecutive steps kU .. kU+U-1, and CTA x walks turns x, x + gridDim.x,
-// ... (C and dpre launch one CTA per turn, the reduce a persistent grid).
+// The walk's sizes, computed on the host (ops/bn_act.py bn_walk): P rows of
+// F channels, cols channel groups a CTA, R rows a step, steps = ceil(P/R).
+struct WalkArgs {
+  long long P, steps;
+  int F, cols, R;
+};
+
+// The walk shared by the three kernels: G = F/V channel groups; a CTA
+// covers cols of them (group chunk blockIdx.y) and R rows a step; thread t
+// owns row t / cols of each step and group blockIdx.y*cols + t % cols; turn
+// k is the U consecutive steps kU .. kU+U-1, and CTA x walks turns x, x +
+// gridDim.x, ... (C and dpre launch one CTA per turn, the reduce a
+// persistent grid). The sizes come from the host: a thread's first loads
+// wait on no 64-bit division (PERF.md, tune run 7).
+template <int N>
 struct Walk {
-  int cols, R, rr, c;
-  long long steps;
+  WalkArgs a;
+  int G, rr, c;
   bool active;
 
-  __device__ Walk(long long P, int G) {
-    cols = G < NT ? G : NT;
-    R = NT / cols;
-    steps = (P + R - 1) / R;
-    rr = threadIdx.x / cols;
-    c = blockIdx.y * cols + threadIdx.x % cols;
-    active = rr < R && c < G;
+  __device__ Walk(const WalkArgs& w) : a(w) {
+    G = a.F / N;
+    rr = threadIdx.x / a.cols;
+    c = blockIdx.y * a.cols + threadIdx.x % a.cols;
+    active = rr < a.R && c < G;
   }
 
   // the CTA's next turn after turn k; false past the last step
   __device__ __forceinline__ bool next(long long& k) const {
     k += gridDim.x;
-    return k * U < steps;
+    return k * U < a.steps;
   }
 
   // offsets (in accesses) and validity of the U steps of turn k (the CTA's
   // first is blockIdx.x); ``reverse`` walks the rows from the last step
-  template <int N>
-  __device__ __forceinline__ void turn(long long P, int F, int ch,
-                                       long long k, bool reverse,
+  __device__ __forceinline__ void turn(long long k, bool reverse,
                                        long long (&off)[U],
                                        bool (&ok)[U]) const {
+    const long long s0 = k * U;
+    const long long row0 = (reverse ? a.steps - 1 - s0 : s0) * a.R + rr;
+    const long long off0 = row0 * G + c;
+    const int d = a.R * G;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const long long s = k * U + u;
-      const long long row = (reverse ? steps - 1 - s : s) * R + rr;
-      ok[u] = active && s < steps && row < P;
-      off[u] = (row * F + ch) / N;
+      const long long row = reverse ? row0 - u * a.R : row0 + u * a.R;
+      ok[u] = active && s0 + u < a.steps && row < a.P;
+      off[u] = reverse ? off0 - u * d : off0 + u * d;
     }
   }
 };
@@ -197,11 +203,11 @@ template <bool BF16, bool VEC>
 __global__ void __launch_bounds__(NT)
     bn_act_kernel(const void* __restrict__ g_, const float* __restrict__ a_,
                   const float* __restrict__ b_, void* __restrict__ y_,
-                  long long P, int F) {
+                  WalkArgs wa) {
   using PK = Pack<BF16, VEC>;
   using Raw = typename PK::Raw;
   constexpr int N = PK::N;
-  const Walk w(P, F / N);
+  const Walk<N> w(wa);
   const int ch = w.c * N;
   const Raw* g = static_cast<const Raw*>(g_);
   Raw* y = static_cast<Raw*>(y_);
@@ -210,7 +216,7 @@ __global__ void __launch_bounds__(NT)
   bool ok[U];
   long long k = blockIdx.x;
   // the first turn's loads go out before the per-channel vectors
-  w.turn<N>(P, F, ch, k, false, off, ok);
+  w.turn(k, false, off, ok);
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (ok[u]) in[u] = g[off[u]];
@@ -233,7 +239,7 @@ __global__ void __launch_bounds__(NT)
       y[off[u]] = PK::pack(x);
     }
     if (!w.next(k)) break;
-    w.turn<N>(P, F, ch, k, false, off, ok);
+    w.turn(k, false, off, ok);
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (ok[u]) in[u] = g[off[u]];
@@ -250,11 +256,12 @@ __global__ void __launch_bounds__(NT)
                      const float* __restrict__ m_,
                      const float* __restrict__ inv_, float* __restrict__ part,
                      float* __restrict__ sums, unsigned* __restrict__ counter,
-                     long long P, int F, int PW) {
+                     WalkArgs wa, int PW) {
   using PK = Pack<BF16, VEC>;
   using Raw = typename PK::Raw;
   constexpr int N = PK::N;
-  const Walk w(P, F / N);
+  const Walk<N> w(wa);
+  const int F = wa.F;
   const int ch = w.c * N;
   const Raw* dy = static_cast<const Raw*>(dy_);
   const Raw* pre = static_cast<const Raw*>(pre_);
@@ -270,7 +277,7 @@ __global__ void __launch_bounds__(NT)
     }
   };
   long long k = blockIdx.x;
-  w.turn<N>(P, F, ch, k, false, off, ok);
+  w.turn(k, false, off, ok);
   fetch();
   float a[N], b[N], m[N], inv[N], s0[N], s1[N];
 #pragma unroll
@@ -298,7 +305,7 @@ __global__ void __launch_bounds__(NT)
       }
     }
     if (!w.next(k)) break;
-    w.turn<N>(P, F, ch, k, false, off, ok);
+    w.turn(k, false, off, ok);
     fetch();
   }
 
@@ -312,11 +319,11 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
   int h = 1;
-  while (h < w.R) h <<= 1;
+  while (h < wa.R) h <<= 1;
   for (h >>= 1; h >= 1; h >>= 1) {
-    if (w.rr < h && w.rr + h < w.R) {
+    if (w.rr < h && w.rr + h < wa.R) {
 #pragma unroll
-      for (int j = 0; j < 2 * N; ++j) red[j][t] += red[j][t + h * w.cols];
+      for (int j = 0; j < 2 * N; ++j) red[j][t] += red[j][t + h * wa.cols];
     }
     __syncthreads();
   }
@@ -400,11 +407,12 @@ __global__ void __launch_bounds__(NT)
                    const float* __restrict__ a_, const float* __restrict__ b_,
                    const float* __restrict__ m_, const float* __restrict__ inv_,
                    const float* __restrict__ sums, void* __restrict__ out_,
-                   long long P, int F) {
+                   WalkArgs wa) {
   using PK = Pack<BF16, VEC>;
   using Raw = typename PK::Raw;
   constexpr int N = PK::N;
-  const Walk w(P, F / N);
+  const Walk<N> w(wa);
+  const int F = wa.F;
   const int ch = w.c * N;
   const Raw* dy = static_cast<const Raw*>(dy_);
   const Raw* pre = static_cast<const Raw*>(pre_);
@@ -421,11 +429,11 @@ __global__ void __launch_bounds__(NT)
     }
   };
   long long k = blockIdx.x;
-  w.turn<N>(P, F, ch, k, true, off, ok);
+  w.turn(k, true, off, ok);
   fetch();
   float a[N], b[N], m[N], inv[N], u0[N], u1[N];
   if (w.active) {
-    const float inv_n = __fdiv_rn(1.f, static_cast<float>(P));
+    const float inv_n = __fdiv_rn(1.f, static_cast<float>(wa.P));
     load_vec<N, VEC>(a_, ch, a);
     load_vec<N, VEC>(b_, ch, b);
     load_vec<N, VEC>(m_, ch, m);
@@ -456,7 +464,7 @@ __global__ void __launch_bounds__(NT)
       out[off[u]] = PK::pack(d);
     }
     if (!w.next(k)) break;
-    w.turn<N>(P, F, ch, k, true, off, ok);
+    w.turn(k, true, off, ok);
     fetch();
   }
 }
@@ -481,12 +489,20 @@ int reduce_occupancy() {
       KERNEL<false, false><<<grid, NT, 0, s>>>(__VA_ARGS__);      \
   } while (0)
 
+// The host's walk (ops/bn_act.py bn_walk), or false where it does not fit
+// a CTA of NT threads or its chunks miss channel groups.
+bool walk_args(long long P, int F, int is_bf16, int vec, int cols, int R,
+               int chunks, WalkArgs& w) {
+  const int G = F / (vec ? (is_bf16 ? 8 : 4) : 1);
+  if (cols < 1 || R < 1 || cols * R > NT || (long long)cols * chunks < G)
+    return false;
+  w = WalkArgs{P, (P + R - 1) / R, F, cols, R};
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
-
-// The steps of a turn, U: the walk's unit (ops/bn_act.py bn_walk).
-int hpfg_bn_steps_per_turn() { return U; }
 
 // CTAs of 256 threads an SM can hold of D's reduce (vector path) in bf16
 // or fp32: its persistent grid; a negative value is a CUDA error.
@@ -495,14 +511,18 @@ int hpfg_bn_reduce_ctas_per_sm(int is_bf16) {
 }
 
 // g, y [P, F] (bf16 when is_bf16, else fp32); a, b [F] fp32; vec: 16-byte
-// path (F % V == 0, every pointer 16-byte aligned); grid (ctas, chunks).
+// path (F % V == 0, every pointer 16-byte aligned); the walk: cols groups a
+// CTA, R rows a step, grid (ctas, chunks).
 int hpfg_bn_act(const void* g, const void* a, const void* b, void* y,
-                long long P, int F, int is_bf16, int vec, int ctas,
-                int chunks, void* stream) {
+                long long P, int F, int cols, int R, int is_bf16, int vec,
+                int ctas, int chunks, void* stream) {
+  WalkArgs w;
+  if (!walk_args(P, F, is_bf16, vec, cols, R, chunks, w))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(ctas, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(bn_act_kernel, g, static_cast<const float*>(a),
-              static_cast<const float*>(b), y, P, F);
+              static_cast<const float*>(b), y, w);
   return (int)cudaGetLastError();
 }
 
@@ -511,29 +531,36 @@ int hpfg_bn_act(const void* g, const void* a, const void* b, void* y,
 int hpfg_bn_reduce(const void* dy, const void* pre, const void* a,
                    const void* b, const void* mean, const void* inv,
                    void* part, void* sums, void* counter, long long P, int F,
-                   int is_bf16, int vec, int ctas, int chunks, int PW,
-                   void* stream) {
+                   int cols, int R, int is_bf16, int vec, int ctas,
+                   int chunks, int PW, void* stream) {
+  WalkArgs w;
+  if (!walk_args(P, F, is_bf16, vec, cols, R, chunks, w))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(ctas, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(bn_reduce_kernel, dy, pre, static_cast<const float*>(a),
               static_cast<const float*>(b), static_cast<const float*>(mean),
               static_cast<const float*>(inv), static_cast<float*>(part),
-              static_cast<float*>(sums), static_cast<unsigned*>(counter), P,
-              F, PW);
+              static_cast<float*>(sums), static_cast<unsigned*>(counter), w,
+              PW);
   return (int)cudaGetLastError();
 }
 
 // dy, pre, out [P, F]; a, b, mean, inv [F] and sums [2, F] fp32.
 int hpfg_bn_dpre(const void* dy, const void* pre, const void* a,
                  const void* b, const void* mean, const void* inv,
-                 const void* sums, void* out, long long P, int F, int is_bf16,
-                 int vec, int ctas, int chunks, void* stream) {
+                 const void* sums, void* out, long long P, int F, int cols,
+                 int R, int is_bf16, int vec, int ctas, int chunks,
+                 void* stream) {
+  WalkArgs w;
+  if (!walk_args(P, F, is_bf16, vec, cols, R, chunks, w))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(ctas, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(bn_dpre_kernel, dy, pre, static_cast<const float*>(a),
               static_cast<const float*>(b), static_cast<const float*>(mean),
               static_cast<const float*>(inv),
-              static_cast<const float*>(sums), out, P, F);
+              static_cast<const float*>(sums), out, w);
   return (int)cudaGetLastError();
 }
 

@@ -51,13 +51,12 @@ _SIGNATURES = {
                                   _U, _U, _F, _I, _I, _I, _I, _P],
     "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _I, _U, _U, _F, _I, _I, _I, _I, _P],
-    "hpfg_bn_steps_per_turn": [],
     "hpfg_bn_reduce_ctas_per_sm": [_I],
-    "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_bn_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                       _I, _I, _P],
+                       _I, _I, _I, _I, _P],
     "hpfg_bn_dpre": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                     _P],
+                     _I, _I, _P],
 }
 
 
@@ -77,7 +76,6 @@ class KernelLibrary:
         self.tile = (self.lib.hpfg_tile_h(), self.lib.hpfg_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()
         self.attn_max_d = self.lib.hpfg_attn_max_d()
-        self.bn_steps_per_turn = self.lib.hpfg_bn_steps_per_turn()
         self._bn_occupancy: dict[bool, int] = {}
 
     def wgrad_tile(self, c: int, f: int, bf16: bool) -> tuple[int, int]:

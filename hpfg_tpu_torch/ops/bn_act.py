@@ -73,21 +73,22 @@ def bn_act_bwd_reference(dy, pre, a, b, mean, inv):
 # ---------------------------------------------------------------------------
 
 CTA_THREADS = 256  # bn_act.cu NT
+TURN_STEPS = 4  # bn_act.cu U
 
 
 class BnWalk(NamedTuple):
     """How kernels C and D split a [P, F] activation over CTAs: a thread
     owns ``vec`` contiguous channels (one of G = F / vec groups), a CTA
-    covers ``cols`` groups of ``rows_per_step`` rows a step, turn k is the
-    ``turn_steps`` consecutive steps from k * turn_steps, the grid is
-    (``ctas``, ``chunks``) with chunk y taking groups [y*cols, (y+1)*cols),
-    and CTA x walks turns x, x + ctas, ... of ``turns``. D's reduce writes
-    one partial row of ``part_width`` floats per CTA x."""
+    covers ``cols`` groups of ``rows_per_step`` rows a step (``steps`` of
+    them), turn k is the TURN_STEPS consecutive steps from k * TURN_STEPS,
+    the grid is (``ctas``, ``chunks``) with chunk y taking groups [y*cols,
+    (y+1)*cols), and CTA x walks turns x, x + ctas, ... of ``turns``. D's
+    reduce writes one partial row of ``part_width`` floats per CTA x."""
 
     vec: int
     cols: int
     rows_per_step: int
-    turn_steps: int
+    steps: int
     turns: int
     ctas: int
     chunks: int
@@ -96,17 +97,17 @@ class BnWalk(NamedTuple):
 
     def rows(self, x: int) -> list[int]:
         """The rows CTA x walks, in its order (each with every chunk)."""
-        span = self.turn_steps * self.rows_per_step
+        span = TURN_STEPS * self.rows_per_step
         return [row for k in range(x, self.turns, self.ctas)
                 for row in range(k * span, min(k * span + span, self.p))]
 
 
 def bn_walk(p: int, f: int, elem_bytes: int, aligned: bool = True,
-            resident: int | None = None, turn_steps: int = 4) -> BnWalk:
+            resident: int | None = None) -> BnWalk:
     """The walk of kernels C and D over p rows of f channels of
-    ``elem_bytes`` each, in turns of ``turn_steps`` steps (the library's
-    ``bn_steps_per_turn``). The vector path (16 bytes a thread) needs f % V == 0
-    and 16-byte aligned pointers, else one element a thread. C and dpre
+    ``elem_bytes`` each; the kernels take its sizes as they are. The
+    vector path (16 bytes a thread) needs f % V == 0 and 16-byte aligned
+    pointers, else one element a thread. C and dpre
     (``resident`` None) launch one CTA per turn. D's reduce, whose CTAs
     each write a partial row, takes a persistent grid: at most the
     ``resident`` CTAs the card holds at once, and at most about
@@ -119,12 +120,13 @@ def bn_walk(p: int, f: int, elem_bytes: int, aligned: bool = True,
     cols = min(groups, CTA_THREADS)
     chunks = -(-groups // cols)
     rows = CTA_THREADS // cols
-    turns = -(-p // (rows * turn_steps))
+    steps = -(-p // rows)
+    turns = -(-steps // TURN_STEPS)
     ctas = turns
     if resident is not None:
         ctas = min(turns, resident // chunks,
                    math.isqrt(p * elem_bytes // 4))
-    return BnWalk(vec, cols, rows, turn_steps, turns, max(1, ctas), chunks,
+    return BnWalk(vec, cols, rows, steps, turns, max(1, ctas), chunks,
                   -(-2 * f // 4) * 4, p)
 
 
@@ -152,7 +154,7 @@ def _walk(reduce: bool, t: torch.Tensor, ptrs: tuple[int, ...]):
             resident = _SMS[dev] * lib.bn_reduce_ctas_per_sm(
                 t.dtype == torch.bfloat16)
         w = _WALKS[key] = bn_walk(t.numel() // f, f, t.element_size(),
-                                  aligned, resident, lib.bn_steps_per_turn)
+                                  aligned, resident)
     return lib, w
 
 
@@ -210,8 +212,8 @@ def bn_act(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(g)
     ptrs = (ptr(g), ptr(a), ptr(b), ptr(y))
     lib, w = _walk(False, g, ptrs)
-    lib.call("hpfg_bn_act", *ptrs, w.p, g.shape[-1],
-             int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
+    lib.call("hpfg_bn_act", *ptrs, w.p, g.shape[-1], w.cols,
+             w.rows_per_step, int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, stream(g))
     bn_act.launches += 1
     return y
@@ -239,7 +241,7 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
                       device=dy.device)
     sums = buf[w.ctas * w.part_width:].view(2, f)
     lib.call("hpfg_bn_reduce", *ptrs, ptr(buf), ptr(sums),
-             ptr(_counter(dy.device)), w.p, f,
+             ptr(_counter(dy.device)), w.p, f, w.cols, w.rows_per_step,
              int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, w.part_width, stream(dy))
     dpre = _dpre(dy, pre, a, b, mean, inv, sums)
@@ -275,8 +277,8 @@ def _dpre(dy, pre, a, b, mean, inv, sums):
     ptrs = (ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean), ptr(inv),
             ptr(sums), ptr(dpre))
     lib, w = _walk(False, dy, ptrs)
-    lib.call("hpfg_bn_dpre", *ptrs, w.p, dy.shape[-1],
-             int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
+    lib.call("hpfg_bn_dpre", *ptrs, w.p, dy.shape[-1], w.cols,
+             w.rows_per_step, int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, stream(dy))
     return dpre
 

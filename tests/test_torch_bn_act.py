@@ -173,7 +173,7 @@ def _cover(w: ba.BnWalk, p: int, f: int) -> np.ndarray:
     by a thread of some CTA."""
     hits = np.zeros((p, f), np.int64)
     groups = f // w.vec
-    u = w.turn_steps
+    u = ba.TURN_STEPS
     for y in range(w.chunks):
         for t in range(ba.CTA_THREADS):
             rr, c = t // w.cols, y * w.cols + t % w.cols
@@ -193,7 +193,8 @@ def _invariants(w: ba.BnWalk, p, f, es, resident, aligned):
     assert w.vec == (v if aligned and f % v == 0 else 1)
     assert w.cols * w.rows_per_step <= ba.CTA_THREADS
     assert (w.chunks - 1) * w.cols < f // w.vec <= w.chunks * w.cols
-    span = w.rows_per_step * w.turn_steps
+    assert w.steps == -(-p // w.rows_per_step)
+    span = w.rows_per_step * ba.TURN_STEPS
     assert w.turns * span >= p > (w.turns - 1) * span
     # no CTA idle: each walks at least one turn, so it writes its partial
     assert 1 <= w.ctas <= max(w.turns, 1)

@@ -16,8 +16,9 @@ jax, so the JAX-side conftest is left out):
 
 Tolerances, relative to the reference's largest magnitude: fp32 1e-4
 (another summation order), bf16 2e-2 (bf16 rounding of outputs that were
-summed in another order). Hash dropout masks (the ConvBlock's and the
-attention's, forward and backward, in fp32 and bf16) are bit-exact, and
+summed in another order); D's sums, fp32 sums of the same inputs in both
+dtypes, 1e-4. Hash dropout masks (the ConvBlock's and the attention's,
+forward and backward, in fp32 and bf16) are bit-exact, and
 the attention's output and bias gradient are bitwise the same from run to
 run. C, and D's dpre from given sums, round as their plain versions and
 are bitwise equal to them; D's sums are bitwise the same from run to run.
@@ -115,7 +116,7 @@ def test_bn_act_and_bwd_match_plain(dev, dtype, f):
     assert torch.equal(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b))
     s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
     s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
-    _close(s, s_r, dtype)
+    _close(s, s_r, torch.float32)
     _close(d, d_r, dtype)
     # dpre from given sums rounds as the plain version: bitwise equal
     assert torch.equal(ba.bn_act_dpre(dy, g, a, b, m, inv, s_r),
@@ -150,14 +151,15 @@ def test_bn_reduce_last_cta_finish_is_reproducible(dev, dtype):
     tolerance of the plain version."""
     g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (16, 112, 112, 32))
     runs = [ba.bn_act_bwd(dy, g, a, b, m, inv) for _ in range(3)]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    w = ba.bn_walk(16 * 112 * 112, 32, g.element_size(), resident=sms * 2)
+    # the walk the wrapper launched: several turns a CTA
+    _, w = ba._walk(True, dy, tuple(t.data_ptr() for t in
+                                    (dy, g, a, b, m, inv)))
     assert w.turns > 2 * w.ctas
     for s, d in runs[1:]:
         assert torch.equal(s, runs[0][0])
         assert torch.equal(d, runs[0][1])
     s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
-    _close(runs[0][0], s_r, dtype)
+    _close(runs[0][0], s_r, torch.float32)
     _close(runs[0][1], d_r, dtype)
     assert int(ba._counter(dev).item()) == 0
 
@@ -182,7 +184,7 @@ def test_bn_element_path_on_misaligned_views(dev, dtype, f):
     assert torch.equal(ba.bn_act(gs, a, b), ba.bn_act_reference(g, a, b))
     s, d = ba.bn_act_bwd(dys, gs, a, b, m, inv)
     s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
-    _close(s, s_r, dtype)
+    _close(s, s_r, torch.float32)
     _close(d, d_r, dtype)
 
 
