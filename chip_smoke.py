@@ -25,6 +25,9 @@ nor the JAX package. Phases, each of which fails the run on error:
      on the materialised concat; for K11 the dgrad alone, which does less
      work), and the kernel's bound: the larger of its bytes over 3.35 TB/s
      and its FLOPs over 989 TFLOP/s (H100 SXM bf16 peak);
+  2b. phase 2's kernel checks again at batch 24, the supervised path's,
+     at the same shapes (every shape that path gives A, B, C, D and K8 to
+     K11), in fp32 and bf16, against their plain versions, untimed;
   2c. the window-attention kernels K13 window_attention_fwd and K14
      window_attention_bwd against their plain versions at the four stage
      shapes of the full-width SwinUNet (batch 32), unshifted and shifted,
@@ -53,9 +56,27 @@ nor the JAX package. Phases, each of which fails the run on error:
      0.1, drop path 0.2) and its EMA teacher; F.scaled_dot_product_attention
      is patched to raise as well; one K13 per WindowAttention of model2 and
      of the teacher and one K14 per WindowAttention of model2, a step;
+  3d. the Supervised path, with the values of configs/unet_30k_224x224_ACDC
+     .yaml: one full-width UNet, 24 labelled images a step, one forward and
+     one backward;
+  3e. the CPS path, with configs/cps_unet_30k_224x224_ACDC.yaml: two
+     full-width UNets on 8 + 24 images, two forwards and two backwards;
+  3f. the CTCT path, with configs/ctct_unet_segformer_30k_224x224_ACDC.yaml:
+     a full-width UNet (one forward, one backward, SGD) and a SegFormer B0
+     (adamW) on 8 + 24 images. The SegFormer's convs are cuDNN: F.conv2d is
+     allowed while model2's forward runs (a flag set and cleared by forward
+     hooks) and nowhere else, so the UNet still reaches none;
   4. eval-mode forwards of one synthetic volume through the kernels, the
-     UNet's, UNet_Plus's and the SwinUNet's ``val``, against the same models
-     on the CPU (plain versions).
+     UNet's, UNet_Plus's, the SwinUNet's and the SegFormer's ``val``, against
+     the same models on the CPU in the same dtype (plain versions);
+  5. resume on the CTCT path: two steps through Trainer.fit, one
+     ``save("last")`` timed on the host, a fresh algorithm (another seed)
+     and Trainer restored from it: every tensor and generator state bitwise
+     equal to the checkpoint, and the next step's loss bitwise equal to that
+     of the run that was not interrupted, on the same batch.
+
+Checkpoint writes are left out of the timed and traced main-path steps (the
+trainer's ``save`` is a no-op there); phase 5 times one.
 
 Tolerances, relative to the reference tensor's largest magnitude: fp32
 1e-4 (another summation order), bf16 2e-2 (bf16 rounding at other points),
@@ -72,14 +93,16 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 BATCH = 32
-LABEL_BS, UNLABEL_BS, HW = 8, 24, 224
+HW = 224
 WARMUP, STEPS = 2, 5
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MODEL_TOL, MODEL_AGREE = 5e-2, 0.99
@@ -95,14 +118,40 @@ BN_CU = "hpfg_tpu_torch/csrc/bn_act.cu"
 PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
 ATTN_PALLAS = "hpfg_tpu/ops/pallas/window_attention.py"
 S4_CONFIG = "configs/s4cvnet_unet_30k_224x224_ACDC.yaml"
-# the main paths: label, config, the UNet whose conv kernels are counted
-# (forwards and backwards a step), the models whose window attentions run
-# forwards and backwards a step
-PATHS = [("mean_teacher", MT_CONFIG, "model", 2, 1, (), ()),
-         ("hpfg", HPFG_CONFIG, "model1", 3, 2, (), ()),
-         ("s4cvnet", S4_CONFIG, "model1", 1, 1, ("model2", "ema"),
-          ("model2",))]
-ALL_PATHS = tuple(p[0] for p in PATHS)
+SUP_CONFIG = "configs/unet_30k_224x224_ACDC.yaml"
+#: the supervised path's batch (every other path runs BATCH)
+SUP_BATCH = 24
+CPS_CONFIG = "configs/cps_unet_30k_224x224_ACDC.yaml"
+CTCT_CONFIG = "configs/ctct_unet_segformer_30k_224x224_ACDC.yaml"
+
+
+class MainPath(NamedTuple):
+    """A main path: its config; the UNet whose conv kernels are counted and
+    its forwards and backwards a step; the models whose window attentions
+    run forwards and backwards a step; the model whose forward may call
+    F.conv2d (cuDNN); the model the eval phase checks (None where an
+    earlier path checks the same one)."""
+    label: str
+    config: str
+    unet: str
+    forwards: int
+    backwards: int
+    attn_fwd: tuple = ()
+    attn_bwd: tuple = ()
+    conv2d_model: str | None = None
+    eval_model: str | None = None
+
+
+PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
+                  eval_model="model"),
+         MainPath("hpfg", HPFG_CONFIG, "model1", 3, 2, eval_model="model1"),
+         MainPath("s4cvnet", S4_CONFIG, "model1", 1, 1, ("model2", "ema"),
+                  ("model2",), eval_model="model2"),
+         MainPath("supervised", SUP_CONFIG, "model", 1, 1),
+         MainPath("cps", CPS_CONFIG, "model1", 2, 2),
+         MainPath("ctct", CTCT_CONFIG, "model1", 1, 1, conv2d_model="model2",
+                  eval_model="model2")]
+ALL_PATHS = tuple(p.label for p in PATHS)
 KERNELS = {
     "conv3x3_nhwc": dict(route="cuda", source=CU, replaces=f"{PALLAS}:734",
                          also_replaces=[f"{PALLAS}:785", f"{PALLAS}:1176",
@@ -165,13 +214,13 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv_work(hh, c, f, es, extra_elems=0, w_es=None):
-    """(FLOPs, bytes) of one SAME 3x3 conv between c and f channels at batch
-    BATCH (either direction: a dgrad is the conv from f to c): each input
-    read once, each output written once; ``extra_elems`` more elements of
-    ``es`` bytes (statistics, a residual); ``w_es``: bytes per weight
-    element when it differs from ``es`` (fp32 dW)."""
-    pix = BATCH * hh * hh
+def conv_work(hh, c, f, es, extra_elems=0, w_es=None, batch=BATCH):
+    """(FLOPs, bytes) of one SAME 3x3 conv between c and f channels at
+    ``batch`` (either direction: a dgrad is the conv from f to c): each
+    input read once, each output written once; ``extra_elems`` more
+    elements of ``es`` bytes (statistics, a residual); ``w_es``: bytes per
+    weight element when it differs from ``es`` (fp32 dW)."""
+    pix = batch * hh * hh
     flops = 2 * pix * 9 * c * f
     nbytes = (es * pix * (c + f) + (es if w_es is None else w_es) * 9 * c * f
               + es * extra_elems)
@@ -251,6 +300,19 @@ def times(ms, pms, lms=None):
     return f"{ms:.3f}/{pms:.3f}" + ("" if lms is None else f"/{lms:.3f}")
 
 
+def perf(ms, pms, lms=None, work=None) -> str:
+    """' kernel/plain[/library] ms [rate]' of a timed call; '' untimed."""
+    if ms is None:
+        return ""
+    return f" {times(ms, pms, lms)}ms" + ("" if work is None
+                                         else f" {rate(work, ms)}")
+
+
+def timer(timed: bool):
+    """``cuda_ms`` when timing, else a stand-in that times nothing."""
+    return cuda_ms if timed else (lambda fn: None)
+
+
 def rate(work, ms) -> str:
     """Achieved TFLOP/s and GB/s of a timed call beside its bound in ms."""
     b, by = bound(*work)
@@ -282,26 +344,14 @@ def oihw(w):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(rep: Report, dev) -> None:
-    """Kernels A to D at every distinct conv shape of the UNet. The UpBlock
-    conv1 rows run A and B over the materialised concat: the main path now
-    runs K8 to K10 there (see check_pair_kernels), so those rows are kept
-    as the single-source yardstick and stay out of the kernels' totals, as
-    does A's conv2 dgrad (K11 on the main path)."""
+def check_hash_masks(rep: Report, dev) -> None:
+    """The hash dropout masks, bit-exact: an all-ones input through the
+    prologue a=1, b=0 and a centre-tap identity conv outputs the mask
+    itself (one product each: in bf16 the fp32 mask rounded to bf16)."""
     import torch
-    import torch.nn.functional as F
 
-    from hpfg_tpu_torch.ops import bn_act as ba
     from hpfg_tpu_torch.ops import conv_block as cb
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    # hash dropout masks, bit-exact: an all-ones input through the prologue
-    # a=1, b=0 and a centre-tap identity conv outputs the mask itself (one
-    # product each: in bf16 the fp32 mask rounded to bf16)
     for dt, keep in itertools.product((torch.float32, torch.bfloat16),
                                       (0.95, 0.9, 0.8, 0.7, 0.5)):
         for hh, c in ((224, 16), (14, 256)):
@@ -323,10 +373,37 @@ def check_kernels(rep: Report, dev) -> None:
     print("hash masks: bit-exact check done (prologue and output masks, "
           "keep 0.95..0.5, float32 and bfloat16)", flush=True)
 
+
+def check_kernels(rep: Report, dev, batch: int = BATCH,
+                  timed: bool = True) -> None:
+    """Kernels A to D at every distinct conv shape of the UNet at ``batch``;
+    ``timed``: each call timed beside its plain version (and in bf16 the
+    library's), and the calls the main path makes enter the kernels'
+    totals (the run at BATCH). The UpBlock conv1 rows run A and B over the
+    materialised concat: the main path runs K8 to K10 there (see
+    check_pair_kernels), so those rows are kept as the single-source
+    yardstick and stay out of the kernels' totals, as does A's conv2 dgrad
+    (K11 on the main path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import bn_act as ba
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    clock = timer(timed)
+    sfx = "" if batch == BATCH else f" batch {batch}"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    if timed:
+        check_hash_masks(rep, dev)
     print(f"kernel vs plain: rel err (tol float32 {TOL['float32']}, bfloat16 "
-          f"{TOL['bfloat16']}) kernel/plain ms, batch {BATCH}; in bfloat16 a "
-          f"third time: the same conv by cuDNN in bf16 with its defaults",
-          flush=True)
+          f"{TOL['bfloat16']})" + (" kernel/plain ms" if timed else "") +
+          f", batch {batch}" + ("; in bfloat16 a third time: the same conv "
+                                "by cuDNN in bf16 with its defaults"
+                                if timed else ""), flush=True)
 
     # one case per distinct conv shape; where an encoder and a decoder conv2
     # share a shape, the encoder's (with dropout) is the one checked
@@ -341,14 +418,14 @@ def check_kernels(rep: Report, dev) -> None:
         dname = str(dt).split(".")[-1]
         es = dt.itemsize
         for (hh, c, f), (name, keep) in sorted(conv_shapes.items()):
-            x = randn(BATCH, hh, hh, c).to(dt)
+            x = randn(batch, hh, hh, c).to(dt)
             w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
             bias = randn(f, scale=0.1)
-            dp = randn(BATCH, hh, hh, f).to(dt)
-            bf16 = dt == torch.bfloat16
+            dp = randn(batch, hh, hh, f).to(dt)
+            lib = clock if dt == torch.bfloat16 else (lambda fn: None)
             concat = name.startswith("up") and name.endswith("conv1")
             conv2 = name.endswith("conv2")
-            line = [f"{dname} {name:>10} {hh:>3}^2 {c:>3}->{f:<3}"]
+            line = [f"{dname} {name:>10} {hh:>3}^2 {c:>3}->{f:<3}{sfx}"]
             args = dict(bias=bias, want_stats=True)
             if keep is not None:  # conv2: BN1 + LeakyReLU + dropout prologue
                 a, b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
@@ -356,111 +433,112 @@ def check_kernels(rep: Report, dev) -> None:
                                                  if keep < 1.0 else None))
             y, st = cb.conv3x3_nhwc(x, w, **args)
             y_r, st_r = cb.conv3x3_reference(x, w, **args)
-            ms = cuda_ms(lambda: cb.conv3x3_nhwc(x, w, **args))
-            pms = cuda_ms(lambda: cb.conv3x3_reference(x, w, **args))
+            ms = clock(lambda: cb.conv3x3_nhwc(x, w, **args))
+            pms = clock(lambda: cb.conv3x3_reference(x, w, **args))
             # the conv alone (no prologue, statistics or mask) by cuDNN
             w_c, bias_c = oihw(w), bias.to(dt)
-            cms = cuda_ms(lambda: F.conv2d(nchw(x), w_c, bias_c, padding=1)
-                          ) if bf16 else None
-            r1 = rep.compare("conv3x3_nhwc", f"{name} fwd", dname, y, y_r,
-                             ms, pms, library_ms=cms, main=not concat,
-                             work=conv_work(hh, c, f, es, 2 * f))
-            r2 = rep.compare("conv3x3_nhwc", f"{name} stats", dname, st, st_r)
-            same_twice(rep, f"conv3x3_nhwc {name} stats {dname}",
+            cms = lib(lambda: F.conv2d(nchw(x), w_c, bias_c, padding=1))
+            work = conv_work(hh, c, f, es, 2 * f, batch=batch)
+            r1 = rep.compare("conv3x3_nhwc", f"{name} fwd{sfx}", dname, y,
+                             y_r, ms, pms, library_ms=cms,
+                             main=timed and not concat, work=work)
+            r2 = rep.compare("conv3x3_nhwc", f"{name} stats{sfx}", dname, st,
+                             st_r)
+            same_twice(rep, f"conv3x3_nhwc {name} stats {dname}{sfx}",
                        lambda: (cb.conv3x3_nhwc(x, w, **args)[1],))
-            line.append(f"A fwd {max(r1, r2):.1e} {times(ms, pms, cms)}ms "
-                        f"{rate(conv_work(hh, c, f, es, 2 * f), ms)}")
+            line.append(f"A fwd {max(r1, r2):.1e}{perf(ms, pms, cms, work)}")
 
             wf = cb.flip_transpose(w)
             odrop = args.get("drop")
             dx, _ = cb.conv3x3_nhwc(dp, wf, out_drop=odrop)
             dx_r, _ = cb.conv3x3_reference(dp, wf, out_drop=odrop)
-            ms = cuda_ms(lambda: cb.conv3x3_nhwc(dp, wf, out_drop=odrop))
-            pms = cuda_ms(lambda: cb.conv3x3_reference(dp, wf,
-                                                       out_drop=odrop))
+            ms = clock(lambda: cb.conv3x3_nhwc(dp, wf, out_drop=odrop))
+            pms = clock(lambda: cb.conv3x3_reference(dp, wf, out_drop=odrop))
             wf_c = oihw(wf)
-            cms = cuda_ms(lambda: F.conv2d(nchw(dp), wf_c, padding=1)
-                          ) if bf16 else None
+            cms = lib(lambda: F.conv2d(nchw(dp), wf_c, padding=1))
+            work = conv_work(hh, f, c, es, batch=batch)
             # the stem's dgrad never runs; a conv2's runs as K11
-            r = rep.compare("conv3x3_nhwc", f"{name} dgrad", dname, dx, dx_r,
-                            ms, pms, library_ms=cms,
-                            main=not (concat or conv2 or c == 1),
-                            work=conv_work(hh, f, c, es))
-            line.append(f"A dgrad {r:.1e} {times(ms, pms, cms)}ms "
-                        f"{rate(conv_work(hh, f, c, es), ms)}")
+            r = rep.compare("conv3x3_nhwc", f"{name} dgrad{sfx}", dname, dx,
+                            dx_r, ms, pms, library_ms=cms,
+                            main=timed and not (concat or conv2 or c == 1),
+                            work=work)
+            line.append(f"A dgrad {r:.1e}{perf(ms, pms, cms, work)}")
 
             wargs = {k: args[k] for k in ("affine", "drop") if k in args}
             dw = cb.conv3x3_wgrad_nhwc(x, dp, **wargs)
             dw_r = cb.conv3x3_wgrad_reference(x, dp, **wargs)
-            ms = cuda_ms(lambda: cb.conv3x3_wgrad_nhwc(x, dp, **wargs))
-            pms = cuda_ms(lambda: cb.conv3x3_wgrad_reference(x, dp, **wargs))
-            cms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-                nchw(x), (f, c, 3, 3), nchw(dp), padding=1)) if bf16 else None
-            r = rep.compare("conv3x3_wgrad_nhwc", f"{name} wgrad", dname, dw,
-                            dw_r, ms, pms, library_ms=cms, main=not concat,
-                            work=conv_work(hh, c, f, es, w_es=4))
-            same_twice(rep, f"conv3x3_wgrad_nhwc {name} {dname}",
+            ms = clock(lambda: cb.conv3x3_wgrad_nhwc(x, dp, **wargs))
+            pms = clock(lambda: cb.conv3x3_wgrad_reference(x, dp, **wargs))
+            cms = lib(lambda: torch.nn.grad.conv2d_weight(
+                nchw(x), (f, c, 3, 3), nchw(dp), padding=1))
+            work = conv_work(hh, c, f, es, w_es=4, batch=batch)
+            r = rep.compare("conv3x3_wgrad_nhwc", f"{name} wgrad{sfx}", dname,
+                            dw, dw_r, ms, pms, library_ms=cms,
+                            main=timed and not concat, work=work)
+            same_twice(rep, f"conv3x3_wgrad_nhwc {name} {dname}{sfx}",
                        lambda: (cb.conv3x3_wgrad_nhwc(x, dp, **wargs),))
-            line.append(f"B {r:.1e} {times(ms, pms, cms)}ms "
-                        f"{rate(conv_work(hh, c, f, es, w_es=4), ms)}")
+            line.append(f"B {r:.1e}{perf(ms, pms, cms, work)}")
 
             if keep is not None:  # block output: BN2 + LeakyReLU fwd / bwd
-                n = BATCH * hh * hh * f
-                g = randn(BATCH, hh, hh, f).to(dt)
+                n = batch * hh * hh * f
+                g = randn(batch, hh, hh, f).to(dt)
                 a2, b2 = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
                 y = ba.bn_act(g, a2, b2)
-                ms = cuda_ms(lambda: ba.bn_act(g, a2, b2))
-                pms = cuda_ms(lambda: ba.bn_act_reference(g, a2, b2))
+                ms = clock(lambda: ba.bn_act(g, a2, b2))
+                pms = clock(lambda: ba.bn_act_reference(g, a2, b2))
                 y_r = ba.bn_act_reference(g, a2, b2)
-                r = rep.compare("bn_act", f"{name} bn_act", dname, y, y_r,
-                                ms, pms, work=(3 * n, 2 * es * n))
+                work = (3 * n, 2 * es * n)
+                r = rep.compare("bn_act", f"{name} bn_act{sfx}", dname, y,
+                                y_r, ms, pms, work=work, main=timed)
                 if not torch.equal(y, y_r):
-                    rep.fail(f"bn_act {name} {dname}: not bitwise equal to "
-                             f"the plain version")
-                line.append(f"C {r:.1e} bitwise {times(ms, pms)}ms "
-                            f"{rate((3 * n, 2 * es * n), ms)}")
+                    rep.fail(f"bn_act {name} {dname}{sfx}: not bitwise equal "
+                             f"to the plain version")
+                line.append(f"C {r:.1e} bitwise{perf(ms, pms, work=work)}")
                 m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
                 s, d = ba.bn_act_bwd(dp, g, a2, b2, m, inv)
                 s_r, d_r = ba.bn_act_bwd_reference(dp, g, a2, b2, m, inv)
-                ms = cuda_ms(lambda: ba.bn_act_bwd(dp, g, a2, b2, m, inv))
-                pms = cuda_ms(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
-                                                              m, inv))
+                ms = clock(lambda: ba.bn_act_bwd(dp, g, a2, b2, m, inv))
+                pms = clock(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
+                                                            m, inv))
+                work = (17 * n, 3 * es * n)
                 # the sums are fp32 in both dtypes: the fp32 tolerance
-                r1 = rep.compare("bn_act_bwd", f"{name} sums", dname, s, s_r,
-                                 ms, pms, tol=TOL["float32"],
-                                 work=(17 * n, 3 * es * n))
-                r2 = rep.compare("bn_act_bwd", f"{name} dpre", dname, d, d_r)
-                same_twice(rep, f"bn_act_bwd {name} sums {dname}",
+                r1 = rep.compare("bn_act_bwd", f"{name} sums{sfx}", dname, s,
+                                 s_r, ms, pms, tol=TOL["float32"], work=work,
+                                 main=timed)
+                r2 = rep.compare("bn_act_bwd", f"{name} dpre{sfx}", dname, d,
+                                 d_r)
+                same_twice(rep, f"bn_act_bwd {name} sums {dname}{sfx}",
                            lambda: (ba.bn_act_bwd(dp, g, a2, b2, m, inv)[0],))
-                line.append(f"D {max(r1, r2):.1e} {times(ms, pms)}ms "
-                            f"{rate((17 * n, 3 * es * n), ms)}")
+                line.append(f"D {max(r1, r2):.1e}{perf(ms, pms, work=work)}")
                 d = ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r)
-                ms = cuda_ms(lambda: ba.bn_act_dpre(dp, g, a2, b2, m, inv,
-                                                    s_r))
-                pms = cuda_ms(lambda: ba.bn_act_dpre_reference(
+                ms = clock(lambda: ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r))
+                pms = clock(lambda: ba.bn_act_dpre_reference(
                     dp, g, a2, b2, m, inv, s_r))
-                r = rep.compare("bn_act_bwd", f"{name} dpre-only", dname, d,
-                                ba.bn_act_dpre_reference(dp, g, a2, b2, m,
-                                                         inv, s_r),
-                                ms, pms, work=(9 * n, 3 * es * n))
-                line.append(f"D dpre {r:.1e} {times(ms, pms)}ms "
-                            f"{rate((9 * n, 3 * es * n), ms)}")
+                work = (9 * n, 3 * es * n)
+                r = rep.compare("bn_act_bwd", f"{name} dpre-only{sfx}", dname,
+                                d, ba.bn_act_dpre_reference(dp, g, a2, b2, m,
+                                                            inv, s_r),
+                                ms, pms, work=work, main=timed)
+                line.append(f"D dpre {r:.1e}{perf(ms, pms, work=work)}")
             print(" | ".join(line), flush=True)
             del x, w, dp, y, y_r, dx, dx_r
             torch.cuda.empty_cache()
 
 
-def check_pair_kernels(rep: Report, dev) -> None:
+def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
+                       timed: bool = True) -> None:
     """K8, K9 and K10 at the four UpBlock shapes, and K11 at every
     ConvBlock's conv2 (the encoder's with and without its dropout), against
-    their plain versions; in bf16 beside the library call that computes the
-    same conv."""
+    their plain versions at ``batch``; ``timed`` as in check_kernels, in
+    bf16 beside the library call that computes the same conv."""
     import torch
     import torch.nn.functional as F
 
     from hpfg_tpu_torch.ops import conv_block as cb
 
     gen = torch.Generator(device=dev).manual_seed(2)
+    clock = timer(timed)
+    sfx = "" if batch == BATCH else f" batch {batch}"
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -468,17 +546,17 @@ def check_pair_kernels(rep: Report, dev) -> None:
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
         es = dt.itemsize
-        bf16 = dt == torch.bfloat16
+        lib = clock if dt == torch.bfloat16 else (lambda fn: None)
         for name, hh, c, f, keep in BLOCKS:
             if not name.startswith("up"):
                 continue
             ca = cbh = c // 2
-            xa = randn(BATCH, hh, hh, ca).to(dt)
-            xb = randn(BATCH, hh, hh, cbh).to(dt)
+            xa = randn(batch, hh, hh, ca).to(dt)
+            xb = randn(batch, hh, hh, cbh).to(dt)
             w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
             bias = randn(f, scale=0.1)
-            dp = randn(BATCH, hh, hh, f).to(dt)
-            line = [f"{dname} {name:>6}.conv1 {hh:>3}^2 {ca}+{cbh}->{f}"]
+            dp = randn(batch, hh, hh, f).to(dt)
+            line = [f"{dname} {name:>6}.conv1 {hh:>3}^2 {ca}+{cbh}->{f}{sfx}"]
             cat = torch.cat([xa, xb], dim=-1)
             w_c = oihw(w)
 
@@ -490,53 +568,50 @@ def check_pair_kernels(rep: Report, dev) -> None:
                                                  want_stats=True)
 
             (y, st), (y_r, st_r) = k8(), k8_plain()
-            ms, pms = cuda_ms(k8), cuda_ms(k8_plain)
-            lms = cuda_ms(lambda: F.conv2d(nchw(cat), w_c, bias.to(dt),
-                                           padding=1)) if bf16 else None
-            r = max(rep.compare("conv3x3_pair_nhwc", f"{name} fwd", dname, y,
-                                y_r, ms, pms, library_ms=lms,
-                                work=conv_work(hh, c, f, es, 2 * f)),
-                    rep.compare("conv3x3_pair_nhwc", f"{name} stats", dname,
-                                st, st_r))
-            line.append(f"K8 {r:.1e} {times(ms, pms, lms)}ms "
-                        f"{rate(conv_work(hh, c, f, es, 2 * f), ms)}")
+            ms, pms = clock(k8), clock(k8_plain)
+            lms = lib(lambda: F.conv2d(nchw(cat), w_c, bias.to(dt),
+                                       padding=1))
+            work = conv_work(hh, c, f, es, 2 * f, batch=batch)
+            r = max(rep.compare("conv3x3_pair_nhwc", f"{name} fwd{sfx}",
+                                dname, y, y_r, ms, pms, library_ms=lms,
+                                work=work, main=timed),
+                    rep.compare("conv3x3_pair_nhwc", f"{name} stats{sfx}",
+                                dname, st, st_r))
+            line.append(f"K8 {r:.1e}{perf(ms, pms, lms, work)}")
 
             wf = cb.flip_transpose(w)
             got = cb.conv3x3_dgrad_pair(dp, wf, ca)
             ref = cb.conv3x3_dgrad_pair_reference(dp, wf, ca)
-            ms = cuda_ms(lambda: cb.conv3x3_dgrad_pair(dp, wf, ca))
-            pms = cuda_ms(lambda: cb.conv3x3_dgrad_pair_reference(dp, wf, ca))
-            lms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
-                (BATCH, c, hh, hh), w_c, nchw(dp), padding=1)
-                ) if bf16 else None
-            r = max(rep.compare("conv3x3_dgrad_pair", f"{name} dx_skip",
+            ms = clock(lambda: cb.conv3x3_dgrad_pair(dp, wf, ca))
+            pms = clock(lambda: cb.conv3x3_dgrad_pair_reference(dp, wf, ca))
+            lms = lib(lambda: torch.nn.grad.conv2d_input(
+                (batch, c, hh, hh), w_c, nchw(dp), padding=1))
+            work = conv_work(hh, f, c, es, batch=batch)
+            r = max(rep.compare("conv3x3_dgrad_pair", f"{name} dx_skip{sfx}",
                                 dname, got[0], ref[0], ms, pms,
-                                library_ms=lms,
-                                work=conv_work(hh, f, c, es)),
-                    rep.compare("conv3x3_dgrad_pair", f"{name} dx_up", dname,
-                                got[1], ref[1]))
+                                library_ms=lms, work=work, main=timed),
+                    rep.compare("conv3x3_dgrad_pair", f"{name} dx_up{sfx}",
+                                dname, got[1], ref[1]))
             if not (got[0].is_contiguous() and got[1].is_contiguous()):
-                rep.fail(f"conv3x3_dgrad_pair {name}: outputs not contiguous")
-            line.append(f"K9 {r:.1e} {times(ms, pms, lms)}ms "
-                        f"{rate(conv_work(hh, f, c, es), ms)}")
+                rep.fail(f"conv3x3_dgrad_pair {name}{sfx}: outputs not "
+                         f"contiguous")
+            line.append(f"K9 {r:.1e}{perf(ms, pms, lms, work)}")
 
             got = cb.conv3x3_wgrad_pair(xa, xb, dp)
             ref = cb.conv3x3_wgrad_pair_reference(xa, xb, dp)
-            ms = cuda_ms(lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
-            pms = cuda_ms(lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))
-            lms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-                nchw(cat), (f, c, 3, 3), nchw(dp), padding=1)
-                ) if bf16 else None
-            r = max(rep.compare("conv3x3_wgrad_pair", f"{name} dw_skip",
+            ms = clock(lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
+            pms = clock(lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))
+            lms = lib(lambda: torch.nn.grad.conv2d_weight(
+                nchw(cat), (f, c, 3, 3), nchw(dp), padding=1))
+            work = conv_work(hh, c, f, es, w_es=4, batch=batch)
+            r = max(rep.compare("conv3x3_wgrad_pair", f"{name} dw_skip{sfx}",
                                 dname, got[0], ref[0], ms, pms,
-                                library_ms=lms,
-                                work=conv_work(hh, c, f, es, w_es=4)),
-                    rep.compare("conv3x3_wgrad_pair", f"{name} dw_up", dname,
-                                got[1], ref[1]))
-            same_twice(rep, f"conv3x3_wgrad_pair {name} {dname}",
+                                library_ms=lms, work=work, main=timed),
+                    rep.compare("conv3x3_wgrad_pair", f"{name} dw_up{sfx}",
+                                dname, got[1], ref[1]))
+            same_twice(rep, f"conv3x3_wgrad_pair {name} {dname}{sfx}",
                        lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
-            line.append(f"K10 {r:.1e} {times(ms, pms, lms)}ms "
-                        f"{rate(conv_work(hh, c, f, es, w_es=4), ms)}")
+            line.append(f"K10 {r:.1e}{perf(ms, pms, lms, work)}")
             print(" | ".join(line), flush=True)
             del xa, xb, cat, dp, y, y_r, got, ref
             torch.cuda.empty_cache()
@@ -549,11 +624,11 @@ def check_pair_kernels(rep: Report, dev) -> None:
         for name, hh, _, f, keep in BLOCKS:
             cases.setdefault((hh, f, None), name)
         for (hh, f, kp), name in cases.items():
-            dp = randn(BATCH, hh, hh, f).to(dt)
+            dp = randn(batch, hh, hh, f).to(dt)
             w2 = randn(3, 3, f, f, scale=(9 * f) ** -0.5).to(dt)
             wf = cb.flip_transpose(w2)
             w2_c = oihw(w2)
-            pre = randn(BATCH, hh, hh, f).to(dt)
+            pre = randn(batch, hh, hh, f).to(dt)
             a, b = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
             m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
             drop = cb.HashDropout(88, kp) if kp else None
@@ -567,25 +642,25 @@ def check_pair_kernels(rep: Report, dev) -> None:
                     dp, wf, pre, a, b, m, inv, out_drop=drop)
 
             (dd, s), (dd_r, s_r) = k11(), k11_plain()
-            ms, pms = cuda_ms(k11), cuda_ms(k11_plain)
-            lms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
-                (BATCH, f, hh, hh), w2_c, nchw(dp), padding=1)
-                ) if bf16 else None
-            n = BATCH * hh * hh * f
-            flops, nbytes = conv_work(hh, f, f, es, n)
+            ms, pms = clock(k11), clock(k11_plain)
+            lms = lib(lambda: torch.nn.grad.conv2d_input(
+                (batch, f, hh, hh), w2_c, nchw(dp), padding=1))
+            n = batch * hh * hh * f
+            flops, nbytes = conv_work(hh, f, f, es, n, batch=batch)
+            work = (flops + 8 * n, nbytes)
             what = f"{name}.conv2 {'keep ' + str(kp) if kp else 'no drop'}"
-            r = max(rep.compare("conv3x3_dgrad_reduce", f"{what} dd",
+            r = max(rep.compare("conv3x3_dgrad_reduce", f"{what} dd{sfx}",
                                 dname, dd, dd_r, ms, pms, library_ms=lms,
-                                work=(flops + 8 * n, nbytes),
-                                main=(hh, f, kp) in main_cases),
-                    rep.compare("conv3x3_dgrad_reduce", f"{what} sums",
+                                work=work,
+                                main=timed and (hh, f, kp) in main_cases),
+                    rep.compare("conv3x3_dgrad_reduce", f"{what} sums{sfx}",
                                 dname, s, s_r))
-            same_twice(rep, f"conv3x3_dgrad_reduce {what} sums {dname}",
+            same_twice(rep, f"conv3x3_dgrad_reduce {what} sums {dname}{sfx}",
                        lambda: (k11()[1],))
-            print(f"{dname} {what:>24} {hh:>3}^2 {f}->{f}: K11 {r:.1e} "
-                  f"{times(ms, pms, lms)}ms "
-                  f"{rate((flops + 8 * n, nbytes), ms)} (library: the dgrad "
-                  f"alone)", flush=True)
+            print(f"{dname} {what:>24} {hh:>3}^2 {f}->{f}{sfx}: K11 {r:.1e}"
+                  f"{perf(ms, pms, lms, work)}" + (" (library: the dgrad "
+                                                   "alone)" if timed else ""),
+                  flush=True)
             del dp, pre, dd, dd_r
             torch.cuda.empty_cache()
 
@@ -968,43 +1043,83 @@ def counters() -> dict:
             "window_attention_bwd": wa.window_attention_bwd}
 
 
-def run_main_path(rep: Report, dev, card: str, config: str, label: str,
-                  model_attr: str, forwards: int, backwards: int,
-                  attn_fwd=(), attn_bwd=()):
-    """Train ``STEPS`` timed steps (after ``WARMUP``) of the config's
-    algorithm through Trainer.fit with conv2d and SDPA forbidden, check the
-    losses and launch counts, trace one more step. Returns (launches,
-    algorithm, summary)."""
+def make_loaders(cfg: dict, rng):
+    """In-memory loaders of numpy batches in the ACDC layout, two batches of
+    each kind: (labelled, unlabelled, test) for a config with an
+    ``unlabel_batch_size``, else (train, test) as ``sup_acdc`` gives them.
+    Returns (loaders, images a step)."""
+    import numpy as np
+
+    lb = int(cfg["batch_size"])
+    labelled = ArrayLoader(
+        rng.normal(size=(2 * lb, HW, HW, 1)).astype(np.float32),
+        rng.integers(0, 4, (2 * lb, HW, HW)).astype(np.int32), lb)
+    if "unlabel_batch_size" not in cfg:
+        return (labelled, []), lb
+    ub = int(cfg["unlabel_batch_size"])
+    unlabelled = ArrayLoader(
+        rng.normal(size=(2 * ub, HW, HW, 1)).astype(np.float32),
+        np.zeros((2 * ub, HW, HW), np.int32), ub)
+    return (labelled, unlabelled, []), lb + ub
+
+
+def build_run(config: str, label: str, dev, seed_offset: int = 0):
+    """The config's algorithm on the card in its precision and a Trainer on
+    in-memory batches (metrics read once, at the end of each fit). Returns
+    (cfg, algorithm, trainer, loaders, images a step)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from hpfg_tpu_torch.train.algorithms import build_algorithm
     from hpfg_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(config)
-    cfg.update(save_path=os.path.join(OUT_DIR, f"run_{label}"))
+    cfg.update(save_path=os.path.join(OUT_DIR, f"run_{label}"),
+               seed=int(cfg.get("seed", 0)) + seed_offset)
     dtype = torch.bfloat16 if cfg.get("precision") == "bf16" else torch.float32
-    rng = np.random.default_rng(0)
-    n_lab, n_unl = LABEL_BS * 2, UNLABEL_BS * 2
-    loaders = (
-        ArrayLoader(rng.normal(size=(n_lab, HW, HW, 1)).astype(np.float32),
-                    rng.integers(0, 4, (n_lab, HW, HW)).astype(np.int32),
-                    int(cfg["batch_size"])),
-        ArrayLoader(rng.normal(size=(n_unl, HW, HW, 1)).astype(np.float32),
-                    np.zeros((n_unl, HW, HW), np.int32),
-                    int(cfg["unlabel_batch_size"])),
-        [])
+    loaders, images = make_loaders(cfg, np.random.default_rng(0))
     algo = build_algorithm(cfg["algorithm"], cfg, dtype=dtype, device=dev)
-    # metrics are read once, at the end of each fit: no sync inside the loop
     trainer = Trainer(cfg, algo, loaders=loaders, workdir=cfg["save_path"],
                       log_every=10 ** 6)
+    return cfg, algo, trainer, loaders, images
 
-    def forbidden(*_a, **_k):
-        raise RuntimeError("F.conv2d or SDPA called on the main path")
 
+def run_main_path(rep: Report, dev, card: str, path: MainPath):
+    """Train ``STEPS`` timed steps (after ``WARMUP``) of the config's
+    algorithm through Trainer.fit with SDPA forbidden and F.conv2d allowed
+    only inside ``path.conv2d_model``'s forward, check the losses and
+    launch counts, trace one more step. Checkpoint writes are left out
+    (``trainer.save`` is a no-op). Returns (launches, algorithm,
+    summary)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    label = path.label
+    _, algo, trainer, _, images = build_run(path.config, label, dev)
+    trainer.save = lambda tag: None
     saved = (F.conv2d, torch.conv2d, F.scaled_dot_product_attention)
-    F.conv2d = torch.conv2d = F.scaled_dot_product_attention = forbidden
+    in_conv2d_model = []  # non-empty while that model's forward runs
+
+    def conv2d(*args, **kwargs):
+        if in_conv2d_model:
+            return saved[0](*args, **kwargs)
+        raise RuntimeError("F.conv2d called on the main path outside "
+                           f"{path.conv2d_model or 'a model allowed it'}")
+
+    def sdpa(*_a, **_k):
+        raise RuntimeError("F.scaled_dot_product_attention called on the "
+                           "main path")
+
+    hooks = []
+    if path.conv2d_model:
+        model = getattr(algo, path.conv2d_model)
+        hooks = [model.register_forward_pre_hook(
+                     lambda *_: in_conv2d_model.append(True)),
+                 model.register_forward_hook(
+                     lambda *_: in_conv2d_model.clear())]
+    F.conv2d = torch.conv2d = conv2d
+    F.scaled_dot_product_attention = sdpa
     try:
         trainer.total_itrs = WARMUP
         trainer.fit(eval_enabled=False)
@@ -1021,14 +1136,18 @@ def run_main_path(rep: Report, dev, card: str, config: str, label: str,
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         F.conv2d, torch.conv2d, F.scaled_dot_product_attention = saved
+        for h in hooks:
+            h.remove()
+        in_conv2d_model.clear()
 
     losses = [m["loss"] for _, m in trainer.metrics_log]
     if len(losses) != WARMUP + STEPS or not all(np.isfinite(losses)):
         rep.fail(f"{label} path losses not all finite: {losses}")
     print(f"{label} path: losses {[round(v, 5) for v in losses]}", flush=True)
-    expected = predicted_launches(getattr(algo, model_attr), STEPS, forwards,
-                                  backwards)
-    expected.update(predicted_attention(algo, STEPS, attn_fwd, attn_bwd))
+    expected = predicted_launches(getattr(algo, path.unet), STEPS,
+                                  path.forwards, path.backwards)
+    expected.update(predicted_attention(algo, STEPS, path.attn_fwd,
+                                        path.attn_bwd))
     for k, n in launches.items():
         print(f"{label} launches {k}: {n} (predicted {expected[k]} = {STEPS}"
               f" steps x {expected[k] // STEPS})", flush=True)
@@ -1041,14 +1160,15 @@ def run_main_path(rep: Report, dev, card: str, config: str, label: str,
             rep.fail(f"{label} path: kernel {name} was not launched")
     busy, conv, bn, step_launches = profile_step(trainer, card, label)
     ms = elapsed / STEPS * 1e3
-    imgs = (LABEL_BS + UNLABEL_BS) * STEPS / elapsed
-    print(f"{label} path: {algo.name} 224^2 {LABEL_BS}+{UNLABEL_BS} bf16: "
-          f"{ms:.2f} ms/step, {imgs:.1f} img/s ({LABEL_BS + UNLABEL_BS} "
-          f"images a step), peak {peak:.2f} GiB allocated ({card})",
-          flush=True)
-    summary = dict(ms_per_step=ms, img_per_s=imgs, peak_gib=peak,
-                   traced_busy_ms=busy, traced_conv_ms=conv,
-                   traced_bn_ms=bn, traced_device_launches=step_launches)
+    imgs = images * STEPS / elapsed
+    print(f"{label} path: {algo.name} {HW}^2 {images} images a step "
+          f"{str(algo.dtype).split('.')[-1]}: "
+          f"{ms:.2f} ms/step, {imgs:.1f} img/s, peak {peak:.2f} GiB "
+          f"allocated ({card})", flush=True)
+    summary = dict(ms_per_step=ms, img_per_s=imgs, images_per_step=images,
+                   peak_gib=peak, traced_busy_ms=busy, traced_conv_ms=conv,
+                   traced_bn_ms=bn, traced_device_launches=step_launches,
+                   busy_share=(busy / ms if busy is not None else None))
     return launches, algo, summary
 
 
@@ -1082,8 +1202,10 @@ def profile_step(trainer, card: str, label: str):
         row[0] += 1
         row[1] += e.time_range.end - e.time_range.start
     busy = sum(v[1] for v in by_name.values())
+    # the port's conv kernels by name (cuDNN's, on the CTCT path's
+    # SegFormer, have "wgrad" in theirs too)
     conv = sum(v[1] for k, v in by_name.items()
-               if "conv3x3" in k or "wgrad" in k)
+               if re.search(r"\b(conv3x3|wgrad)(_bf16)?_kernel\b", k))
     bn = sum(v[1] for k, v in by_name.items()
              if any(f"bn_{n}_kernel" in k for n in ("act", "reduce", "dpre")))
     launches = sum(v[0] for v in by_name.values())
@@ -1138,6 +1260,87 @@ def check_eval(rep: Report, dev, model, label: str) -> None:
                  f"{MODEL_AGREE}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: resume
+# ---------------------------------------------------------------------------
+
+def check_resume(rep: Report, dev, card: str) -> dict:
+    """On the CTCT path: two steps through Trainer.fit (which saves
+    ``last`` at its end), one more ``save("last")`` timed on the host, then
+    a fresh algorithm (built from another seed) and Trainer restored from
+    it. Every tensor and generator state must be bitwise equal to the
+    checkpoint, and the next step's loss on one batch bitwise equal to the
+    uninterrupted run's: the loss is a forward of the restored state, which
+    backward atomics cannot move. The checkpoints are deleted at the end."""
+    import shutil
+
+    import torch
+
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+    from hpfg_tpu_torch.train.trainer import Trainer
+    from hpfg_tpu_torch.utils.checkpoint import state_mismatches
+
+    cfg, algo, trainer, loaders, _ = build_run(CTCT_CONFIG, "resume", dev)
+    try:
+        trainer.total_itrs = 2
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save("last")
+        save_ms = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(trainer.ckpt.directory, "last.pt")
+        size_mib = os.path.getsize(path) / 2 ** 20
+        saved = trainer.ckpt.restore("last")["algorithm"]
+
+        fresh_cfg = dict(cfg, seed=int(cfg["seed"]) + 1)
+        fresh = build_algorithm(cfg["algorithm"], fresh_cfg,
+                                dtype=algo.dtype, device=dev)
+        before = len(state_mismatches(fresh.state_dict(), saved))
+        t0 = time.perf_counter()
+        Trainer(fresh_cfg, fresh, loaders=loaders,
+                workdir=cfg["save_path"]).resume("last", strict=True)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        bad = state_mismatches(fresh.state_dict(), saved)
+        if bad or fresh.step_count != 2:
+            rep.fail(f"resume: step {fresh.step_count}, {len(bad)} fields "
+                     f"differ from the checkpoint: {bad[:5]}")
+        stream = algo.batches(loaders)
+        batch = [next(stream) for _ in range(3)][-1]
+        loss = algo.step(batch)["loss"]
+        loss_resumed = fresh.step(batch)["loss"]
+        same_loss = torch.equal(loss, loss_resumed)
+        if not same_loss:
+            rep.fail(f"resume: step 3 loss {loss.item()!r} after the restore"
+                     f" != {loss_resumed.item()!r} uninterrupted")
+        after = len(state_mismatches(fresh.state_dict(), algo.state_dict()))
+        n_fields = sum(1 for _ in _leaves(saved))
+    finally:
+        shutil.rmtree(cfg["save_path"], ignore_errors=True)
+    print(f"resume (ctct): save('last') {save_ms:.1f} ms on the host "
+          f"({size_mib:.1f} MiB), restore {restore_ms:.1f} ms ({card}); "
+          f"{n_fields} saved leaves, {before} differ before the restore, "
+          f"{len(bad)} after; step 3 loss {loss.item()!r} resumed "
+          f"{loss_resumed.item()!r}: "
+          f"{'bitwise equal' if same_loss else 'DIFFER'}; after step 3, "
+          f"{after} leaves differ from the uninterrupted run (backward "
+          "atomics may move them)", flush=True)
+    return dict(save_ms=save_ms, restore_ms=restore_ms, size_mib=size_mib,
+                leaves=n_fields, loss_bitwise_equal=same_loss,
+                leaves_differing_after_step=after)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def kernel_line(rep: Report, paths: dict) -> list[dict]:
     """The per-kernel summary: launches on each main path's timed run and
     their sum over the paths (``launches``), the largest error over every
@@ -1157,6 +1360,7 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
             name=name, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], also_replaces=meta["also_replaces"],
             launches=sum(by_path.values()), launches_by_path=by_path,
+            paths=[p for p, n in by_path.items() if n],
             max_abs_err=max((r["max_abs_err"] for r in rows), default=None),
             max_rel_err=max((r["rel_err"] for r in rows), default=None),
             ms=sum(r["ms"] for r in timed),
@@ -1173,7 +1377,6 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's -Xptxas=-v log: its name
     (with its template arguments), registers, and spill stores/loads."""
-    import re
 
     def demangle(sym: str) -> str:
         for i, ch in enumerate(sym):  # <length><name> with name *_kernel
@@ -1246,23 +1449,30 @@ def main() -> int:
 
     phase("kernels", lambda: check_kernels(rep, dev))
     phase("pair kernels", lambda: check_pair_kernels(rep, dev))
+    # the supervised path's batch: every shape again, untimed
+    phase(f"kernels batch {SUP_BATCH}", lambda: check_kernels(
+        rep, dev, SUP_BATCH, timed=False))
+    phase(f"pair kernels batch {SUP_BATCH}", lambda: check_pair_kernels(
+        rep, dev, SUP_BATCH, timed=False))
     phase("attention kernels", lambda: check_attention_kernels(rep, dev))
     phase("functions", lambda: check_functions(rep, dev))
     paths, summaries = {}, {}
-    for label, config, attr, fwd, bwd, attn_fwd, attn_bwd in PATHS:
-        out = phase(f"main path {label}", lambda: run_main_path(
-            rep, dev, card, config, label, attr, fwd, bwd, attn_fwd,
-            attn_bwd))
+    for path in PATHS:
+        out = phase(f"main path {path.label}",
+                    lambda: run_main_path(rep, dev, card, path))
         if out is None:
             continue
-        paths[label], algo, summaries[label] = out
-        # the model the path adds: the SwinUNet on the S4CVNet path
-        attr = attn_fwd[0] if attn_fwd else attr
-        model = getattr(algo, attr)
-        phase(f"eval {label}", lambda: check_eval(rep, dev, model,
-                                                  f"{label}.{attr}"))
-        del algo, model
+        # out must not keep this path's algorithm alive into the next path
+        # (its peak memory would count it)
+        (paths[path.label], algo, summaries[path.label]), out = out, None
+        if path.eval_model:  # the model the path adds
+            model = getattr(algo, path.eval_model)
+            phase(f"eval {path.label}", lambda: check_eval(
+                rep, dev, model, f"{path.label}.{path.eval_model}"))
+            del model
+        del algo
         torch.cuda.empty_cache()
+    resume = phase("resume", lambda: check_resume(rep, dev, card))
     rep.close()
 
     if set(paths) != set(ALL_PATHS):
@@ -1274,8 +1484,8 @@ def main() -> int:
     kernels = kernel_line(rep, paths)
     with open(os.path.join(OUT_DIR, "summary.json"), "w",
               encoding="utf-8") as f:
-        json.dump({"card": card, "paths": summaries, "kernels": kernels}, f,
-                  indent=1)
+        json.dump({"card": card, "paths": summaries, "resume": resume,
+                   "kernels": kernels}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:
         print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)

@@ -1,24 +1,29 @@
 """Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet``,
-``unet_plus``, ``swinunet``, ``swinunet_plus`` and ``swinunet_lidc``).
+``unet_plus``, ``swinunet``, ``swinunet_plus``, ``swinunet_lidc``,
+``segformer`` and ``segformer_plus``).
 
 ``build_model(cfg)`` reads a config mapping (``cfg.get``): ``model``,
-``in_channels``, ``num_classes``, ``train_crop_size`` (the SwinUNets' image
-size) and hooks that scale the network for tests and benchmarks: the UNets'
-``feature_chns`` / ``dropout``, the SwinUNets' ``embed_dim``, ``depths``,
-``num_heads``, ``window_size``, ``drop_rate``, ``attn_drop_rate`` and
-``drop_path_rate``.
+``in_channels``, ``num_classes``, ``train_crop_size`` (the transformers'
+image size) and hooks that scale the network for tests and benchmarks: the
+UNets' ``feature_chns`` / ``dropout``, the SwinUNets' ``embed_dim``,
+``depths``, ``num_heads``, ``window_size``, ``drop_rate``,
+``attn_drop_rate`` and ``drop_path_rate``, the SegFormers' ``mit`` (a
+``MIT_SETTINGS`` name), ``drop_path_rate`` and ``drop_rate`` (the head's
+dropout).
 """
 
 from __future__ import annotations
 
 import torch
 
+from hpfg_tpu_torch.models.segformer import build_segformer
 from hpfg_tpu_torch.models.swinunet import build_swinunet
 from hpfg_tpu_torch.models.unet import UNet, UNetPlus
 
 #: models ported so far; the rest of the zoo is queued in ROADMAP.md
 MODELS = {"unet": UNet, "unet_plus": UNetPlus, "swinunet": build_swinunet,
-          "swinunet_plus": build_swinunet, "swinunet_lidc": build_swinunet}
+          "swinunet_plus": build_swinunet, "swinunet_lidc": build_swinunet,
+          "segformer": build_segformer, "segformer_plus": build_segformer}
 
 #: registry names whose forward returns (logits, h1, h2), which the
 #: feature-contrastive algorithms (hpfg) unpack; the JAX package's list
@@ -31,6 +36,8 @@ FEATURE_MODELS = frozenset({
 _SWIN_HOOKS = {"embed_dim": int, "depths": tuple, "num_heads": tuple,
                "window_size": int, "drop_rate": float,
                "attn_drop_rate": float, "drop_path_rate": float}
+#: the SegFormer hooks
+_SEGFORMER_HOOKS = {"mit": str, "drop_rate": float, "drop_path_rate": float}
 
 
 def returns_features(name: str) -> bool:
@@ -56,12 +63,14 @@ def build_model(cfg, dtype: torch.dtype = torch.float32,
             "(see ROADMAP.md, Queue 1)")
     in_channels = int(cfg.get("in_channels", 1))
     num_classes = int(cfg.get("num_classes", 4))
-    if name.startswith("swinunet"):
-        hooks = {k: conv(cfg.get(k)) for k, conv in _SWIN_HOOKS.items()
-                 if cfg.get(k) is not None}
-        return build_swinunet(name, _image_size(cfg), in_channels,
-                              num_classes, dtype=dtype, generator=generator,
-                              **hooks)
+    for prefix, hook_types, build in (
+            ("swinunet", _SWIN_HOOKS, build_swinunet),
+            ("segformer", _SEGFORMER_HOOKS, build_segformer)):
+        if name.startswith(prefix):
+            hooks = {k: conv(cfg.get(k)) for k, conv in hook_types.items()
+                     if cfg.get(k) is not None}
+            return build(name, _image_size(cfg), in_channels, num_classes,
+                         dtype=dtype, generator=generator, **hooks)
     kwargs = {}
     if cfg.get("feature_chns") is not None:
         kwargs["feature_chns"] = tuple(cfg.get("feature_chns"))

@@ -11,8 +11,8 @@ Every convolution of the UNet runs through the hand-written kernels
 (``ops/conv_block.py``): ConvBlocks through ``FusedConvBlock`` (the UpBlock's
 with its (skip, up) pair), the 1x1 and logits convs through
 ``conv3x3_plain``. The projection necks of UNet_Plus are plain torch
-matmuls on at most [B, 4, 4, C]. BatchNorm has no module of its own
-here: its statistics come out of the conv kernel's epilogue, and the
+matmuls on at most [B, 4, 4, C]. The UNet's BatchNorm statistics come out
+of the conv kernel's epilogue; ``BatchNorm`` holds its state, and its
 running averages fold the biased batch variance with momentum 0.9, as flax
 does (``nn.BatchNorm2d`` would fold the unbiased one).
 """
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hpfg_tpu_torch.ops.conv_block import (
+    BN_EPS,
     FusedConvBlock,
     HashDropout,
     conv3x3_plain,
@@ -39,22 +40,26 @@ def _uniform(shape, bound: float, generator) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """Conv parameters: ``kernel`` [k, k, C, F] and ``bias`` [F], with
-    torch's default init U(+-1/sqrt(fan_in)) for both (the JAX package's
-    TORCH_KERNEL_INIT / torch_bias_init)."""
+    """Conv parameters: ``kernel`` [k, k, C, F] and ``bias`` [F] (none when
+    ``use_bias`` is False), with torch's default init U(+-1/sqrt(fan_in))
+    for both (the JAX package's TORCH_KERNEL_INIT / torch_bias_init)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 3,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 use_bias: bool = True):
         super().__init__()
         bound = 1.0 / math.sqrt(k * k * in_ch)
         self.kernel = nn.Parameter(_uniform((k, k, in_ch, out_ch), bound,
                                             generator))
-        self.bias = nn.Parameter(_uniform((out_ch,), bound, generator))
+        self.bias = (nn.Parameter(_uniform((out_ch,), bound, generator))
+                     if use_bias else None)
 
 
 class BatchNorm(nn.Module):
     """BN state: ``scale``/``bias`` parameters and ``mean``/``var`` running
-    statistics (flax ``params/bnX`` and ``batch_stats/bnX``)."""
+    statistics (flax ``params/bnX`` and ``batch_stats/bnX``). The UNet's
+    statistics come from its conv kernels; ``forward`` is flax's BatchNorm
+    (epsilon 1e-5) in fp32 for a plain tensor (the SegFormer head's)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -62,6 +67,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("mean", torch.zeros(ch))
         self.register_buffer("var", torch.ones(ch))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """fp32 BN over every axis but the last. In train mode it normalizes
+        with the batch mean and biased variance (flax's fast variance
+        E[x^2] - E[x]^2, clamped at 0) and folds those; in eval mode it
+        uses the running statistics."""
+        x = x.float()
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            self.fold(mean, var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) \
+            + self.bias
 
     @torch.no_grad()
     def fold(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:

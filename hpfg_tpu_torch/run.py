@@ -11,6 +11,12 @@ runner (the port's ``config.parse_config``) and checks the data tree first
 run must ask for ``--set device=cpu``: the runner never falls back to the
 CPU by itself. ``precision: bf16`` computes in bf16 with fp32 parameters and
 BN statistics.
+
+Resume, as ``scripts/run.py`` does: ``--set ckpt=<tag>`` restores that
+checkpoint of ``<save_path>/model`` (``best_model1``, ``last``, ...) and
+raises if it is missing; ``--set auto_resume=true`` restores the newest of
+``last``, ``last_a`` and ``last_b`` where one exists, else starts from
+scratch.
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ def run(argv=None, default_config: str = DEFAULT_CONFIG):
              else torch.float32)
     algo = build_algorithm(algo_name, cfg, dtype=dtype, device=device)
     trainer = Trainer(cfg, algo)
+    ckpt_tag = cfg.get("ckpt")
+    if ckpt_tag and str(ckpt_tag).lower() not in ("none", "null"):
+        trainer.resume(str(ckpt_tag), strict=True)
+    elif cfg.get("auto_resume"):
+        trainer.resume("last")
     trainer.fit()
     return trainer
 

@@ -1,8 +1,8 @@
 """Training algorithms (port of ``hpfg_tpu/train/algorithms``).
 
 Each algorithm owns its modules and optimizer and advances one iteration
-per ``step(batch)``. Ported so far: Mean-Teacher, HPFG and S4CVNet
-(ROADMAP.md)."""
+per ``step(batch)``. Ported so far: Supervised, Mean-Teacher, CPS, CTCT,
+HPFG and S4CVNet (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import importlib
 
 ALGORITHMS: dict[str, type] = {}
 
-_MODULES = ("mean_teacher", "hpfg", "s4cvnet")
+_MODULES = ("supervised", "mean_teacher", "cps", "ctct", "hpfg", "s4cvnet")
 
 
 def register(names):

@@ -3,7 +3,8 @@
 
 The JAX package threads an immutable state pytree through a pure step; here
 the state is the algorithm's modules (parameters plus BN buffers), its
-optimizer and ``step_count``, updated in place by ``step``.
+optimizers, its generators and ``step_count``, updated in place by ``step``;
+``state_dict`` / ``load_state_dict`` carry all of it for a checkpoint.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from hpfg_tpu_torch.models import build_model
 from hpfg_tpu_torch.ops.rampup import DEFAULT_EPOCH_ITERS
+from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS, OPTIMIZER_FIELDS
 
 
 def tree_copy(module: torch.nn.Module) -> torch.nn.Module:
@@ -71,6 +73,38 @@ class Algorithm:
                             generator=self.init_generator)
         return model.to(self.device)
 
+    def state_dict(self) -> dict:
+        """What a checkpoint holds, as the JAX state pytree does: each
+        model's parameters and buffers, each optimizer's state, every
+        generator's state (the algorithm's ``torch.Generator`` attributes:
+        ``init_generator``, ``dropout_generator`` and device generators such
+        as HPFG's ``cutmix_generator``) and ``step_count``."""
+        return {
+            "step_count": self.step_count,
+            "models": {k: getattr(self, k).state_dict()
+                       for k in MODEL_FIELDS if hasattr(self, k)},
+            "optimizers": {k: getattr(self, k).state_dict()
+                           for k in OPTIMIZER_FIELDS if hasattr(self, k)},
+            "generators": {k: g.get_state() for k, g in vars(self).items()
+                           if isinstance(g, torch.Generator)},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s output exactly; every field must match
+        one of this algorithm's (strict)."""
+        own = self.state_dict()
+        for group in ("models", "optimizers", "generators"):
+            if set(state[group]) != set(own[group]):
+                raise KeyError(f"checkpoint {group} {sorted(state[group])} "
+                               f"!= algorithm's {sorted(own[group])}")
+        for k, sd in state["models"].items():
+            getattr(self, k).load_state_dict(sd, strict=True)
+        for k, sd in state["optimizers"].items():
+            getattr(self, k).load_state_dict(sd)
+        for k, gs in state["generators"].items():
+            getattr(self, k).set_state(gs)
+        self.step_count = int(state["step_count"])
+
     def step(self, batch: dict) -> dict:
         raise NotImplementedError
 
@@ -79,6 +113,17 @@ class Algorithm:
 
     def eval_models(self) -> dict:
         raise NotImplementedError
+
+
+def zero_missing_grads(*models: torch.nn.Module) -> None:
+    """Give every parameter off the loss (a *_plus model's necks under a
+    logits-only loss) a zero gradient, as autodiff gives it, so that the
+    optimizer still applies weight decay and momentum to it as optax
+    does; torch's optimizers skip a parameter whose gradient is None."""
+    for model in models:
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def ssl_batches(label_loader, unlabel_loader) -> Iterator[dict]:

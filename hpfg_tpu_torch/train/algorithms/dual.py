@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 
 from hpfg_tpu_torch.models import returns_features
-from hpfg_tpu_torch.train.algorithms.base import Algorithm
-from hpfg_tpu_torch.train.optim import build_optimizer
+from hpfg_tpu_torch.train.algorithms.base import Algorithm, zero_missing_grads
+from hpfg_tpu_torch.train.optim import build_optimizer, set_lr
 
 
 class DualAlgorithm(Algorithm):
@@ -62,3 +62,18 @@ class DualAlgorithm(Algorithm):
         self.consistency = float(cfg.get("consistency", 0.1))
         self.rampup = float(cfg.get("consistency_rampup", 200.0))
         self.ema_decay = float(cfg.get("ema_decay", 0.99))
+
+    def update(self, loss: torch.Tensor) -> tuple[float, float]:
+        """One backward over the joint loss, then each optimizer steps with
+        the lr of its schedule at the current (0-based) update count;
+        parameters off the loss take a zero gradient. Returns (lr1, lr2)."""
+        self.optimizer1.zero_grad(set_to_none=True)
+        self.optimizer2.zero_grad(set_to_none=True)
+        loss.backward()
+        zero_missing_grads(self.model1, self.model2)
+        lrs = (self.schedule1(self.step_count),
+               self.schedule2(self.step_count))
+        for opt, lr in zip((self.optimizer1, self.optimizer2), lrs):
+            set_lr(opt, lr)
+            opt.step()
+        return lrs

@@ -43,7 +43,6 @@ from hpfg_tpu_torch.ops.rampup import linear_rampup
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import to_device, tree_copy
 from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
-from hpfg_tpu_torch.train.optim import set_lr
 
 
 @register("hpfg")
@@ -110,20 +109,7 @@ class HPFG(DualAlgorithm):
                      + w * consistency2 + w * loss_contr)
         loss = loss_sup + loss_semi
 
-        self.optimizer1.zero_grad(set_to_none=True)
-        self.optimizer2.zero_grad(set_to_none=True)
-        loss.backward()
-        lr1, lr2 = self.schedule1(self.step_count), self.schedule2(
-            self.step_count)
-        for model, opt, lr in ((self.model1, self.optimizer1, lr1),
-                               (self.model2, self.optimizer2, lr2)):
-            # parameters off the loss (model1's necks) get a zero gradient,
-            # as autodiff gives them: weight decay and momentum still apply
-            for p in model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            set_lr(opt, lr)
-            opt.step()
+        lr1, lr2 = self.update(loss)  # model1's necks are off the loss
         ema_update_subtree(self.model1, self.model2, self.ema_decay, cur_itrs,
                            self.backbone_keys)
         ema_update(self.model2, self.ema, self.ema_decay, cur_itrs)

@@ -34,7 +34,6 @@ from hpfg_tpu_torch.train.algorithms.base import (
     tree_copy,
 )
 from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
-from hpfg_tpu_torch.train.optim import set_lr
 
 NOISE_STD, NOISE_CLIP = 0.1, 0.2
 
@@ -93,14 +92,7 @@ class S4CVNet(DualAlgorithm):
         loss_semi = self.cps_scale * w * (ps1 + ps2) + w * (cons1 + cons2)
         loss = loss_sup + loss_semi
 
-        self.optimizer1.zero_grad(set_to_none=True)
-        self.optimizer2.zero_grad(set_to_none=True)
-        loss.backward()
-        lr1, lr2 = self.schedule1(self.step_count), self.schedule2(
-            self.step_count)
-        for opt, lr in ((self.optimizer1, lr1), (self.optimizer2, lr2)):
-            set_lr(opt, lr)
-            opt.step()
+        lr1, lr2 = self.update(loss)
         ema_update(self.model2, self.ema, self.ema_decay, cur_itrs)
         self.step_count = cur_itrs
         return {"loss": loss.detach(), "loss_sup": loss_sup.detach(),

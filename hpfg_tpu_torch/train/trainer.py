@@ -1,12 +1,18 @@
-"""The training loop (port of ``hpfg_tpu/train/trainer.py``, first slice).
+"""The training loop (port of ``hpfg_tpu/train/trainer.py``).
 
 ``Trainer.fit`` runs ``algorithm.step`` until ``total_itrs``, logs the
 step metrics every ``log_every`` iterations (one device read per flush)
 and evaluates every ``step_size`` iterations on the volume test loader,
 ending with a ``done: N iters`` line. Loaders come from
-the port's ``data.build_loader`` unless the caller passes its own. Not
-ported yet (ROADMAP.md): checkpoints and resume, TensorBoard, the device
-cache, on-device augmentation and the prefetcher.
+the port's ``data.build_loader`` unless the caller passes its own.
+
+Checkpoints go to ``<workdir>/model`` (``utils/checkpoint.py``), as the JAX
+trainer writes them: ``last`` at the end of ``fit``, the crash-recovery
+rotation ``last_a`` / ``last_b`` at each eval boundary, and
+``best_<model>`` on each new best dice of that model. Each holds the
+algorithm's whole state and ``best_dice``; ``resume`` restores it exactly.
+Not ported yet (ROADMAP.md): the overlapped eval worker, TensorBoard and
+image panels, the device cache, on-device augmentation and the prefetcher.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import time
 import torch
 
 from hpfg_tpu_torch.evals.volume import evaluate_volumes
+from hpfg_tpu_torch.utils.checkpoint import CheckpointManager
 
 VOLUME_DATASETS = {"acdc", "sup_acdc", "synapse", "sup_synapse"}
 
@@ -52,6 +59,9 @@ class Trainer:
         self.workdir = workdir or cfg.get("save_path", "checkpoint/run")
         self.logger = get_logger(os.path.join(self.workdir, "log.log"))
         self.log_every = log_every
+        self.ckpt = CheckpointManager(os.path.join(self.workdir, "model"))
+        #: the best mean dice of each evaluated model so far
+        self.best_dice: dict[str, float] = {}
         if loaders is None:
             from hpfg_tpu_torch.data.builder import build_loader
 
@@ -96,11 +106,42 @@ class Trainer:
             if eval_enabled and cur % self.step_size == 0:
                 self._flush_metrics(pending)
                 self.evaluate(cur)
+                self.ckpt.save_rotating(self.state_dict())
+        self.save("last")
         elapsed = time.time() - t_start
         done = algo.step_count - start
         self.logger.info("done: %d iters in %.1fs (%.2f it/s)",
                          algo.step_count, elapsed, done / max(elapsed, 1e-9))
         return self.history
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the algorithm's state and the best
+        dice so far."""
+        return {"algorithm": self.algorithm.state_dict(),
+                "best_dice": dict(self.best_dice)}
+
+    def save(self, tag: str) -> None:
+        self.ckpt.save(tag, self.state_dict())
+
+    def resume(self, tag: str = "last", strict: bool = False) -> bool:
+        """Restore checkpoint ``tag`` into the algorithm and ``best_dice``;
+        returns whether one was restored. ``tag="last"`` means the newest
+        of ``last``, ``last_a`` and ``last_b``. ``strict``: a missing tag
+        raises FileNotFoundError instead of leaving the run to start from
+        scratch."""
+        resolved = (self.ckpt.latest_resume_tag("last") if tag == "last"
+                    else tag if self.ckpt.exists(tag) else None)
+        if resolved is None:
+            if strict:
+                raise FileNotFoundError(
+                    f"requested checkpoint {tag!r} not found under "
+                    f"{self.ckpt.directory}")
+            return False
+        self.logger.info("resuming from checkpoint %r", resolved)
+        state = self.ckpt.restore(resolved)
+        self.algorithm.load_state_dict(state["algorithm"])
+        self.best_dice = dict(state["best_dice"])
+        return True
 
     def _flush_metrics(self, pending: list) -> dict:
         """One device read for the whole window of tensor metrics."""
@@ -133,5 +174,8 @@ class Trainer:
             results[name] = (dice, hd95)
             self.logger.info("iter %d %s dice %.4f hd95 %.4f", cur_itrs,
                              name, dice, hd95)
+            if dice > self.best_dice.get(name, 0.0):
+                self.best_dice[name] = dice
+                self.save(f"best_{name}")
         self.history.append({"iter": cur_itrs, "results": results})
         return results

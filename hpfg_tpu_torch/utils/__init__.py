@@ -1,1 +1,1 @@
-"""Utilities: the JAX-to-port weight mapper."""
+"""Utilities: the JAX-to-port weight mapper and checkpoints."""

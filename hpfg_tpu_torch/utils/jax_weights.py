@@ -7,7 +7,11 @@ flax ``params/encoder/in_conv/conv1/kernel`` becomes the state-dict key
 buffer ``....bn1.mean``. No transposition is needed. Inputs are nested dicts
 of numpy-convertible arrays (``jax.device_get`` of a flax variable tree), so
 this module needs no jax. Flax ``Dense`` kernels are ``[in, out]``, and the
-port's ``Dense`` keeps that layout too.
+port's ``Dense`` keeps that layout too. The same holds for every ported
+model: the UNets, the SwinUNets and the SegFormers (whose head's BatchNorm
+statistics are ``batch_stats/decoder/bn/{mean,var}``). ``module_variables``
+goes the other way, for tests that start a JAX state from the port's
+weights.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -55,23 +61,41 @@ def load_jax_weights(module: torch.nn.Module, params: Mapping,
 
 
 def module_arrays(module: torch.nn.Module) -> dict[str, np.ndarray]:
-    """The module's parameters and buffers as flat fp32 numpy arrays, keyed
-    like ``flatten_tree`` of the flax variables."""
-    return {k: v.detach().float().cpu().numpy()
+    """The module's parameters and buffers as flat fp32 numpy arrays (copies,
+    not views of the live tensors), keyed like ``flatten_tree`` of the flax
+    variables."""
+    return {k: np.array(v.detach().float().cpu().numpy())
             for k, v in module.state_dict().items()}
 
 
-#: the model fields of the JAX algorithm states and the port's algorithms
-#: (Mean-Teacher: model, ema; HPFG and S4CVNet: model1, model2, ema). A
-#: model without BatchNorm (the SwinUNet) has empty ``batch_stats``.
-STATE_MODELS = ("model", "model1", "model2", "ema")
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """{'a.b': x} -> {'a': {'b': x}}, the inverse of ``flatten_tree``."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def module_variables(module: torch.nn.Module) -> tuple[dict, dict]:
+    """The module's flax variables as nested dicts of fp32 numpy arrays:
+    (``params`` from its parameters, ``batch_stats`` from its buffers)."""
+    arrays = module_arrays(module)
+    names = {k for k, _ in module.named_parameters()}
+    return (unflatten_tree({k: v for k, v in arrays.items() if k in names}),
+            unflatten_tree({k: v for k, v in arrays.items()
+                            if k not in names}))
 
 
 def load_jax_state(algorithm, state) -> None:
     """Load every model of a JAX algorithm state (a host copy, e.g.
-    ``jax.device_get(state)``) into the port's algorithm: each field of
-    STATE_MODELS that both have, parameters and BN statistics."""
-    for name in STATE_MODELS:
+    ``jax.device_get(state)``) into the port's algorithm: each model field
+    (``MODEL_FIELDS``) that both have, parameters and BN statistics. A model
+    without BatchNorm (the SwinUNet) has empty ``batch_stats``."""
+    for name in MODEL_FIELDS:
         if hasattr(state, name) and hasattr(algorithm, name):
             mstate = getattr(state, name)
             load_jax_weights(getattr(algorithm, name), mstate.params,

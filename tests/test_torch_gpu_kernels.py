@@ -22,11 +22,20 @@ forward and backward, in fp32 and bf16) are bit-exact, and
 the attention's output and bias gradient are bitwise the same from run to
 run. C, and D's dpre from given sums, round as their plain versions and
 are bitwise equal to them; D's sums are bitwise the same from run to run.
+
+Beside the kernels: A and D at the supervised path's batch of 24 at 224^2
+and 14^2, and the SegFormer B0 (no hand-written kernel: cuDNN convs and
+cuBLAS matmuls) in train mode, forward and backward on the card against
+the same module on the CPU, with the same tolerances.
 """
+
+import copy
 
 import pytest
 import torch
 
+from hpfg_tpu_torch.models import build_model
+from hpfg_tpu_torch.models.segformer import BN_INVARIANT
 from hpfg_tpu_torch.ops import bn_act as ba
 from hpfg_tpu_torch.ops import conv_block as cb
 from hpfg_tpu_torch.ops import window_attention as wa
@@ -501,3 +510,132 @@ def test_attention_function_launches_both_kernels(dev):
     assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1]
     dqkv, dbias = wa.window_attention_bwd(qkv, bias, mask, do, 2)
     assert torch.equal(x.grad, dqkv) and torch.equal(b.grad, dbias)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,c,f", [(224, 1, 16), (224, 16, 16),
+                                    (14, 128, 256), (14, 256, 256)])
+def test_conv_and_bn_backward_at_the_supervised_batch(dev, dtype, hw, c, f):
+    """Batch 24, the supervised path's: A forward (the prologue on a
+    conv2) and dgrad, D's sums and dpre, and its dpre-only entry."""
+    x = _randn(dev, 24, hw, hw, c).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    kw = dict(bias=_randn(dev, f, scale=0.1), want_stats=True)
+    if c == f:
+        kw.update(affine=(1 + _randn(dev, c, scale=0.1),
+                          _randn(dev, c, scale=0.1)),
+                  drop=cb.HashDropout(24, 0.8))
+    for got, ref in zip(cb.conv3x3_nhwc(x, w, **kw),
+                        cb.conv3x3_reference(x, w, **kw)):
+        _close(got, ref, dtype)
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (24, hw, hw, f))
+    if c > 1:
+        wf = cb.flip_transpose(w)
+        _close(cb.conv3x3_nhwc(dy, wf)[0], cb.conv3x3_reference(dy, wf)[0],
+               dtype)
+    s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
+    s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
+    _close(s, s_r, torch.float32)
+    _close(d, d_r, dtype)
+    assert torch.equal(ba.bn_act_dpre(dy, g, a, b, m, inv, s_r),
+                       ba.bn_act_dpre_reference(dy, g, a, b, m, inv, s_r))
+
+
+#: the SegFormer test's seeds
+SEGFORMER_SEEDS = tuple(range(8))
+#: the most the card's bf16 gradients may lie farther from the CPU's fp32
+#: ones than the CPU's bf16 gradients do (L2 over all parameters): that
+#: ratio ran from 0.94 to 1.15 over seeds 0-9 on an H100
+#: (``scripts/segformer_bf16_grads.py``, PERF.md section 6)
+SEGFORMER_BF16_MARGIN = 1.25
+#: how near ReLU's kink the head's ReLU input may be where the two devices
+#: put it on opposite sides, relative to its largest magnitude
+SEGFORMER_KINK = 1e-5
+
+
+def segformer_grads(dtype, device, seed=0, relu_side=None):
+    """SegFormer B0 at 64^2, 4 images, drop rates 0, weights drawn from
+    ``2 * seed`` and inputs from ``2 * seed + 1``, one train-mode forward
+    and backward of sum(logits * dy): (logits, the head's BN running
+    statistics, {parameter: gradient} but for ``BN_INVARIANT``, the head's
+    ReLU input). ``relu_side``: a bool tensor, where another run's ReLU
+    input was positive; where this run's lies on the other side of zero it
+    is mirrored (a constant added, so the gradients flow as before) and
+    the ReLU takes that run's side."""
+    model = build_model({"model": "segformer", "train_crop_size": [64, 64],
+                         "drop_rate": 0.0, "drop_path_rate": 0.0},
+                        dtype=dtype,
+                        generator=torch.Generator().manual_seed(2 * seed))
+    model = model.to(device)
+    relu_in = []
+
+    def take_side(module, args, y):
+        relu_in.append(y.detach())
+        if relu_side is None:
+            return y
+        flip = (y > 0) != relu_side.to(y.device)
+        return y - 2 * torch.where(flip, y, 0).detach()
+
+    model.decoder.bn.register_forward_hook(take_side)
+    gen = torch.Generator().manual_seed(2 * seed + 1)
+    x = torch.randn((4, 64, 64, 1), generator=gen).to(device)
+    dy = torch.randn((4, 64, 64, 4), generator=gen).to(device)
+    out = model(x, train=True)
+    (out * dy).sum().backward()
+    return (out, (model.decoder.bn.mean, model.decoder.bn.var),
+            {n: p.grad for n, p in model.named_parameters()
+             if n not in BN_INVARIANT}, relu_in[0])
+
+
+def l2_rel(got: dict, ref: dict) -> float:
+    """||got - ref|| / ||ref|| over every parameter's gradient at once."""
+    diff = torch.cat([(got[n].float().cpu() - ref[n].float().cpu()).reshape(-1)
+                      for n in ref])
+    return (diff.norm() / torch.cat([ref[n].float().cpu().reshape(-1)
+                                     for n in ref]).norm()).item()
+
+
+@pytest.mark.parametrize("seed", SEGFORMER_SEEDS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segformer_train_forward_backward_matches_cpu(dev, dtype, seed):
+    """The SegFormer B0 (cuDNN convs on channels-last views, cuBLAS
+    matmuls, the fp32 attention flow) on the card against the same module
+    on the CPU, in train mode: logits and the head's BN running statistics
+    within the dtype's tolerance; in fp32 every parameter gradient too.
+
+    The head's ReLU input has about 10^5 values; one of them can lie a few
+    1e-6 from zero, within the two devices' rounding, and take the ReLU's
+    other side on the CPU, which moves ``linear_fuse``'s gradient by up to
+    7e-3 of its largest magnitude (seeds 2, 5 and 7 on an H100). So in
+    fp32 the CPU run takes the card's side wherever the two differ, and
+    each such value must lie within ``SEGFORMER_KINK`` of zero.
+
+    In bf16 the gradients carry bf16's own rounding error, whichever device
+    computes them: biases and norm parameters are sums over every position
+    that cancel, and one tensor's bf16 gradient can lie a tenth of its
+    largest magnitude from the fp32 one on the CPU alone
+    (``scripts/segformer_bf16_grads.py`` measures both devices). So in
+    bf16 the card must be no farther from the CPU's fp32 gradients than the
+    CPU's bf16 ones are, in L2 over all parameters, but for the margin
+    ``SEGFORMER_BF16_MARGIN`` taken from the spread of that ratio over ten
+    seeds: a layout or dtype slip moves the gradients by O(1)."""
+    cpu = torch.device("cpu")
+    out, stats, grads, relu_in = segformer_grads(dtype, dev, seed)
+    side = relu_in > 0 if dtype == torch.float32 else None
+    out_c, stats_c, grads_c, relu_in_c = segformer_grads(dtype, cpu, seed,
+                                                         side)
+    assert out.dtype == torch.float32
+    _close(out, out_c, dtype)
+    for got, ref in zip(stats, stats_c):
+        _close(got, ref, dtype)
+    if dtype == torch.float32:
+        flipped = relu_in_c[(relu_in_c > 0) != side.cpu()]
+        assert flipped.numel() <= 4, flipped
+        assert (flipped.abs() <= SEGFORMER_KINK
+                * relu_in_c.abs().max()).all(), flipped
+        for name, g in grads.items():
+            _close(g, grads_c[name], dtype)
+        return
+    _, _, grads32, _ = segformer_grads(torch.float32, cpu, seed)
+    card, cpu_err = l2_rel(grads, grads32), l2_rel(grads_c, grads32)
+    assert card <= SEGFORMER_BF16_MARGIN * cpu_err, (card, cpu_err)

@@ -36,6 +36,7 @@ from hpfg_tpu_torch.utils.jax_weights import (
     load_jax_weights,
     module_arrays,
 )
+from tests.test_torch_mean_teacher import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 PARAM_ATOL = 1e-4

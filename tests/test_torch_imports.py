@@ -1,6 +1,7 @@
 """The port stands apart from JAX: importing ``hpfg_tpu_torch`` and running
 one tiny Mean-Teacher step on the CPU, or its CLI's training and evaluation
-of Mean-Teacher, HPFG and S4CVNet on a synthetic ACDC tree, loads neither
+of Supervised, Mean-Teacher, CPS, CTCT, HPFG and S4CVNet on a synthetic
+ACDC tree, loads neither
 ``jax`` nor the JAX package; the kernel wrappers take their plain versions
 for CPU tensors (their launch counters stay 0), and a tensor on neither the
 CPU nor a CUDA device is refused instead of falling back. The algorithms
@@ -62,7 +63,7 @@ print(json.dumps({
 
 
 def test_port_step_imports_no_jax_and_launches_no_kernel():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _STEP], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -84,8 +85,15 @@ common = ["--set", f"data_path={root}", "--set", "device=cpu",
           "--set", "total_itrs=4", "--set", "step_size=2"]
 runs = {}
 for name, cfg, extra in (
+        ("supervised", "configs/unet_30k_224x224_ACDC.yaml",
+         ["--set", "feature_chns=[8,8,8,8,8]"]),
         ("mean_teacher", "configs/mean_teacher_unet_30k_224x224_ACDC.yaml",
          ["--set", "feature_chns=[8,8,8,8,8]"]),
+        ("cps", "configs/cps_unet_30k_224x224_ACDC.yaml",
+         ["--set", "model1.feature_chns=[8,8,8,8,8]",
+          "--set", "model2.feature_chns=[8,8,8,8,8]"]),
+        ("ctct", "configs/ctct_unet_segformer_30k_224x224_ACDC.yaml",
+         ["--set", "model1.feature_chns=[8,8,8,8,8]"]),
         ("hpfg", "configs/hpfg_unet_plus_30k_224x224_ACDC.yaml",
          ["--set", "model1.feature_chns=[8,8,8,8,8]",
           "--set", "model2.feature_chns=[8,8,8,8,8]"]),
@@ -109,17 +117,21 @@ print(json.dumps({
 
 
 def test_port_cli_trains_and_evaluates_without_jax(synthetic_acdc, tmp_path):
-    """The CLI trains and evaluates 4 iterations of Mean-Teacher, of HPFG
-    and of S4CVNet (a two-stage SwinUNet of width 8 as model2) in a fresh
-    process; no jax, flax or hpfg_tpu module loads."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    """The CLI trains and evaluates 4 iterations of Supervised, of
+    Mean-Teacher, of CPS, of CTCT (a B0 SegFormer as model2), of HPFG and of
+    S4CVNet (a two-stage SwinUNet of width 8 as model2) in a fresh process;
+    no jax, flax or hpfg_tpu module loads."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _CLI, synthetic_acdc, str(tmp_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax_side"] == []
+    assert out["runs"]["supervised"]["models"] == ["model1"]
     assert out["runs"]["mean_teacher"]["models"] == ["model1", "model2"]
+    assert out["runs"]["cps"]["models"] == ["model1", "model2"]
+    assert out["runs"]["ctct"]["models"] == ["model1", "model2"]
     assert out["runs"]["hpfg"]["models"] == ["ema", "model1", "model2"]
     assert out["runs"]["s4cvnet"]["models"] == ["ema", "model1", "model2"]
     for r in out["runs"].values():
@@ -177,7 +189,8 @@ _TINY_CFG = dict(
     model2=dict(model="unet", feature_chns=[8] * 5, opt="sgd", lr=0.01))
 
 
-@pytest.mark.parametrize("name", ["mean_teacher", "hpfg", "s4cvnet"])
+@pytest.mark.parametrize("name", ["supervised", "mean_teacher", "cps",
+                                  "ctct", "hpfg", "s4cvnet"])
 def test_algorithms_default_to_the_card(name, monkeypatch):
     """Every constructor defaults to ``device="cuda"``; without a card the
     default raises and asks for ``device="cpu"``, it never builds on the

@@ -38,6 +38,18 @@ SCHED_ATOL = 2e-9
 OPT_ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs
+    several workers on a few cores, where torch's default of a thread per
+    core oversubscribes them many times over. The port's other CPU test
+    modules import it, which makes it autouse there too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mt_cfg(**kw):
     base = dict(model="unet", feature_chns=[16] * 5, dropout=[0.0] * 5,
                 num_classes=4, in_channels=1, train_crop_size=[32, 32],

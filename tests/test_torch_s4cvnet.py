@@ -45,7 +45,9 @@ from hpfg_tpu_torch.utils.jax_weights import (
     flatten_tree,
     load_jax_state,
     module_arrays,
+    module_variables,
 )
+from tests.test_torch_mean_teacher import one_torch_thread  # noqa: F401
 
 PARAM_ATOL = 1e-4
 METRIC_RTOL = 1e-5
@@ -72,26 +74,11 @@ def _cfg(seed=0):
                     weight_decay=0.05, **SWIN, **common)))
 
 
-def _unflatten(flat: dict) -> dict:
-    tree: dict = {}
-    for key, value in flat.items():
-        *path, leaf = key.split(".")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = jnp.asarray(value)
-    return tree
-
-
 def _model_state(module) -> ModelState:
     """A port module's variables as a flax ModelState: parameters, and the
     BN running statistics (buffers) as ``batch_stats``."""
-    arrays = module_arrays(module)
-    params = {k for k, _ in module.named_parameters()}
-    return ModelState(
-        params=_unflatten({k: v for k, v in arrays.items() if k in params}),
-        batch_stats=_unflatten({k: v for k, v in arrays.items()
-                                if k not in params}))
+    params, batch_stats = module_variables(module)
+    return ModelState(params=params, batch_stats=batch_stats)
 
 
 @pytest.fixture(scope="module")
