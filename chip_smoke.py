@@ -25,8 +25,11 @@ nor the JAX package. Phases, each of which fails the run on error:
      on the materialised concat; for K11 the dgrad alone, which does less
      work), and the kernel's bound: the larger of its bytes over 3.35 TB/s
      and its FLOPs over 989 TFLOP/s (H100 SXM bf16 peak);
+     A's dgrad into F = 1 at the stem (32 x 224^2 x 16 -> 1) is SS-Net's:
+     its VAT differentiates the model with respect to its 1-channel image;
   2b. phase 2's kernel checks again at batch 24, the supervised path's,
-     at the same shapes (every shape that path gives A, B, C, D and K8 to
+     and at ICT's batches 20 (the student) and 12 (each teacher half), at
+     the same shapes (every shape those paths give A, B, C, D and K8 to
      K11), in fp32 and bf16, against their plain versions, untimed;
   2c. the window-attention kernels K13 window_attention_fwd and K14
      window_attention_bwd against their plain versions at the four stage
@@ -37,7 +40,9 @@ nor the JAX package. Phases, each of which fails the run on error:
      without dropout, beside each: its time, the plain version's,
      F.scaled_dot_product_attention with attn_mask = bias + mask (K13) and
      that call's autograd backward (K14), the bound and the achieved
-     TFLOP/s and GB/s;
+     TFLOP/s and GB/s; then K13 and K14 again at Swin-MAE's batch 24
+     (every window: the masked tokens go through the blocks too), checked
+     and timed the same way;
   3. the Mean-Teacher main path through ``Trainer.fit`` with the values of
      configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width UNet,
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
@@ -66,14 +71,38 @@ nor the JAX package. Phases, each of which fails the run on error:
      (adamW) on 8 + 24 images. The SegFormer's convs are cuDNN: F.conv2d is
      allowed while model2's forward runs (a flag set and cleared by forward
      hooks) and nowhere else, so the UNet still reaches none;
+  3g. the UAMT path, with configs/uncertainty_aware_unet_30k_224x224_ACDC
+     .yaml: a full-width UNet and its EMA teacher on 8 + 24 images; the
+     teacher's noisy target pass and its 8 Monte-Carlo passes (no folding)
+     at batch 24 and the student's forward at 32, one backward;
+  3h. the ICT path, with configs/ict-medseg_unet_30k_224x224_ACDC.yaml: the
+     student forwards 8 labelled + 12 mixed images, the teacher each
+     unlabelled half (12 + 12), one backward;
+  3i. the SS-Net path, with configs/ssnet_unet_30k_224x224_ACDC.yaml: the
+     full-width SSNet on 8 + 24 images, four forwards (the main one and
+     VAT's clean, inner and final passes) and three backward graphs: the
+     inner one to VAT's direction alone (frozen weights: no B, no K10, and
+     the stem's input gradient, A into F = 1), the outer one through the
+     main and final passes; its heads and the memory bank in plain torch;
+  3j. the Swin-MAE path, with configs/swinmae_30k_224x224_ACDC.yaml: the
+     full-width Swin-MAE (embed 96, depths 2/2/2/2, heads 3/6/12/24, window
+     7, decoder embed 768) on 24 images, one K13 and one K14 per
+     WindowAttention (14) a step, no conv kernel;
   4. eval-mode forwards of one synthetic volume through the kernels, the
-     UNet's, UNet_Plus's, the SwinUNet's and the SegFormer's ``val``, against
-     the same models on the CPU in the same dtype (plain versions);
-  5. resume on the CTCT path: two steps through Trainer.fit, one
-     ``save("last")`` timed on the host, a fresh algorithm (another seed)
-     and Trainer restored from it: every tensor and generator state bitwise
-     equal to the checkpoint, and the next step's loss bitwise equal to that
-     of the run that was not interrupted, on the same batch.
+     UNet's, UNet_Plus's, the SwinUNet's, the SegFormer's and SSNet's
+     ``val``, against the same models on the CPU in the same dtype (plain
+     versions);
+  5. resume on the CTCT and SS-Net paths: two steps through Trainer.fit,
+     one ``save("last")`` timed on the host, a fresh algorithm (another
+     seed) and Trainer restored from it: every tensor and generator state
+     (SS-Net's memory bank included) bitwise equal to the checkpoint, and
+     the next step's loss bitwise equal to that of the run that was not
+     interrupted, on the same batch;
+  6. the Swin-MAE -> SwinUNet encoder transfer: two Swin-MAE steps and
+     ``save("last")``, then an S4CVNet Trainer built with ``pretrain_ckpt``
+     pointing there: every transferred tensor of model2 and of the EMA
+     teacher bitwise equal to the MAE's, and the report's counts those the
+     depth mismatch (2/2/2/2 into 2/2/6/2) predicts.
 
 Checkpoint writes are left out of the timed and traced main-path steps (the
 trainer's ``save`` is a no-op there); phase 5 times one.
@@ -84,8 +113,8 @@ D's sums (fp32 in both dtypes) 1e-4; the whole eval forward in bf16 5e-2, with a
 predictions equal. Details go to OUT_DIR.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their launch counts on each main path and summed
-over the paths, errors, times and bounds.
+lists the kernels with their launch counts on each of the ten main paths
+and summed over them, errors, times and bounds.
 """
 
 from __future__ import annotations
@@ -119,27 +148,39 @@ PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
 ATTN_PALLAS = "hpfg_tpu/ops/pallas/window_attention.py"
 S4_CONFIG = "configs/s4cvnet_unet_30k_224x224_ACDC.yaml"
 SUP_CONFIG = "configs/unet_30k_224x224_ACDC.yaml"
-#: the supervised path's batch (every other path runs BATCH)
+#: the supervised path's batch (Swin-MAE's too; the others run BATCH, or
+#: ICT_BATCHES)
 SUP_BATCH = 24
 CPS_CONFIG = "configs/cps_unet_30k_224x224_ACDC.yaml"
 CTCT_CONFIG = "configs/ctct_unet_segformer_30k_224x224_ACDC.yaml"
+UAMT_CONFIG = "configs/uncertainty_aware_unet_30k_224x224_ACDC.yaml"
+ICT_CONFIG = "configs/ict-medseg_unet_30k_224x224_ACDC.yaml"
+SSNET_CONFIG = "configs/ssnet_unet_30k_224x224_ACDC.yaml"
+MAE_CONFIG = "configs/swinmae_30k_224x224_ACDC.yaml"
+#: ICT's student (8 + 12) and teacher (12) batches
+ICT_BATCHES = (20, 12)
+#: Swin-MAE's batch, at which K13 and K14 train
+MAE_BATCH = 24
 
 
 class MainPath(NamedTuple):
-    """A main path: its config; the UNet whose conv kernels are counted and
-    its forwards and backwards a step; the models whose window attentions
-    run forwards and backwards a step; the model whose forward may call
-    F.conv2d (cuDNN); the model the eval phase checks (None where an
-    earlier path checks the same one)."""
+    """A main path: its config; the UNet whose conv kernels are counted (None
+    where no model runs them) and its forwards and backwards a step; the
+    models whose window attentions run forwards and backwards a step; the
+    model whose forward may call F.conv2d (cuDNN); the model the eval phase
+    checks (None where an earlier path checks the same one); the UNet's
+    backwards a step to its input alone, with frozen weights (SS-Net's VAT
+    inner gradient)."""
     label: str
     config: str
-    unet: str
+    unet: str | None
     forwards: int
     backwards: int
     attn_fwd: tuple = ()
     attn_bwd: tuple = ()
     conv2d_model: str | None = None
     eval_model: str | None = None
+    inner_backwards: int = 0
 
 
 PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
@@ -150,8 +191,17 @@ PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
          MainPath("supervised", SUP_CONFIG, "model", 1, 1),
          MainPath("cps", CPS_CONFIG, "model1", 2, 2),
          MainPath("ctct", CTCT_CONFIG, "model1", 1, 1, conv2d_model="model2",
-                  eval_model="model2")]
+                  eval_model="model2"),
+         MainPath("uamt", UAMT_CONFIG, "model", 10, 1),
+         MainPath("ict", ICT_CONFIG, "model", 3, 1),
+         MainPath("ssnet", SSNET_CONFIG, "model", 4, 2, eval_model="model",
+                  inner_backwards=1),
+         MainPath("swin_mae", MAE_CONFIG, None, 0, 0, ("model",),
+                  ("model",))]
 ALL_PATHS = tuple(p.label for p in PATHS)
+#: the paths that run the conv kernels (A to D, K8 to K11), and K13 / K14
+CONV_PATHS = tuple(p.label for p in PATHS if p.unet)
+ATTN_PATHS = tuple(p.label for p in PATHS if p.attn_fwd)
 KERNELS = {
     "conv3x3_nhwc": dict(route="cuda", source=CU, replaces=f"{PALLAS}:734",
                          also_replaces=[f"{PALLAS}:785", f"{PALLAS}:1176",
@@ -183,13 +233,13 @@ KERNELS = {
     "window_attention_fwd": dict(
         route="cuda", source=ATTN_CU, replaces=f"{ATTN_PALLAS}:66",
         also_replaces=[], counters=["window_attention_fwd"],
-        paths=("s4cvnet",),
+        paths=ATTN_PATHS,
         library_note="F.scaled_dot_product_attention on [Bn, H, L, D] with "
         "attn_mask = bias + mask"),
     "window_attention_bwd": dict(
         route="cuda", source=ATTN_CU, replaces=f"{ATTN_PALLAS}:153",
         also_replaces=[], counters=["window_attention_bwd"],
-        paths=("s4cvnet",),
+        paths=ATTN_PATHS,
         library_note="autograd backward of that SDPA call for q, k, v and "
         "the bias"),
 }
@@ -457,12 +507,14 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
             wf_c = oihw(wf)
             cms = lib(lambda: F.conv2d(nchw(dp), wf_c, padding=1))
             work = conv_work(hh, f, c, es, batch=batch)
-            # the stem's dgrad never runs; a conv2's runs as K11
+            # a conv2's dgrad runs as K11; the stem's (into F = 1) runs in
+            # SS-Net's VAT inner gradient
             r = rep.compare("conv3x3_nhwc", f"{name} dgrad{sfx}", dname, dx,
                             dx_r, ms, pms, library_ms=cms,
-                            main=timed and not (concat or conv2 or c == 1),
+                            main=timed and not (concat or conv2),
                             work=work)
-            line.append(f"A dgrad {r:.1e}{perf(ms, pms, cms, work)}")
+            line.append(f"A dgrad{' into F = 1' if c == 1 else ''} {r:.1e}"
+                        f"{perf(ms, pms, cms, work)}")
 
             wargs = {k: args[k] for k in ("affine", "drop") if k in args}
             dw = cb.conv3x3_wgrad_nhwc(x, dp, **wargs)
@@ -685,16 +737,16 @@ ATTN_STAGES = [(0, 56, 3), (1, 28, 6), (2, 14, 12), (3, 7, 24)]
 ATTN_WS, ATTN_D = 7, 32
 
 
-def check_attention_kernels(rep: Report, dev) -> None:
+def check_attention_kernels(rep: Report, dev, batch: int = BATCH) -> None:
     """K13 and K14 against their plain versions at the four stage shapes of
-    the full-width SwinUNet (batch 32), unshifted and shifted (the stage's
-    own shift mask), with attention dropout at keep 0.9 and without, in
-    fp32 and bf16; the dropout mask bit-exact in both dtypes (q = k = 0, v
-    and do the identity: K13's output and K14's dv are then fl(1/L) times
-    the mask, rounded once to the dtype); dbias bitwise the same in two
-    runs. In bf16 without dropout: the kernel's time, the plain version's,
-    one SDPA call (K13) and its autograd backward (K14), the bound and the
-    achieved rates."""
+    the full-width SwinUNet and Swin-MAE at ``batch``, unshifted and
+    shifted (the stage's own shift mask), with attention dropout at keep
+    0.9 and without, in fp32 and bf16; at BATCH also the dropout mask
+    bit-exact in both dtypes (q = k = 0, v and do the identity: K13's
+    output and K14's dv are then fl(1/L) times the mask, rounded once to
+    the dtype); dbias bitwise the same in two runs. In bf16 without
+    dropout: the kernel's time, the plain version's, one SDPA call (K13)
+    and its autograd backward (K14), the bound and the achieved rates."""
     import torch
 
     from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
@@ -703,6 +755,7 @@ def check_attention_kernels(rep: Report, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     l = ATTN_WS * ATTN_WS
+    sfx = "" if batch == BATCH else f" batch {batch}"
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -710,7 +763,7 @@ def check_attention_kernels(rep: Report, dev) -> None:
     # dropout masks, bit-exact, at Bn multiples of 16 and not
     heads, d = 2, 64
     for dt, bn in itertools.product((torch.float32, torch.bfloat16),
-                                    (19, 2048)):
+                                    (19, 2048) if batch == BATCH else ()):
         qkv = torch.zeros((bn, l, 3 * heads * d), device=dev)
         do = torch.zeros((bn, l, heads * d), device=dev)
         for h in range(heads):
@@ -734,8 +787,9 @@ def check_attention_kernels(rep: Report, dev) -> None:
                     and not got[..., l:].any()):
                 rep.fail(f"attention dropout mask {name} {dt} Bn={bn}: "
                          "not bit-exact")
-    print("attention dropout masks: bit-exact check done (K13 output and "
-          "K14 dv, fp32 and bf16, Bn 19 and 2048, keep 0.9)", flush=True)
+    if batch == BATCH:
+        print("attention dropout masks: bit-exact check done (K13 output and "
+              "K14 dv, fp32 and bf16, Bn 19 and 2048, keep 0.9)", flush=True)
 
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
@@ -743,7 +797,7 @@ def check_attention_kernels(rep: Report, dev) -> None:
         bf16 = dt == torch.bfloat16
         for stage, side, heads in ATTN_STAGES:
             nw = (side // ATTN_WS) ** 2
-            bn, c = BATCH * nw, heads * ATTN_D
+            bn, c = batch * nw, heads * ATTN_D
             qkv = randn(bn, l, 3 * c).to(dt)
             bias = randn(heads, l, l, scale=0.02)
             do = randn(bn, l, c).to(dt)
@@ -752,7 +806,7 @@ def check_attention_kernels(rep: Report, dev) -> None:
                 side, side, ATTN_WS, ATTN_WS // 2)).to(dev)
             for mask in (None, smask):
                 what = (f"stage {stage} "
-                        f"{'unshifted' if mask is None else 'shifted'}")
+                        f"{'unshifted' if mask is None else 'shifted'}{sfx}")
                 n_mask = 0 if mask is None else mask.shape[0]
                 line = [f"{dname} attention {what:>17} Bn={bn} H={heads}"]
                 for drop in (None, HashDropout(55 + stage, 0.9)):
@@ -986,18 +1040,22 @@ def load_config(path: str) -> dict:
         return yaml.safe_load(f)
 
 
-def predicted_launches(model, steps: int, forwards: int,
-                       backwards: int) -> dict:
+def predicted_launches(model, steps: int, forwards: int, backwards: int,
+                       inner_backwards: int = 0) -> dict:
     """Kernel launches per run from the model's structure: ``forwards``
-    train-mode forwards and ``backwards`` backwards of ``model`` a step.
-    A forward runs conv1 (K8 in an UpBlock, else A), conv2 (A) and C in
-    every ConvBlock, and A for each plain conv (the UpBlock 1x1s and the
-    head). A backward runs D, K11, B (conv2), D's dpre-only entry and conv1's
-    gradients (K9 and K10 in an UpBlock; else A, except at the stem, whose
-    input needs no gradient, and B) in every ConvBlock, and A and B for each
-    plain conv."""
+    train-mode forwards, ``backwards`` backwards and ``inner_backwards``
+    backwards to the input alone (frozen weights) of ``model`` a step (no
+    model: none). A forward runs conv1 (K8 in an UpBlock, else A), conv2
+    (A) and C in every ConvBlock, and A for each plain conv (the UpBlock
+    1x1s and the head). A backward runs D, K11, B (conv2), D's dpre-only
+    entry and conv1's gradients (K9 and K10 in an UpBlock; else A, except
+    at the stem, whose input needs no gradient, and B) in every ConvBlock,
+    and A and B for each plain conv. A backward to the input runs no B and
+    no K10, and A at the stem too (into F = in_channels)."""
     from hpfg_tpu_torch.models.layers import ConvBlock, UpBlock
 
+    if model is None:
+        return {k: 0 for k in counters()}
     blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
     pairs = sum(isinstance(m, UpBlock) for m in model.modules())
     plain = pairs + 1
@@ -1008,7 +1066,11 @@ def predicted_launches(model, steps: int, forwards: int,
            "bn_act_bwd": blocks, "bn_act_dpre": blocks,
            "conv3x3_dgrad_reduce": blocks, "conv3x3_dgrad_pair": pairs,
            "conv3x3_wgrad_pair": pairs}
-    return {k: steps * (forwards * fwd.get(k, 0) + backwards * bwd.get(k, 0))
+    inner = {"conv3x3_nhwc": blocks - pairs + plain, "bn_act_bwd": blocks,
+             "bn_act_dpre": blocks, "conv3x3_dgrad_reduce": blocks,
+             "conv3x3_dgrad_pair": pairs}
+    return {k: steps * (forwards * fwd.get(k, 0) + backwards * bwd.get(k, 0)
+                        + inner_backwards * inner.get(k, 0))
             for k in counters()}
 
 
@@ -1063,10 +1125,11 @@ def make_loaders(cfg: dict, rng):
     return (labelled, unlabelled, []), lb + ub
 
 
-def build_run(config: str, label: str, dev, seed_offset: int = 0):
+def build_run(config: str, label: str, dev, **overrides):
     """The config's algorithm on the card in its precision and a Trainer on
-    in-memory batches (metrics read once, at the end of each fit). Returns
-    (cfg, algorithm, trainer, loaders, images a step)."""
+    in-memory batches (metrics read once, at the end of each fit);
+    ``overrides`` set config keys. Returns (cfg, algorithm, trainer,
+    loaders, images a step)."""
     import numpy as np
     import torch
 
@@ -1074,8 +1137,7 @@ def build_run(config: str, label: str, dev, seed_offset: int = 0):
     from hpfg_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(config)
-    cfg.update(save_path=os.path.join(OUT_DIR, f"run_{label}"),
-               seed=int(cfg.get("seed", 0)) + seed_offset)
+    cfg.update(save_path=os.path.join(OUT_DIR, f"run_{label}"), **overrides)
     dtype = torch.bfloat16 if cfg.get("precision") == "bf16" else torch.float32
     loaders, images = make_loaders(cfg, np.random.default_rng(0))
     algo = build_algorithm(cfg["algorithm"], cfg, dtype=dtype, device=dev)
@@ -1144,8 +1206,9 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     if len(losses) != WARMUP + STEPS or not all(np.isfinite(losses)):
         rep.fail(f"{label} path losses not all finite: {losses}")
     print(f"{label} path: losses {[round(v, 5) for v in losses]}", flush=True)
-    expected = predicted_launches(getattr(algo, path.unet), STEPS,
-                                  path.forwards, path.backwards)
+    expected = predicted_launches(
+        getattr(algo, path.unet) if path.unet else None, STEPS,
+        path.forwards, path.backwards, path.inner_backwards)
     expected.update(predicted_attention(algo, STEPS, path.attn_fwd,
                                         path.attn_bwd))
     for k, n in launches.items():
@@ -1155,7 +1218,7 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
             rep.fail(f"{label} launch count {k}: {n} != predicted "
                      f"{expected[k]}")
     for name, meta in KERNELS.items():
-        if (label in meta.get("paths", ALL_PATHS)
+        if (label in meta.get("paths", CONV_PATHS)
                 and sum(launches[c] for c in meta["counters"]) == 0):
             rep.fail(f"{label} path: kernel {name} was not launched")
     busy, conv, bn, step_launches = profile_step(trainer, card, label)
@@ -1264,14 +1327,17 @@ def check_eval(rep: Report, dev, model, label: str) -> None:
 # phase 5: resume
 # ---------------------------------------------------------------------------
 
-def check_resume(rep: Report, dev, card: str) -> dict:
-    """On the CTCT path: two steps through Trainer.fit (which saves
+def check_resume(rep: Report, dev, card: str, config: str,
+                 label: str) -> dict:
+    """On the ``label`` path: two steps through Trainer.fit (which saves
     ``last`` at its end), one more ``save("last")`` timed on the host, then
     a fresh algorithm (built from another seed) and Trainer restored from
-    it. Every tensor and generator state must be bitwise equal to the
-    checkpoint, and the next step's loss on one batch bitwise equal to the
-    uninterrupted run's: the loss is a forward of the restored state, which
-    backward atomics cannot move. The checkpoints are deleted at the end."""
+    it. Every tensor and generator state (SS-Net's memory bank and its
+    validity too) must be bitwise equal to the checkpoint, and the next
+    step's loss on one batch bitwise equal to the uninterrupted run's: the
+    loss is a function of the restored state that backward atomics cannot
+    move (SS-Net's holds VAT's input gradient, whose upsample backward is
+    the deterministic one). The checkpoints are deleted at the end."""
     import shutil
 
     import torch
@@ -1280,7 +1346,8 @@ def check_resume(rep: Report, dev, card: str) -> dict:
     from hpfg_tpu_torch.train.trainer import Trainer
     from hpfg_tpu_torch.utils.checkpoint import state_mismatches
 
-    cfg, algo, trainer, loaders, _ = build_run(CTCT_CONFIG, "resume", dev)
+    cfg, algo, trainer, loaders, _ = build_run(config, f"resume_{label}",
+                                               dev)
     try:
         trainer.total_itrs = 2
         trainer.fit(eval_enabled=False)
@@ -1303,31 +1370,128 @@ def check_resume(rep: Report, dev, card: str) -> dict:
         restore_ms = (time.perf_counter() - t0) * 1e3
         bad = state_mismatches(fresh.state_dict(), saved)
         if bad or fresh.step_count != 2:
-            rep.fail(f"resume: step {fresh.step_count}, {len(bad)} fields "
-                     f"differ from the checkpoint: {bad[:5]}")
+            rep.fail(f"resume ({label}): step {fresh.step_count}, {len(bad)} "
+                     f"fields differ from the checkpoint: {bad[:5]}")
+        memory = slots = None
+        if hasattr(algo, "memory"):  # SS-Net's bank, explicitly
+            memory = (torch.equal(fresh.memory, algo.memory)
+                      and torch.equal(fresh.memory_valid, algo.memory_valid))
+            slots = int(algo.memory_valid.sum())
+            if not memory:
+                rep.fail(f"resume ({label}): the memory bank differs")
         stream = algo.batches(loaders)
         batch = [next(stream) for _ in range(3)][-1]
         loss = algo.step(batch)["loss"]
         loss_resumed = fresh.step(batch)["loss"]
         same_loss = torch.equal(loss, loss_resumed)
         if not same_loss:
-            rep.fail(f"resume: step 3 loss {loss.item()!r} after the restore"
-                     f" != {loss_resumed.item()!r} uninterrupted")
+            rep.fail(f"resume ({label}): step 3 loss {loss_resumed.item()!r} "
+                     f"after the restore != {loss.item()!r} uninterrupted")
         after = len(state_mismatches(fresh.state_dict(), algo.state_dict()))
         n_fields = sum(1 for _ in _leaves(saved))
     finally:
         shutil.rmtree(cfg["save_path"], ignore_errors=True)
-    print(f"resume (ctct): save('last') {save_ms:.1f} ms on the host "
+    print(f"resume ({label}): save('last') {save_ms:.1f} ms on the host "
           f"({size_mib:.1f} MiB), restore {restore_ms:.1f} ms ({card}); "
           f"{n_fields} saved leaves, {before} differ before the restore, "
-          f"{len(bad)} after; step 3 loss {loss.item()!r} resumed "
+          f"{len(bad)} after" + ("" if memory is None else
+                                 f"; memory bank ({slots} valid slots) "
+                                 f"bitwise equal: {memory}")
+          + f"; step 3 loss {loss.item()!r} resumed "
           f"{loss_resumed.item()!r}: "
           f"{'bitwise equal' if same_loss else 'DIFFER'}; after step 3, "
           f"{after} leaves differ from the uninterrupted run (backward "
           "atomics may move them)", flush=True)
     return dict(save_ms=save_ms, restore_ms=restore_ms, size_mib=size_mib,
                 leaves=n_fields, loss_bitwise_equal=same_loss,
+                memory_bitwise_equal=memory, memory_valid_slots=slots,
                 leaves_differing_after_step=after)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the Swin-MAE -> SwinUNet encoder transfer
+# ---------------------------------------------------------------------------
+
+def predicted_transfer(mae_keys, target_keys) -> dict:
+    """The transfer report the depth mismatch predicts, from the keys alone:
+    a MAE encoder key ``layer{i}.block{j}.*`` lands where the target's
+    stage i has a block j, every other encoder key (``patch_embed.*``, the
+    patch merges, the stage norms) where the target has the same key; the
+    shapes match (one embed width, head count and window). Returns the
+    counts and the target encoder keys left at their init."""
+    enc = [k for k in mae_keys if k.startswith("patch_embed.")
+           or re.match(r"layer\d+\.", k)]
+    targets = {k[len("encoder."):] for k in target_keys
+               if k.startswith("encoder.")}
+    hit = [k for k in enc if k in targets]
+    return {"transferred": len(hit), "skipped_shape": 0,
+            "missing_target": len(enc) - len(hit),
+            "untouched": sorted(targets - set(hit))}
+
+
+def check_pretrain(rep: Report, dev, card: str) -> dict:
+    """Two Swin-MAE steps through Trainer.fit (``last`` saved at its end),
+    then an S4CVNet algorithm and a Trainer built with ``pretrain_ckpt`` on
+    that run's checkpoints: the transfer goes into model2 and the EMA
+    teacher (the SwinUNets; model1 is a UNet). Every transferred tensor must
+    be bitwise equal to the MAE's, the counts those ``predicted_transfer``
+    gives, and the target's encoder keys left at their init exactly the
+    third stage's blocks 2 to 5 (depths 2/2/2/2 into 2/2/6/2)."""
+    import shutil
+
+    import torch
+
+    from hpfg_tpu_torch.utils.pretrain import extract_mae_params
+
+    _, _, mae_trainer, _, _ = build_run(MAE_CONFIG, "pretrain_mae", dev)
+    ckpt_dir = mae_trainer.ckpt.directory
+    s4_dir = os.path.join(OUT_DIR, "run_pretrain_s4cvnet")
+    try:
+        mae_trainer.total_itrs = 2
+        mae_trainer.fit(eval_enabled=False)
+        mae = extract_mae_params(mae_trainer.ckpt.restore("last"))
+        t0 = time.perf_counter()
+        _, algo, trainer, _, _ = build_run(S4_CONFIG, "pretrain_s4cvnet", dev,
+                                           pretrain_ckpt=ckpt_dir)
+        build_s = time.perf_counter() - t0
+        reports = trainer.pretrain_reports
+        if sorted(reports) != ["ema", "model2"]:
+            rep.fail(f"pretrain: transferred into {sorted(reports)}, not "
+                     "model2 and ema")
+        counts = {}
+        for name, report in reports.items():
+            state = getattr(algo, name).state_dict()
+            want = predicted_transfer(list(mae), list(state))
+            got = {k: len(v) for k, v in report.items()}
+            counts[name] = got
+            if got != {k: want[k] for k in got}:
+                rep.fail(f"pretrain {name}: report counts {got} != "
+                         f"predicted {want}")
+            unequal = [k for k in report["transferred"] if not torch.equal(
+                state[f"encoder.{k}"],
+                mae[k].to(state[f"encoder.{k}"].device))]
+            if unequal:
+                rep.fail(f"pretrain {name}: {len(unequal)} transferred "
+                         f"tensors differ from the MAE's: {unequal[:3]}")
+            left = sorted({k[len("encoder."):] for k in state
+                           if k.startswith("encoder.")}
+                          - set(report["transferred"]))
+            stray = [k for k in left
+                     if not re.match(r"layer2\.block[2-5]\.", k)]
+            if left != want["untouched"] or stray or not left:
+                rep.fail(f"pretrain {name}: encoder keys left at init "
+                         f"{len(left)}, outside layer2.block2-5: "
+                         f"{stray[:3]}")
+            print(f"pretrain -> {name}: {got} (predicted "
+                  f"{ {k: want[k] for k in got} }), {len(left)} encoder "
+                  f"tensors left at init (layer2.block2-5), "
+                  f"{len(unequal)} transferred tensors differ", flush=True)
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt_dir), ignore_errors=True)
+        shutil.rmtree(s4_dir, ignore_errors=True)
+    print(f"pretrain: S4CVNet algorithm + Trainer with the transfer built in "
+          f"{build_s:.1f} s ({card})", flush=True)
+    return dict(counts=counts, build_s=build_s)
 
 
 def _leaves(tree):
@@ -1449,12 +1613,15 @@ def main() -> int:
 
     phase("kernels", lambda: check_kernels(rep, dev))
     phase("pair kernels", lambda: check_pair_kernels(rep, dev))
-    # the supervised path's batch: every shape again, untimed
-    phase(f"kernels batch {SUP_BATCH}", lambda: check_kernels(
-        rep, dev, SUP_BATCH, timed=False))
-    phase(f"pair kernels batch {SUP_BATCH}", lambda: check_pair_kernels(
-        rep, dev, SUP_BATCH, timed=False))
+    # the supervised path's batch and ICT's: every shape again, untimed
+    for b in (SUP_BATCH, *ICT_BATCHES):
+        phase(f"kernels batch {b}", lambda: check_kernels(
+            rep, dev, b, timed=False))
+        phase(f"pair kernels batch {b}", lambda: check_pair_kernels(
+            rep, dev, b, timed=False))
     phase("attention kernels", lambda: check_attention_kernels(rep, dev))
+    phase(f"attention kernels batch {MAE_BATCH}",
+          lambda: check_attention_kernels(rep, dev, MAE_BATCH))
     phase("functions", lambda: check_functions(rep, dev))
     paths, summaries = {}, {}
     for path in PATHS:
@@ -1472,7 +1639,10 @@ def main() -> int:
             del model
         del algo
         torch.cuda.empty_cache()
-    resume = phase("resume", lambda: check_resume(rep, dev, card))
+    resume = {label: phase(f"resume {label}", lambda: check_resume(
+        rep, dev, card, config, label))
+        for label, config in (("ctct", CTCT_CONFIG), ("ssnet", SSNET_CONFIG))}
+    pretrain = phase("pretrain", lambda: check_pretrain(rep, dev, card))
     rep.close()
 
     if set(paths) != set(ALL_PATHS):
@@ -1485,7 +1655,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "summary.json"), "w",
               encoding="utf-8") as f:
         json.dump({"card": card, "paths": summaries, "resume": resume,
-                   "kernels": kernels}, f, indent=1)
+                   "pretrain": pretrain, "kernels": kernels}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:
         print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)

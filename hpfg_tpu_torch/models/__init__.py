@@ -1,12 +1,14 @@
 """Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet``,
 ``unet_plus``, ``swinunet``, ``swinunet_plus``, ``swinunet_lidc``,
-``segformer`` and ``segformer_plus``).
+``segformer``, ``segformer_plus``, ``ssnet`` and ``swinmae``).
 
 ``build_model(cfg)`` reads a config mapping (``cfg.get``): ``model``,
 ``in_channels``, ``num_classes``, ``train_crop_size`` (the transformers'
-image size) and hooks that scale the network for tests and benchmarks: the
-UNets' ``feature_chns`` / ``dropout``, the SwinUNets' ``embed_dim``,
-``depths``, ``num_heads``, ``window_size``, ``drop_rate``,
+image size), ``mask_ratio`` (Swin-MAE) and hooks that scale the network for
+tests and benchmarks: the UNets' and SS-Net's ``feature_chns`` /
+``dropout``, Swin-MAE's ``embed_dim``, ``decoder_embed_dim``, ``depths``,
+``num_heads``, ``window_size`` and ``drop_path_rate``, the SwinUNets'
+``embed_dim``, ``depths``, ``num_heads``, ``window_size``, ``drop_rate``,
 ``attn_drop_rate`` and ``drop_path_rate``, the SegFormers' ``mit`` (a
 ``MIT_SETTINGS`` name), ``drop_path_rate`` and ``drop_rate`` (the head's
 dropout).
@@ -17,13 +19,16 @@ from __future__ import annotations
 import torch
 
 from hpfg_tpu_torch.models.segformer import build_segformer
+from hpfg_tpu_torch.models.ssnet import SSNet
+from hpfg_tpu_torch.models.swin_mae import SwinMAE
 from hpfg_tpu_torch.models.swinunet import build_swinunet
 from hpfg_tpu_torch.models.unet import UNet, UNetPlus
 
 #: models ported so far; the rest of the zoo is queued in ROADMAP.md
 MODELS = {"unet": UNet, "unet_plus": UNetPlus, "swinunet": build_swinunet,
           "swinunet_plus": build_swinunet, "swinunet_lidc": build_swinunet,
-          "segformer": build_segformer, "segformer_plus": build_segformer}
+          "segformer": build_segformer, "segformer_plus": build_segformer,
+          "ssnet": SSNet, "swinmae": SwinMAE}
 
 #: registry names whose forward returns (logits, h1, h2), which the
 #: feature-contrastive algorithms (hpfg) unpack; the JAX package's list
@@ -38,6 +43,10 @@ _SWIN_HOOKS = {"embed_dim": int, "depths": tuple, "num_heads": tuple,
                "attn_drop_rate": float, "drop_path_rate": float}
 #: the SegFormer hooks
 _SEGFORMER_HOOKS = {"mit": str, "drop_rate": float, "drop_path_rate": float}
+#: the Swin-MAE hooks
+_MAE_HOOKS = {"embed_dim": int, "decoder_embed_dim": int, "depths": tuple,
+              "num_heads": tuple, "window_size": int,
+              "drop_path_rate": float}
 
 
 def returns_features(name: str) -> bool:
@@ -71,6 +80,12 @@ def build_model(cfg, dtype: torch.dtype = torch.float32,
                      if cfg.get(k) is not None}
             return build(name, _image_size(cfg), in_channels, num_classes,
                          dtype=dtype, generator=generator, **hooks)
+    if name == "swinmae":
+        hooks = {k: conv(cfg.get(k)) for k, conv in _MAE_HOOKS.items()
+                 if cfg.get(k) is not None}
+        return SwinMAE(in_channels=in_channels, img_size=_image_size(cfg),
+                       mask_ratio=float(cfg.get("mask_ratio", 0.75)),
+                       dtype=dtype, generator=generator, **hooks)
     kwargs = {}
     if cfg.get("feature_chns") is not None:
         kwargs["feature_chns"] = tuple(cfg.get("feature_chns"))

@@ -15,6 +15,13 @@ matmuls on at most [B, 4, 4, C]. The UNet's BatchNorm statistics come out
 of the conv kernel's epilogue; ``BatchNorm`` holds its state, and its
 running averages fold the biased batch variance with momentum 0.9, as flax
 does (``nn.BatchNorm2d`` would fold the unbiased one).
+
+Every train-mode forward takes ``fold`` (default True): False normalizes
+with the batch statistics as usual but leaves the running statistics
+alone, as the JAX package's ``apply(..., mutable=["batch_stats"])`` whose
+updated statistics are thrown away (UAMT's Monte-Carlo passes, SS-Net's
+VAT passes and heads). ``fold`` is threaded down the modules the way
+``generator`` is.
 """
 
 from __future__ import annotations
@@ -68,17 +75,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(ch))
         self.register_buffer("var", torch.ones(ch))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                fold: bool = True) -> torch.Tensor:
         """fp32 BN over every axis but the last. In train mode it normalizes
         with the batch mean and biased variance (flax's fast variance
-        E[x^2] - E[x]^2, clamped at 0) and folds those; in eval mode it
-        uses the running statistics."""
+        E[x^2] - E[x]^2, clamped at 0) and folds those unless ``fold`` is
+        False; in eval mode it uses the running statistics."""
         x = x.float()
         if train:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
             var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-            self.fold(mean, var)
+            if fold:
+                self.fold(mean, var)
         else:
             mean, var = self.mean, self.var
         return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) \
@@ -108,9 +117,12 @@ class ConvBlock(nn.Module):
         self.bn2 = BatchNorm(features)
 
     def forward(self, x, train: bool,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                fold: bool = True) -> torch.Tensor:
         """``x``: NHWC, or a pair (skip, up) whose channel concat is conv1's
-        input (the UpBlock); the concat is never materialised."""
+        input (the UpBlock); the concat is never materialised. ``fold``:
+        whether a train-mode forward folds its batch statistics into
+        ``bn1`` / ``bn2``."""
         drop = None
         if train and self.dropout_p > 0.0:
             seed = int(torch.randint(0, 1 << 23, (), generator=generator))
@@ -127,7 +139,7 @@ class ConvBlock(nn.Module):
             self.conv1.bias, self.bn1.scale, self.bn1.bias,
             self.conv2.kernel, self.conv2.bias, self.bn2.scale,
             self.bn2.bias, run_stats, train, drop, x2)
-        if train:
+        if train and fold:
             self.bn1.fold(m1, v1)
             self.bn2.fold(m2, v2)
         return y
@@ -149,12 +161,55 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def resize_bilinear_align_corners(x: torch.Tensor,
-                                  out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize with align_corners=True on NHWC."""
+                                  out_hw: tuple[int, int],
+                                  deterministic: bool = False
+                                  ) -> torch.Tensor:
+    """Bilinear resize with align_corners=True on NHWC. ``deterministic``:
+    the backward is two fp32 matmuls with the resize's weight matrices
+    instead of torch's, whose CUDA kernel scatters with atomic adds (its
+    result then varies in the last bits from run to run)."""
     if tuple(x.shape[1:3]) == tuple(out_hw):
         return x
+    if deterministic:
+        return _ResizeDeterministic.apply(x, tuple(out_hw))
     return _nhwc(F.interpolate(_nchw(x), size=tuple(out_hw), mode="bilinear",
                                align_corners=True))
+
+
+def resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """[n_out, n_in] fp32 weights of the 1-D align-corners linear resize,
+    computed on ``device`` as torch's kernels compute them: source
+    coordinate o*(n_in-1)/(n_out-1) in fp32, its floor and the next index
+    (clamped) weighted 1 - frac and frac."""
+    scale = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+    src = torch.arange(n_out, dtype=torch.float32, device=device) * scale
+    i0 = src.long()
+    i1 = torch.clamp(i0 + 1, max=n_in - 1)
+    frac = (src - i0.float())[:, None]
+    cols = torch.arange(n_in, device=device)[None, :]
+    return ((cols == i0[:, None]) * (1.0 - frac)
+            + (cols == i1[:, None]) * frac)
+
+
+class _ResizeDeterministic(torch.autograd.Function):
+    """torch's align-corners bilinear resize forward; the backward
+    dx = A_h^T dy A_w from :func:`resize_matrix`, in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw = tuple(x.shape[1:3])
+        return _nhwc(F.interpolate(_nchw(x), size=out_hw, mode="bilinear",
+                                   align_corners=True))
+
+    @staticmethod
+    def backward(ctx, dy):
+        b, ho, wo, c = dy.shape
+        hi, wi = ctx.in_hw
+        ah = resize_matrix(hi, ho, dy.device)
+        aw = resize_matrix(wi, wo, dy.device)
+        g = torch.matmul(ah.t(), dy.float().reshape(b, ho, wo * c))
+        g = torch.matmul(aw.t(), g.reshape(b * hi, wo, c))
+        return g.reshape(b, hi, wi, c).to(dy.dtype), None
 
 
 class DownBlock(nn.Module):
@@ -166,8 +221,8 @@ class DownBlock(nn.Module):
         super().__init__()
         self.conv = ConvBlock(in_ch, features, dropout_p, dtype, generator)
 
-    def forward(self, x, train: bool, generator=None):
-        return self.conv(max_pool_2x2(x), train, generator)
+    def forward(self, x, train: bool, generator=None, fold: bool = True):
+        return self.conv(max_pool_2x2(x), train, generator, fold)
 
 
 class UpBlock(nn.Module):
@@ -176,23 +231,30 @@ class UpBlock(nn.Module):
     tensors: its conv1 reads their channel concat in place (K8) and its
     backward returns a gradient for each (K9, K10). The 1x1 conv runs as a
     3x3 conv whose only nonzero tap is the centre, so SAME semantics are
-    exact and its weight gradient is the centre tap's."""
+    exact and its weight gradient is the centre tap's.
+    ``deterministic_resize``: the upsample's backward is
+    :func:`resize_bilinear_align_corners`' deterministic one (SS-Net, whose
+    loss differentiates through the decoder)."""
 
     def __init__(self, in_ch: int, skip_ch: int, skip_features: int,
                  features: int, dropout_p: float = 0.0,
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 deterministic_resize: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.deterministic_resize = deterministic_resize
         self.conv1x1 = Conv(in_ch, skip_features, 1, generator)
         self.conv = ConvBlock(skip_ch + skip_features, features, dropout_p,
                               dtype, generator)
 
-    def forward(self, x, skip, train: bool, generator=None):
+    def forward(self, x, skip, train: bool, generator=None,
+                fold: bool = True):
         w3 = F.pad(self.conv1x1.kernel, (0, 0, 0, 0, 1, 1, 1, 1))
         x = conv3x3_plain(x.to(self.dtype), w3, self.conv1x1.bias)
-        x = resize_bilinear_align_corners(x, tuple(skip.shape[1:3]))
-        return self.conv((skip, x), train, generator)
+        x = resize_bilinear_align_corners(x, tuple(skip.shape[1:3]),
+                                          self.deterministic_resize)
+        return self.conv((skip, x), train, generator, fold)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -41,12 +41,13 @@ class UNetEncoder(nn.Module):
         self.down3 = DownBlock(ft[2], ft[3], dp[3], dtype, generator)
         self.down4 = DownBlock(ft[3], ft[4], dp[4], dtype, generator)
 
-    def forward(self, x, train: bool, generator=None) -> list[torch.Tensor]:
-        x0 = self.in_conv(x, train, generator)
-        x1 = self.down1(x0, train, generator)
-        x2 = self.down2(x1, train, generator)
-        x3 = self.down3(x2, train, generator)
-        x4 = self.down4(x3, train, generator)
+    def forward(self, x, train: bool, generator=None,
+                fold: bool = True) -> list[torch.Tensor]:
+        x0 = self.in_conv(x, train, generator, fold)
+        x1 = self.down1(x0, train, generator, fold)
+        x2 = self.down2(x1, train, generator, fold)
+        x3 = self.down3(x2, train, generator, fold)
+        x4 = self.down4(x3, train, generator, fold)
         return [x0, x1, x2, x3, x4]
 
 
@@ -62,12 +63,12 @@ class UNetDecoder(nn.Module):
         self.out_conv = Conv(ft[0], num_classes, 3, generator)
 
     def forward(self, feature: list[torch.Tensor], train: bool,
-                generator=None) -> torch.Tensor:
+                generator=None, fold: bool = True) -> torch.Tensor:
         x0, x1, x2, x3, x4 = feature
-        x = self.up1(x4, x3, train, generator)
-        x = self.up2(x, x2, train, generator)
-        x = self.up3(x, x1, train, generator)
-        x = self.up4(x, x0, train, generator)
+        x = self.up1(x4, x3, train, generator, fold)
+        x = self.up2(x, x2, train, generator, fold)
+        x = self.up3(x, x1, train, generator, fold)
+        x = self.up4(x, x0, train, generator, fold)
         # logits in fp32 for numerically stable losses
         return conv3x3_plain(x, self.out_conv.kernel,
                              self.out_conv.bias).float()
@@ -75,9 +76,9 @@ class UNetDecoder(nn.Module):
 
 class UNet(nn.Module):
     """Plain UNet: NHWC image [B, H, W, in_channels] -> fp32 logits
-    [B, H, W, num_classes]. ``train`` selects batch statistics (and folds
-    them into the running ones) plus dropout; ``generator`` draws the
-    dropout seeds."""
+    [B, H, W, num_classes]. ``train`` selects batch statistics (folded into
+    the running ones unless ``fold`` is False) plus dropout; ``generator``
+    draws the dropout seeds."""
 
     def __init__(self, in_channels: int = 1, num_classes: int = 4,
                  feature_chns: Sequence[int] = (16, 32, 64, 128, 256),
@@ -92,10 +93,11 @@ class UNet(nn.Module):
                                    generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                fold: bool = True) -> torch.Tensor:
         x = x.to(self.dtype)
-        return self.decoder(self.encoder(x, train, generator), train,
-                            generator)
+        return self.decoder(self.encoder(x, train, generator, fold), train,
+                            generator, fold)
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, train=False)
@@ -126,9 +128,10 @@ class UNetPlus(nn.Module):
             generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        feature = self.encoder(x.to(self.dtype), train, generator)
-        logits = self.decoder(feature, train, generator)
+                generator: torch.Generator | None = None,
+                fold: bool = True):
+        feature = self.encoder(x.to(self.dtype), train, generator, fold)
+        logits = self.decoder(feature, train, generator, fold)
         high = self.dense_projection_high(feature[-1])
         head = self.dense_projection_head(logits.to(self.dtype))
         return logits, high, head

@@ -511,16 +511,18 @@ def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
 
 
 def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
-                   need_dx=True):
+                   need_dx=True, need_dw=True):
     """Train-mode ConvBlock backward, in the order of conv_block.py ``_bwd``
     with its default folds: BN2 backward (D), conv2 dgrad times the forward
     dropout mask with BN1's backward reduce in its epilogue (K11), conv2
     wgrad recomputing lrelu(BN1(h))*mask (B), BN1's elementwise backward
     (D, dpre only), conv1 dgrad (A; K9 for a pair) and wgrad (B; K10 for a
     pair). ``need_dx``: whether conv1's input needs a gradient (a pair of
-    flags for a pair input). Returns (dx, dw1, dscale1, dbias1, dw2,
-    dscale2, dbias2); dx is None where no gradient is needed, and a pair
-    (dx_skip, dx_up) for a pair input."""
+    flags for a pair input); ``need_dw``: whether the weights do (False
+    launches no B and no K10, as XLA drops an unused ``_wgrad``). Returns
+    (dx, dw1, dscale1, dbias1, dw2, dscale2, dbias2); dx is None where no
+    gradient is needed, and a pair (dx_skip, dx_up) for a pair input; dw1
+    and dw2 are None without ``need_dw``."""
     x, w1c, w2c, h, g = residuals
     mean1, var1, mean2, var2 = stats
     dy = dy.to(h.dtype).contiguous()
@@ -533,7 +535,9 @@ def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
     m1 = mean1.float().contiguous()
     dd, s1 = conv3x3_dgrad_reduce(dg, flip_transpose(w2c), h, a1, c1, m1,
                                   inv1, out_drop=drop)
-    dw2 = conv3x3_wgrad_nhwc(h, dg, affine=(a1, c1), drop=drop)
+    dw1 = dw2 = None
+    if need_dw:
+        dw2 = conv3x3_wgrad_nhwc(h, dg, affine=(a1, c1), drop=drop)
 
     dh = bn_act_dpre(dd, h, a1, c1, m1, inv1, s1)
     if isinstance(x, (tuple, list)):
@@ -542,10 +546,12 @@ def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
         if any(need):
             dx = conv3x3_dgrad_pair(dh, flip_transpose(w1c), x[0].shape[-1])
             dx = tuple(d if nd else None for d, nd in zip(dx, need))
-        dw1 = torch.cat(conv3x3_wgrad_pair(x[0], x[1], dh), dim=2)
+        if need_dw:
+            dw1 = torch.cat(conv3x3_wgrad_pair(x[0], x[1], dh), dim=2)
     else:
         dx = conv3x3_nhwc(dh, flip_transpose(w1c))[0] if need_dx else None
-        dw1 = conv3x3_wgrad_nhwc(x, dh)
+        if need_dw:
+            dw1 = conv3x3_wgrad_nhwc(x, dh)
     return dx, dw1, s1[1], s1[0], dw2, s2[1], s2[0]
 
 
@@ -558,7 +564,10 @@ class FusedConvBlock(torch.autograd.Function):
     and upsampled halves of an UpBlock, each with its own gradient. No
     gradient flows through the returned statistics; the backward is train
     mode only, and the conv-bias gradients are exactly zero (the biases feed
-    BN, whose batch mean absorbs them)."""
+    BN, whose batch mean absorbs them). Where neither conv weight needs a
+    gradient (frozen weights: VAT's inner gradient), the backward launches
+    no weight-gradient kernel, and every input that needs no gradient gets
+    None."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
@@ -583,18 +592,20 @@ class FusedConvBlock(torch.autograd.Function):
         residuals = ((x, x2) if pair else x, *saved[:4])
         need_dx = (needs[0], needs[12]) if pair else needs[0]
         dx, dw1, dscale1, dbias1, dw2, dscale2, dbias2 = block_backward(
-            dy, residuals, *saved[4:8], saved[8:], ctx.drop, need_dx=need_dx)
+            dy, residuals, *saved[4:8], saved[8:], ctx.drop, need_dx=need_dx,
+            need_dw=needs[1] or needs[5])
         dx, dx2 = dx if pair and dx is not None else (dx, None)
         zero = torch.zeros_like(dbias1)
         grads = (dx, dw1, zero, dscale1, dbias1, dw2, zero.clone(), dscale2,
                  dbias2, None, None, None, dx2)
-        return grads[:len(needs)]
+        return tuple(g if need else None
+                     for g, need in zip(grads, needs))
 
 
 class Conv3x3Plain(torch.autograd.Function):
     """SAME 3x3 conv + bias (conv_block.py ``fused_conv3x3_plain``): kernel
     A forward; backward is kernel A on the flipped weights (dx), kernel B
-    (dW) and db = sum(dy)."""
+    (dW) and db = sum(dy), each only where its input needs a gradient."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -607,11 +618,14 @@ class Conv3x3Plain(torch.autograd.Function):
     def backward(ctx, dy):
         x, wc = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
-        dx = None
-        if ctx.needs_input_grad[0]:
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dx = dw = db = None
+        if need_x:
             dx, _ = conv3x3_nhwc(dy, flip_transpose(wc))
-        dw = conv3x3_wgrad_nhwc(x, dy)
-        db = dy.float().sum((0, 1, 2))
+        if need_w:
+            dw = conv3x3_wgrad_nhwc(x, dy)
+        if need_b:
+            db = dy.float().sum((0, 1, 2))
         return dx, dw, db
 
 

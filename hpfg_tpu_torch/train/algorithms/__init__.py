@@ -2,7 +2,7 @@
 
 Each algorithm owns its modules and optimizer and advances one iteration
 per ``step(batch)``. Ported so far: Supervised, Mean-Teacher, CPS, CTCT,
-HPFG and S4CVNet (ROADMAP.md)."""
+HPFG, S4CVNet, ICT-MedSeg, UAMT, SS-Net and Swin-MAE (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ import importlib
 
 ALGORITHMS: dict[str, type] = {}
 
-_MODULES = ("supervised", "mean_teacher", "cps", "ctct", "hpfg", "s4cvnet")
+_MODULES = ("supervised", "mean_teacher", "cps", "ctct", "hpfg", "s4cvnet",
+            "ict", "uamt", "ssnet", "swin_mae")
 
 
 def register(names):

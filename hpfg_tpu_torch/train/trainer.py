@@ -6,13 +6,20 @@ and evaluates every ``step_size`` iterations on the volume test loader,
 ending with a ``done: N iters`` line. Loaders come from
 the port's ``data.build_loader`` unless the caller passes its own.
 
+A set ``pretrain_ckpt`` (a Swin-MAE run's ``<save_path>/model``; tag
+``pretrain_tag``, default ``last``) transfers that encoder into every
+module of the algorithm with a SwinUNet encoder (``model``, ``model1``,
+``model2``, ``ema``) when the Trainer is built, so before any resume
+(``utils/pretrain.py``); the report's counts go to the log.
+
 Checkpoints go to ``<workdir>/model`` (``utils/checkpoint.py``), as the JAX
 trainer writes them: ``last`` at the end of ``fit``, the crash-recovery
 rotation ``last_a`` / ``last_b`` at each eval boundary, and
 ``best_<model>`` on each new best dice of that model. Each holds the
 algorithm's whole state and ``best_dice``; ``resume`` restores it exactly.
-Not ported yet (ROADMAP.md): the overlapped eval worker, TensorBoard and
-image panels, the device cache, on-device augmentation and the prefetcher.
+Not ported yet (ROADMAP.md): the overlapped eval worker, TensorBoard (and
+the writer of Swin-MAE's image panels), the device cache, on-device
+augmentation and the prefetcher.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import time
 import torch
 
 from hpfg_tpu_torch.evals.volume import evaluate_volumes
-from hpfg_tpu_torch.utils.checkpoint import CheckpointManager
+from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS, CheckpointManager
 
 VOLUME_DATASETS = {"acdc", "sup_acdc", "synapse", "sup_synapse"}
 
@@ -77,6 +84,39 @@ class Trainer:
         self.metrics_log: list[tuple[int, dict]] = []
         #: [{"iter": n, "results": {model: (dice, hd95)}}]
         self.history: list[dict] = []
+        #: {module field: transfer report} of the pretrain_ckpt transfer
+        self.pretrain_reports = self._apply_pretrain()
+
+    def _apply_pretrain(self) -> dict:
+        """Transfer a Swin-MAE encoder (config ``pretrain_ckpt``) into every
+        module of the algorithm that has a SwinUNet encoder; returns the
+        reports by module field (empty without ``pretrain_ckpt``)."""
+        ckpt_dir = self.cfg.get("pretrain_ckpt")
+        if not ckpt_dir or str(ckpt_dir).lower() in ("none", "null"):
+            return {}
+        from hpfg_tpu_torch.models.swinunet import SwinUNetEncoder
+        from hpfg_tpu_torch.utils.pretrain import (
+            extract_mae_params,
+            transfer_mae_encoder,
+        )
+
+        tag = str(self.cfg.get("pretrain_tag", "last"))
+        mae = extract_mae_params(CheckpointManager(ckpt_dir).restore(tag))
+        reports = {}
+        for name in MODEL_FIELDS:
+            module = getattr(self.algorithm, name, None)
+            if not isinstance(getattr(module, "encoder", None),
+                              SwinUNetEncoder):
+                continue
+            state, report = transfer_mae_encoder(mae, module.state_dict())
+            module.load_state_dict(state)
+            reports[name] = report
+            self.logger.info(
+                "pretrain_ckpt %s -> %s: %d tensors transferred, "
+                "%d shape-skipped, %d missing", ckpt_dir, name,
+                len(report["transferred"]), len(report["skipped_shape"]),
+                len(report["missing_target"]))
+        return reports
 
     def fit(self, eval_enabled: bool = True):
         algo = self.algorithm

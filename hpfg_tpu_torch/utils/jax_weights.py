@@ -9,7 +9,8 @@ of numpy-convertible arrays (``jax.device_get`` of a flax variable tree), so
 this module needs no jax. Flax ``Dense`` kernels are ``[in, out]``, and the
 port's ``Dense`` keeps that layout too. The same holds for every ported
 model: the UNets, the SwinUNets and the SegFormers (whose head's BatchNorm
-statistics are ``batch_stats/decoder/bn/{mean,var}``). ``module_variables``
+statistics are ``batch_stats/decoder/bn/{mean,var}``), SS-Net (its heads'
+``Dense_0`` / ``BatchNorm_0`` / ``Dense_1``) and Swin-MAE. ``module_variables``
 goes the other way, for tests that start a JAX state from the port's
 weights.
 """
@@ -93,10 +94,17 @@ def module_variables(module: torch.nn.Module) -> tuple[dict, dict]:
 def load_jax_state(algorithm, state) -> None:
     """Load every model of a JAX algorithm state (a host copy, e.g.
     ``jax.device_get(state)``) into the port's algorithm: each model field
-    (``MODEL_FIELDS``) that both have, parameters and BN statistics. A model
-    without BatchNorm (the SwinUNet) has empty ``batch_stats``."""
+    (``MODEL_FIELDS``) that both have, parameters and BN statistics, and
+    SS-Net's memory bank (``memory``, ``memory_valid``). A model without
+    BatchNorm (the SwinUNet, Swin-MAE) has empty ``batch_stats``; SS-Net's
+    heads and Swin-MAE's ``mask_token`` are parameters like any other."""
     for name in MODEL_FIELDS:
         if hasattr(state, name) and hasattr(algorithm, name):
             mstate = getattr(state, name)
             load_jax_weights(getattr(algorithm, name), mstate.params,
                              mstate.batch_stats)
+    for name in ("memory", "memory_valid"):
+        if hasattr(state, name) and hasattr(algorithm, name):
+            own = getattr(algorithm, name)
+            setattr(algorithm, name, torch.from_numpy(
+                np.array(getattr(state, name))).to(own.device, own.dtype))

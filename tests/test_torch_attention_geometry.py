@@ -1,8 +1,10 @@
 """The walk of the window-attention kernels K13 and K14
 (``hpfg_tpu_torch/ops/window_attention.py`` ``attention_walk``) against a
 brute-force check, at every window-attention shape of the full-width
-SwinUNet (224^2, window 7: Bn = batch x 64, 16, 4, 1 windows of 3, 6, 12,
-24 heads, shifted or not) and at the shapes of the GPU tests.
+SwinUNet and Swin-MAE (224^2, window 7: Bn = batch x 64, 16, 4, 1 windows
+of 3, 6, 12, 24 heads, shifted or not; Swin-MAE trains at batch 24 over
+every window, masked tokens included) and at the shapes of the GPU
+tests.
 
 The kernels run a grid of (CTAs, heads); each CTA walks a run of windows
 of one head and writes one dbias partial row. A window left out is never
@@ -18,14 +20,16 @@ from hpfg_tpu_torch.ops import window_attention as wa
 SM_COUNT = 132  # H100 SXM
 # (Bn, heads, n_mask): the SwinUNet's stages at 224^2 for the batches it
 # sees (8 labelled + 24 unlabelled in training, the teacher's 24, eval
-# slices), unshifted (n_mask 1) and shifted (the stage's nW windows)
+# slices; Swin-MAE's 24 and its panels' 1), unshifted (n_mask 1) and
+# shifted (the stage's nW windows)
 _STAGES = [(64, 3), (16, 6), (4, 12), (1, 24)]
 SWIN = sorted({(b * nw, h, m) for b in (1, 2, 8, 24, 32)
                for nw, h in _STAGES for m in {1, nw}})
 # the shapes tests/test_torch_gpu_kernels.py and chip_smoke.py give them
 GPU = [(6, 3, 3), (6, 3, 1), (19, 3, 1), (2048, 3, 64), (2048, 3, 1),
        (512, 6, 16), (8, 2, 4), (19, 2, 1), (40, 2, 1), (6, 2, 1),
-       (2048, 2, 1), (19, 4, 1), (7, 1, 7)]
+       (2048, 2, 1), (19, 4, 1), (7, 1, 7), (1536, 3, 64), (384, 6, 16),
+       (96, 12, 4), (24, 24, 1)]
 
 
 @pytest.mark.parametrize("bn,heads,n_mask", SWIN + GPU)

@@ -1,8 +1,8 @@
 """The buffer sizes the conv wrappers allocate for the CUDA kernels
 (``hpfg_tpu_torch/ops/conv_block.py`` ``conv_tiles`` and ``wgrad_split``)
 against a brute-force count, at every conv shape of the full-width UNet's
-main path (224^2 images, batch 24 and 32) and every channel tile the wgrad
-kernels use (fp32: 16 x 16/32; bf16: 16/32 x 8/16/32/64).
+main paths (224^2 images; batch 24 and 32, and ICT's 12, 16, 20 and 48)
+and every channel tile the wgrad kernels use (fp32: 16 x 16/32; bf16: 16/32 x 8/16/32/64).
 
 The kernels write one statistics row per output tile and one dW partial row
 per block of tiles; a buffer sized by other arithmetic than the kernel's
@@ -35,12 +35,12 @@ def _brute_tiles(b, h, w):
 
 
 @pytest.mark.parametrize("hw", [224, 112, 56, 28, 14, 20, 7])
-@pytest.mark.parametrize("b", [24, 32, 3])
+@pytest.mark.parametrize("b", [24, 32, 3, 12, 16, 20, 48])
 def test_conv_tiles_counts_every_output_tile(b, hw):
     assert cb.conv_tiles(b, hw, hw, TILE) == _brute_tiles(b, hw, hw)
 
 
-@pytest.mark.parametrize("b", [24, 32])
+@pytest.mark.parametrize("b", [24, 32, 12, 16, 20, 48])
 @pytest.mark.parametrize("hw,c,f", SHAPES)
 def test_wgrad_split_matches_a_brute_force_search(b, hw, c, f):
     """The fewest tiles per block that keep the grid within the target and

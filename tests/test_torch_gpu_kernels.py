@@ -24,7 +24,13 @@ run. C, and D's dpre from given sums, round as their plain versions and
 are bitwise equal to them; D's sums are bitwise the same from run to run.
 
 Beside the kernels: A and D at the supervised path's batch of 24 at 224^2
-and 14^2, and the SegFormer B0 (no hand-written kernel: cuDNN convs and
+and 14^2; A's dgrad into F = 1 and F = 3 output channels (SS-Net's VAT
+differentiates the model with respect to its 1-channel image, so the
+stem's input gradient runs); A to D and K8 to K10 at ICT's batches 12 and
+20; K13 and K14 at Swin-MAE's batch 24; the ConvBlock and plain-conv
+Functions with frozen weights launching no weight-gradient kernel (B, K10)
+while their input gradients stay those of the full backward; and the
+SegFormer B0 (no hand-written kernel: cuDNN convs and
 cuBLAS matmuls) in train mode, forward and backward on the card against
 the same module on the CPU, with the same tolerances.
 """
@@ -539,6 +545,127 @@ def test_conv_and_bn_backward_at_the_supervised_batch(dev, dtype, hw, c, f):
     _close(d, d_r, dtype)
     assert torch.equal(ba.bn_act_dpre(dy, g, a, b, m, inv, s_r),
                        ba.bn_act_dpre_reference(dy, g, a, b, m, inv, s_r))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [1, 3])
+@pytest.mark.parametrize("b,hw", [(2, 20), (4, 224)])
+def test_dgrad_into_few_channels(dev, dtype, f, b, hw):
+    """A on the flipped weights of a conv from ``f`` channels to 16: the
+    input gradient of the stem (F = 1, SS-Net's VAT) and of a 3-channel
+    stem."""
+    w = _randn(dev, 3, 3, f, 16, scale=(9 * f) ** -0.5).to(dtype)
+    dp = _randn(dev, b, hw, hw, 16, seed=1).to(dtype)
+    wf = cb.flip_transpose(w)
+    dx = cb.conv3x3_nhwc(dp, wf)[0]
+    assert dx.shape == (b, hw, hw, f)
+    _close(dx, cb.conv3x3_reference(dp, wf)[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch", [12, 20])
+@pytest.mark.parametrize("hw,c,f", [(224, 1, 16), (112, 32, 32),
+                                    (28, 128, 128), (14, 128, 256)])
+def test_conv_kernels_at_the_ict_batches(dev, dtype, batch, hw, c, f):
+    """ICT's teacher (12) and student (20) batches: A forward (with the
+    prologue on a conv2) and dgrad, B, C, D's sums and dpre, and at the
+    square shapes K8 to K10 over a (skip, up) pair of half the channels."""
+    x = _randn(dev, batch, hw, hw, c).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    kw = dict(bias=_randn(dev, f, scale=0.1), want_stats=True)
+    if c == f:
+        kw.update(affine=(1 + _randn(dev, c, scale=0.1),
+                          _randn(dev, c, scale=0.1)),
+                  drop=cb.HashDropout(12, 0.8))
+    for got, ref in zip(cb.conv3x3_nhwc(x, w, **kw),
+                        cb.conv3x3_reference(x, w, **kw)):
+        _close(got, ref, dtype)
+    dp = _randn(dev, batch, hw, hw, f, seed=1).to(dtype)
+    wf = cb.flip_transpose(w)
+    _close(cb.conv3x3_nhwc(dp, wf)[0], cb.conv3x3_reference(dp, wf)[0],
+           dtype)
+    wk = {k: kw[k] for k in ("affine", "drop") if k in kw}
+    _close(cb.conv3x3_wgrad_nhwc(x, dp, **wk),
+           cb.conv3x3_wgrad_reference(x, dp, **wk), dtype)
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (batch, hw, hw, f))
+    assert torch.equal(ba.bn_act(g, a, b), ba.bn_act_reference(g, a, b))
+    s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
+    s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
+    _close(s, s_r, torch.float32)
+    _close(d, d_r, dtype)
+    if c == f:
+        xa, xb = x[..., :c // 2].contiguous(), x[..., c // 2:].contiguous()
+        for got, ref in zip(cb.conv3x3_pair_nhwc(xa, xb, w, want_stats=True),
+                            cb.conv3x3_pair_reference(xa, xb, w,
+                                                      want_stats=True)):
+            _close(got, ref, dtype)
+        for got, ref in zip(cb.conv3x3_dgrad_pair(dp, wf, c // 2),
+                            cb.conv3x3_dgrad_pair_reference(dp, wf, c // 2)):
+            _close(got, ref, dtype)
+        for got, ref in zip(cb.conv3x3_wgrad_pair(xa, xb, dp),
+                            cb.conv3x3_wgrad_pair_reference(xa, xb, dp)):
+            _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("side,heads", [(56, 3), (28, 6), (14, 12), (7, 24)])
+def test_attention_at_the_swin_mae_batch(dev, dtype, side, heads):
+    """K13 and K14 at Swin-MAE's batch 24, every stage's windows (all of
+    them: the masked tokens go through the blocks too), with the stage's
+    own shift mask and without, with attention dropout and without."""
+    from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
+
+    l, d = 49, 32
+    bn = 24 * (side // 7) ** 2
+    qkv, bias, _, do = _attn_inputs(dev, dtype, bn, l, 1, heads, d)
+    q, k, v = qkv.split(heads * d, dim=-1)
+    smask = torch.from_numpy(_shift_attention_mask(side, side, 7, 3)).to(dev)
+    for m in (None, smask):
+        for drop in (None, cb.HashDropout(24, 0.9)):
+            _close(wa.window_attention_fwd(qkv, bias, m, heads, drop),
+                   wa.window_attention_reference(q, k, v, bias, m, heads,
+                                                 drop), dtype)
+            dqkv, dbias = wa.window_attention_bwd(qkv, bias, m, do, heads,
+                                                  drop)
+            *ref, dbias_r = wa.window_attention_bwd_reference(
+                q, k, v, bias, m, do, heads, drop)
+            for got, r in zip(dqkv.split(heads * d, dim=-1), ref):
+                _close(got, r, dtype)
+            _close(dbias, dbias_r, dtype)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_frozen_weights_launch_no_weight_gradient(dev, pair):
+    """With weights that need no gradient (VAT's inner gradient), the
+    FusedConvBlock and Conv3x3Plain backwards launch no B and no K10; the
+    input gradients equal those of the full backward."""
+    from hpfg_tpu_torch.models.layers import ConvBlock
+
+    c, f = 16, 32
+    block = ConvBlock(c, f, 0.0).to(dev)
+    x0 = _randn(dev, 2, 20, 20, c)
+    dy = _randn(dev, 2, 20, 20, f, seed=1)
+    wgrads = (cb.conv3x3_wgrad_nhwc, cb.conv3x3_wgrad_pair)
+    grads = []
+    for frozen in (False, True):
+        for p in block.parameters():
+            p.requires_grad_(not frozen)
+            p.grad = None
+        x = x0.clone().requires_grad_(True)
+        inp = ((x[..., :8].contiguous(), x[..., 8:].contiguous()) if pair
+               else x)
+        before = [fn.launches for fn in wgrads]
+        y = block(inp, train=True, fold=False)
+        y = cb.conv3x3_plain(y, block.conv2.kernel, block.conv2.bias)
+        y.backward(dy)
+        launched = [fn.launches - n for fn, n in zip(wgrads, before)]
+        if frozen:
+            assert launched == [0, 0]
+            assert all(p.grad is None for p in block.parameters())
+        else:
+            assert launched == ([2, 1] if pair else [3, 0])
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
 
 
 #: the SegFormer test's seeds

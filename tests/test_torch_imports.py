@@ -1,8 +1,9 @@
 """The port stands apart from JAX: importing ``hpfg_tpu_torch`` and running
 one tiny Mean-Teacher step on the CPU, or its CLI's training and evaluation
-of Supervised, Mean-Teacher, CPS, CTCT, HPFG and S4CVNet on a synthetic
-ACDC tree, loads neither
-``jax`` nor the JAX package; the kernel wrappers take their plain versions
+of Supervised, Mean-Teacher, CPS, CTCT, HPFG, S4CVNet, UAMT, ICT-MedSeg,
+SS-Net and Swin-MAE on a synthetic ACDC tree, or parsing and building the
+full-width algorithms of the six configs of the UAMT / ICT / SS-Net /
+Swin-MAE slice, loads neither ``jax`` nor the JAX package; the kernel wrappers take their plain versions
 for CPU tensors (their launch counters stay 0), and a tensor on neither the
 CPU nor a CUDA device is refused instead of falling back. The algorithms
 run on the card unless the caller asks for the CPU: without a card their
@@ -142,6 +143,85 @@ def test_port_cli_trains_and_evaluates_without_jax(synthetic_acdc, tmp_path):
     assert "img/s" in log and "done: 4 iters" in log
 
 
+_CLI_NEW = r"""
+import json, sys
+import torch
+from hpfg_tpu_torch.config import parse_config
+from hpfg_tpu_torch.run import run
+from hpfg_tpu_torch.train.algorithms import build_algorithm
+
+root, save = sys.argv[1], sys.argv[2]
+common = ["--set", f"data_path={root}", "--set", "device=cpu",
+          "--set", "precision=fp32", "--set", "label_num=0.25",
+          "--set", "batch_size=2", "--set", "unlabel_batch_size=4",
+          "--set", "train_crop_size=[32,32]", "--set", "test_crop_size=[32,32]",
+          "--set", "total_itrs=4", "--set", "step_size=2"]
+unet = ["--set", "feature_chns=[8,8,8,8,8]"]
+runs = {}
+for name, cfg, extra in (
+        ("uamt", "configs/uncertainty_aware_unet_30k_224x224_ACDC.yaml",
+         unet),
+        ("ict", "configs/ict-medseg_unet_30k_224x224_ACDC.yaml", unet),
+        ("ssnet", "configs/ssnet_unet_30k_224x224_ACDC.yaml", unet),
+        ("swin_mae", "configs/swinmae_30k_224x224_ACDC.yaml",
+         ["--set", "embed_dim=8", "--set", "decoder_embed_dim=16",
+          "--set", "depths=[2,2]", "--set", "num_heads=[1,2]",
+          "--set", "window_size=2"])):
+    t = run(["--config", cfg, "--set", f"save_path={save}/{name}", *common,
+             *extra])
+    runs[name] = {"steps": t.algorithm.step_count,
+                  "evals": [h["iter"] for h in t.history],
+                  "models": sorted(t.history[-1]["results"]),
+                  "losses": [m["loss"] for _, m in t.metrics_log]}
+built = {}
+for cfg in ("uncertainty_aware_unet_30k", "ict-medseg_unet_30k",
+            "ict-medseg_unet_100_30k", "scs_unet_30k", "ssnet_unet_30k",
+            "swinmae_30k"):
+    c = parse_config("t", "", ["--config",
+                               f"configs/{cfg}_224x224_ACDC.yaml"])
+    algo = build_algorithm(c["algorithm"], c, dtype=torch.bfloat16,
+                           device="cpu")
+    built[cfg] = [type(algo).__name__, type(algo.model).__name__,
+                  sum(p.numel() for p in algo.model.parameters())]
+print(json.dumps({
+    "runs": runs, "built": built,
+    "jax_side": sorted(k for k in sys.modules
+                       if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                              "hpfg_tpu"))}))
+"""
+
+
+def test_port_cli_trains_uamt_ict_ssnet_swin_mae_without_jax(
+        synthetic_acdc, tmp_path):
+    """The CLI trains and evaluates 4 iterations of UAMT, ICT-MedSeg and
+    SS-Net (UNets of width 8) and of Swin-MAE (two stages of width 8, no
+    dice evaluation), and the six configs' full-width algorithms parse and
+    build, in a fresh process; no jax, flax or hpfg_tpu module loads."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_NEW, synthetic_acdc, str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["jax_side"] == []
+    assert out["runs"]["uamt"]["models"] == ["model1", "model2"]
+    assert out["runs"]["ict"]["models"] == ["model1", "model2"]
+    assert out["runs"]["ssnet"]["models"] == ["model1"]
+    assert out["runs"]["swin_mae"]["models"] == []
+    for r in out["runs"].values():
+        assert r["steps"] == 4 and r["evals"] == [2, 4]
+        assert all(v == v and v > 0 for v in r["losses"])
+    built = out["built"]
+    assert built["uncertainty_aware_unet_30k"][:2] == ["UAMT", "UNet"]
+    for cfg in ("ict-medseg_unet_30k", "ict-medseg_unet_100_30k",
+                "scs_unet_30k"):
+        assert built[cfg][:2] == ["ICTMedSeg", "UNet"]
+    assert built["ssnet_unet_30k"][:2] == ["SSNetAlgorithm", "SSNet"]
+    assert built["swinmae_30k"][:2] == ["SwinMAEPretrain", "SwinMAE"]
+    assert built["uncertainty_aware_unet_30k"][2] == \
+        built["scs_unet_30k"][2] < built["ssnet_unet_30k"][2]
+
+
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -190,7 +270,8 @@ _TINY_CFG = dict(
 
 
 @pytest.mark.parametrize("name", ["supervised", "mean_teacher", "cps",
-                                  "ctct", "hpfg", "s4cvnet"])
+                                  "ctct", "hpfg", "s4cvnet", "uamt", "ict",
+                                  "ssnet", "swin_mae"])
 def test_algorithms_default_to_the_card(name, monkeypatch):
     """Every constructor defaults to ``device="cuda"``; without a card the
     default raises and asks for ``device="cpu"``, it never builds on the
