@@ -43,6 +43,14 @@ nor the JAX package. Phases, each of which fails the run on error:
      TFLOP/s and GB/s; then K13 and K14 again at Swin-MAE's batch 24
      (every window: the masked tokens go through the blocks too), checked
      and timed the same way;
+  2d. the kernels at the new paths' geometries, checked and timed as in
+     phases 2 and 2c: A to D and K8 to K11 at every conv shape of the
+     LIDC Mean-Teacher UNet (96^2, C = 3 stem, F = 2 head, batch 32:
+     stages 96 down to 6), the ISIC HPFG UNet_Plus (224^2, C = 3, F = 2,
+     batch 40) and the Building UNet_Plus (512^2, C = 3, F = 2, batch 12),
+     the Synapse UNet's F = 9 head (224^2, batch 24), and K13 and K14 at
+     the four stages of the LIDC SwinUNet (96^2, patch 2, window 3: L = 9,
+     shifted by 1; batch 24);
   3. the Mean-Teacher main path through ``Trainer.fit`` with the values of
      configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width UNet,
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
@@ -88,10 +96,27 @@ nor the JAX package. Phases, each of which fails the run on error:
      full-width Swin-MAE (embed 96, depths 2/2/2/2, heads 3/6/12/24, window
      7, decoder embed 768) on 24 images, one K13 and one K14 per
      WindowAttention (14) a step, no conv kernel;
-  4. eval-mode forwards of one synthetic volume through the kernels, the
-     UNet's, UNet_Plus's, the SwinUNet's, the SegFormer's and SSNet's
-     ``val``, against the same models on the CPU in the same dtype (plain
-     versions);
+  3k. the LIDC Mean-Teacher path, configs/mean_teacher_unet_30k_96x96_LIDC
+     .yaml: the full-width unet_lidc (C = 3, F = 2) at 96^2 on 8 + 24
+     RGB images;
+  3l. the ISIC HPFG path, configs/ccnet_unet_30k_224x224_ISIC.yaml (the
+     flat ccnet schema): two UNet_Plus students and the EMA teacher at
+     224^2 on 8 + 32 RGB images, CutMix on RGB;
+  3m. the Synapse Supervised path, configs/unet_30k_224x224_Synapse.yaml:
+     the UNet with an F = 9 head on 24 images;
+  3n. the Building Supervised path, configs/ccnet_unet_80k_100%_512x512
+     _Building.yaml: a UNet_Plus at 512^2 on 12 RGB images;
+  3o. the LIDC SwinUNet path, configs/swinunet_30k_96x96_LIDC.yaml: the
+     swinunet_lidc (patch 2, window 3) on 24 RGB images, one K13 and one
+     K14 per WindowAttention a step, no conv kernel;
+  4. eval-mode forwards through the kernels against the same models on
+     the CPU in the same dtype (plain versions): one synthetic volume
+     through the UNet's, UNet_Plus's, the SwinUNet's, the SegFormer's and
+     SSNet's ``val``; for Synapse two volumes through ``evaluate_volumes``
+     with the cubic zoom (order 3) its eval uses; for the LIDC, ISIC and
+     Building paths image batches through ``evaluate_images``, the last
+     batch smaller than the others, as a loader that keeps its last batch
+     gives it;
   5. resume on the CTCT and SS-Net paths: two steps through Trainer.fit,
      one ``save("last")`` timed on the host, a fresh algorithm (another
      seed) and Trainer restored from it: every tensor and generator state
@@ -102,7 +127,15 @@ nor the JAX package. Phases, each of which fails the run on error:
      ``save("last")``, then an S4CVNet Trainer built with ``pretrain_ckpt``
      pointing there: every transferred tensor of model2 and of the EMA
      teacher bitwise equal to the MAE's, and the report's counts those the
-     depth mismatch (2/2/2/2 into 2/2/6/2) predicts.
+     depth mismatch (2/2/2/2 into 2/2/6/2) predicts;
+  7. the CLI from files: a synthetic LIDC tree (96^2 PNGs, written by the
+     port's ``data/synthetic.py``) in a temporary directory, then
+     ``python -m hpfg_tpu_torch.run`` with configs/mean_teacher_unet_30k
+     _96x96_LIDC.yaml at full width on the card for 4 iterations with an
+     evaluation every 2 (preflight, the PNG loaders, ``evaluate_images``,
+     the checkpoint rotation); its log must show both evaluations and
+     ``done: 4 iters`` and its ``last.pt`` must exist. The tree and the
+     checkpoints are deleted at the end.
 
 Checkpoint writes are left out of the timed and traced main-path steps (the
 trainer's ``save`` is a no-op there); phase 5 times one.
@@ -113,8 +146,9 @@ D's sums (fp32 in both dtypes) 1e-4; the whole eval forward in bf16 5e-2, with a
 predictions equal. Details go to OUT_DIR.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their launch counts on each of the ten main paths
-and summed over them, errors, times and bounds.
+lists the kernels with their launch counts on each of the fifteen main
+paths and summed over them, errors, times and bounds (at the ACDC paths'
+shapes, and in ``at_geometries`` at each new path's).
 """
 
 from __future__ import annotations
@@ -161,6 +195,11 @@ MAE_CONFIG = "configs/swinmae_30k_224x224_ACDC.yaml"
 ICT_BATCHES = (20, 12)
 #: Swin-MAE's batch, at which K13 and K14 train
 MAE_BATCH = 24
+LIDC_MT_CONFIG = "configs/mean_teacher_unet_30k_96x96_LIDC.yaml"
+ISIC_HPFG_CONFIG = "configs/ccnet_unet_30k_224x224_ISIC.yaml"
+SYNAPSE_CONFIG = "configs/unet_30k_224x224_Synapse.yaml"
+BUILDING_CONFIG = "configs/ccnet_unet_80k_100%_512x512_Building.yaml"
+LIDC_SWIN_CONFIG = "configs/swinunet_30k_96x96_LIDC.yaml"
 
 
 class MainPath(NamedTuple):
@@ -197,7 +236,17 @@ PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
          MainPath("ssnet", SSNET_CONFIG, "model", 4, 2, eval_model="model",
                   inner_backwards=1),
          MainPath("swin_mae", MAE_CONFIG, None, 0, 0, ("model",),
-                  ("model",))]
+                  ("model",)),
+         MainPath("lidc_mt", LIDC_MT_CONFIG, "model", 2, 1,
+                  eval_model="model"),
+         MainPath("isic_hpfg", ISIC_HPFG_CONFIG, "model1", 3, 2,
+                  eval_model="model1"),
+         MainPath("synapse_sup", SYNAPSE_CONFIG, "model", 1, 1,
+                  eval_model="model"),
+         MainPath("building_sup", BUILDING_CONFIG, "model", 1, 1,
+                  eval_model="model"),
+         MainPath("lidc_swin", LIDC_SWIN_CONFIG, None, 0, 0, ("model",),
+                  ("model",), eval_model="model")]
 ALL_PATHS = tuple(p.label for p in PATHS)
 #: the paths that run the conv kernels (A to D, K8 to K11), and K13 / K14
 CONV_PATHS = tuple(p.label for p in PATHS if p.unet)
@@ -243,17 +292,49 @@ KERNELS = {
         library_note="autograd backward of that SDPA call for q, k, v and "
         "the bias"),
 }
-# the full-width UNet's ConvBlocks: (name, H=W, C in, F out, keep prob);
-# an UpBlock's C is its (skip, up) pair, F + F
-BLOCKS = [("in_conv", 224, 1, 16, 0.95), ("down1", 112, 16, 32, 0.9),
-          ("down2", 56, 32, 64, 0.8), ("down3", 28, 64, 128, 0.7),
-          ("down4", 14, 128, 256, 0.5), ("up1", 28, 256, 128, None),
-          ("up2", 56, 128, 64, None), ("up3", 112, 64, 32, None),
-          ("up4", 224, 32, 16, None)]
-# plain convs: the logits head and the UpBlock 1x1 convs (run as 3x3)
-PLAIN = [("head", 224, 16, 4, False), ("up1.1x1", 14, 256, 128, True),
-         ("up2.1x1", 28, 128, 64, True), ("up3.1x1", 56, 64, 32, True),
-         ("up4.1x1", 112, 32, 16, True)]
+_FEATS = (16, 32, 64, 128, 256)
+_KEEP = (0.95, 0.9, 0.8, 0.7, 0.5)
+
+
+def unet_blocks(hw: int, c_in: int) -> list[tuple]:
+    """The full-width UNet's ConvBlocks at ``hw`` with a ``c_in`` stem:
+    (name, H=W, C in, F out, keep prob); an UpBlock's C is its (skip, up)
+    pair, F + F."""
+    down = [("in_conv", hw, c_in, 16, _KEEP[0])] + [
+        (f"down{i}", hw >> i, _FEATS[i - 1], _FEATS[i], _KEEP[i])
+        for i in range(1, 5)]
+    up = [(f"up{i}", hw >> (4 - i), 2 * _FEATS[4 - i], _FEATS[4 - i], None)
+          for i in range(1, 5)]
+    return down + up
+
+
+def unet_plain(hw: int, f_out: int) -> list[tuple]:
+    """Its plain convs: the logits head into ``f_out`` and the UpBlock 1x1
+    convs (run as 3x3): (name, H=W, C, F, is 1x1)."""
+    return [("head", hw, 16, f_out, False)] + [
+        (f"up{i}.1x1", hw >> (5 - i), _FEATS[5 - i], _FEATS[4 - i], True)
+        for i in range(1, 5)]
+
+
+BLOCKS = unet_blocks(HW, 1)
+PLAIN = unet_plain(HW, 4)
+
+
+class Geometry(NamedTuple):
+    """The conv shapes of a new path, checked and timed in phase 2d: the
+    path's label, its batch, its ConvBlocks and its plain convs."""
+    label: str
+    batch: int
+    blocks: list
+    plain: list
+
+
+GEOMETRIES = [
+    Geometry("lidc_mt", 32, unet_blocks(96, 3), unet_plain(96, 2)),
+    Geometry("isic_hpfg", 40, unet_blocks(224, 3), unet_plain(224, 2)),
+    Geometry("building_sup", 12, unet_blocks(512, 3), unet_plain(512, 2)),
+    # the Synapse UNet differs from the ACDC one in its head alone
+    Geometry("synapse_sup", 24, [], unet_plain(224, 9)[:1])]
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -283,6 +364,9 @@ class Report:
     def __init__(self):
         self.failures: list[str] = []
         self.rows: list[dict] = []
+        #: the new path whose geometry the checks run at (phase 2d), else
+        #: None; each row records it
+        self.geometry: str | None = None
         os.makedirs(OUT_DIR, exist_ok=True)
         self._log = open(os.path.join(OUT_DIR, "kernels.jsonl"), "w",
                          encoding="utf-8")
@@ -303,7 +387,7 @@ class Report:
         rel = err / scale
         row = dict(kernel=kernel, what=what, dtype=dtype, max_abs_err=err,
                    rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, main=main)
+                   library_ms=library_ms, main=main, geometry=self.geometry)
         if work is not None:
             row["flops"], row["bytes"] = work
             row["bound_ms"], row["bound_by"] = bound(*work)
@@ -425,15 +509,17 @@ def check_hash_masks(rep: Report, dev) -> None:
 
 
 def check_kernels(rep: Report, dev, batch: int = BATCH,
-                  timed: bool = True) -> None:
-    """Kernels A to D at every distinct conv shape of the UNet at ``batch``;
-    ``timed``: each call timed beside its plain version (and in bf16 the
-    library's), and the calls the main path makes enter the kernels'
-    totals (the run at BATCH). The UpBlock conv1 rows run A and B over the
-    materialised concat: the main path runs K8 to K10 there (see
-    check_pair_kernels), so those rows are kept as the single-source
-    yardstick and stay out of the kernels' totals, as does A's conv2 dgrad
-    (K11 on the main path)."""
+                  timed: bool = True, blocks=BLOCKS, plain=PLAIN) -> None:
+    """Kernels A to D at every distinct conv shape of the UNet's ``blocks``
+    and ``plain`` convs at ``batch``; ``timed``: each call timed beside its
+    plain version (and in bf16 the library's), and the calls the main path
+    makes enter the kernels' totals (the run at BATCH, or that of the new
+    path whose geometry ``rep.geometry`` names). The UpBlock conv1 rows
+    run A and B over the materialised concat: the main path runs K8 to K10
+    there (see check_pair_kernels), so those rows are kept as the
+    single-source yardstick and stay out of the kernels' totals, as does
+    A's conv2 dgrad (K11 on the main path) and, on a new path, the stem's
+    dgrad (only SS-Net's VAT runs it)."""
     import torch
     import torch.nn.functional as F
 
@@ -442,12 +528,14 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
 
     gen = torch.Generator(device=dev).manual_seed(0)
     clock = timer(timed)
-    sfx = "" if batch == BATCH else f" batch {batch}"
+    geometry = rep.geometry
+    sfx = (f" {geometry} batch {batch}" if geometry else
+           "" if batch == BATCH else f" batch {batch}")
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    if timed:
+    if timed and geometry is None:
         check_hash_masks(rep, dev)
     print(f"kernel vs plain: rel err (tol float32 {TOL['float32']}, bfloat16 "
           f"{TOL['bfloat16']})" + (" kernel/plain ms" if timed else "") +
@@ -458,10 +546,10 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
     # one case per distinct conv shape; where an encoder and a decoder conv2
     # share a shape, the encoder's (with dropout) is the one checked
     conv_shapes = {}
-    for name, hh, c, f, keep in BLOCKS:
+    for name, hh, c, f, keep in blocks:
         conv_shapes[(hh, c, f)] = (f"{name}.conv1", None)
         conv_shapes.setdefault((hh, f, f), (f"{name}.conv2", keep or 1.0))
-    for name, hh, c, f, _ in PLAIN:
+    for name, hh, c, f, _ in plain:
         conv_shapes.setdefault((hh, c, f), (name, None))
 
     for dt in (torch.float32, torch.bfloat16):
@@ -475,6 +563,7 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
             lib = clock if dt == torch.bfloat16 else (lambda fn: None)
             concat = name.startswith("up") and name.endswith("conv1")
             conv2 = name.endswith("conv2")
+            new_stem = geometry is not None and name == "in_conv.conv1"
             line = [f"{dname} {name:>10} {hh:>3}^2 {c:>3}->{f:<3}{sfx}"]
             args = dict(bias=bias, want_stats=True)
             if keep is not None:  # conv2: BN1 + LeakyReLU + dropout prologue
@@ -511,9 +600,9 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
             # SS-Net's VAT inner gradient
             r = rep.compare("conv3x3_nhwc", f"{name} dgrad{sfx}", dname, dx,
                             dx_r, ms, pms, library_ms=cms,
-                            main=timed and not (concat or conv2),
+                            main=timed and not (concat or conv2 or new_stem),
                             work=work)
-            line.append(f"A dgrad{' into F = 1' if c == 1 else ''} {r:.1e}"
+            line.append(f"A dgrad{f' into F = {c}' if c < 16 else ''} {r:.1e}"
                         f"{perf(ms, pms, cms, work)}")
 
             wargs = {k: args[k] for k in ("affine", "drop") if k in args}
@@ -578,11 +667,12 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
 
 
 def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
-                       timed: bool = True) -> None:
-    """K8, K9 and K10 at the four UpBlock shapes, and K11 at every
-    ConvBlock's conv2 (the encoder's with and without its dropout), against
-    their plain versions at ``batch``; ``timed`` as in check_kernels, in
-    bf16 beside the library call that computes the same conv."""
+                       timed: bool = True, blocks=BLOCKS) -> None:
+    """K8, K9 and K10 at the four UpBlock shapes of ``blocks``, and K11 at
+    every ConvBlock's conv2 (the encoder's with and without its dropout),
+    against their plain versions at ``batch``; ``timed`` as in
+    check_kernels, in bf16 beside the library call that computes the same
+    conv."""
     import torch
     import torch.nn.functional as F
 
@@ -590,7 +680,9 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
 
     gen = torch.Generator(device=dev).manual_seed(2)
     clock = timer(timed)
-    sfx = "" if batch == BATCH else f" batch {batch}"
+    geometry = rep.geometry
+    sfx = (f" {geometry} batch {batch}" if geometry else
+           "" if batch == BATCH else f" batch {batch}")
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -599,7 +691,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
         dname = str(dt).split(".")[-1]
         es = dt.itemsize
         lib = clock if dt == torch.bfloat16 else (lambda fn: None)
-        for name, hh, c, f, keep in BLOCKS:
+        for name, hh, c, f, keep in blocks:
             if not name.startswith("up"):
                 continue
             ca = cbh = c // 2
@@ -671,9 +763,9 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
         # the main path's K11 calls: each encoder conv2 dgrad with its
         # dropout, each decoder one (the same shapes) without; the encoder
         # shapes without dropout are checked too
-        main_cases = {(hh, f, keep): name for name, hh, _, f, keep in BLOCKS}
+        main_cases = {(hh, f, keep): name for name, hh, _, f, keep in blocks}
         cases = dict(main_cases)
-        for name, hh, _, f, keep in BLOCKS:
+        for name, hh, _, f, keep in blocks:
             cases.setdefault((hh, f, None), name)
         for (hh, f, kp), name in cases.items():
             dp = randn(batch, hh, hh, f).to(dt)
@@ -735,12 +827,18 @@ def attn_work(bn, heads, l, d, es, n_mask, backward):
 # (stage, token side, heads); L = 7^2, D = 32
 ATTN_STAGES = [(0, 56, 3), (1, 28, 6), (2, 14, 12), (3, 7, 24)]
 ATTN_WS, ATTN_D = 7, 32
+# the LIDC SwinUNet's (swinunet_lidc: 96^2, patch 2, window 3: L = 9) at
+# its batch of 24
+LIDC_ATTN_STAGES = [(0, 48, 3), (1, 24, 6), (2, 12, 12), (3, 6, 24)]
+LIDC_WS, LIDC_SWIN_BATCH = 3, 24
 
 
-def check_attention_kernels(rep: Report, dev, batch: int = BATCH) -> None:
-    """K13 and K14 against their plain versions at the four stage shapes of
-    the full-width SwinUNet and Swin-MAE at ``batch``, unshifted and
-    shifted (the stage's own shift mask), with attention dropout at keep
+def check_attention_kernels(rep: Report, dev, batch: int = BATCH,
+                            stages=ATTN_STAGES, ws: int = ATTN_WS) -> None:
+    """K13 and K14 against their plain versions at the stage shapes
+    ``stages`` (window ``ws``; by default the four of the full-width
+    SwinUNet and Swin-MAE) at ``batch``, unshifted and shifted (the
+    stage's own shift mask, by ws // 2), with attention dropout at keep
     0.9 and without, in fp32 and bf16; at BATCH also the dropout mask
     bit-exact in both dtypes (q = k = 0, v and do the identity: K13's
     output and K14's dv are then fl(1/L) times the mask, rounded once to
@@ -754,16 +852,19 @@ def check_attention_kernels(rep: Report, dev, batch: int = BATCH) -> None:
     from hpfg_tpu_torch.ops.conv_block import HashDropout
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    l = ATTN_WS * ATTN_WS
-    sfx = "" if batch == BATCH else f" batch {batch}"
+    l = ws * ws
+    geometry = rep.geometry
+    sfx = (f" {geometry} batch {batch}" if geometry else
+           "" if batch == BATCH else f" batch {batch}")
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     # dropout masks, bit-exact, at Bn multiples of 16 and not
     heads, d = 2, 64
-    for dt, bn in itertools.product((torch.float32, torch.bfloat16),
-                                    (19, 2048) if batch == BATCH else ()):
+    for dt, bn in itertools.product(
+            (torch.float32, torch.bfloat16),
+            (19, 2048) if batch == BATCH and geometry is None else ()):
         qkv = torch.zeros((bn, l, 3 * heads * d), device=dev)
         do = torch.zeros((bn, l, heads * d), device=dev)
         for h in range(heads):
@@ -787,7 +888,7 @@ def check_attention_kernels(rep: Report, dev, batch: int = BATCH) -> None:
                     and not got[..., l:].any()):
                 rep.fail(f"attention dropout mask {name} {dt} Bn={bn}: "
                          "not bit-exact")
-    if batch == BATCH:
+    if batch == BATCH and geometry is None:
         print("attention dropout masks: bit-exact check done (K13 output and "
               "K14 dv, fp32 and bf16, Bn 19 and 2048, keep 0.9)", flush=True)
 
@@ -795,20 +896,21 @@ def check_attention_kernels(rep: Report, dev, batch: int = BATCH) -> None:
         dname = str(dt).split(".")[-1]
         es = dt.itemsize
         bf16 = dt == torch.bfloat16
-        for stage, side, heads in ATTN_STAGES:
-            nw = (side // ATTN_WS) ** 2
+        for stage, side, heads in stages:
+            nw = (side // ws) ** 2
             bn, c = batch * nw, heads * ATTN_D
             qkv = randn(bn, l, 3 * c).to(dt)
             bias = randn(heads, l, l, scale=0.02)
             do = randn(bn, l, c).to(dt)
             q, k, v = qkv.split(c, dim=-1)
             smask = torch.from_numpy(_shift_attention_mask(
-                side, side, ATTN_WS, ATTN_WS // 2)).to(dev)
+                side, side, ws, ws // 2)).to(dev)
             for mask in (None, smask):
                 what = (f"stage {stage} "
                         f"{'unshifted' if mask is None else 'shifted'}{sfx}")
                 n_mask = 0 if mask is None else mask.shape[0]
-                line = [f"{dname} attention {what:>17} Bn={bn} H={heads}"]
+                line = [f"{dname} attention {what:>17} Bn={bn} H={heads} "
+                        f"L={l}"]
                 for drop in (None, HashDropout(55 + stage, 0.9)):
                     tag = "keep 0.9" if drop else "no drop"
 
@@ -1014,7 +1116,7 @@ def check_functions(rep: Report, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 3b: the main paths
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 class ArrayLoader:
@@ -1105,23 +1207,30 @@ def counters() -> dict:
             "window_attention_bwd": wa.window_attention_bwd}
 
 
+def crop(cfg: dict) -> int:
+    return int(cfg["train_crop_size"][0])
+
+
 def make_loaders(cfg: dict, rng):
-    """In-memory loaders of numpy batches in the ACDC layout, two batches of
-    each kind: (labelled, unlabelled, test) for a config with an
-    ``unlabel_batch_size``, else (train, test) as ``sup_acdc`` gives them.
-    Returns (loaders, images a step)."""
+    """In-memory loaders of numpy batches at the config's crop, input
+    channels and classes (NHWC images, H x W labels), two batches of each
+    kind: (labelled, unlabelled, test) for a config with an
+    ``unlabel_batch_size``, else (train, test) as the supervised loaders
+    give them. Returns (loaders, images a step)."""
     import numpy as np
 
+    hw, c = crop(cfg), int(cfg.get("in_channels", 1))
     lb = int(cfg["batch_size"])
     labelled = ArrayLoader(
-        rng.normal(size=(2 * lb, HW, HW, 1)).astype(np.float32),
-        rng.integers(0, 4, (2 * lb, HW, HW)).astype(np.int32), lb)
+        rng.normal(size=(2 * lb, hw, hw, c)).astype(np.float32),
+        rng.integers(0, int(cfg.get("num_classes", 4)),
+                     (2 * lb, hw, hw)).astype(np.int32), lb)
     if "unlabel_batch_size" not in cfg:
         return (labelled, []), lb
     ub = int(cfg["unlabel_batch_size"])
     unlabelled = ArrayLoader(
-        rng.normal(size=(2 * ub, HW, HW, 1)).astype(np.float32),
-        np.zeros((2 * ub, HW, HW), np.int32), ub)
+        rng.normal(size=(2 * ub, hw, hw, c)).astype(np.float32),
+        np.zeros((2 * ub, hw, hw), np.int32), ub)
     return (labelled, unlabelled, []), lb + ub
 
 
@@ -1158,7 +1267,7 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     import torch.nn.functional as F
 
     label = path.label
-    _, algo, trainer, _, images = build_run(path.config, label, dev)
+    cfg, algo, trainer, _, images = build_run(path.config, label, dev)
     trainer.save = lambda tag: None
     saved = (F.conv2d, torch.conv2d, F.scaled_dot_product_attention)
     in_conv2d_model = []  # non-empty while that model's forward runs
@@ -1224,7 +1333,7 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     busy, conv, bn, step_launches = profile_step(trainer, card, label)
     ms = elapsed / STEPS * 1e3
     imgs = images * STEPS / elapsed
-    print(f"{label} path: {algo.name} {HW}^2 {images} images a step "
+    print(f"{label} path: {algo.name} {crop(cfg)}^2 {images} images a step "
           f"{str(algo.dtype).split('.')[-1]}: "
           f"{ms:.2f} ms/step, {imgs:.1f} img/s, peak {peak:.2f} GiB "
           f"allocated ({card})", flush=True)
@@ -1293,21 +1402,30 @@ def profile_step(trainer, card: str, label: str):
 # phase 4: eval forward of a volume
 # ---------------------------------------------------------------------------
 
-def check_eval(rep: Report, dev, model, label: str) -> None:
+def check_eval(rep: Report, dev, model, label: str, hw: int = HW,
+               zoom_order: int = 0, num_classes: int = 4) -> None:
+    """One synthetic volume through ``predict_volume`` (its slices zoomed to
+    ``hw`` with ``zoom_order``) and the card's ``val`` logits of the zoomed
+    slices against the CPU's; with the cubic zoom (Synapse) also two
+    volumes through ``evaluate_volumes``, as the trainer evaluates them."""
     import copy
 
     import numpy as np
     import torch
 
-    from hpfg_tpu_torch.evals.volume import _resize_volume, predict_volume
+    from hpfg_tpu_torch.evals.volume import (
+        _resize_volume,
+        evaluate_volumes,
+        predict_volume,
+    )
 
     rng = np.random.default_rng(3)
     volume = rng.normal(size=(4, 256, 216)).astype(np.float32)
-    pred = predict_volume(model, volume, (HW, HW), dev)
+    pred = predict_volume(model, volume, (hw, hw), dev, zoom_order)
     if pred.shape != volume.shape:
         rep.fail(f"eval prediction shape {pred.shape} != {volume.shape}")
     x = torch.from_numpy(np.ascontiguousarray(
-        _resize_volume(volume, (HW, HW), 0)[..., None]))
+        _resize_volume(volume, (hw, hw), zoom_order)[..., None]))
     cpu_model = copy.deepcopy(model).cpu()
     with torch.no_grad():
         logits = model.val(x.to(dev)).cpu()
@@ -1315,12 +1433,72 @@ def check_eval(rep: Report, dev, model, label: str) -> None:
     rel = rep.compare("eval forward", f"{label} val logits vs CPU plain",
                       "bfloat16", logits, ref, tol=MODEL_TOL)
     agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    print(f"eval {label}: volume {volume.shape} -> pred {pred.shape}; logits "
-          f"rel err {rel:.2e} (tol {MODEL_TOL}); argmax agreement "
-          f"{agree:.4f} (min {MODEL_AGREE})", flush=True)
+    print(f"eval {label}: volume {volume.shape} -> pred {pred.shape} (zoom "
+          f"order {zoom_order}); logits rel err {rel:.2e} (tol {MODEL_TOL}); "
+          f"argmax agreement {agree:.4f} (min {MODEL_AGREE})", flush=True)
     if agree < MODEL_AGREE:
         rep.fail(f"eval {label} argmax agreement {agree:.4f} < "
                  f"{MODEL_AGREE}")
+    if zoom_order == 3:
+        volumes = [(rng.normal(size=(3, 200, 180)).astype(np.float32),
+                    rng.integers(0, num_classes, (3, 200, 180)))
+                   for _ in range(2)]
+        dice, hd95, per_class = evaluate_volumes(
+            model, volumes, num_classes, (hw, hw), dev, zoom_order=3)
+        if not (np.isfinite(per_class).all() and 0 <= dice <= 1):
+            rep.fail(f"eval {label}: evaluate_volumes gave dice {dice}, "
+                     f"hd95 {hd95}")
+        print(f"eval {label}: evaluate_volumes over 2 volumes [3, 200, 180] "
+              f"(zoom order 3, {num_classes} classes): dice {dice:.4f} hd95 "
+              f"{hd95:.4f}", flush=True)
+
+
+def check_eval_images(rep: Report, dev, model, label: str, hw: int,
+                      channels: int) -> None:
+    """``evaluate_images`` (both forms) on the card and on the CPU (plain
+    versions) over batches of 2, 2 and 1 image (2 and 1 at 512^2): the
+    last smaller than the others, as a loader that keeps its last batch
+    gives it; the card's ``val`` logits of those batches against the
+    CPU's, within MODEL_TOL, argmax agreement at least MODEL_AGREE."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hpfg_tpu_torch.evals.volume import evaluate_images
+
+    rng = np.random.default_rng(4)
+    n, bs = (3, 2) if hw >= 512 else (5, 2)
+    images = rng.uniform(size=(n, hw, hw, channels)).astype(np.float32)
+    labels = np.zeros((n, hw, hw), np.int32)
+    labels[:, hw // 4:hw // 2, hw // 3:2 * hw // 3] = 1
+    loader = [(images[i:i + bs], labels[i:i + bs]) for i in range(0, n, bs)]
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu = torch.device("cpu")
+    got = [evaluate_images(model, loader, dev, full) for full in (False, True)]
+    want = [evaluate_images(cpu_model, loader, cpu, full)
+            for full in (False, True)]
+    with torch.no_grad():
+        logits = torch.cat([model.val(torch.from_numpy(x).to(dev)).cpu()
+                            for x, _ in loader])
+        ref = torch.cat([cpu_model.val(torch.from_numpy(x))
+                         for x, _ in loader])
+    rel = rep.compare("eval forward", f"{label} val logits vs CPU plain",
+                      "bfloat16", logits, ref, tol=MODEL_TOL)
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    if not all(np.isfinite(m).all() and 0 <= m[0] <= 1 for m in got):
+        rep.fail(f"eval {label}: evaluate_images gave {got}")
+    if agree < MODEL_AGREE:
+        rep.fail(f"eval {label} argmax agreement {agree:.4f} < "
+                 f"{MODEL_AGREE}")
+    print(f"eval {label}: evaluate_images over batches "
+          f"{[len(x) for x, _ in loader]} of {hw}^2 x {channels}: card "
+          f"(dice, hd95) {tuple(round(v, 4) for v in got[0])}, full "
+          f"{tuple(round(v, 4) for v in got[1])}; CPU "
+          f"{tuple(round(v, 4) for v in want[0])}, full "
+          f"{tuple(round(v, 4) for v in want[1])}; logits rel err "
+          f"{rel:.2e} (tol {MODEL_TOL}); argmax agreement {agree:.4f} (min "
+          f"{MODEL_AGREE})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1494,6 +1672,64 @@ def check_pretrain(rep: Report, dev, card: str) -> dict:
     return dict(counts=counts, build_s=build_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CLI from a data tree
+# ---------------------------------------------------------------------------
+
+#: images of the CLI's synthetic LIDC tree: 3/4 train (42: 8 labelled, 34
+#: unlabelled at label_num 0.2, enough for batches of 8 and 24), 14 test
+CLI_IMAGES = 56
+CLI_LINES = ("iter 2 model1 dice", "iter 4 model1 dice", "done: 4 iters")
+
+
+def check_cli(rep: Report, card: str) -> dict:
+    """A synthetic LIDC tree (96^2 PNGs) in a temporary directory, then the
+    port's CLI in a subprocess on the card with the unmodified LIDC
+    Mean-Teacher config for 4 iterations, evaluating at 2 and 4: its log
+    must show both evaluations and ``done: 4 iters``, and ``last.pt`` must
+    exist. The tree and the run's checkpoints are deleted at the end."""
+    import shutil
+    import tempfile
+
+    from hpfg_tpu_torch.data.synthetic import make_synthetic_lidc
+
+    tmp = tempfile.mkdtemp(prefix="hpfg_cli_")
+    root, save = os.path.join(tmp, "lidc"), os.path.join(tmp, "run")
+    try:
+        t0 = time.perf_counter()
+        make_synthetic_lidc(root, n=CLI_IMAGES, hw=(96, 96))
+        tree_s = time.perf_counter() - t0
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hpfg_tpu_torch.run", "--config",
+             LIDC_MT_CONFIG, "--set", f"data_path={root}", "--set",
+             f"save_path={save}", "--set", "total_itrs=4", "--set",
+             "step_size=2"], cwd=REPO, env=env, capture_output=True,
+            text=True, timeout=600)
+        run_s = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        last = os.path.exists(os.path.join(save, "model", "last.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shown = [line for line in log.splitlines()
+             if any(k in line for k in ("dice", "done:", "Error", "error"))]
+    print(f"cli: tree of {CLI_IMAGES} 96^2 PNG pairs in {tree_s:.1f} s; "
+          f"python -m hpfg_tpu_torch.run {LIDC_MT_CONFIG} (4 iters, eval "
+          f"every 2) exit {proc.returncode} in {run_s:.1f} s ({card}); "
+          f"last.pt {'written' if last else 'MISSING'}", flush=True)
+    for line in shown[-12:]:
+        print(f"  cli: {line[-160:]}", flush=True)
+    missing = [k for k in CLI_LINES if k not in log]
+    if proc.returncode != 0 or missing or not last:
+        rep.fail(f"cli: exit {proc.returncode}, log lines missing {missing}, "
+                 f"last.pt {'found' if last else 'missing'}; log tail: "
+                 f"{log[-1500:]}")
+    return dict(exit=proc.returncode, run_s=run_s, tree_s=tree_s,
+                last_pt=last, lines=shown[-12:])
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1508,18 +1744,35 @@ def _leaves(tree):
 def kernel_line(rep: Report, paths: dict) -> list[dict]:
     """The per-kernel summary: launches on each main path's timed run and
     their sum over the paths (``launches``), the largest error over every
-    check, and the bf16 times and bounds summed over the timed main-path
-    shapes."""
+    check, and the bf16 times and bounds summed over the timed shapes of
+    the ACDC main paths, and in ``at_geometries`` over those of each new
+    path (phase 2d)."""
     kernels = []
     for name, meta in KERNELS.items():
         rows = [r for r in rep.rows if r["kernel"] == name]
         timed = [r for r in rows if r["ms"] is not None and r["main"]
-                 and r["dtype"] == "bfloat16"]
+                 and r["dtype"] == "bfloat16" and r["geometry"] is None]
         t_ops = sum(r["flops"] / BF16_FLOPS_PER_S * 1e3 for r in timed)
         t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S * 1e3 for r in timed)
         lib = [r["library_ms"] for r in timed]
         by_path = {p: sum(launches.get(c, 0) for c in meta["counters"])
                    for p, launches in paths.items()}
+        at = {}
+        for geo in sorted({r["geometry"] for r in rows} - {None}):
+            g = [r for r in rows if r["geometry"] == geo and r["main"]
+                 and r["ms"] is not None and r["dtype"] == "bfloat16"]
+            if not g:
+                continue
+            g_lib = [r["library_ms"] for r in g]
+            g_ops = sum(r["flops"] / BF16_FLOPS_PER_S for r in g)
+            g_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in g)
+            at[geo] = dict(
+                ms=sum(r["ms"] for r in g),
+                plain_ms=sum(r["plain_ms"] for r in g),
+                bound_ms=sum(r["bound_ms"] for r in g),
+                bound_by="bytes" if g_bytes >= g_ops else "operations",
+                library_ms=sum(g_lib) if None not in g_lib else None,
+                timed_shapes=len(g))
         kernels.append(dict(
             name=name, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], also_replaces=meta["also_replaces"],
@@ -1534,7 +1787,7 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
             library_ms=(sum(lib) if lib and None not in lib else None),
             **({"library_note": meta["library_note"]}
                if "library_note" in meta else {}),
-            timed_shapes=len(timed)))
+            timed_shapes=len(timed), at_geometries=at))
     return kernels
 
 
@@ -1582,6 +1835,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from hpfg_tpu_torch.ops._cuda import library
+        from hpfg_tpu_torch.train.trainer import VOLUME_DATASETS
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
@@ -1622,6 +1876,17 @@ def main() -> int:
     phase("attention kernels", lambda: check_attention_kernels(rep, dev))
     phase(f"attention kernels batch {MAE_BATCH}",
           lambda: check_attention_kernels(rep, dev, MAE_BATCH))
+    # the new paths' geometries (phase 2d): their rows carry the path's label
+    for geo in GEOMETRIES:
+        rep.geometry = geo.label
+        phase(f"kernels {geo.label}", lambda: check_kernels(
+            rep, dev, geo.batch, blocks=geo.blocks, plain=geo.plain))
+        phase(f"pair kernels {geo.label}", lambda: check_pair_kernels(
+            rep, dev, geo.batch, blocks=geo.blocks))
+    rep.geometry = "lidc_swin"
+    phase("attention kernels lidc_swin", lambda: check_attention_kernels(
+        rep, dev, LIDC_SWIN_BATCH, LIDC_ATTN_STAGES, LIDC_WS))
+    rep.geometry = None
     phase("functions", lambda: check_functions(rep, dev))
     paths, summaries = {}, {}
     for path in PATHS:
@@ -1634,8 +1899,17 @@ def main() -> int:
         (paths[path.label], algo, summaries[path.label]), out = out, None
         if path.eval_model:  # the model the path adds
             model = getattr(algo, path.eval_model)
-            phase(f"eval {path.label}", lambda: check_eval(
-                rep, dev, model, f"{path.label}.{path.eval_model}"))
+            cfg = load_config(path.config)
+            what = f"{path.label}.{path.eval_model}"
+            if cfg["datasets"] in VOLUME_DATASETS:
+                phase(f"eval {path.label}", lambda: check_eval(
+                    rep, dev, model, what, crop(cfg),
+                    3 if "synapse" in cfg["datasets"] else 0,
+                    int(cfg.get("num_classes", 4))))
+            else:
+                phase(f"eval {path.label}", lambda: check_eval_images(
+                    rep, dev, model, what, crop(cfg),
+                    int(cfg.get("in_channels", 1))))
             del model
         del algo
         torch.cuda.empty_cache()
@@ -1643,6 +1917,7 @@ def main() -> int:
         rep, dev, card, config, label))
         for label, config in (("ctct", CTCT_CONFIG), ("ssnet", SSNET_CONFIG))}
     pretrain = phase("pretrain", lambda: check_pretrain(rep, dev, card))
+    cli = phase("cli", lambda: check_cli(rep, card))
     rep.close()
 
     if set(paths) != set(ALL_PATHS):
@@ -1655,7 +1930,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "summary.json"), "w",
               encoding="utf-8") as f:
         json.dump({"card": card, "paths": summaries, "resume": resume,
-                   "pretrain": pretrain, "kernels": kernels}, f, indent=1)
+                   "pretrain": pretrain, "cli": cli, "kernels": kernels}, f,
+                  indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:
         print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)

@@ -1,11 +1,14 @@
-"""Batch loading (port of the part of ``hpfg_tpu/data/loader.py`` the ACDC
-loaders use).
+"""Batch loading (port of the part of ``hpfg_tpu/data/loader.py`` the
+dataset loaders use).
 
 A thread pool assembles each batch while a background thread keeps a few
 batches ready; numpy and scipy release the GIL, so decode and augmentation
-overlap the step without worker processes. Each sample's augmentation draws
-from a generator derived from (loader seed, epoch, sample index), so the
-threaded assembly is deterministic.
+overlap the step without worker processes. A transform that takes an
+``rng`` argument (ACDC's and Synapse's ``RandomGenerator``) draws from a
+generator derived from (loader seed, epoch, sample index), so the threaded
+assembly is deterministic; the 2-D transforms (``data/augment2d.py``) draw
+from the one generator they hold, as the JAX package's do, which makes
+their batches reproducible at ``num_threads = 1`` only.
 """
 
 from __future__ import annotations

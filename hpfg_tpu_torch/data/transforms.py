@@ -1,5 +1,5 @@
 """Host-side numpy augmentation (port of the part of
-``hpfg_tpu/data/transforms.py`` the ACDC loaders use).
+``hpfg_tpu/data/transforms.py`` the ACDC and Synapse loaders use).
 
 ``RandomGenerator``: with p=0.5 a random rot90 + flip, else with p=0.5 a
 +-20 degree nearest-neighbour rotation; always a nearest zoom to the crop

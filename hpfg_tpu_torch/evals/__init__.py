@@ -1,1 +1,2 @@
-"""Evaluation: batched volume forward through the port's kernels."""
+"""Evaluation: batched volume and 2-D image forwards through the port's
+kernels, and the segmentation metrics."""

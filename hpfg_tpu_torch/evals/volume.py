@@ -1,5 +1,5 @@
-"""Volume evaluation (port of ``hpfg_tpu/evals/volume.py``:
-``predict_volume`` and ``evaluate_volumes``).
+"""Volume and image evaluation (port of ``hpfg_tpu/evals/volume.py``:
+``predict_volume``, ``evaluate_volumes`` and ``evaluate_images``).
 
 Slices of a volume are zoomed to the patch size once (scipy order-0 index
 map, as the reference), forwarded in eval mode in chunks through the same
@@ -7,7 +7,8 @@ kernels as training (running BN statistics, no statistics epilogue),
 argmaxed on the device and zoomed back to native resolution. The forward
 is the model's ``val`` (eval-mode logits, for UNet and UNet_Plus alike).
 Dice and HD95 come from ``evals.metrics.calculate_metric_percase`` (numpy
-and scipy).
+and scipy). ``evaluate_images`` scores the binary 2-D datasets (LIDC, ISIC,
+Building) batch by batch through the same forward.
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hpfg_tpu_torch.evals.metrics import calculate_metric_percase
+from hpfg_tpu_torch.evals.metrics import (
+    calculate_metric_percase,
+    calculate_metric_percase_full,
+)
 
 DEFAULT_CHUNK = 16
 
@@ -88,3 +92,25 @@ def evaluate_volumes(model: torch.nn.Module, volumes, num_classes: int,
     per_class = metric_sum / max(count, 1)
     return float(per_class[:, 0].mean()), float(per_class[:, 1].mean()), \
         per_class
+
+
+def evaluate_images(model: torch.nn.Module, loader, device: torch.device,
+                    full_metrics: bool = False):
+    """Binary 2-D evaluation of a loader of (images [B, H, W, C], labels
+    [B, H, W]) batches: each batch's class-1 prediction is scored as one
+    case (HD95's distances over the batch's stacked masks) and weighted by
+    its size. Returns the means (dice, hd95), or (dice, hd95, jaccard, asd)
+    with ``full_metrics``."""
+    metric = (calculate_metric_percase_full if full_metrics
+              else calculate_metric_percase)
+    sums = np.zeros(4 if full_metrics else 2, dtype=np.float64)
+    n = 0
+    for images, labels in loader:
+        images = np.asarray(images, dtype=np.float32)
+        labels = np.asarray(labels)
+        preds = forward_slices(model, images, device)
+        bs = images.shape[0]
+        sums += np.asarray(metric(preds == 1, labels == 1)) * bs
+        n += bs
+    sums /= max(n, 1)
+    return tuple(float(v) for v in sums)

@@ -1,6 +1,7 @@
 """Model registry (port of ``hpfg_tpu/models/__init__.py``; ``unet``,
-``unet_plus``, ``swinunet``, ``swinunet_plus``, ``swinunet_lidc``,
-``segformer``, ``segformer_plus``, ``ssnet`` and ``swinmae``).
+``unet_plus``, ``unet_lidc``, ``swinunet``, ``swinunet_plus``,
+``swinunet_lidc``, ``segformer``, ``segformer_plus``, ``ssnet`` and
+``swinmae``).
 
 ``build_model(cfg)`` reads a config mapping (``cfg.get``): ``model``,
 ``in_channels``, ``num_classes``, ``train_crop_size`` (the transformers'
@@ -22,11 +23,12 @@ from hpfg_tpu_torch.models.segformer import build_segformer
 from hpfg_tpu_torch.models.ssnet import SSNet
 from hpfg_tpu_torch.models.swin_mae import SwinMAE
 from hpfg_tpu_torch.models.swinunet import build_swinunet
-from hpfg_tpu_torch.models.unet import UNet, UNetPlus
+from hpfg_tpu_torch.models.unet import UNet, UNetLIDC, UNetPlus
 
 #: models ported so far; the rest of the zoo is queued in ROADMAP.md
-MODELS = {"unet": UNet, "unet_plus": UNetPlus, "swinunet": build_swinunet,
-          "swinunet_plus": build_swinunet, "swinunet_lidc": build_swinunet,
+MODELS = {"unet": UNet, "unet_plus": UNetPlus, "unet_lidc": UNetLIDC,
+          "swinunet": build_swinunet, "swinunet_plus": build_swinunet,
+          "swinunet_lidc": build_swinunet,
           "segformer": build_segformer, "segformer_plus": build_segformer,
           "ssnet": SSNet, "swinmae": SwinMAE}
 

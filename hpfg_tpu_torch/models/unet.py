@@ -1,12 +1,14 @@
-"""UNet and UNet_Plus (port of ``hpfg_tpu/models/unet.py``: ``UNet``,
-``UNetPlus``).
+"""UNet, UNet_Plus and UNet_LIDC (port of ``hpfg_tpu/models/unet.py``:
+``UNet``, ``UNetPlus``, ``UNetLIDC``).
 
 Five levels, channels (16, 32, 64, 128, 256), encoder dropout
 (0.05, 0.1, 0.2, 0.3, 0.5), bilinear align-corners decoder upsampling and a
 3x3 logits head. NHWC in, fp32 NHWC logits out. ``UNetPlus`` adds the two
 DenseCL projection necks, on the bottleneck (hid 2048) and on the logits
 (hid 1024); its forward returns (logits, (g_high, d_high), (g_head,
-d_head)) and ``.val`` the logits only.
+d_head)) and ``.val`` the logits only. ``UNetLIDC`` is the UNet under the
+registry's ``unet_lidc`` name (the LIDC and ISIC configs give it
+``in_channels: 3`` and ``num_classes: 2``).
 """
 
 from __future__ import annotations
@@ -138,3 +140,9 @@ class UNetPlus(nn.Module):
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x.to(self.dtype), False), False)
+
+
+class UNetLIDC(UNet):
+    """The UNet for the binary LIDC / ISIC masks: the same topology, the
+    same defaults and the same parameter names (flax ``UNetLIDC``
+    subclasses ``UNet`` alike); the configs set ``in_channels`` to 3."""

@@ -2,8 +2,10 @@
 
 ``Trainer.fit`` runs ``algorithm.step`` until ``total_itrs``, logs the
 step metrics every ``log_every`` iterations (one device read per flush)
-and evaluates every ``step_size`` iterations on the volume test loader,
-ending with a ``done: N iters`` line. Loaders come from
+and evaluates every ``step_size`` iterations on the last loader, ending
+with a ``done: N iters`` line. ACDC and Synapse evaluate 3-D volumes
+(Synapse resizes its slices with a cubic zoom); LIDC, ISIC and Building
+evaluate 2-D image batches (``evaluate_images``). Loaders come from
 the port's ``data.build_loader`` unless the caller passes its own.
 
 A set ``pretrain_ckpt`` (a Swin-MAE run's ``<save_path>/model``; tag
@@ -30,7 +32,7 @@ import time
 
 import torch
 
-from hpfg_tpu_torch.evals.volume import evaluate_volumes
+from hpfg_tpu_torch.evals.volume import evaluate_images, evaluate_volumes
 from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS, CheckpointManager
 
 VOLUME_DATASETS = {"acdc", "sup_acdc", "synapse", "sup_synapse"}
@@ -202,15 +204,16 @@ class Trainer:
 
     def evaluate(self, cur_itrs: int) -> dict:
         dsname = str(self.cfg.get("datasets")).lower()
-        if dsname not in VOLUME_DATASETS:
-            raise NotImplementedError(
-                f"evaluation of {dsname!r} is not ported yet (ROADMAP.md)")
         order = 3 if "synapse" in dsname else 0
         results = {}
         for name, model in self.algorithm.eval_models().items():
-            dice, hd95, _ = evaluate_volumes(
-                model, self.test_loader, self.num_classes, self.test_crop,
-                self.algorithm.device, zoom_order=order)
+            if dsname in VOLUME_DATASETS:
+                dice, hd95, _ = evaluate_volumes(
+                    model, self.test_loader, self.num_classes, self.test_crop,
+                    self.algorithm.device, zoom_order=order)
+            else:
+                dice, hd95 = evaluate_images(model, self.test_loader,
+                                             self.algorithm.device)
             results[name] = (dice, hd95)
             self.logger.info("iter %d %s dice %.4f hd95 %.4f", cur_itrs,
                              name, dice, hd95)

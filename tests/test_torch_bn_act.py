@@ -165,7 +165,15 @@ def test_dpre_branch_is_exact(f, dname):
 MAIN = [(32 * 224 * 224, 16), (32 * 112 * 112, 32), (32 * 56 * 56, 64),
         (32 * 28 * 28, 128), (32 * 14 * 14, 256)]
 SMALL = [(800, 4), (800, 12), (800, 16), (800, 20), (800, 48), (800, 256),
-         (2 * 7 * 7, 256), (37, 3000), (1, 2056), (333, 8), (0, 16)]
+         (2 * 7 * 7, 256), (37, 3000), (1, 2056), (333, 8), (0, 16),
+         (8 * 6 * 6, 256), (8 * 12 * 12, 128)]
+# (P, F) of the ConvBlock outputs at the LIDC stages (96^2 down to 6^2, at
+# the batches 8, 24, 32 and 40 the LIDC and ISIC paths give them) and the
+# Building stages (512^2 down to 32^2 at batch 12: 3.1 M rows at 512^2)
+ROWS_2D = sorted(
+    {(b * (96 >> i) ** 2, 16 << i) for b in (8, 24, 32, 40)
+     for i in range(5)}
+    | {(12 * (512 >> i) ** 2, 16 << i) for i in range(5)})
 
 
 def _cover(w: ba.BnWalk, p: int, f: int) -> np.ndarray:
@@ -222,6 +230,18 @@ def test_bn_walk_covers_every_element_once(p, f, es, resident, aligned):
 def test_bn_walk_main_path_rows(p, f, es, resident):
     """Every row in exactly one CTA's walk, every CTA with rows (a
     partial row each), the reduce's grid within the card's resident CTAs."""
+    _check_rows(p, f, es, resident)
+
+
+@pytest.mark.parametrize("resident", [None, 264])
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("p,f", ROWS_2D)
+def test_bn_walk_2d_dataset_rows(p, f, es, resident):
+    """As above, at the 96^2 and 512^2 stages."""
+    _check_rows(p, f, es, resident)
+
+
+def _check_rows(p, f, es, resident):
     w = ba.bn_walk(p, f, es, True, resident)
     _invariants(w, p, f, es, resident, True)
     assert w.vec == 16 // es and w.chunks == 1

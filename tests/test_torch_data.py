@@ -1,5 +1,5 @@
 """The port's config parser, ACDC loaders and volume metrics against the JAX
-package's, on the CPU.
+package's, on the CPU (the other datasets: ``test_torch_datasets_2d.py``).
 
 All three are the same numpy / scipy / yaml code on both sides, so they are
 held exactly: equal configs, bit-equal batches, equal metrics.
@@ -73,12 +73,14 @@ def test_sup_acdc_loader_yields_the_jax_batches(synthetic_acdc):
         np.testing.assert_array_equal(gl, rl)
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"datasets": "synapse"}, "ROADMAP"),
-    ({"device_augment": True}, "device_augment"),
+@pytest.mark.parametrize("kw,error,match", [
+    ({"datasets": "prostate"}, ValueError, "unknown datasets"),
+    ({"device_augment": True}, NotImplementedError, "device_augment"),
 ])
-def test_unported_loaders_raise(synthetic_acdc, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_loaders_raise(synthetic_acdc, kw, error, match):
+    """An unknown dataset name raises ValueError, as the JAX builder does;
+    the on-device augmentation path is not ported and raises."""
+    with pytest.raises(error, match=match):
         builder.build_loader(_cfg(synthetic_acdc, **kw))
 
 

@@ -24,7 +24,10 @@ run. C, and D's dpre from given sums, round as their plain versions and
 are bitwise equal to them; D's sums are bitwise the same from run to run.
 
 Beside the kernels: A and D at the supervised path's batch of 24 at 224^2
-and 14^2; A's dgrad into F = 1 and F = 3 output channels (SS-Net's VAT
+and 14^2; A to D and K8 to K11 at the LIDC, ISIC and Building shapes (the
+C = 3 stem, 96^2 stages down to 6^2, 512^2 at batch 12), the F = 2 and
+F = 9 heads, and K13 and K14 at the LIDC SwinUNet's window 3 (L = 9) with
+its shift-by-1 masks; A's dgrad into F = 1 and F = 3 output channels (SS-Net's VAT
 differentiates the model with respect to its 1-channel image, so the
 stem's input gradient runs); A to D and K8 to K10 at ICT's batches 12 and
 20; K13 and K14 at Swin-MAE's batch 24; the ConvBlock and plain-conv
@@ -569,7 +572,53 @@ def test_dgrad_into_few_channels(dev, dtype, f, b, hw):
 def test_conv_kernels_at_the_ict_batches(dev, dtype, batch, hw, c, f):
     """ICT's teacher (12) and student (20) batches: A forward (with the
     prologue on a conv2) and dgrad, B, C, D's sums and dpre, and at the
-    square shapes K8 to K10 over a (skip, up) pair of half the channels."""
+    square shapes K8 to K10 over a (skip, up) pair of half the channels and
+    K11."""
+    _conv_kernels_match_plain(dev, dtype, batch, hw, c, f)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch,hw,c,f", [
+    # the C = 3 stems: LIDC (96^2, 8 + 24), ISIC HPFG (224^2, 8 + 32),
+    # Building (512^2, 12)
+    (32, 96, 3, 16), (40, 224, 3, 16), (12, 512, 3, 16),
+    # the LIDC stages at 8 + 24, down to 6 x 6 images (one 8 x 16 tile
+    # holds 36 live pixels)
+    (32, 96, 16, 16), (32, 48, 32, 32), (32, 24, 64, 64), (32, 12, 128, 128),
+    (32, 6, 128, 256), (32, 6, 256, 256),
+    # the Building stages at batch 12 (3.1 M pixels at 512^2)
+    (12, 512, 16, 16), (12, 256, 32, 32), (12, 128, 64, 64),
+    (12, 64, 128, 128), (12, 32, 256, 256)])
+def test_conv_kernels_at_the_2d_dataset_shapes(dev, dtype, batch, hw, c, f):
+    """The LIDC, ISIC and Building shapes: A forward and dgrad (into 3
+    channels at the stem), B, C, D's sums and dpre, and at the square
+    shapes K8 to K10 over a (skip, up) pair and K11."""
+    _conv_kernels_match_plain(dev, dtype, batch, hw, c, f)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [2, 9])
+@pytest.mark.parametrize("batch,hw", [(32, 96), (40, 224), (24, 224),
+                                      (12, 512)])
+def test_conv_heads_into_few_channels(dev, dtype, f, batch, hw):
+    """The logits heads of the binary (F = 2) and Synapse (F = 9) configs:
+    A forward with bias, its dgrad from F into 16 channels, and B; F is no
+    multiple of the 8-element vector, so every load and store of F runs
+    element by element."""
+    x = _randn(dev, batch, hw, hw, 16).to(dtype)
+    w = _randn(dev, 3, 3, 16, f, scale=(9 * 16) ** -0.5).to(dtype)
+    bias = _randn(dev, f, scale=0.1)
+    _close(cb.conv3x3_nhwc(x, w, bias)[0],
+           cb.conv3x3_reference(x, w, bias)[0], dtype)
+    dp = _randn(dev, batch, hw, hw, f, seed=1).to(dtype)
+    wf = cb.flip_transpose(w)
+    _close(cb.conv3x3_nhwc(dp, wf)[0], cb.conv3x3_reference(dp, wf)[0],
+           dtype)
+    _close(cb.conv3x3_wgrad_nhwc(x, dp), cb.conv3x3_wgrad_reference(x, dp),
+           dtype)
+
+
+def _conv_kernels_match_plain(dev, dtype, batch, hw, c, f):
     x = _randn(dev, batch, hw, hw, c).to(dtype)
     w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
     kw = dict(bias=_randn(dev, f, scale=0.1), want_stats=True)
@@ -605,6 +654,13 @@ def test_conv_kernels_at_the_ict_batches(dev, dtype, batch, hw, c, f):
         for got, ref in zip(cb.conv3x3_wgrad_pair(xa, xb, dp),
                             cb.conv3x3_wgrad_pair_reference(xa, xb, dp)):
             _close(got, ref, dtype)
+        pre = _randn(dev, batch, hw, hw, c, seed=2).to(dtype)
+        dd, sums = cb.conv3x3_dgrad_reduce(dp, wf, pre, a, b, m, inv,
+                                           out_drop=kw["drop"])
+        dd_r, sums_r = cb.conv3x3_dgrad_reduce_reference(
+            dp, wf, pre, a, b, m, inv, out_drop=kw["drop"])
+        _close(dd, dd_r, dtype)
+        _close(sums, sums_r, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -613,13 +669,30 @@ def test_attention_at_the_swin_mae_batch(dev, dtype, side, heads):
     """K13 and K14 at Swin-MAE's batch 24, every stage's windows (all of
     them: the masked tokens go through the blocks too), with the stage's
     own shift mask and without, with attention dropout and without."""
+    _attention_stage_matches_plain(dev, dtype, 24, side, heads, 7)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("side,heads", [(48, 3), (24, 6), (12, 12), (6, 24)])
+def test_attention_at_the_lidc_swin_shapes(dev, dtype, side, heads):
+    """K13 and K14 at the LIDC SwinUNet's stages (96^2 images, patch 2,
+    window 3: L = 9, most of each 64-row tile is padding) at its batch 24,
+    with the stage's shift-by-1 mask and without, with attention dropout
+    and without."""
+    _attention_stage_matches_plain(dev, dtype, 24, side, heads, 3)
+
+
+def _attention_stage_matches_plain(dev, dtype, batch, side, heads, ws):
+    """K13 and K14 over every ws x ws window of a side x side token grid at
+    ``batch``, head width 32, shifted by ws // 2 and not."""
     from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
 
-    l, d = 49, 32
-    bn = 24 * (side // 7) ** 2
+    l, d = ws * ws, 32
+    bn = batch * (side // ws) ** 2
     qkv, bias, _, do = _attn_inputs(dev, dtype, bn, l, 1, heads, d)
     q, k, v = qkv.split(heads * d, dim=-1)
-    smask = torch.from_numpy(_shift_attention_mask(side, side, 7, 3)).to(dev)
+    smask = torch.from_numpy(_shift_attention_mask(side, side, ws,
+                                                   ws // 2)).to(dev)
     for m in (None, smask):
         for drop in (None, cb.HashDropout(24, 0.9)):
             _close(wa.window_attention_fwd(qkv, bias, m, heads, drop),
