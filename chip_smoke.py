@@ -109,6 +109,16 @@ nor the JAX package. Phases, each of which fails the run on error:
   3o. the LIDC SwinUNet path, configs/swinunet_30k_96x96_LIDC.yaml: the
      swinunet_lidc (patch 2, window 3) on 24 RGB images, one K13 and one
      K14 per WindowAttention a step, no conv kernel;
+  3p. the CMT HPFG path, configs/ccnet_cmt_30k_224x224_ACDC.yaml (the flat
+     ccnet schema): two CMT_Plus students and the EMA teacher at 224^2 on
+     8 + 24 images, adamW; 3q. the UniFormer HPFG path,
+     configs/ccnet_uniformer_30k_224x224_ACDC.yaml, the same on
+     UniFormer_Plus with DropPath 0.1 on; 3r. the TransUNet path,
+     configs/transunet_30k_96x96_LIDC.yaml: Supervised transunet_lidc on
+     24 RGB images at 96^2. These models run none of the port's kernels
+     (their convs are cuDNN, F.conv2d allowed inside their forwards; SDPA
+     stays forbidden): every counter must stay 0. Their eval (phase 4)
+     holds the card's bf16 model against a CPU copy in fp32;
   4. eval-mode forwards through the kernels against the same models on
      the CPU in the same dtype (plain versions): one synthetic volume
      through the UNet's, UNet_Plus's, the SwinUNet's, the SegFormer's and
@@ -135,7 +145,19 @@ nor the JAX package. Phases, each of which fails the run on error:
      evaluation every 2 (preflight, the PNG loaders, ``evaluate_images``,
      the checkpoint rotation); its log must show both evaluations and
      ``done: 4 iters`` and its ``last.pt`` must exist. The tree and the
-     checkpoints are deleted at the end.
+     checkpoints are deleted at the end;
+  8. the models no config names (``ZOO_MODELS``: cmt, transunet at 224^2,
+     unet_large, resunet, resunet_plusplus, uctransnet), each in place of
+     the UNet of configs/unet_30k_224x224_ACDC.yaml as ``--set model=``
+     would put it: 1 + 2 supervised steps on 24 images at 224^2 in bf16
+     (UCTransNet's sigmoid head feeds the loss as in the JAX package),
+     finite losses, step time and peak memory, and ``val`` of two images
+     against the same weights on the CPU in fp32 (its argmax agreement
+     printed, not gated: three steps from a random init leave the classes'
+     logits within bf16's rounding of each other at some pixels);
+  9. configs/ccnet_transunet_30k_224x224_ACDC.yaml must raise HPFG's
+     ValueError at construction (its students are not *_plus models), as
+     in the JAX package.
 
 Checkpoint writes are left out of the timed and traced main-path steps (the
 trainer's ``save`` is a no-op there); phase 5 times one.
@@ -146,7 +168,7 @@ D's sums (fp32 in both dtypes) 1e-4; the whole eval forward in bf16 5e-2, with a
 predictions equal. Details go to OUT_DIR.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists the kernels with their launch counts on each of the fifteen main
+lists the kernels with their launch counts on each of the eighteen main
 paths and summed over them, errors, times and bounds (at the ACDC paths'
 shapes, and in ``at_geometries`` at each new path's).
 """
@@ -200,16 +222,31 @@ ISIC_HPFG_CONFIG = "configs/ccnet_unet_30k_224x224_ISIC.yaml"
 SYNAPSE_CONFIG = "configs/unet_30k_224x224_Synapse.yaml"
 BUILDING_CONFIG = "configs/ccnet_unet_80k_100%_512x512_Building.yaml"
 LIDC_SWIN_CONFIG = "configs/swinunet_30k_96x96_LIDC.yaml"
+CMT_CONFIG = "configs/ccnet_cmt_30k_224x224_ACDC.yaml"
+UNIFORMER_CONFIG = "configs/ccnet_uniformer_30k_224x224_ACDC.yaml"
+TRANSUNET_CONFIG = "configs/transunet_30k_96x96_LIDC.yaml"
+#: HPFG on TransUNet: refused at construction in both packages
+CCNET_TRANSUNET_CONFIG = "configs/ccnet_transunet_30k_224x224_ACDC.yaml"
+#: the models of an HPFG step (two students and the EMA teacher)
+TEACHER_DUAL = ("model1", "model2", "ema")
+#: the registry names no config names, trained by the zoo phase from
+#: SUP_CONFIG with ``model`` overridden
+ZOO_MODELS = ("cmt", "transunet", "unet_large", "resunet",
+              "resunet_plusplus", "uctransnet")
+#: the zoo phase's warm-up and timed steps
+ZOO_WARMUP, ZOO_STEPS = 1, 2
 
 
 class MainPath(NamedTuple):
     """A main path: its config; the UNet whose conv kernels are counted (None
     where no model runs them) and its forwards and backwards a step; the
     models whose window attentions run forwards and backwards a step; the
-    model whose forward may call F.conv2d (cuDNN); the model the eval phase
-    checks (None where an earlier path checks the same one); the UNet's
-    backwards a step to its input alone, with frozen weights (SS-Net's VAT
-    inner gradient)."""
+    models whose forwards may call F.conv2d (cuDNN); the model the eval
+    phase checks (None where an earlier path checks the same one); the
+    UNet's backwards a step to its input alone, with frozen weights (SS-Net's
+    VAT inner gradient). The eval phase holds the card's bf16 model against
+    a CPU copy in the same dtype where the path runs kernels (their plain
+    versions), else in fp32 (``eval_fp32``)."""
     label: str
     config: str
     unet: str | None
@@ -217,9 +254,13 @@ class MainPath(NamedTuple):
     backwards: int
     attn_fwd: tuple = ()
     attn_bwd: tuple = ()
-    conv2d_model: str | None = None
+    conv2d_model: tuple = ()
     eval_model: str | None = None
     inner_backwards: int = 0
+
+    @property
+    def eval_fp32(self) -> bool:
+        return not (self.unet or self.attn_fwd)
 
 
 PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
@@ -229,8 +270,8 @@ PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
                   ("model2",), eval_model="model2"),
          MainPath("supervised", SUP_CONFIG, "model", 1, 1),
          MainPath("cps", CPS_CONFIG, "model1", 2, 2),
-         MainPath("ctct", CTCT_CONFIG, "model1", 1, 1, conv2d_model="model2",
-                  eval_model="model2"),
+         MainPath("ctct", CTCT_CONFIG, "model1", 1, 1,
+                  conv2d_model=("model2",), eval_model="model2"),
          MainPath("uamt", UAMT_CONFIG, "model", 10, 1),
          MainPath("ict", ICT_CONFIG, "model", 3, 1),
          MainPath("ssnet", SSNET_CONFIG, "model", 4, 2, eval_model="model",
@@ -246,7 +287,13 @@ PATHS = [MainPath("mean_teacher", MT_CONFIG, "model", 2, 1,
          MainPath("building_sup", BUILDING_CONFIG, "model", 1, 1,
                   eval_model="model"),
          MainPath("lidc_swin", LIDC_SWIN_CONFIG, None, 0, 0, ("model",),
-                  ("model",), eval_model="model")]
+                  ("model",), eval_model="model"),
+         MainPath("acdc_cmt_hpfg", CMT_CONFIG, None, 0, 0,
+                  conv2d_model=TEACHER_DUAL, eval_model="model1"),
+         MainPath("acdc_uniformer_hpfg", UNIFORMER_CONFIG, None, 0, 0,
+                  conv2d_model=TEACHER_DUAL, eval_model="model1"),
+         MainPath("lidc_transunet", TRANSUNET_CONFIG, None, 0, 0,
+                  conv2d_model=("model",), eval_model="model")]
 ALL_PATHS = tuple(p.label for p in PATHS)
 #: the paths that run the conv kernels (A to D, K8 to K11), and K13 / K14
 CONV_PATHS = tuple(p.label for p in PATHS if p.unet)
@@ -1258,7 +1305,7 @@ def build_run(config: str, label: str, dev, **overrides):
 def run_main_path(rep: Report, dev, card: str, path: MainPath):
     """Train ``STEPS`` timed steps (after ``WARMUP``) of the config's
     algorithm through Trainer.fit with SDPA forbidden and F.conv2d allowed
-    only inside ``path.conv2d_model``'s forward, check the losses and
+    only inside the forwards of ``path.conv2d_model``, check the losses and
     launch counts, trace one more step. Checkpoint writes are left out
     (``trainer.save`` is a no-op). Returns (launches, algorithm,
     summary)."""
@@ -1270,7 +1317,7 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     cfg, algo, trainer, _, images = build_run(path.config, label, dev)
     trainer.save = lambda tag: None
     saved = (F.conv2d, torch.conv2d, F.scaled_dot_product_attention)
-    in_conv2d_model = []  # non-empty while that model's forward runs
+    in_conv2d_model = []  # non-empty while such a model's forward runs
 
     def conv2d(*args, **kwargs):
         if in_conv2d_model:
@@ -1283,12 +1330,12 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
                            "main path")
 
     hooks = []
-    if path.conv2d_model:
-        model = getattr(algo, path.conv2d_model)
-        hooks = [model.register_forward_pre_hook(
-                     lambda *_: in_conv2d_model.append(True)),
-                 model.register_forward_hook(
-                     lambda *_: in_conv2d_model.clear())]
+    for name in path.conv2d_model:
+        model = getattr(algo, name)
+        hooks += [model.register_forward_pre_hook(
+                      lambda *_: in_conv2d_model.append(True)),
+                  model.register_forward_hook(
+                      lambda *_: in_conv2d_model.clear())]
     F.conv2d = torch.conv2d = conv2d
     F.scaled_dot_product_attention = sdpa
     try:
@@ -1403,11 +1450,13 @@ def profile_step(trainer, card: str, label: str):
 # ---------------------------------------------------------------------------
 
 def check_eval(rep: Report, dev, model, label: str, hw: int = HW,
-               zoom_order: int = 0, num_classes: int = 4) -> None:
+               zoom_order: int = 0, num_classes: int = 4,
+               reference=None) -> None:
     """One synthetic volume through ``predict_volume`` (its slices zoomed to
     ``hw`` with ``zoom_order``) and the card's ``val`` logits of the zoomed
-    slices against the CPU's; with the cubic zoom (Synapse) also two
-    volumes through ``evaluate_volumes``, as the trainer evaluates them."""
+    slices against the CPU's (``reference``, else a CPU copy of ``model``);
+    with the cubic zoom (Synapse) also two volumes through
+    ``evaluate_volumes``, as the trainer evaluates them."""
     import copy
 
     import numpy as np
@@ -1426,7 +1475,8 @@ def check_eval(rep: Report, dev, model, label: str, hw: int = HW,
         rep.fail(f"eval prediction shape {pred.shape} != {volume.shape}")
     x = torch.from_numpy(np.ascontiguousarray(
         _resize_volume(volume, (hw, hw), zoom_order)[..., None]))
-    cpu_model = copy.deepcopy(model).cpu()
+    cpu_model = (copy.deepcopy(model).cpu() if reference is None
+                 else reference)
     with torch.no_grad():
         logits = model.val(x.to(dev)).cpu()
         ref = cpu_model.val(x)
@@ -1454,12 +1504,13 @@ def check_eval(rep: Report, dev, model, label: str, hw: int = HW,
 
 
 def check_eval_images(rep: Report, dev, model, label: str, hw: int,
-                      channels: int) -> None:
+                      channels: int, reference=None) -> None:
     """``evaluate_images`` (both forms) on the card and on the CPU (plain
-    versions) over batches of 2, 2 and 1 image (2 and 1 at 512^2): the
-    last smaller than the others, as a loader that keeps its last batch
-    gives it; the card's ``val`` logits of those batches against the
-    CPU's, within MODEL_TOL, argmax agreement at least MODEL_AGREE."""
+    versions; ``reference``, else a CPU copy of ``model``) over batches of
+    2, 2 and 1 image (2 and 1 at 512^2): the last smaller than the others,
+    as a loader that keeps its last batch gives it; the card's ``val``
+    logits of those batches against the CPU's, within MODEL_TOL, argmax
+    agreement at least MODEL_AGREE."""
     import copy
 
     import numpy as np
@@ -1473,7 +1524,8 @@ def check_eval_images(rep: Report, dev, model, label: str, hw: int,
     labels = np.zeros((n, hw, hw), np.int32)
     labels[:, hw // 4:hw // 2, hw // 3:2 * hw // 3] = 1
     loader = [(images[i:i + bs], labels[i:i + bs]) for i in range(0, n, bs)]
-    cpu_model = copy.deepcopy(model).cpu()
+    cpu_model = (copy.deepcopy(model).cpu() if reference is None
+                 else reference)
     cpu = torch.device("cpu")
     got = [evaluate_images(model, loader, dev, full) for full in (False, True)]
     want = [evaluate_images(cpu_model, loader, cpu, full)
@@ -1499,6 +1551,18 @@ def check_eval_images(rep: Report, dev, model, label: str, hw: int,
           f"{tuple(round(v, 4) for v in want[1])}; logits rel err "
           f"{rel:.2e} (tol {MODEL_TOL}); argmax agreement {agree:.4f} (min "
           f"{MODEL_AGREE})", flush=True)
+
+
+def fp32_twin(model, cfg: dict):
+    """A CPU copy of ``model`` in fp32: the registry's model of ``cfg`` with
+    ``model``'s parameters and statistics."""
+    import torch
+
+    from hpfg_tpu_torch.models import build_model
+
+    twin = build_model(cfg, dtype=torch.float32)
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin
 
 
 # ---------------------------------------------------------------------------
@@ -1730,6 +1794,80 @@ def check_cli(rep: Report, card: str) -> dict:
                 last_pt=last, lines=shown[-12:])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the models no config names; phase 9: the config both packages
+# refuse
+# ---------------------------------------------------------------------------
+
+def check_zoo(rep: Report, dev, card: str, name: str) -> dict:
+    """``name`` in place of the UNet of SUP_CONFIG (as ``--set model=``
+    would put it): ``ZOO_STEPS`` timed supervised steps after
+    ``ZOO_WARMUP`` through Trainer.fit (24 images at 224^2, bf16, F = 4;
+    no checkpoint writes), finite losses; the card's ``val`` of two
+    images against the same weights on the CPU in fp32, within MODEL_TOL.
+    The argmax agreement is printed, not gated: after three steps from a
+    random init the classes' logits lie within bf16's rounding of each
+    other at a few percent of the pixels (CMT_S: 98.5%)."""
+    import numpy as np
+    import torch
+
+    cfg, algo, trainer, _, images = build_run(SUP_CONFIG, f"zoo_{name}", dev,
+                                              model=name)
+    trainer.save = lambda tag: None
+    trainer.total_itrs = ZOO_WARMUP
+    trainer.fit(eval_enabled=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.total_itrs = ZOO_WARMUP + ZOO_STEPS
+    t0 = time.perf_counter()
+    trainer.fit(eval_enabled=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ZOO_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for _, m in trainer.metrics_log]
+    if len(losses) != ZOO_WARMUP + ZOO_STEPS or not all(np.isfinite(losses)):
+        rep.fail(f"zoo {name}: losses not all finite: {losses}")
+    model = algo.model
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, crop(cfg), crop(cfg), 1)).astype(np.float32))
+    with torch.no_grad():
+        got = model.val(x.to(dev)).cpu()
+        ref = fp32_twin(model, cfg).val(x)
+    rel = rep.compare("eval forward", f"zoo {name} val vs CPU fp32",
+                      "bfloat16", got, ref, tol=MODEL_TOL)
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    params = sum(p.numel() for p in model.parameters())
+    print(f"zoo {name}: {type(model).__name__} {params / 1e6:.2f} M params, "
+          f"{images} images of {crop(cfg)}^2 a step, losses "
+          f"{[round(v, 5) for v in losses]}; {ms:.2f} ms/step, "
+          f"{images * 1e3 / ms:.1f} img/s, peak {peak:.2f} GiB allocated; "
+          f"val vs CPU fp32 rel err {rel:.2e}, argmax agreement {agree:.4f} "
+          f"({card})", flush=True)
+    return dict(model=type(model).__name__, params=params, losses=losses,
+                ms_per_step=ms, img_per_s=images * 1e3 / ms, peak_gib=peak,
+                val_rel_err=rel, argmax_agreement=agree)
+
+
+def check_refused(rep: Report, dev) -> str | None:
+    """CCNET_TRANSUNET_CONFIG must raise the ValueError of HPFG's
+    construction (its students must be *_plus models), as in the JAX
+    package, and build nothing."""
+    import torch
+
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+
+    cfg = load_config(CCNET_TRANSUNET_CONFIG)
+    try:
+        build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
+                        device=dev)
+    except ValueError as exc:
+        print(f"refused: {CCNET_TRANSUNET_CONFIG}: ValueError: {exc}",
+              flush=True)
+        return str(exc)
+    rep.fail(f"{CCNET_TRANSUNET_CONFIG} built an algorithm; it must raise")
+    return None
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1901,15 +2039,17 @@ def main() -> int:
             model = getattr(algo, path.eval_model)
             cfg = load_config(path.config)
             what = f"{path.label}.{path.eval_model}"
+            ref = fp32_twin(model, cfg) if path.eval_fp32 else None
             if cfg["datasets"] in VOLUME_DATASETS:
                 phase(f"eval {path.label}", lambda: check_eval(
                     rep, dev, model, what, crop(cfg),
                     3 if "synapse" in cfg["datasets"] else 0,
-                    int(cfg.get("num_classes", 4))))
+                    int(cfg.get("num_classes", 4)), ref))
             else:
                 phase(f"eval {path.label}", lambda: check_eval_images(
                     rep, dev, model, what, crop(cfg),
-                    int(cfg.get("in_channels", 1))))
+                    int(cfg.get("in_channels", 1)), ref))
+            del ref
             del model
         del algo
         torch.cuda.empty_cache()
@@ -1918,10 +2058,19 @@ def main() -> int:
         for label, config in (("ctct", CTCT_CONFIG), ("ssnet", SSNET_CONFIG))}
     pretrain = phase("pretrain", lambda: check_pretrain(rep, dev, card))
     cli = phase("cli", lambda: check_cli(rep, card))
+    zoo = {}
+    for name in ZOO_MODELS:
+        zoo[name] = phase(f"zoo {name}", lambda: check_zoo(rep, dev, card,
+                                                           name))
+        torch.cuda.empty_cache()
+    refused = phase("refused", lambda: check_refused(rep, dev))
     rep.close()
 
     if set(paths) != set(ALL_PATHS):
         rep.fail(f"main paths that ran: {sorted(paths)}")
+    if None in zoo.values() or refused is None:
+        rep.fail("a zoo model did not train, or ccnet_transunet was not "
+                 "refused")
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] in
                       ("jax", "jaxlib", "flax", "hpfg_tpu"))
     if jax_side:
@@ -1930,8 +2079,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "summary.json"), "w",
               encoding="utf-8") as f:
         json.dump({"card": card, "paths": summaries, "resume": resume,
-                   "pretrain": pretrain, "cli": cli, "kernels": kernels}, f,
-                  indent=1)
+                   "pretrain": pretrain, "cli": cli, "zoo": zoo,
+                   "refused": refused, "kernels": kernels}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:
         print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)

@@ -48,18 +48,84 @@ def _uniform(shape, bound: float, generator) -> torch.Tensor:
 
 class Conv(nn.Module):
     """Conv parameters: ``kernel`` [k, k, C, F] and ``bias`` [F] (none when
-    ``use_bias`` is False), with torch's default init U(+-1/sqrt(fan_in))
-    for both (the JAX package's TORCH_KERNEL_INIT / torch_bias_init)."""
+    ``use_bias`` is False). ``init="torch"``: torch's default init
+    U(+-1/sqrt(fan_in)) for both (the JAX package's TORCH_KERNEL_INIT /
+    torch_bias_init); ``init="lecun"``: flax's default, :func:`lecun_normal`
+    kernel and zero bias. fan_in is k*k*C; a depthwise conv is
+    ``Conv(1, F, k)``, kernel [k, k, 1, F] with fan_in k*k, as flax lays out
+    ``feature_group_count=F``."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 3,
                  generator: torch.Generator | None = None,
-                 use_bias: bool = True):
+                 use_bias: bool = True, init: str = "torch"):
         super().__init__()
-        bound = 1.0 / math.sqrt(k * k * in_ch)
-        self.kernel = nn.Parameter(_uniform((k, k, in_ch, out_ch), bound,
-                                            generator))
-        self.bias = (nn.Parameter(_uniform((out_ch,), bound, generator))
+        shape, fan_in = (k, k, in_ch, out_ch), k * k * in_ch
+        self.kernel = nn.Parameter(_init_kernel(shape, fan_in, init,
+                                                generator))
+        self.bias = (nn.Parameter(_init_bias(out_ch, fan_in, init, generator))
                      if use_bias else None)
+
+
+def lecun_normal(shape, fan_in: int,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's default kernel init ``lecun_normal``: variance_scaling(1,
+    fan_in, truncated_normal), a standard normal truncated to [-2, 2] times
+    sqrt(1/fan_in) / 0.8796 (the truncated normal's std), so that the draw's
+    std is sqrt(1/fan_in). :func:`trunc_normal` does not rescale."""
+    return trunc_normal(shape, math.sqrt(1.0 / fan_in) / _TRUNC_STD,
+                        generator)
+
+
+def _init_kernel(shape, fan_in: int, init: str, generator) -> torch.Tensor:
+    if init == "lecun":
+        return lecun_normal(shape, fan_in, generator)
+    if init != "torch":
+        raise ValueError(f"unknown init {init!r}")
+    return _uniform(shape, 1.0 / math.sqrt(fan_in), generator)
+
+
+def _init_bias(n: int, fan_in: int, init: str, generator) -> torch.Tensor:
+    if init == "lecun":
+        return torch.zeros(n)
+    return _uniform((n,), 1.0 / math.sqrt(fan_in), generator)
+
+
+def conv_nhwc(x: torch.Tensor, conv: Conv, stride: int = 1,
+              padding: tuple[int, int, int, int] = (0, 0, 0, 0),
+              groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """``F.conv2d`` of NHWC ``x`` with the HWIO ``conv.kernel`` in x's dtype:
+    x is read as channels-last NCHW and the result is NHWC. ``padding`` is
+    (top, bottom, left, right); symmetric padding goes to the conv, an
+    asymmetric one to ``F.pad`` first."""
+    w = conv.kernel.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    xc = x.permute(0, 3, 1, 2)
+    top, bottom, left, right = padding
+    if top == bottom and left == right:
+        pad = (top, left)
+    else:
+        xc, pad = F.pad(xc, (left, right, top, bottom)), (0, 0)
+    y = F.conv2d(xc, w, b, stride=stride, padding=pad, dilation=dilation,
+                 groups=groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
+    """flax/XLA ``'SAME'`` padding of one axis: ceil(n / s) outputs, the
+    total padding split with the extra element at the end."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, conv: Conv, stride: int = 1,
+              groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """:func:`conv_nhwc` with flax's default ``'SAME'`` padding (a dilated
+    kernel spans dilation*(k-1)+1)."""
+    k = dilation * (conv.kernel.shape[0] - 1) + 1
+    pad = (same_padding(x.shape[1], k, stride)
+           + same_padding(x.shape[2], k, stride))
+    return conv_nhwc(x, conv, stride, pad, groups, dilation)
 
 
 class BatchNorm(nn.Module):
@@ -276,29 +342,32 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` [in, out] and ``bias`` [out] (none when
     ``use_bias`` is False). Init: torch's default U(+-1/sqrt(in)) for both,
-    or with ``std`` the truncated normal of :func:`trunc_normal` for the
-    kernel and a zero bias (the SwinUNet's ``_DENSE_INIT``)."""
+    with ``std`` the truncated normal of :func:`trunc_normal` for the
+    kernel and a zero bias (the SwinUNet's ``_DENSE_INIT``), or with
+    ``init="lecun"`` flax's default (:func:`lecun_normal`, zero bias)."""
 
     def __init__(self, in_dim: int, out_dim: int,
                  generator: torch.Generator | None = None,
-                 use_bias: bool = True, std: float | None = None):
+                 use_bias: bool = True, std: float | None = None,
+                 init: str = "torch"):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_dim)
         if std is None:
-            kernel = _uniform((in_dim, out_dim), bound, generator)
+            kernel = _init_kernel((in_dim, out_dim), in_dim, init, generator)
         else:
-            kernel = trunc_normal((in_dim, out_dim), std, generator)
+            kernel, init = trunc_normal((in_dim, out_dim), std, generator), \
+                "lecun"  # zero bias
         self.kernel = nn.Parameter(kernel)
-        self.bias = None
-        if use_bias:
-            self.bias = nn.Parameter(
-                _uniform((out_dim,), bound, generator) if std is None
-                else torch.zeros(out_dim))
+        self.bias = (nn.Parameter(_init_bias(out_dim, in_dim, init, generator))
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., in] -> [..., out] in x's dtype (torch.matmul)."""
         y = torch.matmul(x, self.kernel.to(x.dtype))
         return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+#: the std of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
 
 
 def trunc_normal(shape, std: float,
@@ -313,6 +382,21 @@ def trunc_normal(shape, std: float,
     u = torch.rand(shape, generator=generator, dtype=torch.float64)
     z = torch.erfinv(lo + (hi - lo) * u) * math.sqrt(2.0)
     return (z.clamp(-2.0, 2.0) * std).float()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, bias: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v over the last two axes, as the flax
+    modules compute it (einsums with ``preferred_element_type=float32``):
+    the logits, ``bias`` and the softmax in fp32, the probabilities cast to
+    q's dtype, P.V summed in fp32 and cast to q's dtype. Plain matmuls,
+    never ``F.scaled_dot_product_attention``."""
+    attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        attn = attn + bias
+    attn = torch.softmax(attn, dim=-1).to(q.dtype)
+    return torch.matmul(attn.float(), v.float()).to(q.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -38,7 +38,10 @@ from hpfg_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
     ProjectionNeck,
+    attention,
+    conv_nhwc,
     dropout,
+    same_padding,
 )
 
 MIT_SETTINGS = {
@@ -79,33 +82,6 @@ def resize_half_pixel(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def conv_nhwc(x: torch.Tensor, conv: Conv, stride: int = 1,
-              padding: tuple[int, int, int, int] = (0, 0, 0, 0),
-              groups: int = 1) -> torch.Tensor:
-    """``F.conv2d`` of NHWC ``x`` with the HWIO ``conv.kernel`` in x's dtype:
-    x is read as channels-last NCHW and the result is NHWC. ``padding`` is
-    (top, bottom, left, right); symmetric padding goes to the conv, an
-    asymmetric one to ``F.pad`` first."""
-    w = conv.kernel.to(x.dtype).permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
-    xc = x.permute(0, 3, 1, 2)
-    top, bottom, left, right = padding
-    if top == bottom and left == right:
-        pad = (top, left)
-    else:
-        xc, pad = F.pad(xc, (left, right, top, bottom)), (0, 0)
-    y = F.conv2d(xc, w, b, stride=stride, padding=pad, groups=groups)
-    return y.permute(0, 2, 3, 1).contiguous()
-
-
-def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
-    """flax/XLA ``'SAME'`` padding of one axis: ceil(n / s) outputs, the
-    total padding split with the extra element at the end."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
 class EfficientAttention(nn.Module):
     """Spatial-reduction attention (flax ``EfficientAttention``): q from
     every token, k and v from the tokens after a kernel = stride =
@@ -140,13 +116,8 @@ class EfficientAttention(nn.Module):
         kv = self.kv(kv_in).reshape(b, n_kv, 2, heads, hd).permute(
             2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
-        # logits and softmax in fp32, P cast to the compute dtype, P.V summed
-        # in fp32 (flax: einsum with preferred_element_type=float32)
-        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-            * (hd ** -0.5)
-        attn = torch.softmax(attn, dim=-1).to(self.dtype)
-        out = torch.matmul(attn.float(), v.float()).to(self.dtype)
-        out = out.transpose(1, 2).reshape(b, h, w, self.dim)
+        out = attention(q, k, v, hd ** -0.5).transpose(1, 2)
+        out = out.reshape(b, h, w, self.dim)
         return self.proj(out)
 
 

@@ -7,12 +7,21 @@ flax ``params/encoder/in_conv/conv1/kernel`` becomes the state-dict key
 buffer ``....bn1.mean``. No transposition is needed. Inputs are nested dicts
 of numpy-convertible arrays (``jax.device_get`` of a flax variable tree), so
 this module needs no jax. Flax ``Dense`` kernels are ``[in, out]``, and the
-port's ``Dense`` keeps that layout too. The same holds for every ported
-model: the UNets, the SwinUNets and the SegFormers (whose head's BatchNorm
-statistics are ``batch_stats/decoder/bn/{mean,var}``), SS-Net (its heads'
-``Dense_0`` / ``BatchNorm_0`` / ``Dense_1``) and Swin-MAE. ``module_variables``
-goes the other way, for tests that start a JAX state from the port's
-weights.
+port's ``Dense`` keeps that layout too. The same holds for every model of
+the registry: the UNets and UNet_Large, the SwinUNets and the SegFormers
+(whose head's BatchNorm statistics are ``batch_stats/decoder/bn/{mean,
+var}``), SS-Net (its heads' ``Dense_0`` / ``BatchNorm_0`` / ``Dense_1``),
+Swin-MAE, TransUNet (``vit.cls_token`` [1, 1, dim] and ``vit.embedding``
+[tokens + 1, dim], sized by the image), CMT (``encoder.relative_pos_{s}``
+[heads, N, N / sr^2], one parameter of the encoder per stage, not of its
+blocks), UniFormer_Plus, ResUNet / ResUNet++ (the squeeze-excitation's
+``Dense_0`` / ``Dense_1``) and UCTransNet (``mtc.pos_embed{i}``). A
+depthwise kernel is ``[k, k, 1, C]`` on both sides (flax's
+``feature_group_count=C`` layout), and every family's BatchNorm
+statistics are ``batch_stats/.../{mean,var}``: no special case is needed,
+and ``load_jax_weights`` refuses any name or shape that differs.
+``module_variables`` goes the other way, for tests that start a JAX state
+from the port's weights.
 """
 
 from __future__ import annotations

@@ -386,3 +386,132 @@ def test_port_cli_trains_lidc_and_isic_and_builds_the_2d_configs(tmp_path):
     assert built["ccnet_segformer_80k_100%_512x512_Building"][1] == \
         ["SegFormerPlus"]
     assert built["unet_30k_224x224_Synapse"][1] == ["UNet"]
+
+
+#: every registry name the JAX package's ``build_model`` accepts
+REGISTRY = ("unet", "unet_plus", "unet_lidc", "unet_large", "swinunet",
+            "swinunet_plus", "swinunet_lidc", "segformer", "segformer_plus",
+            "transunet", "transunet_lidc", "cmt", "cmt_plus",
+            "uniformer_plus", "resunet", "resunet_plusplus",
+            "resunetplusplus", "uctransnet", "ssnet", "swinmae")
+
+
+def test_every_jax_registry_name_builds_in_the_port():
+    """The port's registry holds the names the JAX ``build_model`` builds,
+    and each builds on the CPU into the class of the same name (at 224^2,
+    the LIDC variants at 96^2, one input channel, 4 classes); the *_plus
+    models return the 3-tuple in both packages' lists; an unknown name
+    raises in both."""
+    from hpfg_tpu.config import Config
+    from hpfg_tpu.models import build_model as jax_build_model
+    from hpfg_tpu.models import returns_features as jax_features
+    from hpfg_tpu_torch.models import MODELS, build_model, returns_features
+
+    assert sorted(MODELS) == sorted(REGISTRY)
+    for name in REGISTRY:
+        size = 96 if name.endswith("_lidc") else 224
+        cfg = dict(model=name, in_channels=1, num_classes=4,
+                   train_crop_size=[size, size])
+        want = type(jax_build_model(Config(**cfg))).__name__
+        assert type(build_model(cfg)).__name__ == want, name
+        assert returns_features(name) == jax_features(name), name
+    for build, cfg in ((jax_build_model, Config(model="unet3d")),
+                       (build_model, {"model": "unet3d"})):
+        with pytest.raises(NotImplementedError, match="unet3d"):
+            build(cfg)
+
+
+_ZOO_CONFIGS = r"""
+import json, sys
+import numpy as np
+import torch
+from hpfg_tpu_torch.config import parse_config
+from hpfg_tpu_torch.train.algorithms import build_algorithm
+
+small = ["--set", "device=cpu", "--set", "precision=fp32",
+         "--set", "batch_size=2", "--set", "unlabel_batch_size=4",
+         "--set", "train_crop_size=[32,32]", "--set", "test_crop_size=[32,32]"]
+rng = np.random.default_rng(0)
+built = {}
+for cfg in sys.argv[1:]:
+    c = parse_config("t", "", ["--config", f"configs/{cfg}.yaml", *small])
+    algo = build_algorithm(c["algorithm"], c, dtype=torch.float32,
+                           device="cpu")
+    ch = int(c["in_channels"])
+
+    def images(n):
+        return rng.normal(size=(n, 32, 32, ch)).astype(np.float32)
+
+    def labels(n):
+        return rng.integers(0, int(c["num_classes"]),
+                            (n, 32, 32)).astype(np.int32)
+
+    if c["algorithm"] == "hpfg":
+        batch = {"label_img": images(2), "label": labels(2),
+                 "label_img1": images(2), "label1": labels(2),
+                 "unlabel_img": images(4)}
+    else:
+        batch = {"image": images(2), "label": labels(2)}
+    loss = float(algo.step(batch)["loss"])
+    models = [getattr(algo, k) for k in ("model", "model1", "model2", "ema")
+              if hasattr(algo, k)]
+    built[cfg] = [type(algo).__name__, [type(m).__name__ for m in models],
+                  loss]
+print(json.dumps({
+    "built": built,
+    "jax_side": sorted(k for k in sys.modules
+                       if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                              "hpfg_tpu"))}))
+"""
+
+
+def test_port_cli_parses_and_steps_the_zoo_configs_without_jax():
+    """The CLI's parser reads configs/ccnet_cmt_30k_224x224_ACDC.yaml,
+    ccnet_uniformer_30k_224x224_ACDC.yaml (HPFG, the flat ccnet schema) and
+    transunet_30k_96x96_LIDC.yaml (Supervised) with a 32x32 crop, builds
+    their full-width algorithms on the CPU and takes one step of each on
+    random batches, in a fresh process; no jax, flax or hpfg_tpu module
+    loads. (No checkpoint is written: one of TransUNet's, with adamW's
+    state, is about 800 MB.)"""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    configs = ("ccnet_cmt_30k_224x224_ACDC",
+               "ccnet_uniformer_30k_224x224_ACDC",
+               "transunet_30k_96x96_LIDC")
+    proc = subprocess.run([sys.executable, "-c", _ZOO_CONFIGS, *configs],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["jax_side"] == []
+    built = out["built"]
+    assert built["ccnet_cmt_30k_224x224_ACDC"][:2] == ["HPFG",
+                                                       ["CMTPlus"] * 3]
+    assert built["ccnet_uniformer_30k_224x224_ACDC"][:2] == [
+        "HPFG", ["UniformerPlus"] * 3]
+    assert built["transunet_30k_96x96_LIDC"][:2] == ["Supervised",
+                                                     ["TransUNet"]]
+    for name, (_, _, loss) in built.items():
+        assert loss == loss and loss > 0, name
+
+
+def test_profile_kinds_sums_a_step_profile(tmp_path):
+    """``scripts/profile_kinds.py`` sums the rows of a ``profile_<path>
+    .txt`` (as ``chip_smoke.profile_step`` writes them) by kind."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    try:
+        import profile_kinds
+    finally:
+        sys.path.pop(0)
+    path = tmp_path / "profile_x.txt"
+    path.write_text(
+        "profile of one x step: ...\n"
+        "     3.000 ms  50.0% x10   void at::native::vectorized_elementwise"
+        "_kernel<4, at::native::BinaryFunctor<float>>\n"
+        "     2.000 ms  33.3% x4    sm90_xmma_fprop_implicit_gemm_bf16bf16\n"
+        "     1.000 ms  16.7% x2    nvjet_tst_64x32_64x16_1x4_h_bz_NTT\n",
+        encoding="utf-8")
+    line = profile_kinds.summarize(str(path))
+    assert line.startswith(f"{path}: 6.00 ms; ")
+    assert "elementwise and copies 3.00 ms x10 (50.0%)" in line
+    assert "cuDNN 2.00 ms x4 (33.3%)" in line
+    assert "cuBLAS 1.00 ms x2 (16.7%)" in line
