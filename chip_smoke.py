@@ -51,7 +51,8 @@ nor the JAX package. Phases, each of which fails the run on error:
      the Synapse UNet's F = 9 head (224^2, batch 24), and K13 and K14 at
      the four stages of the LIDC SwinUNet (96^2, patch 2, window 3: L = 9,
      shifted by 1; batch 24);
-  3. the Mean-Teacher main path through ``Trainer.fit`` with the values of
+  3. the Mean-Teacher main path through ``Trainer.fit`` (batches through
+     its prefetcher, pinned copies on a side stream) with the values of
      configs/mean_teacher_unet_30k_224x224_ACDC.yaml (full-width UNet,
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
      in the ACDC layout, 2 warm-up and 5 timed steps, with ``F.conv2d`` /
@@ -158,6 +159,44 @@ nor the JAX package. Phases, each of which fails the run on error:
   9. configs/ccnet_transunet_30k_224x224_ACDC.yaml must raise HPFG's
      ValueError at construction (its students are not *_plus models), as
      in the JAX package.
+  10. ``h5``: the committed h5 fixtures (``hpfg_tpu_torch/data/
+     h5_fixtures``, written by h5py: a gzip slice, a gzip + shuffle volume
+     with edge chunks, a contiguous file) read by the port's HDF5 reader,
+     each dataset's sha256 as ``fixtures.json`` lists it; the reader's
+     decode rate on the gzip volume and on a contiguous ACDC volume; a
+     synthetic ACDC tree (160 slices, 2 + 2 volumes of 6 x 256 x 216)
+     written by the port's writer and read back;
+  11. ``cli acdc``: ``python -m hpfg_tpu_torch.run`` in a process where
+     h5py cannot import, from that tree, with
+     configs/mean_teacher_unet_30k_224x224_ACDC.yaml and
+     configs/hpfg_unet_plus_30k_224x224_ACDC.yaml unmodified but for
+     data_path, save_path, total_itrs = 4 and step_size = 2 (so prefetch
+     2, async eval, bf16, 224^2): every eval model's dice at 2 and 4,
+     ``done: 4 iters``, ``last``, ``last_a`` / ``last_b`` and ``best_*``,
+     a TensorBoard event file (or the no-op writer's line); then
+     ``--validate-data`` exits 0 on the tree and 1 on a copy in which one
+     slice lost its label;
+  12. ``prefetch``: the Mean-Teacher UNet 6 steps with prefetch 0 and 2
+     from one state (the UpBlocks' deterministic upsample backward on
+     both): losses bitwise equal, every prefetched batch on the card,
+     ms/step of each; the step's ``count_flops`` and MFU; ``count_flops``
+     of a UNet forward + backward on the card (the kernels' reported
+     FLOPs) against the same on a CPU copy; then the Mean-Teacher,
+     ``building_sup`` and ``synapse_sup`` paths in turns with prefetch 0,
+     2, 2, 0 over 20-step fits (ms/step, the steady state, the fit's own
+     start and end);
+  13. ``async eval``: HPFG from the tree, 4 iterations, eval every 2: one
+     run evaluates each boundary inline and then overlapped, beside the
+     next steps (one trajectory; the step has backward atomics), histories
+     equal and the ``best_*`` / ``last_a`` / ``last_b`` checkpoints bitwise
+     equal; then, on a tree whose test split has ACDC's size (40 volumes of
+     10 slices), one run with ``async_eval`` on and one off, one boundary
+     each: how long it blocks the loop, how long the eval takes, and the
+     step times before, beside and after it;
+  14. ``multi eval``: HPFG's three models through one
+     ``evaluate_volumes_multi`` call and each through ``evaluate_volumes``
+     (its one-model call) on that ACDC-size split: exactly equal, both
+     times.
 
 Checkpoint writes are left out of the timed and traced main-path steps (the
 trainer's ``save`` is a no-op there); phase 5 times one.
@@ -179,8 +218,10 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -1795,6 +1836,575 @@ def check_cli(rep: Report, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 10-14: the HDF5 trees, the ACDC CLI, the prefetcher, the overlapped
+# eval and the multi-model volume eval
+# ---------------------------------------------------------------------------
+
+#: the synthetic ACDC tree of phases 10-13: 160 slices (label_num 0.05 of
+#: the configs: 8 labelled, enough for batch 8, and 152 unlabelled for 24),
+#: 2 test and 2 val volumes of 6 slices, at ACDC's 256 x 216
+ACDC_SLICES, ACDC_VOLUMES, ACDC_DEPTH, ACDC_HW = 160, 2, 6, (256, 216)
+#: the test split of the tree that phases 13 and 14 time the eval on, at
+#: the size of ACDC's as the configs read it (SSL4MIS preparation: 20 test
+#: patients, end-diastolic and end-systolic frames, so 40 volumes; 10
+#: slices a volume, the 1,312 training slices of 140 volumes rounded)
+ACDC_EVAL_VOLUMES, ACDC_EVAL_DEPTH = 40, 10
+#: the eval models each ACDC CLI run must log at both boundaries
+CLI_ACDC = {MT_CONFIG: ("model1", "model2"),
+            HPFG_CONFIG: ("model1", "model2", "ema")}
+#: a CLI run in which h5py cannot import
+NO_H5PY = ("import runpy, sys; sys.modules['h5py'] = None; "
+           "runpy.run_module('hpfg_tpu_torch.run', run_name='__main__', "
+           "alter_sys=True)")
+PREFETCH_STEPS = 6
+ASYNC_ITERS, ASYNC_EVERY = 4, 2
+#: the timing runs of phase 13: one boundary after ASYNC_BEFORE steps, then
+#: steps until the eval is over and ASYNC_AFTER more (at most ASYNC_CAP in
+#: all)
+ASYNC_BEFORE, ASYNC_AFTER, ASYNC_CAP = 10, 10, 4000
+
+
+def check_h5(rep: Report, card: str, root: str) -> dict:
+    """The committed h5 fixtures through the port's reader (each dataset's
+    shape, dtype and sha256 as listed), the decode rate on the gzip +
+    shuffle volume and on a contiguous ACDC volume, and the synthetic ACDC
+    tree of phases 11-14 written by the port's writer into ``root`` and
+    read back."""
+    import numpy as np
+
+    from hpfg_tpu_torch.data import h5
+    from hpfg_tpu_torch.data.synthetic import make_synthetic_acdc
+
+    rows = h5.check_fixtures()
+    for r in rows:
+        print(f"h5 fixture {r['file']}/{r['dataset']} {r['dtype']}"
+              f"{r['shape']}: sha256 {r['sha256'][:16]}... "
+              f"{'as listed' if r['ok'] else 'DIFFERS'}", flush=True)
+    if len(rows) != 6 or not all(r["ok"] for r in rows):
+        rep.fail(f"h5 fixtures: {rows}")
+
+    def rate(path, reps):
+        f = h5.File(path)
+        nbytes = f["image"][()].nbytes + f["label"][()].nbytes
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f = h5.File(path)
+            f["image"][()], f["label"][()]
+        return nbytes, nbytes * reps / (time.perf_counter() - t0) / 1e6
+
+    t0 = time.perf_counter()
+    make_synthetic_acdc(root, n_train_slices=ACDC_SLICES,
+                        n_test_volumes=ACDC_VOLUMES, depth=ACDC_DEPTH,
+                        hw=ACDC_HW)
+    write_s = time.perf_counter() - t0
+    files = [os.path.join(d, n) for d, _, names in os.walk(root)
+             for n in names if n.endswith(".h5")]
+    t0 = time.perf_counter()
+    bad = []
+    for path in files:
+        f = h5.File(path)
+        image, label = f["image"][()], f["label"][()]
+        ndim = 2 if os.sep + "slices" + os.sep in path else 3
+        if (image.dtype != np.float32 or label.dtype != np.uint8
+                or image.shape != label.shape or image.ndim != ndim
+                or tuple(image.shape[-2:]) != ACDC_HW
+                or not np.isfinite(image).all() or label.max() > 3):
+            bad.append(path)
+    read_s = time.perf_counter() - t0
+    probe = np.random.default_rng(0).normal(size=(3, 5, 7)).astype(np.float32)
+    mask = (probe > 0).astype(np.uint8)
+    h5.write(os.path.join(root, "probe.h5"), {"image": probe, "label": mask})
+    back = h5.File(os.path.join(root, "probe.h5"))
+    round_trip = (np.array_equal(back["image"][()], probe)
+                  and np.array_equal(back["label"][()], mask))
+    os.remove(os.path.join(root, "probe.h5"))
+    if bad or not round_trip or len(files) != ACDC_SLICES + 2 * ACDC_VOLUMES:
+        rep.fail(f"h5: {len(files)} files, unreadable or wrong: {bad[:3]}, "
+                 f"round trip {round_trip}")
+    gz_bytes, gz_rate = rate(h5.FIXTURES / "gzip_shuffle_volume.h5", 50)
+    with open(os.path.join(root, "test.list")) as f:
+        vol = os.path.join(root, "data", f.readline().strip() + ".h5")
+    vol_bytes, vol_rate = rate(vol, 20)
+    print(f"h5: ACDC tree of {len(files)} files ({ACDC_SLICES} slices, "
+          f"{2 * ACDC_VOLUMES} volumes of {ACDC_DEPTH} x {ACDC_HW}) written "
+          f"in {write_s:.1f} s, read back in {read_s:.1f} s; round trip "
+          f"{'bitwise' if round_trip else 'DIFFERS'}; decode "
+          f"{gz_rate:.1f} MB/s on the gzip + shuffle volume ({gz_bytes} "
+          f"bytes decoded), {vol_rate:.1f} MB/s on a contiguous volume "
+          f"({vol_bytes} bytes) ({card})", flush=True)
+    return dict(fixtures=rows, files=len(files), write_s=write_s,
+                read_s=read_s, gzip_mb_per_s=gz_rate, gzip_bytes=gz_bytes,
+                contiguous_mb_per_s=vol_rate, contiguous_bytes=vol_bytes)
+
+
+def write_eval_tree(card: str, root: str) -> str:
+    """The synthetic ACDC tree with an ACDC-size test split
+    (ACDC_EVAL_VOLUMES volumes of ACDC_EVAL_DEPTH slices), through the
+    port's writer; returns ``root``."""
+    from hpfg_tpu_torch.data.synthetic import make_synthetic_acdc
+
+    t0 = time.perf_counter()
+    make_synthetic_acdc(root, n_train_slices=ACDC_SLICES,
+                        n_test_volumes=ACDC_EVAL_VOLUMES,
+                        depth=ACDC_EVAL_DEPTH, hw=ACDC_HW)
+    print(f"acdc eval tree: {ACDC_SLICES} slices, {ACDC_EVAL_VOLUMES} test "
+          f"and {ACDC_EVAL_VOLUMES} val volumes of {ACDC_EVAL_DEPTH} x "
+          f"{ACDC_HW} written in {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    return root
+
+
+def _cli(args: list, timeout: int = 600):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", NO_H5PY, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def check_cli_acdc(rep: Report, card: str, root: str, tmp: str) -> dict:
+    """The ACDC Mean-Teacher and HPFG configs, unmodified but for
+    data_path, save_path, total_itrs = 4 and step_size = 2, through
+    ``python -m hpfg_tpu_torch.run`` on the card from the h5 tree, in a
+    process where h5py cannot import: every eval model's dice at 2 and 4,
+    ``done: 4 iters``, ``last.pt``, ``last_a`` / ``last_b``, ``best_*`` of
+    each model whose dice rose above 0, and a TensorBoard event file or the
+    writer's no-op line; then ``--validate-data``: exit 0 on the tree, 1 on
+    a copy in which one slice lost its label."""
+    import shutil
+
+    from hpfg_tpu_torch.data import h5
+
+    out = {}
+    for config, models in CLI_ACDC.items():
+        save = os.path.join(tmp, "run_" + os.path.basename(config)[:-5])
+        proc, run_s = _cli(["--config", config, "--set",
+                            f"data_path={root}", "--set",
+                            f"save_path={save}", "--set", "total_itrs=4",
+                            "--set", "step_size=2"])
+        log = proc.stdout + proc.stderr
+        ckpts = sorted(f[:-3] for f in os.listdir(os.path.join(save, "model"))
+                       ) if os.path.isdir(os.path.join(save, "model")) else []
+        tb_dir = os.path.join(save, "tensorboardX")
+        events = [f for f in (os.listdir(tb_dir) if os.path.isdir(tb_dir)
+                              else []) if f.startswith("events.out")]
+        backend = re.search(r"TensorBoard: (\S+)", log)
+        noop = "the writer is a no-op" in log
+        dice = {m: [float(x) for x in re.findall(
+            rf"iter \d+ {m} dice ([0-9.]+)", log)] for m in models}
+        want = [f"iter {i} {m} dice" for i in (2, 4) for m in models]
+        want.append("done: 4 iters")
+        missing = [k for k in want if k not in log]
+        need = {"last", "last_a", "last_b"} | {
+            f"best_{m}" for m in models if max(dice[m], default=0) > 0}
+        lacking = sorted(need - set(ckpts))
+        if (proc.returncode != 0 or missing or lacking
+                or not any(c.startswith("best_") for c in ckpts)
+                or not (events or noop)):
+            rep.fail(f"cli acdc {config}: exit {proc.returncode}, missing "
+                     f"{missing}, checkpoints {ckpts} lack {lacking}, TB "
+                     f"events {events}, no-op line {noop}; log tail: "
+                     f"{log[-1500:]}")
+        print(f"cli acdc: {config} (4 iters, eval every 2, prefetch 2, "
+              f"async eval, h5py blocked) exit {proc.returncode} in "
+              f"{run_s:.1f} s ({card}); checkpoints {ckpts}; TensorBoard "
+              f"{backend.group(1) if backend else 'no-op' if noop else '?'}"
+              f" ({len(events)} event file(s))", flush=True)
+        for line in log.splitlines():
+            if " dice " in line or "done:" in line or "Error" in line:
+                print(f"  cli acdc: {line[-150:]}", flush=True)
+        out[config] = dict(exit=proc.returncode, run_s=run_s,
+                           checkpoints=ckpts, dice=dice,
+                           tensorboard=backend.group(1) if backend else None,
+                           event_files=len(events))
+        shutil.rmtree(save, ignore_errors=True)
+    broken = os.path.join(tmp, "acdc_broken")
+    shutil.copytree(root, broken)
+    with open(os.path.join(broken, "train_slices.list")) as f:
+        first = os.path.join(broken, "data", "slices",
+                             f.readline().strip() + ".h5")
+    h5.write(first, {"image": h5.File(first)["image"][()]})
+    codes = {}
+    for name, tree in (("synthetic", root), ("broken", broken)):
+        proc, _ = _cli(["--config", MT_CONFIG, "--set", f"data_path={tree}",
+                        "--validate-data"], timeout=300)
+        codes[name] = proc.returncode
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("[validate-data]")]
+        print(f"cli acdc: --validate-data on the {name} tree: exit "
+              f"{proc.returncode}; " + " | ".join(lines)[-300:], flush=True)
+    shutil.rmtree(broken, ignore_errors=True)
+    if codes != {"synthetic": 0, "broken": 1}:
+        rep.fail(f"cli acdc --validate-data exit codes {codes}, expected "
+                 "0 on the tree and 1 on the broken copy")
+    out["validate_data"] = codes
+    return out
+
+
+def deterministic_resize(model, on: bool = True) -> None:
+    """Give every UpBlock of ``model`` the upsample whose backward is two
+    matmuls (as SS-Net's), or torch's again: torch's bilinear backward
+    scatters with atomic adds, so two runs from one state would drift apart
+    in the last bits whatever else they share."""
+    from hpfg_tpu_torch.models.layers import UpBlock
+
+    for m in model.modules():
+        if isinstance(m, UpBlock):
+            m.deterministic_resize = on
+
+
+def check_prefetch(rep: Report, dev, card: str) -> dict:
+    """The Mean-Teacher UNet (full width, 224^2, bf16) for PREFETCH_STEPS
+    steps with prefetch 0 and with prefetch 2, each from the same initial
+    state and batches: the losses bitwise equal, every prefetched batch on
+    the card; ms/step of the last four steps of each; then the step's FLOPs
+    (``count_flops``) and its MFU at the prefetched step time, and
+    ``count_flops`` of a batch-2 UNet forward and backward on the card
+    against the same on a CPU copy (the kernels' reported FLOPs against
+    FlopCounterMode's count of the plain versions)."""
+    import torch
+
+    from hpfg_tpu_torch.utils.profiling import chip_peak_flops, count_flops
+    from hpfg_tpu_torch.utils.profiling import mfu as model_flops_util
+
+    out, losses = {}, {}
+    for depth in (0, 2):
+        cfg, algo, trainer, loaders, images = build_run(
+            MT_CONFIG, f"prefetch{depth}", dev, prefetch=depth)
+        trainer.save = lambda tag: None
+        deterministic_resize(algo.model)
+        deterministic_resize(algo.ema)
+        seen = []
+        step = algo.step
+
+        def recording_step(batch, step=step, seen=seen):
+            seen.append(sorted({v.device.type if torch.is_tensor(v)
+                                else "host" for v in batch.values()}))
+            return step(batch)
+
+        algo.step = recording_step
+        trainer.total_itrs = 2
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        trainer.total_itrs = PREFETCH_STEPS
+        t0 = time.perf_counter()
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (PREFETCH_STEPS - 2)
+        losses[depth] = [m["loss"] for _, m in trainer.metrics_log]
+        devices = sorted({d for s in seen for d in s})
+        out[depth] = dict(ms_per_step=ms, batch_devices=devices)
+        print(f"prefetch {depth}: Mean-Teacher {crop(cfg)}^2 {images} images"
+              f" a step: {ms:.2f} ms/step over steps 3-{PREFETCH_STEPS}; "
+              f"batches arrive as {devices} ({card})", flush=True)
+        if depth == 2 and devices != ["cuda"]:
+            rep.fail(f"prefetch 2: batches arrived as {devices}")
+        if depth == 2:
+            algo.step = step
+            batch = next(algo.batches(loaders))
+            flops = count_flops(algo.step, batch)
+            util = model_flops_util(flops, ms / 1e3, dev)
+            out["step_flops"], out["mfu"] = flops, util
+            print(f"prefetch 2: count_flops of one Mean-Teacher step "
+                  f"{flops / 1e12:.3f} TFLOP; MFU at {ms:.2f} ms/step "
+                  f"{'n/a' if util is None else f'{100 * util:.2f}%'} of "
+                  f"{chip_peak_flops(dev)} FLOP/s bf16 ({card})", flush=True)
+            model = algo.model
+        del algo, trainer
+        torch.cuda.empty_cache()
+    same = losses[0] == losses[2] and len(losses[0]) == PREFETCH_STEPS
+    print(f"prefetch: losses with prefetch 0 and 2 "
+          f"{'bitwise equal' if same else 'DIFFER'}: {losses[0]} / "
+          f"{losses[2]}", flush=True)
+    if not same:
+        rep.fail(f"prefetch: losses differ: {losses[0]} vs {losses[2]}")
+    out["losses_bitwise_equal"] = same
+
+    cfg = load_config(MT_CONFIG)
+    deterministic_resize(model, False)
+    twin = fp32_twin(model, cfg)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, HW, HW, 1, generator=gen)
+
+    def fwd_bwd(m, inp):
+        m.zero_grad()
+        m(inp, train=True).float().square().mean().backward()
+
+    card_flops = count_flops(fwd_bwd, model, x.to(dev))
+    cpu_flops = count_flops(fwd_bwd, twin, x)
+    rel = abs(card_flops - cpu_flops) / cpu_flops
+    print(f"count_flops of a batch-2 UNet forward + backward at {HW}^2: "
+          f"{card_flops:.4e} on the card (the kernels' reports), "
+          f"{cpu_flops:.4e} on the CPU (the plain versions), rel diff "
+          f"{rel:.2e}", flush=True)
+    if rel > 0.01:
+        rep.fail(f"count_flops: card {card_flops} vs CPU {cpu_flops}")
+    out["flops_card_vs_cpu"] = [card_flops, cpu_flops]
+    del model, twin
+    torch.cuda.empty_cache()
+    out["breakdown"] = {label: prefetch_breakdown(dev, card, label, config)
+                        for label, config in PREFETCH_TURNS}
+    return out
+
+
+PREFETCH_TIMED = 20
+#: the paths timed in turns with and without the prefetcher: the main path
+#: and the two whose batches are largest
+PREFETCH_TURNS = (("mean_teacher", MT_CONFIG),
+                  ("building_sup", BUILDING_CONFIG),
+                  ("synapse_sup", SYNAPSE_CONFIG))
+
+
+def prefetch_breakdown(dev, card: str, label: str, config: str) -> list:
+    """The config's path (in-memory batches, its default upsample) in turns
+    with prefetch 0, 2, 2, 0, PREFETCH_TIMED steps a fit: ms/step, and of
+    it the host time inside ``algorithm.step`` (the enqueue) and between
+    steps; the median time from one step's start to the next (the steady
+    state); and the fit's own start (``fit()`` to the first step: with
+    prefetch, the worker's start and the first batch's pinned upload) and
+    end (the last step's return to ``fit()``'s: the device draining the
+    queued steps, closing the prefetcher)."""
+    import numpy as np
+    import torch
+
+    cfg, algo, trainer, _, _ = build_run(config, f"prefetch_turns_{label}",
+                                         dev)
+    trainer.save = lambda tag: None
+    marks, step = [], algo.step
+
+    def timed_step(batch):
+        t0 = time.perf_counter()
+        out = step(batch)
+        marks.append((t0, time.perf_counter()))
+        return out
+
+    algo.step = timed_step
+    trainer.total_itrs = 2
+    trainer.fit(eval_enabled=False)
+    rows = []
+    for depth in (0, 2, 2, 0):
+        trainer.prefetch = depth
+        marks.clear()
+        trainer.total_itrs += PREFETCH_TIMED
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(eval_enabled=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wall = (t1 - t0) * 1e3 / PREFETCH_TIMED
+        enq = sum(b - a for a, b in marks) * 1e3 / PREFETCH_TIMED
+        steady = float(np.median(np.diff([a for a, _ in marks]))) * 1e3
+        rows.append(dict(prefetch=depth, ms_per_step=wall,
+                         step_host_ms=enq, between_ms=wall - enq,
+                         steady_ms=steady,
+                         fit_start_ms=(marks[0][0] - t0) * 1e3,
+                         fit_end_ms=(t1 - marks[-1][1]) * 1e3))
+    print(f"prefetch turns ({label}, {crop(cfg)}^2, {PREFETCH_TIMED} steps "
+          "a fit; ms/step = inside step() + between steps; steady = median "
+          "step start to step start; the fit's start and end): " + "; ".join(
+              f"prefetch {r['prefetch']}: {r['ms_per_step']:.2f} = "
+              f"{r['step_host_ms']:.2f} + {r['between_ms']:.2f}, steady "
+              f"{r['steady_ms']:.2f}, start {r['fit_start_ms']:.2f}, end "
+              f"{r['fit_end_ms']:.2f}" for r in rows) + f" ({card})",
+          flush=True)
+    del algo, trainer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _hpfg_trainer(dev, root: str, workdir: str, **sets):
+    """HPFG from the h5 tree through the port's loaders, for ASYNC_ITERS
+    iterations with an eval every ASYNC_EVERY (``sets`` override config
+    keys, these too)."""
+    import torch
+
+    from hpfg_tpu_torch.data.builder import build_loader
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+    from hpfg_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(HPFG_CONFIG)
+    cfg.update({"data_path": root, "save_path": workdir,
+                "total_itrs": ASYNC_ITERS, "step_size": ASYNC_EVERY, **sets})
+    dtype = torch.bfloat16 if cfg.get("precision") == "bf16" else torch.float32
+    algo = build_algorithm(cfg["algorithm"], cfg, dtype=dtype, device=dev)
+    return Trainer(cfg, algo, loaders=build_loader(cfg), workdir=workdir)
+
+
+def check_async_eval(rep: Report, dev, card: str, root: str, eval_root: str,
+                     tmp: str):
+    """HPFG (full width, 224^2, bf16) through the port's loaders.
+
+    Equality, on the small tree: 4 iterations with an eval every 2, one run
+    with ``async_eval`` on whose every boundary is first evaluated and
+    saved inline, as ``async_eval`` off does it, by a second Trainer over
+    the same algorithm, and then dispatched to the worker, so that the
+    overlapped eval runs beside the next steps, which change the live
+    weights (one trajectory: the HPFG step has backward atomics, so two
+    runs would differ in the last bits whatever the eval does): the
+    histories equal and the ``best_*`` and ``last_a`` / ``last_b``
+    checkpoints bitwise equal.
+
+    Timing, on ``eval_root`` (an ACDC-size test split): one run with
+    ``async_eval`` on and one with it off, one boundary after ASYNC_BEFORE
+    steps, then steps until the eval is over and ASYNC_AFTER more: how long
+    the boundary blocks the loop, how long the eval takes, and the times of
+    the steps before it, beside it and after it (each step synchronized).
+    Returns (summary, the equality run's algorithm)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from hpfg_tpu_torch.train.trainer import Trainer
+    from hpfg_tpu_torch.utils.checkpoint import state_mismatches
+
+    a_dir, b_dir = os.path.join(tmp, "async"), os.path.join(tmp, "inline")
+    trainer = _hpfg_trainer(dev, root, a_dir)
+    inline = Trainer(dict(trainer.cfg, async_eval=False), trainer.algorithm,
+                     loaders=trainer.loaders, workdir=b_dir)
+    dispatch = trainer._dispatch_eval
+
+    def both(cur):
+        inline._dispatch_eval(cur)
+        dispatch(cur)
+
+    trainer._dispatch_eval = both
+    trainer.fit()
+    torch.cuda.synchronize()
+    tags = sorted(f[:-3] for f in os.listdir(inline.ckpt.directory))
+    bad = {t: state_mismatches(trainer.ckpt.restore(t),
+                               inline.ckpt.restore(t))[:3] for t in tags}
+    bad = {t: v for t, v in bad.items() if v}
+    same = trainer.history == inline.history and not bad and \
+        {"last_a", "last_b"} <= set(tags)
+    print(f"async eval: history {trainer.history} (inline "
+          f"{'equal' if trainer.history == inline.history else 'DIFFERS'}); "
+          f"checkpoints {tags} {'bitwise equal' if not bad else bad}",
+          flush=True)
+    if not same:
+        rep.fail(f"async eval: history {trainer.history} vs inline "
+                 f"{inline.history}; checkpoints {tags}, differing {bad}")
+    algo = trainer.algorithm
+    shutil.rmtree(a_dir, ignore_errors=True)
+    shutil.rmtree(b_dir, ignore_errors=True)
+
+    def median(xs):
+        return float(np.median(xs)) if xs else None
+
+    timing = {}
+    for mode in (True, False):
+        wd = os.path.join(tmp, f"timing_{mode}")
+        t = _hpfg_trainer(dev, eval_root, wd, async_eval=mode,
+                          total_itrs=ASYNC_CAP, step_size=ASYNC_BEFORE)
+        blocks, evals, steps = [], [], {"before": [], "beside": [],
+                                        "after": []}
+        dispatch_t, task, step = (t._dispatch_eval, t._eval_task,
+                                  t.algorithm.step)
+
+        def timed_dispatch(cur, fn=dispatch_t, blocks=blocks, t=t):
+            t0 = time.perf_counter()
+            fn(cur)
+            blocks.append((time.perf_counter() - t0) * 1e3)
+            t.step_size = 10 ** 9  # one boundary
+
+        def timed_task(*args, fn=task, evals=evals):
+            t0 = time.perf_counter()
+            fn(*args)
+            evals.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_step(batch, fn=step, steps=steps, blocks=blocks, t=t,
+                       evals=evals):
+            phase = ("before" if not blocks else "after" if evals
+                     else "beside")
+            t0 = time.perf_counter()
+            out = fn(batch)
+            torch.cuda.current_stream().synchronize()
+            steps[phase].append((time.perf_counter() - t0) * 1e3)
+            if len(steps["after"]) >= ASYNC_AFTER:
+                t.total_itrs = t.algorithm.step_count
+            return out
+
+        t._dispatch_eval, t._eval_task = timed_dispatch, timed_task
+        t.algorithm.step = timed_step
+        t.fit()
+        torch.cuda.synchronize()
+        row = dict(boundary_ms=blocks[0], eval_ms=evals[0],
+                   volumes=ACDC_EVAL_VOLUMES, depth=ACDC_EVAL_DEPTH,
+                   steps={k: len(v) for k, v in steps.items()},
+                   median_step_ms={k: median(v) for k, v in steps.items()})
+        timing["on" if mode else "off"] = row
+        med = row["median_step_ms"]
+        print(f"async eval {'on' if mode else 'off'} ({ACDC_EVAL_VOLUMES} "
+              f"test volumes of {ACDC_EVAL_DEPTH} x {ACDC_HW}, "
+              f"{sorted(t.algorithm.eval_models())}): the boundary blocks "
+              f"the loop {blocks[0]:.1f} ms, the eval takes {evals[0]:.1f} "
+              f"ms; steps before / beside / after the eval: "
+              + " / ".join(f"{row['steps'][k]} at median "
+                           + (f"{med[k]:.2f}" if med[k] is not None else "-")
+                           for k in ("before", "beside", "after"))
+              + f" ms (each synchronized) ({card})", flush=True)
+        del t
+        shutil.rmtree(wd, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return dict(bitwise_equal=same, history=trainer.history,
+                checkpoints=tags, timing=timing), algo
+
+
+def check_multi_eval(rep: Report, dev, card: str, algo, root: str) -> dict:
+    """HPFG's three eval models through one ``evaluate_volumes_multi`` call
+    and each through ``evaluate_volumes`` (its one-model call) on the test
+    volumes of ``root`` (the ACDC-size split): the results exactly equal
+    (sharing the upload and the ground truth's EDT changes no model's
+    result); both times, in turns (multi, per-model)."""
+    import numpy as np
+    import torch
+
+    from hpfg_tpu_torch.data.acdc import ACDCDataset
+    from hpfg_tpu_torch.data.loader import VolumeLoader
+    from hpfg_tpu_torch.evals.volume import (
+        evaluate_volumes,
+        evaluate_volumes_multi,
+    )
+
+    vols = VolumeLoader(ACDCDataset(root, "test"))
+    models = algo.eval_models()
+    list(vols)  # cache the volumes: both sides time the eval alone
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def run_multi():
+        return evaluate_volumes_multi(models, vols, 4, (HW, HW), dev)
+
+    def run_per():
+        return {n: evaluate_volumes(m, vols, 4, (HW, HW), dev)
+                for n, m in models.items()}
+
+    multi, multi_ms = timed(run_multi)
+    per, per_ms = timed(run_per)
+    same = all(multi[n][:2] == per[n][:2]
+               and np.array_equal(multi[n][2], per[n][2]) for n in models)
+    print(f"multi eval: {sorted(models)} over {len(vols)} volumes of "
+          f"{ACDC_EVAL_DEPTH} x {ACDC_HW}: evaluate_volumes_multi "
+          f"{multi_ms:.1f} ms, per-model evaluate_volumes {per_ms:.1f} ms "
+          f"({card}); results "
+          f"{'exactly equal' if same else 'DIFFER'}: "
+          + ", ".join(f"{n} {multi[n][0]:.4f}/{multi[n][1]:.4f}"
+                      for n in models), flush=True)
+    if not same:
+        pairs = [(n, multi[n][:2], per[n][:2]) for n in models]
+        rep.fail(f"multi eval differs: {pairs}")
+    return dict(multi_ms=multi_ms, per_model_ms=per_ms, equal=same,
+                volumes=len(vols), depth=ACDC_EVAL_DEPTH,
+                results={n: multi[n][:2] for n in models})
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the models no config names; phase 9: the config both packages
 # refuse
 # ---------------------------------------------------------------------------
@@ -2058,6 +2668,26 @@ def main() -> int:
         for label, config in (("ctct", CTCT_CONFIG), ("ssnet", SSNET_CONFIG))}
     pretrain = phase("pretrain", lambda: check_pretrain(rep, dev, card))
     cli = phase("cli", lambda: check_cli(rep, card))
+    tmp = tempfile.mkdtemp(prefix="hpfg_acdc_")
+    acdc = os.path.join(tmp, "acdc")
+    try:
+        h5_out = phase("h5", lambda: check_h5(rep, card, acdc))
+        cli_acdc = phase("cli acdc", lambda: check_cli_acdc(rep, card, acdc,
+                                                            tmp))
+        prefetch = phase("prefetch", lambda: check_prefetch(rep, dev, card))
+        torch.cuda.empty_cache()
+        acdc_eval = phase("acdc eval tree", lambda: write_eval_tree(
+            card, os.path.join(tmp, "acdc_eval")))
+        out = (phase("async eval", lambda: check_async_eval(
+            rep, dev, card, acdc, acdc_eval, tmp))
+            if acdc_eval is not None else None)
+        async_eval, hpfg = out if out is not None else (None, None)
+        multi = (phase("multi eval", lambda: check_multi_eval(
+            rep, dev, card, hpfg, acdc_eval)) if hpfg is not None else None)
+        del out, hpfg
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
     zoo = {}
     for name in ZOO_MODELS:
         zoo[name] = phase(f"zoo {name}", lambda: check_zoo(rep, dev, card,
@@ -2068,6 +2698,9 @@ def main() -> int:
 
     if set(paths) != set(ALL_PATHS):
         rep.fail(f"main paths that ran: {sorted(paths)}")
+    if None in (h5_out, cli_acdc, prefetch, async_eval, multi):
+        rep.fail("a phase of 10-14 (h5, cli acdc, prefetch, async eval, "
+                 "multi eval) did not complete")
     if None in zoo.values() or refused is None:
         rep.fail("a zoo model did not train, or ccnet_transunet was not "
                  "refused")
@@ -2080,7 +2713,10 @@ def main() -> int:
               encoding="utf-8") as f:
         json.dump({"card": card, "paths": summaries, "resume": resume,
                    "pretrain": pretrain, "cli": cli, "zoo": zoo,
-                   "refused": refused, "kernels": kernels}, f, indent=1)
+                   "refused": refused, "h5": h5_out, "cli_acdc": cli_acdc,
+                   "prefetch": prefetch, "async_eval": async_eval,
+                   "multi_eval": multi, "kernels": kernels}, f, indent=1,
+                  default=str)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:
         print(f"chip_smoke: {len(rep.failures)} failure(s):", file=sys.stderr)

@@ -7,8 +7,8 @@ Layout on disk:
     <root>/data/slices/<name>.h5   keys: image [H, W] float, label [H, W]
     <root>/data/<name>.h5          keys: image [D, H, W], label [D, H, W]
 
-``h5py`` is imported where a file is read, so the package imports on a
-machine without it.
+The files are read with the port's own HDF5 reader (``data/h5.py``), so
+the loaders need no h5py.
 """
 
 from __future__ import annotations
@@ -17,12 +17,27 @@ import os
 
 import numpy as np
 
+from hpfg_tpu_torch.data import h5
 from hpfg_tpu_torch.data.loader import BatchLoader, VolumeLoader, random_split
 from hpfg_tpu_torch.data.transforms import RandomGenerator
 
 
+PALETTE = np.array([[0, 0, 0], [0, 0, 255], [0, 255, 0], [255, 0, 0]],
+                   dtype=np.uint8)
+
+
+def label_to_img(label, palette: np.ndarray = PALETTE) -> np.ndarray:
+    """Palette-render an integer label map ([H, W] -> [H, W, 3] uint8;
+    the ignore value 255 as background)."""
+    label = np.asarray(label).astype(np.int64)
+    label[label == 255] = 0
+    return palette[label].astype(np.uint8)
+
+
 class ACDCDataset:
     """h5-backed slice (train) or volume (val/test) source."""
+
+    PALETTE = PALETTE
 
     def __init__(self, root: str, split: str = "train", cache: bool = True):
         self.root = root
@@ -48,14 +63,15 @@ class ACDCDataset:
     def load(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
         if self.cache and idx in self._cached:
             return self._cached[idx]
-        import h5py
-
-        with h5py.File(self.sample_list[idx], "r") as h5f:
-            image = np.asarray(h5f["image"][:], dtype=np.float32)
-            mask = np.asarray(h5f["label"][:], dtype=np.uint8)
+        h5f = h5.File(self.sample_list[idx])
+        image = np.asarray(h5f["image"][:], dtype=np.float32)
+        mask = np.asarray(h5f["label"][:], dtype=np.uint8)
         if self.cache:
             self._cached[idx] = (image, mask)
         return image, mask
+
+    def label_to_img(self, label) -> np.ndarray:
+        return label_to_img(label, self.PALETTE)
 
 
 def get_acdc_loader(root: str, batch_size: int = 4,

@@ -13,7 +13,7 @@ checked, one for each name ``data.builder.build_loader`` accepts (a
   building  {train,val,test}.txt + train/image/<n> + train/mask/<stem>.png;
             test images under test/image/<n>
 
-``h5py`` is imported only where an h5 file is checked.
+The h5 files are read with the port's own HDF5 reader (``data/h5.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import zipfile
 
 import numpy as np
 
+from hpfg_tpu_torch.data import h5
 
 class DataPreflightError(RuntimeError):
     """Raised with EVERY problem found, one actionable line each."""
@@ -49,25 +50,27 @@ def _sample_idx(n: int, k: int = 3) -> list[int]:
 
 def _check_h5(path: str, issues: list[str], *, ndim: int, num_classes: int,
               what: str) -> None:
-    import h5py
-
     if not os.path.isfile(path):
         issues.append(f"{what}: listed file {path} does not exist — list "
                       "and data/ tree out of sync")
         return
     try:
-        with h5py.File(path, "r") as h5f:
-            for key in ("image", "label"):
-                if key not in h5f:
-                    issues.append(
-                        f"{what}: {path} has no dataset {key!r} (keys: "
-                        f"{sorted(h5f.keys())}) — the loaders read "
-                        "h5f['image']/h5f['label']")
-                    return
-            img = np.asarray(h5f["image"])
-            lbl = np.asarray(h5f["label"])
+        h5f = h5.File(path)
+        for key in ("image", "label"):
+            if key not in h5f:
+                issues.append(
+                    f"{what}: {path} has no dataset {key!r} (keys: "
+                    f"{sorted(h5f.keys())}) — the loaders read "
+                    "h5f['image']/h5f['label']")
+                return
+        img = np.asarray(h5f["image"])
+        lbl = np.asarray(h5f["label"])
     except OSError as e:
         issues.append(f"{what}: {path} is not a readable HDF5 file ({e})")
+        return
+    except NotImplementedError as e:
+        issues.append(f"{what}: {path} uses an HDF5 feature the reader "
+                      f"does not read ({e})")
         return
     if img.ndim != ndim:
         issues.append(f"{what}: {path} image is {img.ndim}-D "

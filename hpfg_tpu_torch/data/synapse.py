@@ -6,9 +6,8 @@ Layout on disk:
     <root>/train_npz/<name>.npz             keys image [H, W], label [H, W]
     <root>/test_vol_h5/<name>.npy.h5        keys image [D, H, W], label
 
-Nine classes. Training slices take the ACDC ``RandomGenerator``. ``h5py``
-is imported where a volume is read, so the package imports on a machine
-without it.
+Nine classes. Training slices take the ACDC ``RandomGenerator``. The
+volumes are read with the port's own HDF5 reader (``data/h5.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import os
 
 import numpy as np
 
+from hpfg_tpu_torch.data import h5
 from hpfg_tpu_torch.data.loader import BatchLoader, VolumeLoader, random_split
 from hpfg_tpu_torch.data.transforms import RandomGenerator
 
@@ -57,11 +57,9 @@ class SynapseDataset:
             out = (np.asarray(data["image"], np.float32),
                    np.asarray(data["label"], np.uint8))
         else:
-            import h5py
-
-            with h5py.File(path, "r") as f:
-                out = (np.asarray(f["image"][:], np.float32),
-                       np.asarray(f["label"][:], np.uint8))
+            f = h5.File(path)
+            out = (np.asarray(f["image"][:], np.float32),
+                   np.asarray(f["label"][:], np.uint8))
         if self.cache:
             self._cached[idx] = out
         return out

@@ -1,12 +1,12 @@
-"""Synthetic data trees in the layouts the loaders read (port of the part of
-``hpfg_tpu/data/synthetic.py`` that writes the PNG, JPEG and npz datasets:
-LIDC, ISIC, Synapse and Building).
+"""Synthetic data trees in the layouts the loaders read (port of
+``hpfg_tpu/data/synthetic.py``: ACDC, LIDC, ISIC, Synapse and Building).
 
 The images are learnable phantoms: concentric ellipse rings with noise, one
-ring a class. For the same arguments the files are byte-equal to the JAX
-package's. Pillow is imported where an image is written, ``h5py`` where a
-Synapse test volume is; without ``h5py`` the Synapse tree has no test
-volumes (``test_vol.txt`` is empty).
+ring a class. For the same arguments the arrays, file names and list files
+equal the JAX package's; the PNG, JPEG and npz files are byte-equal, and the
+h5 files (ACDC, Synapse's test volumes) are written by the port's own HDF5
+writer (``data/h5.py``), so no h5py is needed. Pillow is imported where an
+image is written.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 
+from hpfg_tpu_torch.data import h5
 
 def _phantom_slice(rng: np.random.Generator, h: int, w: int,
                    num_classes: int = 4) -> tuple[np.ndarray, np.ndarray]:
@@ -40,6 +41,41 @@ def _phantom_slice(rng: np.random.Generator, h: int, w: int,
     image += rng.normal(0, 0.05, (h, w)).astype(np.float32)
     image = np.clip(image, 0.0, 1.0)
     return image, mask
+
+
+def make_synthetic_acdc(root: str, n_train_slices: int = 48,
+                        n_test_volumes: int = 3, depth: int = 6,
+                        hw: tuple[int, int] = (256, 216),
+                        num_classes: int = 4, seed: int = 0) -> str:
+    """ACDC layout: data/slices/<name>.h5 training slices, data/<name>.h5
+    volumes (the first ``n_test_volumes`` in test.list, as many again in
+    val.list), each with ``image`` (float32) and ``label`` (uint8)."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    os.makedirs(os.path.join(root, "data", "slices"), exist_ok=True)
+    train_names = []
+    for i in range(n_train_slices):
+        name = f"patient{i:03d}_frame01_slice_{i % 10}"
+        train_names.append(name)
+        image, mask = _phantom_slice(rng, h, w, num_classes)
+        h5.write(os.path.join(root, "data", "slices", f"{name}.h5"),
+                 {"image": image, "label": mask})
+    test_names, val_names = [], []
+    for i in range(n_test_volumes * 2):
+        name = f"patient{100 + i:03d}_volume"
+        (test_names if i < n_test_volumes else val_names).append(name)
+        vol_img = np.zeros((depth, h, w), dtype=np.float32)
+        vol_msk = np.zeros((depth, h, w), dtype=np.uint8)
+        for d in range(depth):
+            vol_img[d], vol_msk[d] = _phantom_slice(rng, h, w, num_classes)
+        h5.write(os.path.join(root, "data", f"{name}.h5"),
+                 {"image": vol_img, "label": vol_msk})
+    for list_name, names in [("train_slices.list", train_names),
+                             ("test.list", test_names),
+                             ("val.list", val_names)]:
+        with open(os.path.join(root, list_name), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root
 
 
 def make_synthetic_png_pairs(root: str, n: int = 24, hw: tuple[int, int] = (96, 96),
@@ -122,12 +158,7 @@ def make_synthetic_synapse(root: str, n_train: int = 16, n_vols: int = 2,
                            depth: int = 4, hw: tuple[int, int] = (64, 64),
                            num_classes: int = 9, seed: int = 0) -> str:
     """Synapse layout: train slices as train_npz/<name>.npz (image/label),
-    test volumes as test_vol_h5/<name>.npy.h5 where ``h5py`` exists."""
-    try:
-        import h5py
-    except ImportError:
-        h5py = None
-
+    test volumes as test_vol_h5/<name>.npy.h5."""
     rng = np.random.default_rng(seed)
     h, w = hw
     os.makedirs(os.path.join(root, "train_npz"), exist_ok=True)
@@ -140,17 +171,15 @@ def make_synthetic_synapse(root: str, n_train: int = 16, n_vols: int = 2,
         np.savez(os.path.join(root, "train_npz", f"{name}.npz"),
                  image=image, label=mask)
     vol_names = []
-    for i in range(n_vols if h5py is not None else 0):
+    for i in range(n_vols):
         name = f"case{100 + i:04d}"
         vol_names.append(name)
         img = np.zeros((depth, h, w), np.float32)
         msk = np.zeros((depth, h, w), np.uint8)
         for d in range(depth):
             img[d], msk[d] = _phantom_slice(rng, h, w, min(num_classes, 4))
-        with h5py.File(os.path.join(root, "test_vol_h5", f"{name}.npy.h5"),
-                       "w") as f:
-            f.create_dataset("image", data=img)
-            f.create_dataset("label", data=msk)
+        h5.write(os.path.join(root, "test_vol_h5", f"{name}.npy.h5"),
+                 {"image": img, "label": msk})
     with open(os.path.join(root, "train.txt"), "w") as f:
         f.write("\n".join(train_names) + "\n")
     with open(os.path.join(root, "test_vol.txt"), "w") as f:

@@ -56,10 +56,31 @@ def _surface_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ndimage.distance_transform_edt(~_border(b))[_border(a)]
 
 
-def binary_hd95(pred, gt) -> float:
-    """95th-percentile symmetric Hausdorff distance (medpy hd95)."""
-    d1 = _surface_distances(pred, gt)
-    d2 = _surface_distances(gt, pred)
+def gt_surface_cache(gt) -> dict:
+    """The ground truth's side of :func:`binary_hd95`, computed once: its
+    border and the distance transform to it. Several models scored against
+    the same ground truth share it (``evaluate_volumes_multi``)."""
+    g = _as_binary(gt)
+    border = _border(g)
+    return {"any": bool(g.any()), "border": border,
+            "dt": ndimage.distance_transform_edt(~border)}
+
+
+def binary_hd95(pred, gt, gt_cache: dict | None = None) -> float:
+    """95th-percentile symmetric Hausdorff distance (medpy hd95).
+    ``gt_cache``: :func:`gt_surface_cache` of this ``gt``, which skips
+    recomputing its border and distance transform; the result is the
+    same."""
+    if gt_cache is None:
+        d1 = _surface_distances(pred, gt)
+        d2 = _surface_distances(gt, pred)
+    else:
+        p = _as_binary(pred)
+        if not p.any() or not gt_cache["any"]:
+            raise ValueError("surface distance undefined for empty masks")
+        p_border = _border(p)
+        d1 = gt_cache["dt"][p_border]
+        d2 = ndimage.distance_transform_edt(~p_border)[gt_cache["border"]]
     return float(max(np.percentile(d1, 95), np.percentile(d2, 95)))
 
 

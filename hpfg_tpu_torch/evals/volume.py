@@ -1,14 +1,18 @@
 """Volume and image evaluation (port of ``hpfg_tpu/evals/volume.py``:
-``predict_volume``, ``evaluate_volumes`` and ``evaluate_images``).
+``predict_volume``, ``evaluate_volumes``, ``evaluate_volumes_multi`` and
+``evaluate_images``).
 
 Slices of a volume are zoomed to the patch size once (scipy order-0 index
 map, as the reference), forwarded in eval mode in chunks through the same
 kernels as training (running BN statistics, no statistics epilogue),
 argmaxed on the device and zoomed back to native resolution. The forward
 is the model's ``val`` (eval-mode logits, for UNet and UNet_Plus alike).
-Dice and HD95 come from ``evals.metrics.calculate_metric_percase`` (numpy
-and scipy). ``evaluate_images`` scores the binary 2-D datasets (LIDC, ISIC,
-Building) batch by batch through the same forward.
+``evaluate_volumes_multi`` scores several models over the same volumes with
+the per-volume work shared (dice on the device, HD95 through
+``evals.metrics.binary_hd95`` with the ground truth's EDT computed once);
+``evaluate_volumes`` is its one-model call. ``evaluate_images`` scores the
+binary 2-D datasets (LIDC, ISIC, Building) batch by batch through the same
+forward.
 """
 
 from __future__ import annotations
@@ -17,8 +21,10 @@ import numpy as np
 import torch
 
 from hpfg_tpu_torch.evals.metrics import (
+    binary_hd95,
     calculate_metric_percase,
     calculate_metric_percase_full,
+    gt_surface_cache,
 )
 
 DEFAULT_CHUNK = 16
@@ -78,20 +84,96 @@ def evaluate_volumes(model: torch.nn.Module, volumes, num_classes: int,
                      patch_size, device: torch.device, zoom_order: int = 0):
     """Evaluate (image [D,H,W], label [D,H,W]) volumes. Returns
     (mean_dice, mean_hd95, per_class [C-1, 2]) with the reference's
-    volume-then-class averaging."""
-    metric_sum = np.zeros((num_classes - 1, 2), dtype=np.float64)
+    volume-then-class averaging: ``evaluate_volumes_multi`` of one model."""
+    return evaluate_volumes_multi({"model": model}, volumes, num_classes,
+                                  patch_size, device, zoom_order)["model"][:3]
+
+
+@torch.no_grad()
+def evaluate_volumes_multi(models: dict, volumes, num_classes: int,
+                           patch_size, device: torch.device,
+                           zoom_order: int = 0, want_first: bool = False,
+                           chunk: int = DEFAULT_CHUNK) -> dict:
+    """Evaluate several models ({name: module}) over the same volumes with
+    the per-volume work shared:
+
+      * each volume's slices and labels upload once, for every model;
+      * each volume's dice is computed and summed on the device (float64,
+        the arithmetic of ``calculate_metric_percase``), one readback per
+        model at the end;
+      * HD95's ground-truth border and distance transform are computed once
+        per (volume, class) and shared (``metrics.gt_surface_cache``);
+      * the prediction still comes back once per (model, volume), at patch
+        size, for HD95.
+
+    Returns {name: (mean_dice, mean_hd95, per_class [C-1, 2], first)} with
+    the reference's volume-then-class averaging, each model's exactly what
+    it would get alone (``first``: (image, label, prediction) of the first
+    volume with ``want_first``, else None)."""
+    if num_classes > 256:
+        raise ValueError(f"{num_classes} classes do not fit uint8")
+    names = list(models)
+    dice_sum = {n: torch.zeros(num_classes - 1, dtype=torch.float64,
+                               device=device) for n in names}
+    hd_sum = {n: np.zeros(num_classes - 1, dtype=np.float64) for n in names}
+    firsts = {n: None for n in names}
     count = 0
+    ph, pw = patch_size
     for image, label in volumes:
         image = np.asarray(image, dtype=np.float32)
         label = np.asarray(label)
-        pred = predict_volume(model, image, patch_size, device, zoom_order)
-        for c in range(1, num_classes):
-            metric_sum[c - 1] += calculate_metric_percase(pred == c,
-                                                          label == c)
+        d, h, w = image.shape
+        resized = _resize_volume(image, patch_size, zoom_order)
+        slices = torch.from_numpy(np.ascontiguousarray(
+            resized[..., None], dtype=np.float32)).to(device)
+        label_d = torch.from_numpy(np.ascontiguousarray(label)).to(device)
+        same = (h, w) == (ph, pw)
+        ys, xs = _zoom_index_map(ph, h), _zoom_index_map(pw, w)
+        ys_d, xs_d = (torch.from_numpy(ys).to(device),
+                      torch.from_numpy(xs).to(device))
+        gt = [gt_surface_cache(label == c) for c in range(1, num_classes)]
+        for n in names:
+            patch = torch.cat([models[n].val(slices[i:i + chunk]).argmax(-1)
+                               for i in range(0, d, chunk)])
+            pred_d = patch if same else patch[:, ys_d[:, None], xs_d[None, :]]
+            dice_sum[n] += _volume_dice(pred_d, label_d, num_classes)
+            pred = patch.to(torch.uint8).cpu().numpy()
+            if not same:
+                pred = pred[:, ys[:, None], xs[None, :]]
+            for c in range(1, num_classes):
+                pmask = pred == c
+                if pmask.any() and gt[c - 1]["any"]:
+                    hd_sum[n][c - 1] += binary_hd95(pmask, label == c,
+                                                    gt_cache=gt[c - 1])
+            if want_first and firsts[n] is None:
+                firsts[n] = (image, label, pred)
         count += 1
-    per_class = metric_sum / max(count, 1)
-    return float(per_class[:, 0].mean()), float(per_class[:, 1].mean()), \
-        per_class
+    out = {}
+    for n in names:
+        per_class = np.stack([dice_sum[n].cpu().numpy(), hd_sum[n]],
+                             axis=1) / max(count, 1)
+        out[n] = (float(per_class[:, 0].mean()), float(per_class[:, 1].mean()),
+                  per_class, firsts[n])
+    return out
+
+
+def _volume_dice(pred: torch.Tensor, label: torch.Tensor,
+                 num_classes: int) -> torch.Tensor:
+    """Per-class dice [C-1] float64 of one volume with the rule of
+    ``calculate_metric_percase``: both non-empty -> 2|P and G| / (|P| +
+    |G|); the prediction alone non-empty -> 1; else 0. One confusion
+    count: label values outside the classes (an ignore value) land in an
+    extra column that no class reads."""
+    c = num_classes
+    lab = torch.where(label < c, label.long(), c)
+    conf = torch.bincount((pred * (c + 1) + lab).flatten(),
+                          minlength=c * (c + 1)).view(c, c + 1)
+    inter = conf.diagonal()[1:].double()
+    ps = conf.sum(1)[1:].double()
+    gs = conf[:, 1:c].sum(0).double()
+    both = (ps > 0) & (gs > 0)
+    return torch.where(both, 2.0 * inter / (ps + gs).clamp(min=1),
+                       (ps > 0).double())
 
 
 def evaluate_images(model: torch.nn.Module, loader, device: torch.device,

@@ -12,10 +12,12 @@ here too.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -155,9 +157,54 @@ def library(device=None) -> KernelLibrary:
 
 def launch_counter(fn):
     """Give a kernel wrapper a ``launches`` count, which the wrapper bumps
-    where it launches its kernel."""
+    (``counted``) where it launches its kernel."""
     fn.launches = 0
     return fn
+
+
+_COUNT_LOCK = threading.Lock()
+#: depth of the active ``reporting_flops`` blocks (count_flops)
+_flop_reporting = 0
+
+
+def counted(fn, like: torch.Tensor, flops: int = 0) -> None:
+    """Count one launch of ``fn``'s kernel (under a lock: the overlapped
+    eval launches kernels from its own thread) and, inside
+    ``reporting_flops``, report its ``flops`` operations to the active
+    ``FlopCounterMode``, which cannot see a ctypes launch; ``like`` is a
+    tensor of the launch's device."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+    if flops and _flop_reporting:
+        torch.ops.hpfg_tpu_torch.kernel_flops(like, flops)
+
+
+@contextlib.contextmanager
+def reporting_flops():
+    """Within the block, every kernel launch reports its operations to an
+    active ``torch.utils.flop_counter.FlopCounterMode`` through the op
+    ``hpfg_tpu_torch::kernel_flops``, whose FLOP formula is its argument
+    (registered here on first use)."""
+    global _flop_reporting
+    if not hasattr(torch.ops.hpfg_tpu_torch, "kernel_flops"):
+        from torch.utils.flop_counter import register_flop_formula
+
+        lib = torch.library.Library("hpfg_tpu_torch", "DEF")
+        lib.define("kernel_flops(Tensor like, int flops) -> Tensor")
+        lib.impl("kernel_flops", lambda like, flops: like.new_empty(0),
+                 "CompositeExplicitAutograd")
+        _LIBRARIES.append(lib)
+        register_flop_formula(torch.ops.hpfg_tpu_torch.kernel_flops)(
+            lambda _like, flops, *_, **__: flops)
+    _flop_reporting += 1
+    try:
+        yield
+    finally:
+        _flop_reporting -= 1
+
+
+#: the torch.library registrations, kept alive for the process
+_LIBRARIES: list = []
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -29,7 +29,13 @@ from typing import NamedTuple
 
 import torch
 
-from hpfg_tpu_torch.ops._cuda import launch_counter, library, ptr, stream
+from hpfg_tpu_torch.ops._cuda import (
+    counted,
+    launch_counter,
+    library,
+    ptr,
+    stream,
+)
 
 LRELU_SLOPE = 0.01
 
@@ -215,7 +221,7 @@ def bn_act(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib.call("hpfg_bn_act", *ptrs, w.p, g.shape[-1], w.cols,
              w.rows_per_step, int(g.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, stream(g))
-    bn_act.launches += 1
+    counted(bn_act, g)
     return y
 
 
@@ -245,7 +251,7 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
              int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, w.part_width, stream(dy))
     dpre = _dpre(dy, pre, a, b, mean, inv, sums)
-    bn_act_bwd.launches += 1
+    counted(bn_act_bwd, dy)
     return sums, dpre
 
 
@@ -268,7 +274,7 @@ def bn_act_dpre(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
         return bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums)
     _require_cuda(dy)
     dpre = _dpre(dy, pre, a, b, mean, inv, sums)
-    bn_act_dpre.launches += 1
+    counted(bn_act_dpre, dy)
     return dpre
 
 

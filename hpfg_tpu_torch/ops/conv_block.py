@@ -25,7 +25,8 @@ gradients (kernels A and B, or for a pair ``conv3x3_dgrad_pair``, K9, and
 
 Every kernel wrapper takes its plain PyTorch version (``*_reference``) for
 CPU tensors only; a CUDA tensor launches the kernel or raises. Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches`` and reports its operations
+to an active ``utils.profiling.count_flops`` (``_cuda.counted``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from hpfg_tpu_torch.ops._cuda import (
     colsum,
+    counted,
     launch_counter,
     library,
     ptr,
@@ -320,7 +322,7 @@ def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
     stats = _launch_conv(x, w, y, bias=bias, pro=pro, out_drop=out_drop,
                          want_sums=want_stats)
-    conv3x3_nhwc.launches += 1
+    counted(conv3x3_nhwc, x, 18 * b * h * wd * c * f)
     return y, stats
 
 
@@ -339,7 +341,7 @@ def conv3x3_pair_nhwc(xa, xb, w, bias=None, want_stats=False):
         return conv3x3_pair_reference(xa, xb, w, bias, want_stats)
     y = torch.empty((b, h, wd, f), dtype=xa.dtype, device=xa.device)
     stats = _launch_conv(xa, w, y, x2=xb, bias=bias, want_sums=want_stats)
-    conv3x3_pair_nhwc.launches += 1
+    counted(conv3x3_pair_nhwc, xa, 18 * b * h * wd * w.shape[2] * f)
     return y, stats
 
 
@@ -358,7 +360,7 @@ def conv3x3_dgrad_pair(dp, wf, ca: int):
     dxa = torch.empty((b, h, wd, ca), dtype=dp.dtype, device=dp.device)
     dxb = torch.empty((b, h, wd, c - ca), dtype=dp.dtype, device=dp.device)
     _launch_conv(dp, wf, dxa, y2=dxb)
-    conv3x3_dgrad_pair.launches += 1
+    counted(conv3x3_dgrad_pair, dp, 18 * b * h * wd * c * f)
     return dxa, dxb
 
 
@@ -386,7 +388,7 @@ def conv3x3_dgrad_reduce(dp, wf, pre, a, b, mean, inv, out_drop=None):
     dd = torch.empty((bb, h, wd, c), dtype=dp.dtype, device=dp.device)
     sums = _launch_conv(dp, wf, dd, out_drop=out_drop,
                         reduce=(pre, a, b, mean, inv), want_sums=True)
-    conv3x3_dgrad_reduce.launches += 1
+    counted(conv3x3_dgrad_reduce, dp, 18 * bb * h * wd * c * f)
     return dd, sums
 
 
@@ -418,12 +420,13 @@ def conv3x3_wgrad_nhwc(src, dp, affine=None, drop=None):
     then a fixed-order column sum."""
     _check_act("src", src)
     _check_like("dp", dp, src)
-    c, f = src.shape[3], dp.shape[3]
+    b, h, w, c = src.shape
+    f = dp.shape[3]
     pro = _prologue_args(affine, drop, c, src.device)
     if src.device.type == "cpu":
         return conv3x3_wgrad_reference(src, dp, affine, drop)
     dw = _launch_wgrad(src, dp, pro=pro).view(3, 3, c, f)
-    conv3x3_wgrad_nhwc.launches += 1
+    counted(conv3x3_wgrad_nhwc, src, 18 * b * h * w * c * f)
     return dw
 
 
@@ -434,11 +437,12 @@ def conv3x3_wgrad_pair(xa, xb, dp):
     _check_act("xa", xa)
     _check_like("xb", xb, xa)
     _check_like("dp", dp, xa)
-    ca, cb, f = xa.shape[3], xb.shape[3], dp.shape[3]
+    b, h, w, ca = xa.shape
+    cb, f = xb.shape[3], dp.shape[3]
     if xa.device.type == "cpu":
         return conv3x3_wgrad_pair_reference(xa, xb, dp)
     dw = _launch_wgrad(xa, dp, src2=xb)
-    conv3x3_wgrad_pair.launches += 1
+    counted(conv3x3_wgrad_pair, xa, 18 * b * h * w * (ca + cb) * f)
     return (dw[:9 * ca * f].view(3, 3, ca, f),
             dw[9 * ca * f:].view(3, 3, cb, f))
 

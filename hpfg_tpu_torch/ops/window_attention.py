@@ -40,6 +40,7 @@ import torch
 
 from hpfg_tpu_torch.ops._cuda import (
     colsum,
+    counted,
     launch_counter,
     library,
     ptr,
@@ -225,7 +226,7 @@ def window_attention_fwd(qkv, bias, mask, heads: int,
     lib.call("hpfg_window_attention_fwd", ptr(qkv), ptr(bias), ptr(mask),
              n_mask, ptr(out), *args, walk.windows_per_cta, walk.ctas,
              int(qkv.dtype == torch.bfloat16), stream(qkv))
-    window_attention_fwd.launches += 1
+    counted(window_attention_fwd, qkv, 4 * bn * l * l * c)
     return out
 
 
@@ -255,7 +256,7 @@ def window_attention_bwd(qkv, bias, mask, do, heads: int,
              n_mask, ptr(do), ptr(dqkv), ptr(part), *args,
              walk.windows_per_cta, walk.ctas,
              int(qkv.dtype == torch.bfloat16), stream(qkv))
-    window_attention_bwd.launches += 1
+    counted(window_attention_bwd, qkv, 8 * bn * l * l * c)
     return dqkv, colsum(part).view(heads, l, l)
 
 

@@ -12,6 +12,10 @@ run must ask for ``--set device=cpu``: the runner never falls back to the
 CPU by itself. ``precision: bf16`` computes in bf16 with fp32 parameters and
 BN statistics.
 
+``--validate-data`` checks the data tree alone, as ``scripts/run.py``
+does: it prints one ``[validate-data]`` line per problem and a verdict, and
+exits 0 (no problem) or 1 without building a model.
+
 Resume, as ``scripts/run.py`` does: ``--set ckpt=<tag>`` restores that
 checkpoint of ``<save_path>/model`` (``best_model1``, ``last``, ...) and
 raises if it is missing; ``--set auto_resume=true`` restores the newest of
@@ -30,12 +34,27 @@ DEFAULT_CONFIG = "configs/mean_teacher_unet_30k_224x224_ACDC.yaml"
 
 def run(argv=None, default_config: str = DEFAULT_CONFIG):
     from hpfg_tpu_torch.config import parse_config
-    from hpfg_tpu_torch.data.preflight import preflight_or_raise
+    from hpfg_tpu_torch.data.preflight import (
+        preflight_or_raise,
+        validate_data_tree,
+    )
     from hpfg_tpu_torch.train.algorithms import build_algorithm
     from hpfg_tpu_torch.train.trainer import Trainer
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    validate_only = "--validate-data" in argv
+    if validate_only:
+        argv.remove("--validate-data")
     cfg = parse_config("hpfg_tpu_torch trainer", default_config, argv)
+    if validate_only:
+        issues = validate_data_tree(str(cfg.get("data_path", "")),
+                                    str(cfg.get("datasets", "")),
+                                    int(cfg.get("num_classes", 4)))
+        for line in issues:
+            print(f"[validate-data] {line}")
+        print(f"[validate-data] {'FAIL' if issues else 'OK'}: "
+              f"{cfg.get('data_path')!r} ({cfg.get('datasets')})")
+        raise SystemExit(1 if issues else 0)
     preflight_or_raise(cfg)
 
     device = torch.device(str(cfg.get("device", "cuda")))

@@ -15,12 +15,16 @@ _MODULES = ("supervised", "mean_teacher", "cps", "ctct", "hpfg", "s4cvnet",
 
 
 def register(names):
-    """Class decorator: register an algorithm under one or more names."""
+    """Class decorator: register an algorithm under one or more names; a
+    name registered twice raises KeyError, as ``hpfg_tpu/registry.py``."""
     names = [names] if isinstance(names, str) else list(names)
 
     def deco(cls):
         for name in names:
-            ALGORITHMS[name.lower()] = cls
+            key = name.lower()
+            if key in ALGORITHMS:
+                raise KeyError(f"algorithm {key!r} registered twice")
+            ALGORITHMS[key] = cls
         return cls
 
     return deco
@@ -31,7 +35,6 @@ def build_algorithm(name: str, cfg, **kwargs):
         importlib.import_module(f"hpfg_tpu_torch.train.algorithms.{mod}")
     key = str(name).lower()
     if key not in ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported to hpfg_tpu_torch yet "
-            f"(ported: {sorted(ALGORITHMS)}; see ROADMAP.md, Queue 1)")
+        raise KeyError(f"unknown algorithm {name!r}; known: "
+                       f"{', '.join(sorted(ALGORITHMS))}")
     return ALGORITHMS[key](cfg, **kwargs)

@@ -27,9 +27,10 @@ def tree_copy(module: torch.nn.Module) -> torch.nn.Module:
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """Host numpy batch -> tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()}
+    """Host numpy batch -> tensors on ``device``; a tensor already there
+    (a prefetched batch, ``data/prefetch.py``) is returned unchanged."""
+    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
+            .to(device, non_blocking=True) for k, v in batch.items()}
 
 
 class Algorithm:

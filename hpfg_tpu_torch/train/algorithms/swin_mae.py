@@ -74,7 +74,7 @@ class SwinMAEPretrain(Algorithm):
         """The first image, its masked input and the reconstruction (the
         masked places from the prediction), each [H, W, 3] uint8, from an
         eval-mode forward."""
-        img = torch.as_tensor(np.asarray(batch["image"][:1])).to(self.device)
+        img = to_device({"image": batch["image"][:1]}, self.device)["image"]
         pred, mask = self.model(img, train=False)
         img, pred, mask = (t.float().cpu().numpy() for t in (img, pred, mask))
         masked = img * (1.0 - mask)

@@ -1,12 +1,30 @@
 """The training loop (port of ``hpfg_tpu/train/trainer.py``).
 
-``Trainer.fit`` runs ``algorithm.step`` until ``total_itrs``, logs the
-step metrics every ``log_every`` iterations (one device read per flush)
-and evaluates every ``step_size`` iterations on the last loader, ending
-with a ``done: N iters`` line. ACDC and Synapse evaluate 3-D volumes
-(Synapse resizes its slices with a cubic zoom); LIDC, ISIC and Building
-evaluate 2-D image batches (``evaluate_images``). Loaders come from
-the port's ``data.build_loader`` unless the caller passes its own.
+``Trainer.fit`` runs ``algorithm.step`` until ``total_itrs``, writes the
+step metrics to TensorBoard every ``log_every`` iterations (one device read
+per flush) with an info line every ``10 * log_every`` and at the last
+iteration, and evaluates every ``step_size`` iterations on the last loader,
+ending with a ``done: N iters`` line. ACDC and Synapse evaluate 3-D volumes
+(Synapse resizes its slices with a cubic zoom), the models that share an
+architecture together (``evaluate_volumes_multi``); LIDC, ISIC and
+Building evaluate 2-D image batches (``evaluate_images``). Loaders come
+from the port's ``data.build_loader`` unless the caller passes its own.
+
+Batches reach the card through ``data.prefetch.DevicePrefetcher`` (config
+``prefetch``, the depth, default 2; 0 uploads each batch in the step). It
+takes no more batches than the fit has steps left, so consecutive fits see
+the batches and epochs they would see without it.
+
+Evaluation overlaps training (config ``async_eval``, default on): at each
+boundary the previous eval is joined, the whole state (``state_dict()``:
+models, optimizers, generators, step count) is cloned on the device, on the
+training stream, with copies of the eval models, and a worker thread
+evaluates that snapshot on a CUDA stream of its own, then saves the
+crash-recovery checkpoint from it. What is evaluated and saved is the state
+of the boundary iteration, bit for bit, as with ``async_eval`` off, where
+the loop evaluates and saves inline. An eval error re-raises in ``fit``;
+one during shutdown after a training error is logged and the training
+error propagates.
 
 A set ``pretrain_ckpt`` (a Swin-MAE run's ``<save_path>/model``; tag
 ``pretrain_tag``, default ``last``) transfers that encoder into every
@@ -19,54 +37,64 @@ trainer writes them: ``last`` at the end of ``fit``, the crash-recovery
 rotation ``last_a`` / ``last_b`` at each eval boundary, and
 ``best_<model>`` on each new best dice of that model. Each holds the
 algorithm's whole state and ``best_dice``; ``resume`` restores it exactly.
-Not ported yet (ROADMAP.md): the overlapped eval worker, TensorBoard (and
-the writer of Swin-MAE's image panels), the device cache, on-device
-augmentation and the prefetcher.
+TensorBoard events go to ``<workdir>/tensorboardX``: ``<algorithm>/<metric>``
+scalars, ``<algorithm>/<model>_dice`` / ``_hd95`` at each eval, the first
+volume's image, prediction and label panels, and Swin-MAE's image panels.
 """
 
 from __future__ import annotations
 
-import logging
+import contextlib
+import copy
 import os
 import time
 
+import numpy as np
 import torch
 
-from hpfg_tpu_torch.evals.volume import evaluate_images, evaluate_volumes
+from hpfg_tpu_torch.evals.volume import evaluate_images, evaluate_volumes_multi
 from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS, CheckpointManager
+from hpfg_tpu_torch.utils.logging import get_logger, mk_path
+from hpfg_tpu_torch.utils.tb import TBWriter
 
 VOLUME_DATASETS = {"acdc", "sup_acdc", "synapse", "sup_synapse"}
 
 
-def get_logger(filename: str | None = None) -> logging.Logger:
-    """Console (and optionally file) logger, idempotent per process."""
-    logger = logging.getLogger("hpfg_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    fmt = logging.Formatter(
-        "[%(asctime)s][%(filename)s][line:%(lineno)d][%(levelname)s] "
-        "%(message)s")
-    if not logger.handlers:
-        sh = logging.StreamHandler()
-        sh.setFormatter(fmt)
-        logger.addHandler(sh)
-    if filename and not any(getattr(h, "baseFilename", None)
-                            == os.path.abspath(filename)
-                            for h in logger.handlers):
-        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
-        fh = logging.FileHandler(filename, encoding="utf-8")
-        fh.setFormatter(fmt)
-        logger.addHandler(fh)
-    return logger
+def _clone_state(x):
+    """A copy of a (nested) state dict whose tensors are cloned on their
+    device, on the current stream."""
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        out = copy.copy(x)  # keeps an OrderedDict's _metadata
+        for k, v in x.items():
+            out[k] = _clone_state(v)
+        return out
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone_state(v) for v in x)
+    return copy.deepcopy(x)
+
+
+def _architecture(model: torch.nn.Module) -> tuple:
+    """Models with equal keys are evaluated together: class and parameter
+    and buffer shapes."""
+    return (type(model).__qualname__,
+            tuple((k, tuple(v.shape)) for k, v in model.state_dict().items()))
 
 
 class Trainer:
     def __init__(self, cfg, algorithm, loaders=None,
-                 workdir: str | None = None, log_every: int = 20):
+                 workdir: str | None = None, enable_tb: bool = True,
+                 log_every: int = 20):
         self.cfg = cfg
         self.algorithm = algorithm
         self.workdir = workdir or cfg.get("save_path", "checkpoint/run")
+        mk_path(self.workdir)
         self.logger = get_logger(os.path.join(self.workdir, "log.log"))
+        self.writer = TBWriter(os.path.join(self.workdir, "tensorboardX")
+                               if enable_tb else None, self.logger)
+        if self.writer.enabled:
+            self.logger.info("TensorBoard: %s", self.writer.backend)
         self.log_every = log_every
         self.ckpt = CheckpointManager(os.path.join(self.workdir, "model"))
         #: the best mean dice of each evaluated model so far
@@ -82,6 +110,13 @@ class Trainer:
         self.num_classes = int(cfg.get("num_classes", 4))
         self.test_crop = tuple(cfg.get("test_crop_size",
                                        cfg.get("train_crop_size")))
+        #: batches uploaded ahead of the step (0: in the step)
+        self.prefetch = int(cfg.get("prefetch", 2))
+        #: evaluate a snapshot on a worker thread, overlapping training
+        self.async_eval = bool(cfg.get("async_eval", True))
+        self._eval_pool = None
+        self._eval_future = None
+        self._eval_stream = None
         #: [(iter, {metric: float})] for every logged iteration
         self.metrics_log: list[tuple[int, dict]] = []
         #: [{"iter": n, "results": {model: (dice, hd95)}}]
@@ -123,33 +158,72 @@ class Trainer:
     def fit(self, eval_enabled: bool = True):
         algo = self.algorithm
         batches = algo.batches(self.loaders)
+        prefetcher = None
+        if self.prefetch > 0:
+            from hpfg_tpu_torch.data.prefetch import DevicePrefetcher
+
+            prefetcher = DevicePrefetcher(
+                batches, algo.device, depth=self.prefetch,
+                limit=self.total_itrs - algo.step_count)
+            batches = prefetcher
         self.logger.info("start training %s for %d iterations", algo.name,
                          self.total_itrs)
         t_start = time.time()
         start = algo.step_count
         t_window, iter_window = t_start, start
         pending: list[tuple[int, dict]] = []
-        while algo.step_count < self.total_itrs:
-            batch = next(batches)
-            images = sum(len(v) for k, v in batch.items() if "img" in k
-                         or k == "image")
-            metrics = algo.step(batch)
-            cur = algo.step_count
-            pending.append((cur, metrics))
-            if cur % self.log_every == 0 or cur == self.total_itrs:
-                last = self._flush_metrics(pending)
-                now = time.time()
-                self.logger.info(
-                    "iter %d/%d loss %.4f (%.1f img/s window, %.1f avg)",
-                    cur, self.total_itrs, last.get("loss", float("nan")),
-                    (cur - iter_window) * images / max(now - t_window, 1e-9),
-                    (cur - start) * images / max(now - t_start, 1e-9))
-                t_window, iter_window = now, cur
-            if eval_enabled and cur % self.step_size == 0:
-                self._flush_metrics(pending)
-                self.evaluate(cur)
-                self.ckpt.save_rotating(self.state_dict())
+        # the eval worker is joined even when training raises, and an error
+        # of its own then must not hide the training error
+        failed = False
+        try:
+            while algo.step_count < self.total_itrs:
+                batch = next(batches)
+                images = sum(len(v) for k, v in batch.items()
+                             if "img" in k or k == "image")
+                metrics = algo.step(batch)
+                cur = algo.step_count
+                pending.append((cur, metrics))
+                if cur % self.log_every == 0 or cur == self.total_itrs:
+                    last = self._flush_metrics(pending)
+                    if cur % (self.log_every * 10) == 0 \
+                            or cur == self.total_itrs:
+                        now = time.time()
+                        self.logger.info(
+                            "iter %d/%d loss %.4f (%.1f img/s window, %.1f "
+                            "avg)", cur, self.total_itrs,
+                            last.get("loss", float("nan")),
+                            (cur - iter_window) * images
+                            / max(now - t_window, 1e-9),
+                            (cur - start) * images
+                            / max(now - t_start, 1e-9))
+                        t_window, iter_window = now, cur
+                if eval_enabled and cur % self.step_size == 0:
+                    self._flush_metrics(pending)
+                    self._dispatch_eval(cur)
+                    panels = getattr(algo, "image_panels", None)
+                    if panels is not None and self.writer.enabled:
+                        for tag, img in panels(batch).items():
+                            self.writer.add_image(tag, img, cur)
+        except BaseException:
+            failed = True
+            raise
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+            try:
+                self._join_eval()
+            except Exception:
+                if not failed:
+                    raise
+                self.logger.exception(
+                    "overlapped eval also failed during shutdown (the "
+                    "training error follows)")
+            if self._eval_pool is not None:
+                self._eval_pool.shutdown(wait=True)
+                self._eval_pool = None
         self.save("last")
+        # a later fit's first write opens a new event file
+        self.writer.close()
         elapsed = time.time() - t_start
         done = algo.step_count - start
         self.logger.info("done: %d iters in %.1fs (%.2f it/s)",
@@ -186,7 +260,8 @@ class Trainer:
         return True
 
     def _flush_metrics(self, pending: list) -> dict:
-        """One device read for the whole window of tensor metrics."""
+        """One device read for the whole window of tensor metrics, which
+        go to TensorBoard as ``<algorithm>/<metric>``."""
         if not pending:
             return self.metrics_log[-1][1] if self.metrics_log else {}
         names = sorted(pending[0][1])
@@ -199,26 +274,125 @@ class Trainer:
             row = {k: (next(it) if torch.is_tensor(m[k]) else float(m[k]))
                    for k in names}
             self.metrics_log.append((cur, row))
+            self.writer.add_scalars(row, cur, prefix=self.algorithm.name)
         pending.clear()
         return self.metrics_log[-1][1]
 
-    def evaluate(self, cur_itrs: int) -> dict:
+    # -- evaluation ------------------------------------------------------
+    def _dispatch_eval(self, cur_itrs: int) -> None:
+        """Evaluate and save the crash-recovery checkpoint: inline, or with
+        ``async_eval`` on a snapshot in the worker thread (evals run one at
+        a time: a boundary first joins the previous one)."""
+        if not self.async_eval:
+            self._eval_task(cur_itrs)
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        if self._eval_pool is None:
+            self._eval_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="hpfg-eval")
+        self._join_eval()
+        device = self.algorithm.device
+        with torch.no_grad():
+            state = _clone_state(self.algorithm.state_dict())
+            models = copy.deepcopy(self.algorithm.eval_models())
+        ready = None
+        if device.type == "cuda":
+            if self._eval_stream is None:
+                self._eval_stream = torch.cuda.Stream(device)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        self._eval_future = self._eval_pool.submit(
+            self._eval_task, cur_itrs, models, state, ready)
+
+    def _eval_task(self, cur_itrs: int, models: dict | None = None,
+                   state: dict | None = None, ready=None) -> None:
+        """Evaluate, then save the crash-recovery rotation: the live models
+        and state inline, or a snapshot in the worker, on its own stream
+        once the event ``ready`` (the snapshot's clone) has passed."""
+        stream = contextlib.nullcontext()
+        if ready is not None:
+            self._eval_stream.wait_event(ready)
+            stream = torch.cuda.stream(self._eval_stream)
+        with stream:
+            self.evaluate(cur_itrs, models, state)
+            self.ckpt.save_rotating(self._checkpoint(state))
+        if ready is not None:
+            # the snapshot's memory belongs to the training stream: it is
+            # freed only after this stream has finished reading it
+            self._eval_stream.synchronize()
+
+    def _join_eval(self) -> None:
+        """Wait for the in-flight eval, re-raising its error."""
+        fut, self._eval_future = self._eval_future, None
+        if fut is not None:
+            fut.result()
+
+    def _checkpoint(self, state: dict | None) -> dict:
+        """What a checkpoint of the evaluated state holds: the snapshot (or,
+        inline, the live state) and the best dice so far."""
+        if state is None:
+            return self.state_dict()
+        return {"algorithm": state, "best_dice": dict(self.best_dice)}
+
+    def evaluate(self, cur_itrs: int, models: dict | None = None,
+                 state: dict | None = None) -> dict:
+        """Evaluate ``models`` (default: the algorithm's eval models) and
+        save ``best_<model>`` from ``state`` (default: the live state) on
+        each new best dice."""
+        if models is None:
+            models = self.algorithm.eval_models()
+        device = self.algorithm.device
         dsname = str(self.cfg.get("datasets")).lower()
-        order = 3 if "synapse" in dsname else 0
         results = {}
-        for name, model in self.algorithm.eval_models().items():
-            if dsname in VOLUME_DATASETS:
-                dice, hd95, _ = evaluate_volumes(
-                    model, self.test_loader, self.num_classes, self.test_crop,
-                    self.algorithm.device, zoom_order=order)
-            else:
-                dice, hd95 = evaluate_images(model, self.test_loader,
-                                             self.algorithm.device)
-            results[name] = (dice, hd95)
+        if dsname in VOLUME_DATASETS:
+            order = 3 if "synapse" in dsname else 0
+            groups: dict[tuple, dict] = {}
+            for name, model in models.items():
+                groups.setdefault(_architecture(model), {})[name] = model
+            for group in groups.values():
+                res = evaluate_volumes_multi(
+                    group, self.test_loader, self.num_classes,
+                    self.test_crop, device, zoom_order=order,
+                    want_first=self.writer.enabled)
+                for name, (dice, hd95, _, first) in res.items():
+                    self._log_panels(name, first, cur_itrs)
+                    results[name] = (dice, hd95)
+            results = {name: results[name] for name in models}
+        else:
+            for name, model in models.items():
+                results[name] = evaluate_images(model, self.test_loader,
+                                                device)
+        for name, (dice, hd95) in results.items():
+            self.writer.add_scalar(f"{self.algorithm.name}/{name}_dice",
+                                   dice, cur_itrs)
+            self.writer.add_scalar(f"{self.algorithm.name}/{name}_hd95",
+                                   hd95, cur_itrs)
             self.logger.info("iter %d %s dice %.4f hd95 %.4f", cur_itrs,
                              name, dice, hd95)
             if dice > self.best_dice.get(name, 0.0):
                 self.best_dice[name] = dice
-                self.save(f"best_{name}")
+                self.ckpt.save(f"best_{name}", self._checkpoint(state))
         self.history.append({"iter": cur_itrs, "results": results})
         return results
+
+    def _log_panels(self, name: str, first, cur_itrs: int) -> None:
+        """The first volume's middle slice: image, prediction and label
+        (palette-rendered by the dataset's ``label_to_img``)."""
+        if first is None:
+            return
+        to_img = getattr(getattr(self.test_loader, "source", None),
+                         "label_to_img", None)
+        if to_img is None:
+            return
+        image, label, pred = first
+        mid = image.shape[0] // 2
+        img = image[mid]
+        img = (img - img.min()) / max(img.max() - img.min(), 1e-6)
+        self.writer.add_image(f"{name}/Image",
+                              (img[..., None] * 255).astype(np.uint8),
+                              cur_itrs)
+        self.writer.add_image(f"{name}/label_pred", to_img(pred[mid]),
+                              cur_itrs)
+        self.writer.add_image(f"{name}/label_true", to_img(label[mid]),
+                              cur_itrs)

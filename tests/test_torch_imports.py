@@ -34,6 +34,10 @@ import torch
 import hpfg_tpu_torch
 import hpfg_tpu_torch.evals.volume, hpfg_tpu_torch.run
 import hpfg_tpu_torch.train.trainer, hpfg_tpu_torch.utils.jax_weights
+import hpfg_tpu_torch.data.h5, hpfg_tpu_torch.data.prefetch
+import hpfg_tpu_torch.data.synthetic, hpfg_tpu_torch.utils.logging
+import hpfg_tpu_torch.utils.profiling, hpfg_tpu_torch.utils.tb
+import hpfg_tpu_torch.utils.visual
 from hpfg_tpu_torch.ops import bn_act, conv_block
 from hpfg_tpu_torch.train.algorithms import build_algorithm
 
