@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and exits non-zero without one. It imports neither jax
-nor the JAX package. Phases, each of which fails the run on error:
+nor the JAX package. The ``--dp-worker`` and ``--nccl-worker`` modes
+are the processes phases 15 and 16 start. Phases, each of which fails the run on error:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
      CUDA kernels from ``hpfg_tpu_torch/csrc`` (nvcc, with its seconds);
@@ -196,7 +197,35 @@ nor the JAX package. Phases, each of which fails the run on error:
   14. ``multi eval``: HPFG's three models through one
      ``evaluate_volumes_multi`` call and each through ``evaluate_volumes``
      (its one-model call) on that ACDC-size split: exactly equal, both
-     times.
+     times;
+  15. ``dp``: data parallelism over processes on this one card. Three
+     one-process steps of Mean-Teacher and of HPFG at the configs' full
+     width (224^2, global batch 8 + 24, bf16), then the same global batches
+     over 2 ranks (``python3 chip_smoke.py --dp-worker``, gloo on cuda:0,
+     each rank its contiguous half; the rows of a batch differ in mean and
+     scale, so the halves do): each step's loss within 1e-4 relative, the
+     parameters and BN buffers after the three steps within 1e-3 of each
+     model's largest magnitude (tighter than tests/test_sharding.py's 2e-3
+     and the bf16 kernel bound, which a rank hashing its local image index
+     passes), both ranks' launch counters as the structure
+     predicts under W = 2 (A, C, D's reduce alone and its dpre, K8 to K11:
+     ``bn_act_bwd`` gives way to ``bn_reduce`` + all-reduce + dpre), the
+     step time at W = 1 and per rank at W = 2, the collectives' calls and
+     bytes a step and their time in a step where each is timed alone, and
+     which gloo collectives take CUDA tensors;
+  16. ``nccl``: a 1-rank NCCL group initialises and all-reduces on cuda:0
+     (``--nccl-worker``);
+  17. ``cli dp``: the HPFG CLI from phase 10's tree through ``python -m
+     torch.distributed.run --nproc-per-node 2`` (``distributed=true``,
+     ``device=cuda:0``, ``dist_backend=gloo``), 4 iterations, one eval
+     boundary: rank 0 alone writes the log (each eval line once), the
+     TensorBoard events (one file) and the checkpoints.
+
+Phase 2e checks A, B and K11 with a two-segment image-id map (the hash
+dropout of a data-parallel rank: each image hashes its index in the global
+batch) against their plain versions, A's masks bit-exact, and D's reduce
+alone, and times each with and without the ids; its rows stay out of the
+kernels' totals.
 
 Checkpoint writes are left out of the timed and traced main-path steps (the
 trainer's ``save`` is a no-op there); phase 5 times one.
@@ -352,7 +381,7 @@ KERNELS = {
     "bn_act_bwd": dict(route="cuda", source=BN_CU,
                        replaces=f"{PALLAS}:1151",
                        also_replaces=[f"{PALLAS}:1166"],
-                       counters=["bn_act_bwd", "bn_act_dpre"]),
+                       counters=["bn_act_bwd", "bn_act_dpre", "bn_reduce"]),
     "conv3x3_pair_nhwc": dict(route="cuda", source=CU,
                               replaces=f"{PALLAS}:772", also_replaces=[],
                               counters=["conv3x3_pair_nhwc"]),
@@ -897,6 +926,78 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
             torch.cuda.empty_cache()
 
 
+def device_ms(fn, reps: int = 10, rounds: int = 3) -> float:
+    """ms per call on the device alone: as ``cuda_ms``, with each round's
+    calls enqueued behind a sleep kernel of about 10 ms, so the events time
+    the device's work and not the host's enqueue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def masked_kernel_times() -> dict:
+    """The kernels whose dropout mask hashes the image index, bf16, batch
+    32, at phase 2's main-path shapes: K11 (``conv3x3_dgrad_reduce``) at
+    the nine conv2 shapes (the encoder's with their dropout, the decoder's
+    without), A with the masked prologue (conv2's forward, ``A2``) and B
+    with it (conv2's wgrad, ``B2``) at the five encoder shapes. ms per call
+    by phase 2's method (``cuda_ms``, the host's cost included) and on the
+    device alone (``device_ms``), each shape and summed; printed as one
+    JSON line. It calls only the wrappers' long-standing arguments, so a
+    copy of this file run from an earlier tree's root times that tree's
+    kernels: ``python3 -c 'import <copy>; <copy>.masked_kernel_times()'``,
+    trees in turns."""
+    import torch
+
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {k: {"host": {}, "device": {}} for k in ("K11", "A2", "B2")}
+    for name, hh, _, f, keep in BLOCKS:
+        dp = randn(BATCH, hh, hh, f).to(dt)
+        w = randn(3, 3, f, f, scale=(9 * f) ** -0.5).to(dt)
+        wf = cb.flip_transpose(w)
+        h = randn(BATCH, hh, hh, f).to(dt)
+        bias = randn(f, scale=0.1)
+        a, b = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
+        m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
+        drop = cb.HashDropout(88, keep) if keep else None
+        calls = {"K11": lambda: cb.conv3x3_dgrad_reduce(
+            dp, wf, h, a, b, m, inv, out_drop=drop)}
+        if drop is not None:
+            calls["A2"] = lambda: cb.conv3x3_nhwc(
+                h, w, bias, affine=(a, b), drop=drop, want_stats=True)
+            calls["B2"] = lambda: cb.conv3x3_wgrad_nhwc(
+                h, dp, affine=(a, b), drop=drop)
+        for kernel, fn in calls.items():
+            out[kernel]["host"][name] = cuda_ms(fn)
+            out[kernel]["device"][name] = device_ms(fn)
+    for row in out.values():
+        for kind in ("host", "device"):
+            row[f"{kind}_total"] = sum(row[kind].values())
+    print("MASKED " + json.dumps(out), flush=True)
+    return out
+
+
 def attn_work(bn, heads, l, d, es, n_mask, backward):
     """(FLOPs, bytes) of one window-attention call over Bn windows: q, k, v
     (and do) read once, o (or dq, dk, dv and the fp32 dbias) written once,
@@ -1291,6 +1392,7 @@ def counters() -> dict:
             "conv3x3_dgrad_pair": cb.conv3x3_dgrad_pair,
             "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair,
             "conv3x3_dgrad_reduce": cb.conv3x3_dgrad_reduce,
+            "bn_reduce": ba.bn_reduce,
             "window_attention_fwd": wa.window_attention_fwd,
             "window_attention_bwd": wa.window_attention_bwd}
 
@@ -2539,6 +2641,517 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 2e: the kernels with global image ids; phases 15-17: data
+# parallelism over processes
+# ---------------------------------------------------------------------------
+
+#: the global batches of the data-parallel phase (the configs' 8 + 24)
+#: and its ranks, all on the one card over gloo
+DP_WORLD, DP_STEPS = 2, 3
+#: the bounds of the data-parallel phase against one process: each step's
+#: loss (relative) and the parameters and BN buffers after the steps
+#: (over each model's largest magnitude). They lie between the sound
+#: readings (2.1e-6, 7.3e-5) and those of a rank that keeps its BN
+#: statistics (8.2e-4, 0.14) or its image indices (2.1e-4, 2.9e-3) local
+#: (PERF.md, PR 12); tests/test_sharding.py's 2e-3 and the bf16 kernel
+#: bound 2e-2 pass the second fault.
+DP_LOSS_RTOL, DP_STATE_TOL = 1e-4, 1e-3
+#: the algorithms the data-parallel phase runs: (label, config, the UNet
+#: whose kernels are counted, its forwards and backwards a step)
+DP_PATHS = (("mean_teacher", MT_CONFIG, "model", 2, 1),
+            ("hpfg", HPFG_CONFIG, "model1", 3, 2))
+#: the kernels the ranks' counters must show on each path (D is its
+#: reduce alone and its dpre under W > 1)
+DP_KERNELS = ("conv3x3_nhwc", "bn_act", "bn_reduce", "bn_act_dpre",
+              "conv3x3_pair_nhwc", "conv3x3_dgrad_pair",
+              "conv3x3_wgrad_pair", "conv3x3_dgrad_reduce")
+#: (ConvBlock, H = W, channels, keep) of the id checks: the stem's and the
+#: bottleneck's conv2 of the full-width UNet
+ID_SHAPES = (("in_conv", 224, 16, 0.95), ("down4", 14, 256, 0.5))
+
+
+def check_image_ids(rep: Report, dev) -> None:
+    """A, B and K11 with a two-segment image-id map (rank 1's rows of a
+    2-rank global batch of 8 + 24: 16 images) against their plain versions
+    at the stem's and the bottleneck's conv2; A's masks bit-exact through
+    the identity conv; D's reduce alone (``bn_reduce``) against its plain
+    version. In bf16 each kernel is timed with and without the ids. The
+    rows stay out of the kernels' totals (the main paths run one process,
+    without ids)."""
+    import torch
+
+    from hpfg_tpu_torch.ops import bn_act as ba
+    from hpfg_tpu_torch.ops import conv_block as cb
+    from hpfg_tpu_torch.parallel.mesh import Mesh
+
+    ids = Mesh(DP_WORLD, 1, dev).rows(8, 24).ids
+    n = len(ids)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        bf16 = dt == torch.bfloat16
+        clock = cuda_ms if bf16 else (lambda fn: None)
+        for name, hh, c, keep in ID_SHAPES:
+            x1 = torch.ones((n, hh, hh, c), device=dev, dtype=dt)
+            eye = torch.zeros((3, 3, c, c), device=dev, dtype=dt)
+            eye[1, 1] = torch.eye(c, device=dev, dtype=dt)
+            one, zero = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            drop = cb.HashDropout(31 + c, keep, ids)
+            full = cb.hash_mask(drop.seed, 32, hh, hh * c, keep, dev)
+            ref = full[ids.long()].view(n, hh, hh, c).to(dt)
+            for what, got in (
+                    ("prologue", cb.conv3x3_nhwc(x1, eye, affine=(one, zero),
+                                                 drop=drop)[0]),
+                    ("output", cb.conv3x3_nhwc(x1, eye, out_drop=drop)[0])):
+                if not torch.equal(got, ref):
+                    rep.fail(f"hash mask with ids ({what}) {name} {dname}: "
+                             f"{(got != ref).sum().item()} elements differ")
+            del x1, eye, full, ref
+            x = randn(n, hh, hh, c).to(dt)
+            dp = randn(n, hh, hh, c).to(dt)
+            w = randn(3, 3, c, c, scale=(9 * c) ** -0.5).to(dt)
+            a, b = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
+            m, inv = randn(c, scale=0.1), 1.0 + randn(c, scale=0.1).abs()
+            wf = cb.flip_transpose(w)
+            plain = cb.HashDropout(drop.seed, keep)
+            line = [f"{dname} {name}.conv2 {hh}^2 {c}, {n} images with ids"]
+            calls = {
+                "conv3x3_nhwc": (
+                    lambda d: cb.conv3x3_nhwc(x, w, affine=(a, b), drop=d,
+                                              want_stats=True),
+                    lambda d: cb.conv3x3_reference(x, w, affine=(a, b),
+                                                   drop=d, want_stats=True)),
+                "conv3x3_wgrad_nhwc": (
+                    lambda d: (cb.conv3x3_wgrad_nhwc(x, dp, affine=(a, b),
+                                                     drop=d),),
+                    lambda d: (cb.conv3x3_wgrad_reference(
+                        x, dp, affine=(a, b), drop=d),)),
+                "conv3x3_dgrad_reduce": (
+                    lambda d: cb.conv3x3_dgrad_reduce(dp, wf, x, a, b, m,
+                                                      inv, out_drop=d),
+                    lambda d: cb.conv3x3_dgrad_reduce_reference(
+                        dp, wf, x, a, b, m, inv, out_drop=d))}
+            for kernel, (fn, fn_ref) in calls.items():
+                errs = [rep.compare(kernel, f"{name}.conv2 ids {i}", dname,
+                                    g, r, main=False)
+                        for i, (g, r) in enumerate(zip(fn(drop),
+                                                       fn_ref(drop)))]
+                ms, ms0 = clock(lambda: fn(drop)), clock(lambda: fn(plain))
+                line.append(f"{kernel} {max(errs):.1e}" + (
+                    "" if ms is None else f" {ms:.3f} ms with ids, {ms0:.3f}"
+                    " without"))
+            s = ba.bn_reduce(dp, x, a, b, m, inv)
+            r = rep.compare("bn_act_bwd", f"{name} bn_reduce", dname, s,
+                            ba.bn_reduce_reference(dp, x, a, b, m, inv),
+                            tol=TOL["float32"], main=False)
+            ms = clock(lambda: ba.bn_reduce(dp, x, a, b, m, inv))
+            line.append(f"bn_reduce {r:.1e}" + ("" if ms is None
+                                                else f" {ms:.3f} ms"))
+            print(" | ".join(line), flush=True)
+            del x, dp, w
+            torch.cuda.empty_cache()
+    print("hash masks with ids: bit-exact check done (prologue and output, "
+          "float32 and bfloat16)", flush=True)
+
+
+def dp_batch(cfg: dict, step: int) -> dict:
+    """The global batch of the data-parallel phase's ``step`` for ``cfg``
+    (HPFG's with its second labelled batch), from a seed. Row i of a batch
+    of k images is normal with mean 2i/(k-1) - 1 and scale 0.5 + 1.5i/(k-1):
+    the ranks' shares differ in distribution, so a rank that normalises by
+    its own rows' statistics gets other activations."""
+    import numpy as np
+
+    rng = np.random.default_rng((71, step))
+    hw, lb, ub = crop(cfg), int(cfg["batch_size"]), int(
+        cfg["unlabel_batch_size"])
+
+    def img(k):
+        r = (np.arange(k, dtype=np.float32) / (k - 1)).reshape(k, 1, 1, 1)
+        return (rng.normal(size=(k, hw, hw, 1)) * (0.5 + 1.5 * r)
+                + (2 * r - 1)).astype(np.float32)
+
+    def lab(k):
+        return rng.integers(0, 4, (k, hw, hw)).astype(np.int32)
+
+    batch = {"label_img": img(lb), "label": lab(lb), "unlabel_img": img(ub)}
+    if cfg["algorithm"] == "hpfg":
+        batch.update(label_img1=img(lb), label1=lab(lb))
+    return batch
+
+
+def dp_predicted(model, forwards: int, backwards: int, world: int) -> dict:
+    """``predicted_launches`` of DP_STEPS steps; under W > 1 D's backward
+    runs as its reduce (``bn_reduce``) and its dpre, not ``bn_act_bwd``."""
+    pred = predicted_launches(model, DP_STEPS, forwards, backwards)
+    if world > 1:
+        pred["bn_reduce"], pred["bn_act_bwd"] = pred["bn_act_bwd"], 0
+        pred["bn_act_dpre"] += pred["bn_reduce"]
+    return pred
+
+
+def dp_steps(dev, config: str, unet: str, forwards: int, backwards: int,
+             collectives=None) -> dict:
+    """DP_STEPS steps of the config's algorithm (bf16, on ``dev``) on this
+    process's rows of the global batches: losses, ms per step, launch
+    counts against their prediction, and after the steps the parameters
+    and BN buffers (on the host) of every model."""
+    import torch
+
+    from hpfg_tpu_torch.parallel.mesh import get_mesh, shard_batch
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+    from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS
+
+    cfg = load_config(config)
+    algo = build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
+                           device=dev)
+    mesh = get_mesh()
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    losses, ms, per_step = [], [], []
+    for s in range(DP_STEPS):
+        batch = shard_batch(mesh, dp_batch(cfg, s))
+        if collectives is not None:
+            collectives.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(algo.step(batch)["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if collectives is not None:
+            per_step.append(dict(calls=len(collectives),
+                                 bytes=sum(collectives)))
+    launches = {k: fn.launches for k, fn in counters().items()}
+    state = {f"{field}.{k}": v.detach().float().cpu()
+             for field in MODEL_FIELDS if hasattr(algo, field)
+             for k, v in getattr(algo, field).state_dict().items()}
+    return dict(losses=losses, ms=ms, launches=launches,
+                predicted=dp_predicted(getattr(algo, unet), forwards,
+                                       backwards, mesh.world),
+                state=state, collectives=per_step)
+
+
+def gloo_cuda_support(dev) -> dict:
+    """Which gloo collectives take CUDA tensors here: each tried once
+    (this rank's group must be gloo); 'ok' or the error's first line."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    t = torch.ones(4 * world, device=dev)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(t),
+        "broadcast": lambda: dist.broadcast(t, 0),
+        "barrier": lambda: dist.barrier(),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty(4, device=dev) for _ in range(world)],
+            torch.ones(4, device=dev)),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(4, device=dev),
+            [torch.ones(4, device=dev) for _ in range(world)]),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(4 * world, device=dev), t)}
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as exc:  # noqa: BLE001 - the finding itself
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    return out
+
+
+def dp_worker(rank: int, world: int, port: int, out_dir: str) -> int:
+    """One rank of the data-parallel phase, over gloo on cuda:0 (every rank
+    on the one card): the gloo collectives tried on CUDA tensors first;
+    then DP_STEPS steps of each
+    DP_PATHS algorithm (the collectives' calls and bytes counted per
+    step), then one more Mean-Teacher step with the collectives timed
+    alone (the card drained before and after each). Writes
+    ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from hpfg_tpu_torch.parallel.distributed import init_distributed
+
+    dev = torch.device("cuda", 0)
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=dev,
+                     backend="gloo", timeout_s=240)
+    res = {"gloo_cuda": gloo_cuda_support(dev)}
+    seen: list = []  # bytes of each collective call
+    timing = {"on": False, "ms": 0.0}
+    real = {"all_reduce": dist.all_reduce, "broadcast": dist.broadcast}
+
+    def counting(name):
+        def call(t, *a, **k):
+            seen.append(t.numel() * t.element_size())
+            if not timing["on"]:
+                return real[name](t, *a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real[name](t, *a, **k)
+            torch.cuda.synchronize()
+            timing["ms"] += (time.perf_counter() - t0) * 1e3
+            return r
+        return call
+
+    dist.all_reduce = counting("all_reduce")
+    dist.broadcast = counting("broadcast")
+    try:
+        for label, config, unet, fwd, bwd in DP_PATHS:
+            res[label] = dp_steps(dev, config, unet, fwd, bwd, seen)
+            torch.cuda.empty_cache()
+        cfg = load_config(MT_CONFIG)
+        from hpfg_tpu_torch.parallel.mesh import get_mesh, shard_batch
+        from hpfg_tpu_torch.train.algorithms import build_algorithm
+
+        algo = build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
+                               device=dev)
+        batch = shard_batch(get_mesh(), dp_batch(cfg, 0))
+        algo.step(batch)
+        timing["on"] = True
+        seen.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.step(batch)
+        torch.cuda.synchronize()
+        res["timed_step"] = dict(
+            ms=(time.perf_counter() - t0) * 1e3, calls=len(seen),
+            bytes=sum(seen), collective_ms=timing["ms"])
+    finally:
+        dist.all_reduce, dist.broadcast = real["all_reduce"], \
+            real["broadcast"]
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _repo_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def _run_group(cmds: list, timeout: int) -> tuple[list, list]:
+    """Run the commands at once (each in a session of its own); (outputs,
+    exit codes). At the deadline every process still running is killed
+    with its session, and its code is None."""
+    import signal
+
+    procs = [subprocess.Popen(c, cwd=REPO, env=_repo_env(),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for c in cmds]
+    end = time.monotonic() + timeout
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, end - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            outs.append("")
+    codes = []
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            codes.append(None)
+        else:
+            codes.append(p.returncode)
+    return outs, codes
+
+
+def _model_err(got: dict, ref: dict) -> float:
+    """The largest difference over a model's tensors over the largest
+    magnitude among them, the worst model of the state."""
+    worst = 0.0
+    for model in {k.split(".")[0] for k in ref}:
+        keys = [k for k in ref if k.split(".")[0] == model]
+        scale = max(max(float(ref[k].abs().max()) for k in keys), 1e-30)
+        err = max(float((got[k] - ref[k]).abs().max()) for k in keys)
+        worst = max(worst, err / scale)
+    return worst
+
+
+def check_data_parallel(rep: Report, dev, card: str) -> dict:
+    """Phase 15: DP_STEPS one-process steps of Mean-Teacher and HPFG at full
+    width (224^2, 8 + 24 images, bf16) here, then the same global batches
+    over DP_WORLD ranks (``--dp-worker`` processes) over gloo, all on this
+    card: each step's loss within DP_LOSS_RTOL, the parameters and BN
+    buffers after the steps within DP_STATE_TOL of each model's largest
+    magnitude, both ranks' launch counters as the model's structure
+    predicts (A, C, D's reduce and dpre, K8-K11 all launched), the step
+    times, the collectives' calls, bytes and time, and which gloo
+    collectives take CUDA tensors."""
+    import statistics
+
+    import torch
+
+    single = {}
+    for label, config, unet, fwd, bwd in DP_PATHS:
+        single[label] = dp_steps(dev, config, unet, fwd, bwd)
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="hpfg_dp_")
+    try:
+        port = _free_port()
+        outs, codes = _run_group(
+            [[sys.executable, os.path.abspath(__file__), "--dp-worker",
+              str(r), str(DP_WORLD), str(port), out_dir]
+             for r in range(DP_WORLD)], timeout=300)
+        if codes != [0] * DP_WORLD:
+            rep.fail(f"data parallel: worker exit codes {codes}; output "
+                     f"tails: {[o[-1500:] for o in outs]}")
+            return {}
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    where = f"{DP_WORLD} ranks on one card over gloo"
+    summary = {"gloo_cuda": ranks[0]["gloo_cuda"], "card": card,
+               "world": DP_WORLD}
+    print(f"dp: gloo with CUDA tensors: {ranks[0]['gloo_cuda']}",
+          flush=True)
+    for label, *_ in DP_PATHS:
+        ref = single[label]
+        row = dict(losses_1=ref["losses"], ms_1=ref["ms"])
+        for r, res in enumerate(ranks):
+            got = res[label]
+            rel = [abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                       ref["losses"])]
+            err = _model_err(got["state"], ref["state"])
+            bad = {k: (got["launches"][k], got["predicted"][k])
+                   for k in got["predicted"]
+                   if got["launches"][k] != got["predicted"][k]}
+            unlaunched = [k for k in DP_KERNELS if got["launches"][k] == 0]
+            if max(rel) > DP_LOSS_RTOL or err > DP_STATE_TOL or bad \
+                    or unlaunched:
+                rep.fail(f"dp {label} rank {r}: loss rel err {rel} (bound "
+                         f"{DP_LOSS_RTOL}), state err {err:.2e} (bound "
+                         f"{DP_STATE_TOL}), launches off prediction "
+                         f"{bad}, not launched {unlaunched}")
+            row[f"rank{r}"] = dict(
+                losses=got["losses"], loss_rel_err=rel, state_rel_err=err,
+                ms=got["ms"], launches={k: got["launches"][k]
+                                        for k in DP_KERNELS},
+                collectives=got["collectives"])
+            print(f"dp {label} rank {r}: losses {got['losses']} vs one "
+                  f"process {ref['losses']} (rel err {max(rel):.2e}, bound "
+                  f"{DP_LOSS_RTOL}); parameters and BN buffers after "
+                  f"{DP_STEPS} steps: rel err {err:.2e} (bound "
+                  f"{DP_STATE_TOL}); launches "
+                  f"{ {k: got['launches'][k] for k in DP_KERNELS} } as "
+                  f"predicted; collectives a step {got['collectives']}",
+                  flush=True)
+        row["ms_per_step_1"] = statistics.median(ref["ms"][1:])
+        row["ms_per_step_rank"] = [statistics.median(res[label]["ms"][1:])
+                                   for res in ranks]
+        print(f"dp {label}: ms/step one process {row['ms_per_step_1']:.1f}, "
+              f"per rank, {where}: "
+              f"{[round(v, 1) for v in row['ms_per_step_rank']]} ({card})",
+              flush=True)
+        summary[label] = row
+    summary["timed_step"] = [res["timed_step"] for res in ranks]
+    print(f"dp: a Mean-Teacher step with each collective timed alone (card "
+          f"drained before and after), {where}: {summary['timed_step']} "
+          f"({card})", flush=True)
+    return summary
+
+
+def nccl_worker(port: int) -> int:
+    """A 1-rank NCCL group on cuda:0: init, one all_reduce, the result."""
+    import torch
+    import torch.distributed as dist
+
+    from hpfg_tpu_torch.parallel.distributed import init_distributed
+
+    dev = torch.device("cuda", 0)
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev, backend="nccl",
+                     timeout_s=120)
+    t = torch.arange(4, dtype=torch.float32, device=dev)
+    dist.all_reduce(t)
+    print(json.dumps({"backend": dist.get_backend(),
+                      "all_reduce": t.cpu().tolist()}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_nccl(rep: Report, card: str) -> dict | None:
+    """Phase 16: a 1-rank NCCL group initialises and all-reduces on
+    cuda:0 (a process of its own)."""
+    t0 = time.perf_counter()
+    outs, codes = _run_group([[sys.executable, os.path.abspath(__file__),
+                               "--nccl-worker", str(_free_port())]], 300)
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("{")]
+    got = json.loads(lines[-1]) if lines else None
+    if codes != [0] or got != {"backend": "nccl",
+                               "all_reduce": [0.0, 1.0, 2.0, 3.0]}:
+        rep.fail(f"nccl: exit {codes}, result {got}; output {outs[0][-1500:]}")
+    print(f"nccl: 1-rank group on cuda:0: {got} in "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return got
+
+
+def check_cli_dp(rep: Report, card: str, root: str, tmp: str) -> dict:
+    """Phase 17: the HPFG CLI from the phase-10 tree through
+    ``python -m torch.distributed.run --nproc-per-node 2`` on this card
+    (``distributed=true``, ``device=cuda:0``, ``dist_backend=gloo``), 4
+    steps and one eval boundary: rank 0 alone writes the log (each eval
+    line once), one TensorBoard event file and the checkpoints."""
+    save = os.path.join(tmp, "run_dp")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(DP_WORLD), "--master-port", str(_free_port()), "-m",
+           "hpfg_tpu_torch.run", "--config", HPFG_CONFIG]
+    for kv in (f"data_path={root}", f"save_path={save}", "total_itrs=4",
+               "step_size=4", "distributed=true", "device=cuda:0",
+               "dist_backend=gloo"):
+        cmd += ["--set", kv]
+    t0 = time.perf_counter()
+    outs, codes = _run_group([cmd], 600)
+    run_s = time.perf_counter() - t0
+    log_path = os.path.join(save, "log.log")
+    log = open(log_path, encoding="utf-8").read() if os.path.exists(
+        log_path) else ""
+    model_dir = os.path.join(save, "model")
+    ckpts = sorted(f[:-3] for f in os.listdir(model_dir)) if os.path.isdir(
+        model_dir) else []
+    tb = os.path.join(save, "tensorboardX")
+    events = [f for f in (os.listdir(tb) if os.path.isdir(tb) else [])
+              if f.startswith("events.out")]
+    lines = [f"iter 4 {m} dice" for m in CLI_ACDC[HPFG_CONFIG]] + [
+        "done: 4 iters"]
+    counts = {k: log.count(k) for k in lines}
+    if (codes != [0] or any(n != 1 for n in counts.values())
+            or not {"last", "last_a"} <= set(ckpts) or len(events) > 1):
+        rep.fail(f"cli dp: exit {codes}, log line counts {counts}, "
+                 f"checkpoints {ckpts}, event files {events}; output tail "
+                 f"{outs[0][-2000:]}")
+    print(f"cli dp: torch.distributed.run --nproc-per-node {DP_WORLD} "
+          f"{HPFG_CONFIG} (4 iters, eval at 4, gloo on cuda:0) exit {codes} "
+          f"in {run_s:.1f} s ({card}); rank-0 log line counts {counts}; "
+          f"checkpoints {ckpts}; {len(events)} event file(s)", flush=True)
+    for line in log.splitlines():
+        if " dice " in line or "done:" in line:
+            print(f"  cli dp: {line[-150:]}", flush=True)
+    shutil.rmtree(save, ignore_errors=True)
+    return dict(exit=codes, run_s=run_s, line_counts=counts,
+                checkpoints=ckpts, event_files=len(events))
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's -Xptxas=-v log: its name
     (with its template arguments), registers, and spill stores/loads."""
@@ -2576,6 +3189,13 @@ def ptxas_summary(log: str) -> list[str]:
 
 def main() -> int:
     import torch
+
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
+        sys.path.insert(0, REPO)
+        return dp_worker(*map(int, sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--nccl-worker":
+        sys.path.insert(0, REPO)
+        return nccl_worker(int(sys.argv[2]))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2635,6 +3255,7 @@ def main() -> int:
     phase("attention kernels lidc_swin", lambda: check_attention_kernels(
         rep, dev, LIDC_SWIN_BATCH, LIDC_ATTN_STAGES, LIDC_WS))
     rep.geometry = None
+    phase("kernels with image ids", lambda: check_image_ids(rep, dev))
     phase("functions", lambda: check_functions(rep, dev))
     paths, summaries = {}, {}
     for path in PATHS:
@@ -2670,6 +3291,7 @@ def main() -> int:
     cli = phase("cli", lambda: check_cli(rep, card))
     tmp = tempfile.mkdtemp(prefix="hpfg_acdc_")
     acdc = os.path.join(tmp, "acdc")
+    dp = nccl = cli_dp = None
     try:
         h5_out = phase("h5", lambda: check_h5(rep, card, acdc))
         cli_acdc = phase("cli acdc", lambda: check_cli_acdc(rep, card, acdc,
@@ -2685,6 +3307,11 @@ def main() -> int:
         multi = (phase("multi eval", lambda: check_multi_eval(
             rep, dev, card, hpfg, acdc_eval)) if hpfg is not None else None)
         del out, hpfg
+        torch.cuda.empty_cache()
+        dp = phase("data parallel", lambda: check_data_parallel(rep, dev,
+                                                                card))
+        nccl = phase("nccl", lambda: check_nccl(rep, card))
+        cli_dp = phase("cli dp", lambda: check_cli_dp(rep, card, acdc, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2701,6 +3328,9 @@ def main() -> int:
     if None in (h5_out, cli_acdc, prefetch, async_eval, multi):
         rep.fail("a phase of 10-14 (h5, cli acdc, prefetch, async eval, "
                  "multi eval) did not complete")
+    if not dp or nccl is None or cli_dp is None:
+        rep.fail("a phase of 15-17 (data parallel, nccl, cli dp) did not "
+                 "complete")
     if None in zoo.values() or refused is None:
         rep.fail("a zoo model did not train, or ccnet_transunet was not "
                  "refused")
@@ -2715,7 +3345,8 @@ def main() -> int:
                    "pretrain": pretrain, "cli": cli, "zoo": zoo,
                    "refused": refused, "h5": h5_out, "cli_acdc": cli_acdc,
                    "prefetch": prefetch, "async_eval": async_eval,
-                   "multi_eval": multi, "kernels": kernels}, f, indent=1,
+                   "multi_eval": multi, "data_parallel": dp, "nccl": nccl,
+                   "cli_dp": cli_dp, "kernels": kernels}, f, indent=1,
                   default=str)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:

@@ -93,7 +93,9 @@
 //     compute it;
 //   * the dropout mask is the murmur3-style hash of (seed, image, row, lane)
 //     with lane = x*C + c (conv_block.py _hash_mask); the image index is the
-//     batch index of the pixel, never a block index.
+//     batch index of the pixel, never a block index: ids[b], its index in
+//     the global batch under data parallelism (the int32 [B] image-id map
+//     of the Prologue / OutMask), or b without a map.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,6 +123,7 @@ struct Prologue {
   uint32_t seed;
   uint32_t thresh;
   float scale;
+  const int* ids;  // [B] global image index of each image, or null (b)
 };
 
 struct OutMask {
@@ -128,6 +131,7 @@ struct OutMask {
   uint32_t seed;
   uint32_t thresh;
   float scale;
+  const int* ids;  // as Prologue::ids
 };
 
 // K11's epilogue: the next stage's train-BN backward reduce of the rounded
@@ -158,7 +162,8 @@ __device__ __forceinline__ float source_val(const float* __restrict__ src,
     v = __fadd_rn(__fmul_rn(v, pro.a[c]), pro.b[c]);
     v = v >= 0.f ? v : v * kSlope;
     if (pro.has_mask)
-      v *= hash_keep(pro.seed, pro.thresh, pro.scale, b, y, W * C, x * C + c);
+      v *= hash_keep(pro.seed, pro.thresh, pro.scale,
+                       image_index(pro.ids, b), y, W * C, x * C + c);
   }
   return v;
 }
@@ -277,7 +282,8 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ x2,
       if (n >= F) continue;
       float o = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
       if (om.has_mask)
-        o *= hash_keep(om.seed, om.thresh, om.scale, b, oy, W * F, ox * F + n);
+        o *= hash_keep(om.seed, om.thresh, om.scale,
+                       image_index(om.ids, b), oy, W * F, ox * F + n);
       if (red.pre != nullptr) {
         const float p = red.pre[pix * F + n];
         const float z = __fadd_rn(__fmul_rn(p, red.a[n]), red.b[n]);
@@ -553,14 +559,15 @@ __device__ __forceinline__ void stage_affine(float* s_ab, const Prologue& pro,
 // dropout; fp32, multiply and add rounded separately, as source_val) on
 // in-image channels of x, rounded to bf16, stored to the halo tile. The
 // affine of channel c comes from s_ab (stage_affine of channels from ab0,
-// ab_n of them).
-template <int G, int NT, int SL>
+// ab_n of them). IDS: the mask hashes ids[b] (read once a call), else b.
+template <int G, int NT, int SL, bool IDS>
 __device__ __forceinline__ void halo_store(uint16_t* s_a,
                                            const uint4 (&raw)[SL],
                                            const HaloSrc& hs, int b, int ty0,
                                            int tx0, int c0,
                                            const float* s_ab, int ab0,
                                            int ab_n) {
+  const int bi = IDS ? image_index(hs.pro.ids, b) : b;
 #pragma unroll
   for (int i = 0; i < SL; ++i) {
     const int s = threadIdx.x + i * NT;
@@ -579,7 +586,7 @@ __device__ __forceinline__ void halo_store(uint16_t* s_a,
         f = __fadd_rn(__fmul_rn(f, s_ab[ce - ab0]), s_ab[ab_n + ce - ab0]);
         f = f >= 0.f ? f : f * kSlope;
         if (hs.pro.has_mask)
-          f *= hash_keep(hs.pro.seed, hs.pro.thresh, hs.pro.scale, b, gy,
+          f *= hash_keep(hs.pro.seed, hs.pro.thresh, hs.pro.scale, bi, gy,
                          hs.W * hs.C1, gx * hs.C1 + ce);
         w[e >> 1] = (w[e >> 1] & ~(0xFFFFu << sh)) | (f2bf(f) << sh);
       }
@@ -657,7 +664,7 @@ __device__ __forceinline__ void stage_weights(uint16_t* s_b,
 // K11's reduce is taken on them against 16-byte groups of pre (p_vec):
 // per channel group over the thread's pixels, then over the lanes and
 // warps of that group in order. Either sum lands in partial row t.
-template <int BN>
+template <int BN, bool IDS>
 __device__ __forceinline__ void conv_epilogue(
     float (&acc)[2][ConvTC<BN>::NJ][4], int b, int ty0, int tx0, int t,
     int wr, int wn, int lane, int tid, int n0, int H, int W, int F, int F1,
@@ -670,6 +677,7 @@ __device__ __forceinline__ void conv_epilogue(
   constexpr int WN = K::WN, NJ = K::NJ, BROW = K::BROW, NT = K::NT;
   constexpr int QG = BN / 8;  // channel groups of the tile
   const bool stats = part != nullptr && red.pre == nullptr;
+  const int bi = IDS ? image_index(om.ids, b) : b;  // the mask's image
   float s[NJ][2], q2[NJ][2];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = q2[j][0] = q2[j][1] = 0.f;
@@ -691,7 +699,7 @@ __device__ __forceinline__ void conv_epilogue(
           float o = acc[i][j][2 * h + e] +
                     (bias != nullptr && ne < F ? bias[ne] : 0.f);
           if (om.has_mask && in && ne < F)
-            o *= hash_keep(om.seed, om.thresh, om.scale, b, oy, W * F,
+            o *= hash_keep(om.seed, om.thresh, om.scale, bi, oy, W * F,
                            ox * F + ne);
           ob[e] = f2bf(o);
           if (stats && in && ne < F) {
@@ -842,8 +850,10 @@ __device__ __forceinline__ void conv_epilogue(
 // step's one barrier: past it no warp still reads the buffer they fill. With at most two chunks the
 // weights stay resident over the run. a_async: identity operand with
 // 16-byte channel groups; a_vec: 16-byte loads on the register path;
-// b_async: weights by cp.async.
-template <int BN>
+// b_async: weights by cp.async. IDS: the masks hash the image-id maps
+// (Prologue::ids, OutMask::ids; each may be null); without it, the local
+// index b, with no code for a map (every one-process launch).
+template <int BN, bool IDS>
 __global__ void __launch_bounds__(ConvTC<BN>::NT, 512 / ConvTC<BN>::NT)
 conv3x3_bf16_kernel(HaloSrc hs, const uint16_t* __restrict__ w,
                     const float* __restrict__ bias, OutMask om,
@@ -914,7 +924,8 @@ conv3x3_bf16_kernel(HaloSrc hs, const uint16_t* __restrict__ w,
         stage_affine<NT>(s_ab, hs.pro, 0, hs.C1, hs.C1);
         __syncthreads();
       }
-      halo_store<2, NT, K::SL>(s_a, raw, hs, b, ty0, tx0, 0, s_ab, 0, hs.C1);
+      halo_store<2, NT, K::SL, IDS>(s_a, raw, hs, b, ty0, tx0, 0, s_ab, 0,
+                                    hs.C1);
     }
     stage_weights<BN, NT>(s_b, w, b_async, 0, n0, C, F);
     cp_async_commit();
@@ -982,16 +993,16 @@ conv3x3_bf16_kernel(HaloSrc hs, const uint16_t* __restrict__ w,
 
     if (more) {
       if (!a_async)
-        halo_store<2, NT, K::SL>(na, raw, hs, b1, ty1, tx1, k1 * KC, s_ab, 0,
-                                 hs.C1);
+        halo_store<2, NT, K::SL, IDS>(na, raw, hs, b1, ty1, tx1, k1 * KC,
+                                      s_ab, 0, hs.C1);
       if (w1 && !b_async) stage_weights<BN, NT>(nb, w, 0, k1 * KC, n0, C, F);
     }
     if (k == nchunks - 1) {
       int b, ty0, tx0;
       tile_of(t, b, ty0, tx0);
-      conv_epilogue<BN>(acc, b, ty0, tx0, t, wr, wn, lane, tid, n0, H, W, F,
-                        F1, bias, om, red, o_vec, p_vec, y, y2, part, out_s,
-                        red_s, rc);
+      conv_epilogue<BN, IDS>(acc, b, ty0, tx0, t, wr, wn, lane, tid, n0, H, W,
+                             F, F1, bias, om, red, o_vec, p_vec, y, y2, part,
+                             out_s, red_s, rc);
     }
   }
 }
@@ -1052,7 +1063,8 @@ __device__ __forceinline__ void stage_dp(uint16_t* s_d,
 // and enter the MMA through ldmatrix.trans; the next tile's halo and dp are
 // staged during this tile's MMAs as in conv3x3_bf16_kernel. The partial
 // row of the CTA ([3,3,C1,F] then [3,3,C-C1,F]) is summed by colsum.
-template <int CM, int BN>
+// IDS as in conv3x3_bf16_kernel.
+template <int CM, int BN, bool IDS>
 __global__ void __launch_bounds__(WgradTC<CM, BN>::NT, 2)
 wgrad_bf16_kernel(HaloSrc hs, const uint16_t* __restrict__ dp,
                   float* __restrict__ part, int F, int tiles_x,
@@ -1101,7 +1113,8 @@ wgrad_bf16_kernel(HaloSrc hs, const uint16_t* __restrict__ dp,
         stage_affine<NT>(s_ab, hs.pro, c0, CM, C1);
         __syncthreads();
       }
-      halo_store<G, NT, K::SL>(smem, raw, hs, b, ty0, tx0, c0, s_ab, c0, CM);
+      halo_store<G, NT, K::SL, IDS>(smem, raw, hs, b, ty0, tx0, c0, s_ab, c0,
+                                    CM);
     }
     stage_dp<BN, NT>(smem + K::A_ELEMS, dp, d_async, b, ty0, tx0, n0, H, W,
                      F);
@@ -1162,8 +1175,8 @@ wgrad_bf16_kernel(HaloSrc hs, const uint16_t* __restrict__ dp,
 
     if (more) {
       if (!a_async)
-        halo_store<G, NT, K::SL>(nxt, raw, hs, nb, nty0, ntx0, c0, s_ab, c0,
-                                 CM);
+        halo_store<G, NT, K::SL, IDS>(nxt, raw, hs, nb, nty0, ntx0, c0, s_ab,
+                                      c0, CM);
       if (!d_async)
         stage_dp<BN, NT>(nxt + K::A_ELEMS, dp, 0, nb, nty0, ntx0, n0, H, W,
                          F);
@@ -1277,10 +1290,17 @@ void launch_conv_bf16(const ConvArgs& a, int B, int H, int W, int C, int F,
                       cudaStream_t stream) {
   using K = ConvTC<BN>;
   // above 48 KB of dynamic shared memory needs the opt-in, once a process
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(conv3x3_bf16_kernel<BN, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_SMEM),
+      cudaFuncSetAttribute(conv3x3_bf16_kernel<BN, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_SMEM)};
   (void)attr;  // a refusal shows as the launch's error
+  const auto kernel = a.pro.ids != nullptr || a.om.ids != nullptr
+                          ? conv3x3_bf16_kernel<BN, true>
+                          : conv3x3_bf16_kernel<BN, false>;
   int vec;
   const HaloSrc hs = halo_src(a.x, a.x2, a.c1, C, H, W, a.pro, &vec);
   const int tiles_x = (W + TW - 1) / TW;
@@ -1292,7 +1312,7 @@ void launch_conv_bf16(const ConvArgs& a, int B, int H, int W, int C, int F,
   Reduce<uint16_t> red{static_cast<const uint16_t*>(a.pre), a.ra, a.rb, a.rm,
                        a.rinv};
   const int smem = K::SMEM + (a.pro.a != nullptr ? 8 * a.c1 : 0);
-  conv3x3_bf16_kernel<BN><<<grid, K::NT, smem, stream>>>(
+  kernel<<<grid, K::NT, smem, stream>>>(
       hs, static_cast<const uint16_t*>(a.w), static_cast<const float*>(a.bias),
       a.om, red, static_cast<uint16_t*>(a.y), static_cast<uint16_t*>(a.y2),
       a.f1, static_cast<float*>(a.part), F, tiles_x, tiles_per_img, total,
@@ -1317,10 +1337,16 @@ void launch_wgrad_bf16(const void* src, const void* src2, int c1,
                        int H, int W, int C, int F, int tiles_per_block,
                        cudaStream_t stream) {
   using K = WgradTC<CM, BN>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wgrad_bf16_kernel<CM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K::SMEM);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(wgrad_bf16_kernel<CM, BN, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           K::SMEM),
+      cudaFuncSetAttribute(wgrad_bf16_kernel<CM, BN, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           K::SMEM)};
   (void)attr;
+  const auto kernel = pro.ids != nullptr ? wgrad_bf16_kernel<CM, BN, true>
+                                         : wgrad_bf16_kernel<CM, BN, false>;
   int vec;
   const HaloSrc hs = halo_src(src, src2, c1, C, H, W, pro, &vec);
   const int tiles_x = (W + TW - 1) / TW;
@@ -1328,7 +1354,7 @@ void launch_wgrad_bf16(const void* src, const void* src2, int c1,
   const int total = B * tiles_per_img;
   dim3 grid((total + tiles_per_block - 1) / tiles_per_block,
             (C + CM - 1) / CM, (F + BN - 1) / BN);
-  wgrad_bf16_kernel<CM, BN><<<grid, K::NT, K::SMEM, stream>>>(
+  kernel<<<grid, K::NT, K::SMEM, stream>>>(
       hs, static_cast<const uint16_t*>(dp), static_cast<float*>(part), F,
       tiles_x, tiles_per_img, total, tiles_per_block,
       vec && pro.a == nullptr, vec, F % 8 == 0 && aligned16(dp));
@@ -1368,15 +1394,18 @@ int hpfg_wgrad_bn(int F, int is_bf16) { return wgrad_bn(F, is_bf16); }
 // kernel-A form goes through here.
 // x [B,H,W,c1] and x2 [B,H,W,C-c1] (null unless a pair; c1 = C then), w
 // [3,3,C,F] (all bf16 when is_bf16, else fp32), bias [F] fp32 or null,
-// pa/pb [C] fp32 or null (identity source), y [B,H,W,f1] and y2
+// pa/pb [C] fp32 or null (identity source), in_ids / out_ids int32 [B]
+// (each image's index in the global batch, hashed by the input and output
+// dropout masks) or null (the local index), y [B,H,W,f1] and y2
 // [B,H,W,F-f1] (null unless a split output; f1 = F then), part
 // [B*tiles, 2, F] fp32 or null (no epilogue sums); pre [B,H,W,F] of x's type
 // plus ra/rb/rm/rinv [F] fp32 select the reduce epilogue (else null).
 int hpfg_conv3x3_nhwc(const void* x, const void* x2, int c1, const void* w,
                       const void* bias, const void* pa, const void* pb,
                       int in_mask, unsigned in_seed, unsigned in_thresh,
-                      float in_scale, int out_mask, unsigned out_seed,
-                      unsigned out_thresh, float out_scale, const void* pre,
+                      float in_scale, const void* in_ids, int out_mask,
+                      unsigned out_seed, unsigned out_thresh,
+                      float out_scale, const void* out_ids, const void* pre,
                       const void* ra, const void* rb, const void* rm,
                       const void* rinv, void* y, void* y2, int f1, void* part,
                       int B, int H, int W, int C, int F, int is_bf16,
@@ -1384,8 +1413,9 @@ int hpfg_conv3x3_nhwc(const void* x, const void* x2, int c1, const void* w,
   ConvArgs a{x, x2, c1, w, bias,
              Prologue{static_cast<const float*>(pa),
                       static_cast<const float*>(pb), in_mask, in_seed,
-                      in_thresh, in_scale},
-             OutMask{out_mask, out_seed, out_thresh, out_scale},
+                      in_thresh, in_scale, static_cast<const int*>(in_ids)},
+             OutMask{out_mask, out_seed, out_thresh, out_scale,
+                     static_cast<const int*>(out_ids)},
              pre, static_cast<const float*>(ra), static_cast<const float*>(rb),
              static_cast<const float*>(rm), static_cast<const float*>(rinv),
              y, y2, f1, part};
@@ -1409,16 +1439,16 @@ int hpfg_conv3x3_nhwc(const void* x, const void* x2, int c1, const void* w,
 }
 
 // src [B,H,W,c1] and src2 [B,H,W,C-c1] (null unless a pair; c1 = C then),
-// dp [B,H,W,F]; part [rows, 9*C*F] fp32 with
-// rows = ceil(B*tiles / tiles_per_block).
+// dp [B,H,W,F], ids as hpfg_conv3x3_nhwc's in_ids; part [rows, 9*C*F]
+// fp32 with rows = ceil(B*tiles / tiles_per_block).
 int hpfg_conv3x3_wgrad_nhwc(const void* src, const void* src2, int c1,
                             const void* dp, const void* pa, const void* pb,
                             int in_mask, unsigned seed, unsigned thresh,
-                            float scale, void* part, int B, int H, int W,
-                            int C, int F, int tiles_per_block, int is_bf16,
-                            void* stream) {
+                            float scale, const void* ids, void* part, int B,
+                            int H, int W, int C, int F, int tiles_per_block,
+                            int is_bf16, void* stream) {
   Prologue pro{static_cast<const float*>(pa), static_cast<const float*>(pb),
-               in_mask, seed, thresh, scale};
+               in_mask, seed, thresh, scale, static_cast<const int*>(ids)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (wgrad_cm(C, 1) == 16)

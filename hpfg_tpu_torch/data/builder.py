@@ -7,7 +7,12 @@ The config's ``datasets`` name picks the loaders:
     test);
   * ``sup_building`` -> (train, val, test).
 
-An unknown name raises ``ValueError``. The on-device augmentation path
+An unknown name raises ``ValueError``. Under data parallelism over W > 1
+ranks (``parallel.mesh.get_mesh``) the training loaders are rank-sharded
+(``BatchLoader.shard``: each rank yields its 1/W of every global batch;
+``batch_size`` and ``unlabel_batch_size`` are global, and W must divide
+them); the test and validation loaders stay whole, as rank 0 evaluates.
+The on-device augmentation path
 (``device_augment``, ``ops/augment.py``) is not ported yet (ROADMAP.md,
 Queue 1) and raises.
 """
@@ -23,7 +28,19 @@ _SUP = {"sup_acdc": "acdc", "sup_lidc": "lidc", "sup_isic": "isic",
         "sup_synapse": "synapse", "sup_building": "building"}
 
 
-def build_loader(cfg, seed: int | None = None):
+def build_loader(cfg, seed: int | None = None, mesh=None):
+    from hpfg_tpu_torch.parallel.mesh import get_mesh
+
+    mesh = get_mesh() if mesh is None else mesh
+    loaders = _build(cfg, seed)
+    if mesh.world > 1:
+        name = str(cfg.get("datasets")).lower()
+        for loader in loaders[:2 if name in _SSL else 1]:
+            loader.shard(mesh.rank, mesh.world)
+    return loaders
+
+
+def _build(cfg, seed: int | None):
     name = str(cfg.get("datasets")).lower()
     seed = int(cfg.get("seed", 0) if seed is None else seed)
     crop = tuple(cfg.get("train_crop_size"))

@@ -9,6 +9,15 @@ generator derived from (loader seed, epoch, sample index), so the threaded
 assembly is deterministic; the 2-D transforms (``data/augment2d.py``) draw
 from the one generator they hold, as the JAX package's do, which makes
 their batches reproducible at ``num_threads = 1`` only.
+
+Data parallelism (``BatchLoader.shard``): each rank's loader yields its
+contiguous 1/W of every global batch, so each process materializes only
+its own shard. The index permutation is seeded alike on every rank, so the
+ranks together visit exactly the indices of a one-process run. The draws
+of an ``rng`` transform depend on the sample alone and equal the
+one-process ones; a 2-D transform's one generator is a per-rank stream
+(each rank's copy draws for its own rows), so those draws differ from a
+one-process run's.
 """
 
 from __future__ import annotations
@@ -70,10 +79,23 @@ class BatchLoader:
         self.seed = seed
         self.num_threads = num_threads
         self.prefetch = prefetch
+        self.rank, self.world = 0, 1
         self._epoch = 0
         self._transform_takes_rng = (
             transform is not None
             and "rng" in inspect.signature(transform.__call__).parameters)
+
+    def shard(self, rank: int, world: int) -> "BatchLoader":
+        """Yield rank ``rank``'s contiguous 1/``world`` of each global batch
+        of ``batch_size`` (which ``world`` must divide) from here on;
+        returns the loader."""
+        if self.batch_size % world:
+            raise ValueError(f"global batch size {self.batch_size} does not "
+                             f"divide over {world} ranks")
+        if not self.drop_last:
+            raise ValueError("a rank-sharded loader drops the last batch")
+        self.rank, self.world = int(rank), int(world)
+        return self
 
     def __len__(self) -> int:
         n = len(self.source)
@@ -96,7 +118,9 @@ class BatchLoader:
         else:
             order = np.arange(n)
         end = (n // self.batch_size) * self.batch_size if self.drop_last else n
-        return [order[i:i + self.batch_size]
+        per = self.batch_size // self.world
+        lo = self.rank * per
+        return [order[i + lo:i + lo + per]
                 for i in range(0, end, self.batch_size)]
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:

@@ -22,10 +22,18 @@ alone, as the JAX package's ``apply(..., mutable=["batch_stats"])`` whose
 updated statistics are thrown away (UAMT's Monte-Carlo passes, SS-Net's
 VAT passes and heads). ``fold`` is threaded down the modules the way
 ``generator`` is.
+
+So is ``rows`` (default None): under data parallelism over W > 1 ranks
+(``parallel.mesh.Rows``) it says where the forward's local rows sit in the
+global batch. The BatchNorm statistics are then the global batch's (their
+sums all-reduced), the hash dropout hashes each image's global index, and
+``dropout`` / ``DropPath`` draw for the global batch and keep this rank's
+rows, so every image sees what it sees in one process.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -38,6 +46,7 @@ from hpfg_tpu_torch.ops.conv_block import (
     HashDropout,
     conv3x3_plain,
 )
+from hpfg_tpu_torch.parallel.distributed import all_reduce_sum
 
 BN_MOMENTUM = 0.9
 
@@ -141,17 +150,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(ch))
         self.register_buffer("var", torch.ones(ch))
 
-    def forward(self, x: torch.Tensor, train: bool,
-                fold: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, fold: bool = True,
+                rows=None) -> torch.Tensor:
         """fp32 BN over every axis but the last. In train mode it normalizes
         with the batch mean and biased variance (flax's fast variance
         E[x^2] - E[x]^2, clamped at 0) and folds those unless ``fold`` is
-        False; in eval mode it uses the running statistics."""
+        False; in eval mode it uses the running statistics. With ``rows``
+        the batch is the global one: [sum, sum^2] all-reduced over the
+        ranks, divided by the global count."""
         x = x.float()
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            if rows is None:
+                mean = x.mean(dims)
+                sq = (x * x).mean(dims)
+            else:
+                n = x.numel() // x.shape[-1] * rows.mesh.world
+                mean, sq = all_reduce_sum(
+                    torch.stack([x.sum(dims), (x * x).sum(dims)]),
+                    rows.mesh) / n
+            var = torch.clamp(sq - mean * mean, min=0.0)
             if fold:
                 self.fold(mean, var)
         else:
@@ -184,15 +202,18 @@ class ConvBlock(nn.Module):
 
     def forward(self, x, train: bool,
                 generator: torch.Generator | None = None,
-                fold: bool = True) -> torch.Tensor:
+                fold: bool = True, rows=None) -> torch.Tensor:
         """``x``: NHWC, or a pair (skip, up) whose channel concat is conv1's
         input (the UpBlock); the concat is never materialised. ``fold``:
         whether a train-mode forward folds its batch statistics into
-        ``bn1`` / ``bn2``."""
+        ``bn1`` / ``bn2``; ``rows``: the global batch of a data-parallel
+        forward (its image ids go to the dropout, its mesh to the block)."""
         drop = None
         if train and self.dropout_p > 0.0:
             seed = int(torch.randint(0, 1 << 23, (), generator=generator))
             drop = HashDropout(seed, 1.0 - self.dropout_p)
+            if rows is not None:
+                drop = dataclasses.replace(drop, image_ids=rows.ids)
         run_stats = None
         if not train:
             run_stats = (self.bn1.mean, self.bn1.var, self.bn2.mean,
@@ -204,7 +225,8 @@ class ConvBlock(nn.Module):
             x.to(self.dtype).contiguous(), self.conv1.kernel,
             self.conv1.bias, self.bn1.scale, self.bn1.bias,
             self.conv2.kernel, self.conv2.bias, self.bn2.scale,
-            self.bn2.bias, run_stats, train, drop, x2)
+            self.bn2.bias, run_stats, train, drop, x2,
+            None if rows is None else rows.mesh)
         if train and fold:
             self.bn1.fold(m1, v1)
             self.bn2.fold(m2, v2)
@@ -287,8 +309,9 @@ class DownBlock(nn.Module):
         super().__init__()
         self.conv = ConvBlock(in_ch, features, dropout_p, dtype, generator)
 
-    def forward(self, x, train: bool, generator=None, fold: bool = True):
-        return self.conv(max_pool_2x2(x), train, generator, fold)
+    def forward(self, x, train: bool, generator=None, fold: bool = True,
+                rows=None):
+        return self.conv(max_pool_2x2(x), train, generator, fold, rows)
 
 
 class UpBlock(nn.Module):
@@ -315,12 +338,12 @@ class UpBlock(nn.Module):
                               dtype, generator)
 
     def forward(self, x, skip, train: bool, generator=None,
-                fold: bool = True):
+                fold: bool = True, rows=None):
         w3 = F.pad(self.conv1x1.kernel, (0, 0, 0, 0, 1, 1, 1, 1))
         x = conv3x3_plain(x.to(self.dtype), w3, self.conv1x1.bias)
         x = resize_bilinear_align_corners(x, tuple(skip.shape[1:3]),
                                           self.deterministic_resize)
-        return self.conv((skip, x), train, generator, fold)
+        return self.conv((skip, x), train, generator, fold, rows)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -430,14 +453,25 @@ def device_uniform(shape, generator: torch.Generator | None,
     return torch.rand(shape, generator=gen, device=device)
 
 
+def _draw(shape, generator, device, rows) -> torch.Tensor:
+    """:func:`device_uniform` of ``shape``, or with ``rows`` this rank's
+    rows of the draw for the global batch (the same seed on every rank)."""
+    if rows is None:
+        return device_uniform(shape, generator, device)
+    return rows.take(device_uniform((rows.total,) + tuple(shape[1:]),
+                                    generator, device))
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            rows=None) -> torch.Tensor:
     """flax ``nn.Dropout(rate)``: in train mode each element is kept with
-    probability 1 - rate and scaled by 1/(1 - rate), else zeroed."""
+    probability 1 - rate and scaled by 1/(1 - rate), else zeroed. With
+    ``rows`` the draw is the global batch's, at this rank's rows."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = device_uniform(x.shape, generator, x.device)
+    u = _draw(x.shape, generator, x.device, rows)
     return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
@@ -451,12 +485,13 @@ class DropPath(nn.Module):
         self.rate = float(rate)
 
     def forward(self, x: torch.Tensor, train: bool,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
         if self.rate == 0.0 or not train:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        u = device_uniform(shape, generator, x.device)
+        u = _draw(shape, generator, x.device, rows)
         return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 

@@ -157,11 +157,11 @@ class MiTBlock(nn.Module):
         self.mlp = MixFFN(dim, 4 * dim, generator)
         self.dp2 = DropPath(drop_path)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         y = self.attn(self.norm1(x).to(self.dtype))
-        x = x + self.dp1(y, train, generator)
+        x = x + self.dp1(y, train, generator, rows)
         y = self.mlp(self.norm2(x).to(self.dtype))
-        return x + self.dp2(y, train, generator)
+        return x + self.dp2(y, train, generator, rows)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -209,12 +209,14 @@ class MiT(nn.Module):
             in_ch = dims[s]
         self.dtype = dtype
 
-    def forward(self, x, train: bool, generator=None) -> list[torch.Tensor]:
+    def forward(self, x, train: bool, generator=None,
+                rows=None) -> list[torch.Tensor]:
         feats = []
         for s in range(4):
             x = getattr(self, f"patch_embed{s + 1}")(x)
             for i in range(self.depths[s]):
-                x = getattr(self, f"block{s + 1}_{i}")(x, train, generator)
+                x = getattr(self, f"block{s + 1}_{i}")(x, train, generator,
+                                                       rows)
             x = getattr(self, f"norm{s + 1}")(x).to(self.dtype)
             feats.append(x)
         return feats
@@ -249,15 +251,15 @@ class SegFormerHead(nn.Module):
         self.linear_pred = Conv(embed_dim, num_classes, 1, generator)
 
     def forward(self, feats: list[torch.Tensor], train: bool,
-                generator=None) -> torch.Tensor:
+                generator=None, rows=None) -> torch.Tensor:
         hw = tuple(feats[0].shape[1:3])
         outs = []
         for i, f in enumerate(feats):
             y = getattr(self, f"linear_c{i + 1}")(f)
             outs.append(resize_half_pixel(y, hw) if i > 0 else y)
         x = conv_nhwc(torch.cat(outs[::-1], dim=-1), self.linear_fuse)
-        x = torch.relu(self.bn(x, train)).to(self.dtype)
-        x = dropout(x, self.dropout_rate, train, generator)
+        x = torch.relu(self.bn(x, train, rows=rows)).to(self.dtype)
+        x = dropout(x, self.dropout_rate, train, generator, rows)
         x = conv_nhwc(x, self.linear_pred)
         return resize_half_pixel(x.float(), self.image_size)
 
@@ -266,7 +268,9 @@ class SegFormer(nn.Module):
     """NHWC image [B, H, W, in_channels] -> fp32 logits [B, H, W,
     num_classes] (flax ``SegFormer``, B0). ``train`` turns the head's
     dropout and the encoder's drop path on, their draws made from
-    ``generator``, and the head's BatchNorm to batch statistics."""
+    ``generator``, and the head's BatchNorm to batch statistics; ``rows``
+    (``parallel.mesh.Rows``) places a data-parallel forward's rows in the
+    global batch."""
 
     default_mit = "B0"
 
@@ -284,10 +288,10 @@ class SegFormer(nn.Module):
                                      generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, rows=None):
         x = x.to(self.dtype)
-        return self.decoder(self.encoder(x, train, generator), train,
-                            generator)
+        return self.decoder(self.encoder(x, train, generator, rows), train,
+                            generator, rows)
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x.to(self.dtype), False), False)
@@ -317,9 +321,9 @@ class SegFormerPlus(SegFormer):
             generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        feats = self.encoder(x.to(self.dtype), train, generator)
-        logits = self.decoder(feats, train, generator)
+                generator: torch.Generator | None = None, rows=None):
+        feats = self.encoder(x.to(self.dtype), train, generator, rows)
+        logits = self.decoder(feats, train, generator, rows)
         high = self.dense_projection_high(feats[-1])
         head = self.dense_projection_head(logits.to(self.dtype))
         return logits, high, head

@@ -57,12 +57,12 @@ class UNetEncoder(nn.Module):
         self.down4 = DownBlock(ft[3], ft[4], dp[4], dtype, generator)
 
     def forward(self, x, train: bool, generator=None,
-                fold: bool = True) -> list[torch.Tensor]:
-        x0 = self.in_conv(x, train, generator, fold)
-        x1 = self.down1(x0, train, generator, fold)
-        x2 = self.down2(x1, train, generator, fold)
-        x3 = self.down3(x2, train, generator, fold)
-        x4 = self.down4(x3, train, generator, fold)
+                fold: bool = True, rows=None) -> list[torch.Tensor]:
+        x0 = self.in_conv(x, train, generator, fold, rows)
+        x1 = self.down1(x0, train, generator, fold, rows)
+        x2 = self.down2(x1, train, generator, fold, rows)
+        x3 = self.down3(x2, train, generator, fold, rows)
+        x4 = self.down4(x3, train, generator, fold, rows)
         return [x0, x1, x2, x3, x4]
 
 
@@ -78,12 +78,13 @@ class UNetDecoder(nn.Module):
         self.out_conv = Conv(ft[0], num_classes, 3, generator)
 
     def forward(self, feature: list[torch.Tensor], train: bool,
-                generator=None, fold: bool = True) -> torch.Tensor:
+                generator=None, fold: bool = True,
+                rows=None) -> torch.Tensor:
         x0, x1, x2, x3, x4 = feature
-        x = self.up1(x4, x3, train, generator, fold)
-        x = self.up2(x, x2, train, generator, fold)
-        x = self.up3(x, x1, train, generator, fold)
-        x = self.up4(x, x0, train, generator, fold)
+        x = self.up1(x4, x3, train, generator, fold, rows)
+        x = self.up2(x, x2, train, generator, fold, rows)
+        x = self.up3(x, x1, train, generator, fold, rows)
+        x = self.up4(x, x0, train, generator, fold, rows)
         # logits in fp32 for numerically stable losses
         return conv3x3_plain(x, self.out_conv.kernel,
                              self.out_conv.bias).float()
@@ -93,7 +94,8 @@ class UNet(nn.Module):
     """Plain UNet: NHWC image [B, H, W, in_channels] -> fp32 logits
     [B, H, W, num_classes]. ``train`` selects batch statistics (folded into
     the running ones unless ``fold`` is False) plus dropout; ``generator``
-    draws the dropout seeds."""
+    draws the dropout seeds; ``rows`` (``parallel.mesh.Rows``) places a
+    data-parallel forward's rows in the global batch."""
 
     def __init__(self, in_channels: int = 1, num_classes: int = 4,
                  feature_chns: Sequence[int] = (16, 32, 64, 128, 256),
@@ -109,10 +111,10 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                fold: bool = True) -> torch.Tensor:
+                fold: bool = True, rows=None) -> torch.Tensor:
         x = x.to(self.dtype)
-        return self.decoder(self.encoder(x, train, generator, fold), train,
-                            generator, fold)
+        return self.decoder(self.encoder(x, train, generator, fold, rows),
+                            train, generator, fold, rows)
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, train=False)
@@ -144,9 +146,9 @@ class UNetPlus(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                fold: bool = True):
-        feature = self.encoder(x.to(self.dtype), train, generator, fold)
-        logits = self.decoder(feature, train, generator, fold)
+                fold: bool = True, rows=None):
+        feature = self.encoder(x.to(self.dtype), train, generator, fold, rows)
+        logits = self.decoder(feature, train, generator, fold, rows)
         high = self.dense_projection_high(feature[-1])
         head = self.dense_projection_head(logits.to(self.dtype))
         return logits, high, head

@@ -41,11 +41,11 @@ _SIGNATURES = {
     "hpfg_tile_w": [],
     "hpfg_wgrad_cm": [_I, _I],
     "hpfg_wgrad_bn": [_I, _I],
-    "hpfg_conv3x3_nhwc": [_P, _P, _I, _P, _P, _P, _P, _I, _U, _U, _F, _I, _U,
-                          _U, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
-                          _I, _I, _I, _I, _P],
+    "hpfg_conv3x3_nhwc": [_P, _P, _I, _P, _P, _P, _P, _I, _U, _U, _F, _P, _I,
+                          _U, _U, _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
     "hpfg_conv3x3_wgrad_nhwc": [_P, _P, _I, _P, _P, _P, _I, _U, _U, _F, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
+                                _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_colsum_f32": [_P, _P, _I, _I, _I, _P],
     "hpfg_attn_max_l": [],
     "hpfg_attn_max_d": [],

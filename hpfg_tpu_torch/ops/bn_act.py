@@ -6,7 +6,10 @@ Replaces (hpfg_tpu/ops/pallas/conv_block.py):
     per-channel S0 = sum(dz), S1 = sum(dz*xhat) with dz = dy*lrelu'(a*pre+b)
     and xhat = (pre-mean)*inv, then dpre = a*(dz - S0/N - xhat*S1/N);
   * ``bn_act_dpre`` -> ``_dpre_kernel`` (K5) alone, for the stage whose
-    S0, S1 the conv2 dgrad already reduced in its epilogue (K11).
+    S0, S1 the conv2 dgrad already reduced in its epilogue (K11), or whose
+    sums were all-reduced over the ranks of a data-parallel run;
+  * ``bn_reduce`` -> ``_bwd_reduce_kernel`` (K4) alone: D's reduce, whose
+    per-rank sums a data-parallel run all-reduces before ``bn_act_dpre``.
 
 The kernels are CUDA C++ in ``csrc/bn_act.cu`` (``bn_act_kernel``,
 ``bn_reduce_kernel``, ``bn_dpre_kernel``), which says what bounds them on an
@@ -65,12 +68,17 @@ def bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums):
     return (a * (dz - sums[0] / n - xhat * (sums[1] / n))).to(dy.dtype)
 
 
+def bn_reduce_reference(dy, pre, a, b, mean, inv):
+    """The reduction alone: sums [2, F] fp32 = [S0, S1] = [dbias, dscale]."""
+    dz, xhat = _dz_xhat(dy, pre, a, b, mean, inv)
+    dims = tuple(range(dy.dim() - 1))
+    return torch.stack([dz.sum(dims), (dz * xhat).sum(dims)])
+
+
 def bn_act_bwd_reference(dy, pre, a, b, mean, inv):
     """Train-mode BN + LeakyReLU backward. Returns (sums [2, F] fp32 =
     [dbias, dscale], dpre in dy's dtype)."""
-    dz, xhat = _dz_xhat(dy, pre, a, b, mean, inv)
-    dims = tuple(range(dy.dim() - 1))
-    sums = torch.stack([dz.sum(dims), (dz * xhat).sum(dims)])
+    sums = bn_reduce_reference(dy, pre, a, b, mean, inv)
     return sums, bn_act_dpre_reference(dy, pre, a, b, mean, inv, sums)
 
 
@@ -239,6 +247,33 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     if dy.device.type == "cpu":
         return bn_act_bwd_reference(dy, pre, a, b, mean, inv)
     _require_cuda(dy)
+    sums = _reduce(dy, pre, a, b, mean, inv)
+    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
+    counted(bn_act_bwd, dy)
+    return sums, dpre
+
+
+@launch_counter
+def bn_reduce(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, mean: torch.Tensor,
+              inv: torch.Tensor) -> torch.Tensor:
+    """Kernel D's reduce alone: sums [2, F] fp32 = [S0, S1] = [dbias,
+    dscale] of :func:`bn_act_bwd`, for a caller that combines them before
+    ``bn_act_dpre`` (a data-parallel run all-reduces them over its ranks)."""
+    if dy.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"bn_reduce: unsupported dtype {dy.dtype}")
+    _check("dy", dy)
+    _check("pre", pre, like=dy)
+    _check_vecs(dy, a=a, b=b, mean=mean, inv=inv)
+    if dy.device.type == "cpu":
+        return bn_reduce_reference(dy, pre, a, b, mean, inv)
+    _require_cuda(dy)
+    sums = _reduce(dy, pre, a, b, mean, inv)
+    counted(bn_reduce, dy)
+    return sums
+
+
+def _reduce(dy, pre, a, b, mean, inv):
     f = dy.shape[-1]
     ptrs = (ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean), ptr(inv))
     lib, w = _walk(True, dy, ptrs)
@@ -250,9 +285,7 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
              ptr(_counter(dy.device)), w.p, f, w.cols, w.rows_per_step,
              int(dy.dtype == torch.bfloat16), int(w.vec > 1), w.ctas,
              w.chunks, w.part_width, stream(dy))
-    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
-    counted(bn_act_bwd, dy)
-    return sums, dpre
+    return sums
 
 
 @launch_counter

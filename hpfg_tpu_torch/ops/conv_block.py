@@ -51,7 +51,9 @@ from hpfg_tpu_torch.ops.bn_act import (
     bn_act_bwd,
     bn_act_bwd_reference,
     bn_act_dpre,
+    bn_reduce,
 )
+from hpfg_tpu_torch.parallel.distributed import all_reduce_sum, spans_ranks
 
 BN_EPS = 1e-5
 
@@ -69,10 +71,14 @@ WGRAD_PART_BYTES = 2 ** 25
 @dataclass(frozen=True)
 class HashDropout:
     """In-kernel dropout: keep probability and a per-block seed in
-    [0, 2^23). The mask is regenerated from (seed, image, row, lane)."""
+    [0, 2^23). The mask is regenerated from (seed, image, row, lane).
+    ``image_ids``: int32 [B] on the data's device, each local image's index
+    in the global batch (data parallelism: ``parallel.mesh.Rows``), which
+    the hash takes as the image; None takes the local index, arange(B)."""
 
     seed: int
     keep: float
+    image_ids: torch.Tensor | None = None
 
     @property
     def thresh(self) -> int:
@@ -108,19 +114,25 @@ def hash_keep(seed: int, b_idx: torch.Tensor, v: torch.Tensor,
 
 
 def hash_mask(seed: int, batch: int, h: int, lanes: int, keep: float,
-              device=None) -> torch.Tensor:
+              device=None, image_ids: torch.Tensor | None = None
+              ) -> torch.Tensor:
     """The pre-scaled dropout mask [batch, h, lanes] (1/keep or 0, fp32) the
     conv kernels regenerate: :func:`hash_keep` of v = row*lanes + lane with
-    the image as ``b_idx`` (``lanes`` = W*C of the masked tensor)."""
+    the image as ``b_idx`` (``lanes`` = W*C of the masked tensor): image i's
+    index in the global batch, ``image_ids[i]``, or i without ids."""
     rows = torch.arange(h, dtype=torch.int64, device=device).view(1, h, 1)
     lane = torch.arange(lanes, dtype=torch.int64, device=device).view(1, 1, -1)
-    img = torch.arange(batch, dtype=torch.int64, device=device).view(-1, 1, 1)
-    return hash_keep(seed, img, rows * lanes + lane, keep)
+    if image_ids is None:
+        img = torch.arange(batch, dtype=torch.int64, device=device)
+    else:
+        img = image_ids.to(device=device, dtype=torch.int64)
+    return hash_keep(seed, img.view(-1, 1, 1), rows * lanes + lane, keep)
 
 
 def _nhwc_mask(drop: HashDropout, shape, device) -> torch.Tensor:
     b, h, w, c = shape
-    return hash_mask(drop.seed, b, h, w * c, drop.keep, device).view(b, h, w, c)
+    return hash_mask(drop.seed, b, h, w * c, drop.keep, device,
+                     drop.image_ids).view(b, h, w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -243,17 +255,36 @@ def _check_vec(name: str, v, n: int, device) -> None:
         raise ValueError(f"{name}: must be contiguous on {device}")
 
 
-def _prologue_args(affine, drop, c, device):
+def _check_ids(drop, batch: int, device) -> None:
+    """A dropout's image ids: int32 [batch], contiguous, on ``device``."""
+    ids = None if drop is None else drop.image_ids
+    if ids is None:
+        return
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (batch,) or \
+            not ids.is_contiguous() or ids.device != device:
+        raise ValueError(f"image_ids: expected contiguous int32 [{batch}] on "
+                         f"{device}, got {ids.dtype} {tuple(ids.shape)} on "
+                         f"{ids.device}")
+
+
+#: the prologue arguments of a launch without one
+_NO_PROLOGUE = [None, None, 0, 0, 0, 0.0, None]
+#: the output-mask arguments of a launch without one
+_NO_MASK = [0, 0, 0, 0.0, None]
+
+
+def _prologue_args(affine, drop, c, batch, device):
     if affine is None:
         if drop is not None:
             raise ValueError("dropout needs the affine prologue")
-        return [None, None, 0, 0, 0, 0.0]
+        return _NO_PROLOGUE
     _check_vec("affine[0]", affine[0], c, device)
     _check_vec("affine[1]", affine[1], c, device)
     if drop is None:
-        return [ptr(affine[0]), ptr(affine[1]), 0, 0, 0, 0.0]
+        return [ptr(affine[0]), ptr(affine[1]), 0, 0, 0, 0.0, None]
+    _check_ids(drop, batch, device)
     return [ptr(affine[0]), ptr(affine[1]), 1, drop.seed, drop.thresh,
-            drop.scale]
+            drop.scale, ptr(drop.image_ids)]
 
 
 def conv_tiles(b: int, h: int, w: int, tile: tuple[int, int]) -> int:
@@ -290,11 +321,13 @@ def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
     if want_sums:
         part = torch.empty((conv_tiles(b, h, wd, lib.tile), 2 * f),
                            dtype=torch.float32, device=x.device)
-    om = ([1, out_drop.seed, out_drop.thresh, out_drop.scale]
-          if out_drop is not None else [0, 0, 0, 0.0])
+    om = _NO_MASK
+    if out_drop is not None:
+        om = [1, out_drop.seed, out_drop.thresh, out_drop.scale,
+              ptr(out_drop.image_ids)]
     red = [ptr(t) for t in reduce] if reduce is not None else [None] * 5
     lib.call("hpfg_conv3x3_nhwc", ptr(x), ptr(x2), c1, ptr(w), ptr(bias),
-             *(pro or [None, None, 0, 0, 0, 0.0]), *om, *red, ptr(y), ptr(y2),
+             *(pro or _NO_PROLOGUE), *om, *red, ptr(y), ptr(y2),
              y.shape[-1], ptr(part), b, h, wd, c, f,
              int(x.dtype == torch.bfloat16), stream(x))
     return colsum(part).view(2, f) if want_sums else None
@@ -315,7 +348,8 @@ def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
     b, h, wd, c = x.shape
     f = _check_weight(w, x, c)
     _check_vec("bias", bias, f, x.device)
-    pro = _prologue_args(affine, drop, c, x.device)
+    pro = _prologue_args(affine, drop, c, b, x.device)
+    _check_ids(out_drop, b, x.device)
     if x.device.type == "cpu":
         return conv3x3_reference(x, w, bias, affine, drop, out_drop,
                                  want_stats)
@@ -382,6 +416,7 @@ def conv3x3_dgrad_reduce(dp, wf, pre, a, b, mean, inv, out_drop=None):
         raise ValueError(f"pre: expected {c} channels, got {pre.shape[-1]}")
     for name, v in (("a", a), ("b", b), ("mean", mean), ("inv", inv)):
         _check_vec(name, v, c, dp.device)
+    _check_ids(out_drop, bb, dp.device)
     if dp.device.type == "cpu":
         return conv3x3_dgrad_reduce_reference(dp, wf, pre, a, b, mean, inv,
                                               out_drop)
@@ -406,7 +441,7 @@ def _launch_wgrad(src, dp, *, src2=None, pro=None):
     part = torch.empty((rows, 9 * c * f), dtype=torch.float32,
                        device=src.device)
     lib.call("hpfg_conv3x3_wgrad_nhwc", ptr(src), ptr(src2), c1, ptr(dp),
-             *(pro or [None, None, 0, 0, 0, 0.0]), ptr(part), b, h, wd, c, f,
+             *(pro or _NO_PROLOGUE), ptr(part), b, h, wd, c, f,
              per_block, int(bf16), stream(src))
     return colsum(part)
 
@@ -422,7 +457,7 @@ def conv3x3_wgrad_nhwc(src, dp, affine=None, drop=None):
     _check_like("dp", dp, src)
     b, h, w, c = src.shape
     f = dp.shape[3]
-    pro = _prologue_args(affine, drop, c, src.device)
+    pro = _prologue_args(affine, drop, c, b, src.device)
     if src.device.type == "cpu":
         return conv3x3_wgrad_reference(src, dp, affine, drop)
     dw = _launch_wgrad(src, dp, pro=pro).view(3, 3, c, f)
@@ -476,13 +511,16 @@ def flip_transpose(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
-                  run_stats, train: bool, drop):
+                  run_stats, train: bool, drop, mesh=None):
     """ConvBlock forward on kernels A and C (conv_block.py ``_forward``).
 
     ``x`` NHWC in the compute dtype, or a pair (skip, up) of such tensors
     whose channel concat is conv1's input (kernel K8); weights and BN
     parameters fp32. ``run_stats`` (mean1, var1, mean2, var2) normalizes in
-    eval mode; ``drop`` is a :class:`HashDropout` or None. Returns (y, stats,
+    eval mode; ``drop`` is a :class:`HashDropout` or None. Under a
+    data-parallel ``mesh`` (``parallel.mesh.Mesh``) of W > 1 ranks, each
+    conv's [sum, sum^2] is all-reduced before it becomes statistics of the
+    global batch (W times this rank's pixels). Returns (y, stats,
     residuals): stats are the batch statistics in train mode (copies of
     ``run_stats`` in eval mode) and residuals (x, w1, w2 in the compute
     dtype, conv1 output h, conv2 output g) feed :func:`block_backward`."""
@@ -491,7 +529,7 @@ def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
     dtype = x0.dtype
     w1c = w1.to(dtype).contiguous()
     w2c = w2.to(dtype).contiguous()
-    n = x0.numel() // x0.shape[-1]
+    n = x0.numel() // x0.shape[-1] * (1 if mesh is None else mesh.world)
     if pair:
         h, s1 = conv3x3_pair_nhwc(x[0], x[1], w1c, b1.float().contiguous(),
                                   want_stats=train)
@@ -499,14 +537,14 @@ def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
         h, s1 = conv3x3_nhwc(x, w1c, b1.float().contiguous(),
                              want_stats=train)
     if train:
-        mean1, var1 = finalize_stats(s1, n)
+        mean1, var1 = finalize_stats(all_reduce_sum(s1, mesh), n)
     else:
         mean1, var1 = (t.clone() for t in run_stats[:2])
     a1, c1 = bn_affine(scale1, bias1, mean1, var1)
     g, s2 = conv3x3_nhwc(h, w2c, b2.float().contiguous(), affine=(a1, c1),
                          drop=drop, want_stats=train)
     if train:
-        mean2, var2 = finalize_stats(s2, n)
+        mean2, var2 = finalize_stats(all_reduce_sum(s2, mesh), n)
     else:
         mean2, var2 = (t.clone() for t in run_stats[2:])
     a2, c2 = bn_affine(scale2, bias2, mean2, var2)
@@ -514,8 +552,15 @@ def block_forward(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
     return y, (mean1, var1, mean2, var2), (x, w1c, w2c, h, g)
 
 
+def _global_sums(s: torch.Tensor, mesh) -> torch.Tensor:
+    """BN-backward sums for ``bn_act_dpre`` under a data-parallel mesh: the
+    all-reduced [S0, S1] over W, as dpre divides by this rank's pixel
+    count and the global count is W times it."""
+    return all_reduce_sum(s, mesh) / mesh.world
+
+
 def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
-                   need_dx=True, need_dw=True):
+                   need_dx=True, need_dw=True, mesh=None):
     """Train-mode ConvBlock backward, in the order of conv_block.py ``_bwd``
     with its default folds: BN2 backward (D), conv2 dgrad times the forward
     dropout mask with BN1's backward reduce in its epilogue (K11), conv2
@@ -526,14 +571,26 @@ def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
     launches no B and no K10, as XLA drops an unused ``_wgrad``). Returns
     (dx, dw1, dscale1, dbias1, dw2, dscale2, dbias2); dx is None where no
     gradient is needed, and a pair (dx_skip, dx_up) for a pair input; dw1
-    and dw2 are None without ``need_dw``."""
+    and dw2 are None without ``need_dw``.
+
+    Under a data-parallel ``mesh`` of W > 1 ranks, BN2's backward runs as
+    D's reduce, an all-reduce of its sums and dpre, and K11's sums are
+    all-reduced before BN1's dpre: the elementwise passes see the global
+    batch's sums. The returned dscale / dbias stay this rank's own
+    partials; the step's gradient all-reduce sums them over the ranks."""
     x, w1c, w2c, h, g = residuals
     mean1, var1, mean2, var2 = stats
     dy = dy.to(h.dtype).contiguous()
+    multi = spans_ranks(mesh)
 
     a2, c2 = bn_affine(scale2, bias2, mean2, var2)
     inv2 = (1.0 / torch.sqrt(var2 + BN_EPS)).float().contiguous()
-    s2, dg = bn_act_bwd(dy, g, a2, c2, mean2.float().contiguous(), inv2)
+    m2 = mean2.float().contiguous()
+    if multi:
+        s2 = bn_reduce(dy, g, a2, c2, m2, inv2)
+        dg = bn_act_dpre(dy, g, a2, c2, m2, inv2, _global_sums(s2, mesh))
+    else:
+        s2, dg = bn_act_bwd(dy, g, a2, c2, m2, inv2)
     a1, c1 = bn_affine(scale1, bias1, mean1, var1)
     inv1 = (1.0 / torch.sqrt(var1 + BN_EPS)).float().contiguous()
     m1 = mean1.float().contiguous()
@@ -543,7 +600,8 @@ def block_backward(dy, residuals, scale1, bias1, scale2, bias2, stats, drop,
     if need_dw:
         dw2 = conv3x3_wgrad_nhwc(h, dg, affine=(a1, c1), drop=drop)
 
-    dh = bn_act_dpre(dd, h, a1, c1, m1, inv1, s1)
+    dh = bn_act_dpre(dd, h, a1, c1, m1, inv1,
+                     _global_sums(s1, mesh) if multi else s1)
     if isinstance(x, (tuple, list)):
         need = (need_dx, need_dx) if isinstance(need_dx, bool) else need_dx
         dx = None
@@ -563,9 +621,11 @@ class FusedConvBlock(torch.autograd.Function):
     """The fused ConvBlock (conv_block.py ``fused_conv_block``).
 
     apply(x, w1, b1, scale1, bias1, w2, b2, scale2, bias2, run_stats, train,
-    drop, x2=None) -> (y, mean1, var1, mean2, var2); see
+    drop, x2=None, mesh=None) -> (y, mean1, var1, mean2, var2); see
     :func:`block_forward`. With ``x2`` the input is the pair (x, x2): skip
-    and upsampled halves of an UpBlock, each with its own gradient. No
+    and upsampled halves of an UpBlock, each with its own gradient;
+    ``mesh``: the data-parallel mesh whose global batch the BN statistics
+    span (None: this process's batch). No
     gradient flows through the returned statistics; the backward is train
     mode only, and the conv-bias gradients are exactly zero (the biases feed
     BN, whose batch mean absorbs them). Where neither conv weight needs a
@@ -575,12 +635,12 @@ class FusedConvBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, scale1, bias1, w2, b2, scale2, bias2,
-                run_stats, train, drop, x2=None):
+                run_stats, train, drop, x2=None, mesh=None):
         inp = x if x2 is None else (x, x2)
         y, stats, residuals = block_forward(inp, w1, b1, scale1, bias1, w2,
                                             b2, scale2, bias2, run_stats,
-                                            train, drop)
-        ctx.train, ctx.drop = train, drop
+                                            train, drop, mesh)
+        ctx.train, ctx.drop, ctx.mesh = train, drop, mesh
         ctx.save_for_backward(x, x2, *residuals[1:], scale1, bias1, scale2,
                               bias2, *stats)
         ctx.mark_non_differentiable(*stats)
@@ -597,11 +657,11 @@ class FusedConvBlock(torch.autograd.Function):
         need_dx = (needs[0], needs[12]) if pair else needs[0]
         dx, dw1, dscale1, dbias1, dw2, dscale2, dbias2 = block_backward(
             dy, residuals, *saved[4:8], saved[8:], ctx.drop, need_dx=need_dx,
-            need_dw=needs[1] or needs[5])
+            need_dw=needs[1] or needs[5], mesh=ctx.mesh)
         dx, dx2 = dx if pair and dx is not None else (dx, None)
         zero = torch.zeros_like(dbias1)
         grads = (dx, dw1, zero, dscale1, dbias1, dw2, zero.clone(), dscale2,
-                 dbias2, None, None, None, dx2)
+                 dbias2, None, None, None, dx2, None)
         return tuple(g if need else None
                      for g, need in zip(grads, needs))
 

@@ -1,9 +1,24 @@
 """Segmentation / SSL losses used by the main path (port of
-``hpfg_tpu/ops/losses.py``). Class axis last (NHWC); reductions in fp32."""
+``hpfg_tpu/ops/losses.py``). Class axis last (NHWC); reductions in fp32.
+
+Each loss takes ``mesh`` (default None, one process): under data
+parallelism over W > 1 ranks (``parallel.mesh.Mesh``) the inputs are this
+rank's rows, every sum behind the loss is all-reduced over the ranks and
+every count is the global one, so each rank computes the loss of the
+global batch (the contrastive losses run on the gathered rows of both
+views). Their backward follows the scaling rule of
+``parallel/distributed.py``.
+"""
 
 from __future__ import annotations
 
 import torch
+
+from hpfg_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    all_reduce_sum,
+    spans_ranks,
+)
 
 SMOOTH = 1e-5
 IGNORE_INDEX = 255
@@ -16,8 +31,16 @@ def one_hot_labels(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (labels.long().unsqueeze(-1) == classes).float()
 
 
+def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``x`` over the global batch: x.mean() in one process,
+    else the all-reduced sum over W times this rank's count."""
+    if not spans_ranks(mesh):
+        return x.mean()
+    return all_reduce_sum(x.sum(), mesh) / (x.numel() * mesh.world)
+
+
 def soft_dice_per_class(probs: torch.Tensor, target_one_hot: torch.Tensor,
-                        smooth: float = SMOOTH) -> torch.Tensor:
+                        smooth: float = SMOOTH, mesh=None) -> torch.Tensor:
     """Per-class soft dice loss (1 - dice) over all pixels of the batch:
     dice = (2*sum(p*t)+s) / (sum(p^2)+sum(t^2)+s). Returns [C]."""
     p = probs.float()
@@ -26,14 +49,19 @@ def soft_dice_per_class(probs: torch.Tensor, target_one_hot: torch.Tensor,
     intersect = (p * t).sum(dims)
     z_sum = (p * p).sum(dims)
     y_sum = (t * t).sum(dims)
+    if spans_ranks(mesh):  # one all-reduce of the three sums
+        intersect, z_sum, y_sum = all_reduce_sum(
+            torch.stack([intersect, z_sum, y_sum]), mesh)
     return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
 
 
 def dice_loss_multiclass(probs: torch.Tensor, labels: torch.Tensor,
                          num_classes: int,
-                         weight: torch.Tensor | None = None) -> torch.Tensor:
+                         weight: torch.Tensor | None = None,
+                         mesh=None) -> torch.Tensor:
     """Mean over classes (background included) of the soft dice loss."""
-    per_class = soft_dice_per_class(probs, one_hot_labels(labels, num_classes))
+    per_class = soft_dice_per_class(probs, one_hot_labels(labels, num_classes),
+                                    mesh=mesh)
     if weight is not None:
         per_class = per_class * torch.as_tensor(weight, dtype=per_class.dtype,
                                                 device=per_class.device)
@@ -41,7 +69,8 @@ def dice_loss_multiclass(probs: torch.Tensor, labels: torch.Tensor,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+                       ignore_index: int = IGNORE_INDEX,
+                       mesh=None) -> torch.Tensor:
     """Pixel cross-entropy, mean over non-ignored pixels."""
     labels = labels.long()
     valid = labels != ignore_index
@@ -49,16 +78,18 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    total = all_reduce_sum(nll.sum(), mesh)
+    count = all_reduce_sum(valid.sum(), mesh)
+    return total / count.clamp(min=1)
 
 
 def med_sup_loss(logits: torch.Tensor, labels: torch.Tensor,
                  num_classes: int, ce_weight: float = 0.5,
-                 dice_weight: float = 0.5) -> torch.Tensor:
+                 dice_weight: float = 0.5, mesh=None) -> torch.Tensor:
     """0.5*CE(ignore 255) + 0.5*Dice(softmax, labels)."""
-    ce = cross_entropy_loss(logits, labels)
+    ce = cross_entropy_loss(logits, labels, mesh=mesh)
     dl = dice_loss_multiclass(torch.softmax(logits.float(), dim=-1), labels,
-                              num_classes)
+                              num_classes, mesh=mesh)
     return ce_weight * ce + dice_weight * dl
 
 
@@ -82,10 +113,14 @@ def _l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12
 
 
 def _nt_xent(out_1: torch.Tensor, out_2: torch.Tensor,
-             temperature: float) -> torch.Tensor:
+             temperature: float, mesh=None) -> torch.Tensor:
     """SimCLR NT-Xent over the 2B x 2B similarity matrix of normalised rows
     out_1, out_2 [B, D]; the diagonal is zeroed, which leaves the row sums
-    of the masked-select form."""
+    of the masked-select form. With a mesh, over the gathered rows of every
+    rank (the loss is invariant to a permutation of the rows applied to
+    both views alike, so the gathered order need not be the global one)."""
+    out_1 = all_gather_rows(out_1, mesh)
+    out_2 = all_gather_rows(out_2, mesh)
     b = out_1.shape[0]
     out = torch.cat([out_1, out_2], dim=0)
     sim = torch.exp(out @ out.T / temperature)
@@ -95,8 +130,8 @@ def _nt_xent(out_1: torch.Tensor, out_2: torch.Tensor,
     return (-torch.log(pos / sim.sum(-1))).mean()
 
 
-def dense_contrastive_loss(student, teacher,
-                           temperature: float = 0.7) -> torch.Tensor:
+def dense_contrastive_loss(student, teacher, temperature: float = 0.7,
+                           mesh=None) -> torch.Tensor:
     """HPFG's dense contrastive loss between projection-neck outputs
     (global [B, D], dense [B, S, D]) of a student and its teacher (the
     teacher side is detached): 0.5 * (NT-Xent of the global vectors +
@@ -107,5 +142,5 @@ def dense_contrastive_loss(student, teacher,
     tg = _l2_normalize(tg.float(), -1)
     sd = _l2_normalize(sd.float(), -1).reshape(sd.shape[0], -1)
     td = _l2_normalize(td.float(), -1).reshape(td.shape[0], -1)
-    return 0.5 * (_nt_xent(sg, tg, temperature)
-                  + _nt_xent(sd, td, temperature))
+    return 0.5 * (_nt_xent(sg, tg, temperature, mesh)
+                  + _nt_xent(sd, td, temperature, mesh))

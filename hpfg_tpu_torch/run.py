@@ -21,6 +21,19 @@ checkpoint of ``<save_path>/model`` (``best_model1``, ``last``, ...) and
 raises if it is missing; ``--set auto_resume=true`` restores the newest of
 ``last``, ``last_a`` and ``last_b`` where one exists, else starts from
 scratch.
+
+Data parallelism, as ``scripts/run.py``: ``--set distributed=true`` joins
+the process group (``parallel.distributed.init_distributed``, from
+torchrun's variables) before anything is built; each rank runs on
+``cuda:LOCAL_RANK`` unless ``device`` names one (``--set device=cuda:0``
+puts every rank on one card), and ``dist_backend`` (default none: NCCL on
+CUDA devices, gloo on the CPU) picks the backend; ranks that share a card
+need ``--set dist_backend=gloo``. With nothing to join (no torchrun
+variables) ``distributed=true`` stops instead of training alone. The
+config's batch sizes are the global batch. Launch with
+
+    python -m torch.distributed.run --nproc-per-node 2 -m hpfg_tpu_torch.run \
+        --config ... --set distributed=true
 """
 
 from __future__ import annotations
@@ -32,7 +45,22 @@ import torch
 DEFAULT_CONFIG = "configs/mean_teacher_unet_30k_224x224_ACDC.yaml"
 
 
-def run(argv=None, default_config: str = DEFAULT_CONFIG):
+def _device(cfg) -> torch.device:
+    """The config's ``device``; under ``distributed`` a bare ``cuda`` (the
+    default) is this rank's card, ``cuda:LOCAL_RANK``."""
+    import os
+
+    name = str(cfg.get("device", "cuda"))
+    if cfg.get("distributed") and name == "cuda":
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return torch.device(name)
+
+
+def run(argv=None, default_config: str = DEFAULT_CONFIG,
+        algorithm: str | None = None):
+    """Parse the config (``default_config`` unless ``--config``), train, and
+    return the Trainer; ``algorithm`` overrides the config's
+    ``algorithm:``."""
     from hpfg_tpu_torch.config import parse_config
     from hpfg_tpu_torch.data.preflight import (
         preflight_or_raise,
@@ -57,13 +85,26 @@ def run(argv=None, default_config: str = DEFAULT_CONFIG):
         raise SystemExit(1 if issues else 0)
     preflight_or_raise(cfg)
 
-    device = torch.device(str(cfg.get("device", "cuda")))
+    device = _device(cfg)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device=cuda but no CUDA device is available "
                          "(pass --set device=cpu for a CPU run)")
-    algo_name = cfg.get("algorithm")
+    if cfg.get("distributed"):
+        import torch.distributed as dist
+
+        from hpfg_tpu_torch.parallel.distributed import init_distributed
+
+        backend = cfg.get("dist_backend")
+        init_distributed(device=device, backend=None if backend in (
+            None, "none", "null") else str(backend))
+        if not dist.is_initialized():
+            raise SystemExit(
+                "distributed=true but no process group to join: launch "
+                "through python -m torch.distributed.run (or set "
+                "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK)")
+    algo_name = algorithm or cfg.get("algorithm")
     if algo_name is None:
-        raise SystemExit("config must define `algorithm:`")
+        raise SystemExit("config must define `algorithm:` (or pass one)")
     dtype = (torch.bfloat16 if str(cfg.get("precision", "bf16")) == "bf16"
              else torch.float32)
     algo = build_algorithm(algo_name, cfg, dtype=dtype, device=device)

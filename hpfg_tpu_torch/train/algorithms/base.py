@@ -5,11 +5,28 @@ The JAX package threads an immutable state pytree through a pure step; here
 the state is the algorithm's modules (parameters plus BN buffers), its
 optimizers, its generators and ``step_count``, updated in place by ``step``;
 ``state_dict`` / ``load_state_dict`` carry all of it for a checkpoint.
+
+Data parallelism: an algorithm runs over the process-wide mesh
+(``parallel.mesh.get_mesh``). Under W > 1 ranks its ``step`` takes this
+rank's rows of the global batch (a rank-sharded loader's batch, or
+``parallel.mesh.shard_batch`` of a global one); the config's
+``batch_size`` / ``unlabel_batch_size`` are global. The models see where
+their rows sit in the global batch (``Rows``), the losses are global,
+the gradients are averaged over the ranks before each optimizer step
+(``sync_grads``), and construction and ``load_state_dict`` broadcast rank
+0's parameters and buffers. The host generators are seeded alike on every
+rank, so every rank draws the same dropout seeds and CutMix boxes. The
+step then computes what one process computes on the global batch. Only
+the algorithms with ``data_parallel`` set (Supervised, Mean-Teacher, CPS,
+CTCT, HPFG), on the models whose forward takes ``rows`` (the UNets and
+the SegFormers), run under W > 1; the others raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
+import inspect
 from typing import Iterator
 
 import numpy as np
@@ -17,6 +34,11 @@ import torch
 
 from hpfg_tpu_torch.models import build_model
 from hpfg_tpu_torch.ops.rampup import DEFAULT_EPOCH_ITERS
+from hpfg_tpu_torch.parallel.distributed import (
+    all_reduce_grads,
+    broadcast_modules,
+)
+from hpfg_tpu_torch.parallel.mesh import get_mesh, local_rows
 from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS, OPTIMIZER_FIELDS
 
 
@@ -44,9 +66,18 @@ class Algorithm:
     on the CPU by itself."""
 
     name: str = "base"
+    #: whether ``step`` runs under data parallelism over W > 1 ranks
+    data_parallel: bool = False
 
     def __init__(self, cfg, dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
+        #: the data-parallel mesh (one process unless a group was formed)
+        self.mesh = get_mesh()
+        if self.mesh.world > 1 and not self.data_parallel:
+            raise NotImplementedError(
+                f"algorithm {self.name!r} does not run under data "
+                f"parallelism over {self.mesh.world} ranks yet (ROADMAP.md, "
+                "Queue 1); run it in one process")
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
@@ -72,7 +103,40 @@ class Algorithm:
     def _build(self, model_cfg) -> torch.nn.Module:
         model = build_model(model_cfg, dtype=self.dtype,
                             generator=self.init_generator)
+        if self.mesh.world > 1 and \
+                "rows" not in inspect.signature(model.forward).parameters:
+            raise NotImplementedError(
+                f"model {type(model).__name__} does not run under data "
+                f"parallelism over {self.mesh.world} ranks yet (only the "
+                "UNets and the SegFormers take the global batch's rows)")
         return model.to(self.device)
+
+    def local(self, n: int) -> int:
+        """This rank's share of a global batch of ``n``."""
+        return local_rows(n, self.mesh.world)
+
+    def train_kwargs(self, *segments: int) -> dict:
+        """The keywords of a train-mode forward whose input concatenates
+        global batches of these sizes: ``train``, the dropout
+        ``generator`` and, under data parallelism, ``rows``
+        (``Mesh.rows``; left out in one process, so a model that does not
+        take it runs as before)."""
+        kw = {"train": True, "generator": self.dropout_generator}
+        rows = self.mesh.rows(*segments, device=self.device)
+        if rows is not None:
+            kw["rows"] = rows
+        return kw
+
+    def sync_grads(self, *models: torch.nn.Module) -> None:
+        """Average the models' gradients over the ranks (a no-op in one
+        process)."""
+        all_reduce_grads([p for m in models for p in m.parameters()],
+                         self.mesh)
+
+    def broadcast_models(self) -> None:
+        """Rank 0's parameters and buffers into every rank's models."""
+        broadcast_modules([getattr(self, k) for k in MODEL_FIELDS
+                           if hasattr(self, k)], self.mesh)
 
     def state_dict(self) -> dict:
         """What a checkpoint holds, as the JAX state pytree does: each
@@ -105,6 +169,7 @@ class Algorithm:
         for k, gs in state["generators"].items():
             getattr(self, k).set_state(gs)
         self.step_count = int(state["step_count"])
+        self.broadcast_models()
 
     def step(self, batch: dict) -> dict:
         raise NotImplementedError

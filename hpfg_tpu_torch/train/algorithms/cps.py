@@ -23,25 +23,26 @@ from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
 @register("cps")
 class CPS(DualAlgorithm):
     name = "cps"
+    data_parallel = True
 
     def step(self, batch: dict) -> dict:
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
-        lb, nc = self.label_bs, self.num_classes
-        gen = self.dropout_generator
+        lb, nc, mesh = self.local(self.label_bs), self.num_classes, self.mesh
+        kw = self.train_kwargs(self.label_bs, self.unlabel_bs)
         x = torch.cat([batch["label_img"], batch["unlabel_img"]], dim=0)
         w = self.consistency * sigmoid_rampup(cur_itrs // self.epoch_iters,
                                               self.rampup)
 
-        out1 = self.model1(x, train=True, generator=gen)
-        out2 = self.model2(x, train=True, generator=gen)
+        out1 = self.model1(x, **kw)
+        out2 = self.model2(x, **kw)
         label = batch["label"]
-        loss_sup = (med_sup_loss(out1[:lb], label, nc)
-                    + med_sup_loss(out2[:lb], label, nc))
+        loss_sup = (med_sup_loss(out1[:lb], label, nc, mesh=mesh)
+                    + med_sup_loss(out2[:lb], label, nc, mesh=mesh))
         pseudo1 = out1[lb:].detach().argmax(-1)
         pseudo2 = out2[lb:].detach().argmax(-1)
-        loss_semi = (med_sup_loss(out1[lb:], pseudo2, nc)
-                     + med_sup_loss(out2[lb:], pseudo1, nc))
+        loss_semi = (med_sup_loss(out1[lb:], pseudo2, nc, mesh=mesh)
+                     + med_sup_loss(out2[lb:], pseudo1, nc, mesh=mesh))
         loss = loss_sup + w * loss_semi
 
         lr1, _ = self.update(loss)

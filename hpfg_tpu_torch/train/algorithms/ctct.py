@@ -27,27 +27,28 @@ from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
 @register("ctct")
 class CTCT(DualAlgorithm):
     name = "ctct"
+    data_parallel = True
 
     def step(self, batch: dict) -> dict:
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
-        lb, nc = self.label_bs, self.num_classes
-        gen = self.dropout_generator
+        lb, nc, mesh = self.local(self.label_bs), self.num_classes, self.mesh
+        kw = self.train_kwargs(self.label_bs, self.unlabel_bs)
         x = torch.cat([batch["label_img"], batch["unlabel_img"]], dim=0)
         w = self.consistency * sigmoid_rampup(cur_itrs // self.epoch_iters,
                                               self.rampup)
 
-        out1 = self.model1(x, train=True, generator=gen)
-        out2 = self.model2(x, train=True, generator=gen)
+        out1 = self.model1(x, **kw)
+        out2 = self.model2(x, **kw)
         soft1 = torch.softmax(out1, dim=-1)
         soft2 = torch.softmax(out2, dim=-1)
         label = batch["label"]
-        loss1 = med_sup_loss(out1[:lb], label, nc)
-        loss2 = med_sup_loss(out2[:lb], label, nc)
+        loss1 = med_sup_loss(out1[:lb], label, nc, mesh=mesh)
+        loss2 = med_sup_loss(out2[:lb], label, nc, mesh=mesh)
         pseudo1 = soft1[lb:].detach().argmax(-1)
         pseudo2 = soft2[lb:].detach().argmax(-1)
-        ps1 = dice_loss_multiclass(soft1[lb:], pseudo2, nc)
-        ps2 = dice_loss_multiclass(soft2[lb:], pseudo1, nc)
+        ps1 = dice_loss_multiclass(soft1[lb:], pseudo2, nc, mesh=mesh)
+        ps2 = dice_loss_multiclass(soft2[lb:], pseudo1, nc, mesh=mesh)
         loss = loss1 + w * ps1 + loss2 + w * ps2
 
         lr1, lr2 = self.update(loss)

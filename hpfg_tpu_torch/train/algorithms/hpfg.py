@@ -26,6 +26,12 @@ Per iteration:
 The CutMix masks come from a ``torch.Generator`` on the device, so they are
 not ``jax.random``'s: ``step`` takes an injected ``mask`` so that a test can
 give both implementations the same one.
+
+Under data parallelism (``algorithms/base.py``) the masks are drawn for the
+global unlabelled batch and each rank keeps its rows, and the tiled second
+labelled batch is built from the gathered global label1 rows: global
+unlabelled row k pairs with label1 row k mod L, which usually lies on
+another rank.
 """
 
 from __future__ import annotations
@@ -37,9 +43,12 @@ from hpfg_tpu_torch.ops.ema import ema_update, ema_update_subtree
 from hpfg_tpu_torch.ops.losses import (
     dense_contrastive_loss,
     dice_loss_multiclass,
+    global_mean,
     med_sup_loss,
 )
 from hpfg_tpu_torch.ops.rampup import linear_rampup
+from hpfg_tpu_torch.parallel.distributed import gather_rows
+from hpfg_tpu_torch.parallel.mesh import shard_batch
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import to_device, tree_copy
 from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
@@ -48,6 +57,7 @@ from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
 @register("hpfg")
 class HPFG(DualAlgorithm):
     name = "hpfg"
+    data_parallel = True
     requires_features = True
     mt_gate_iters: int = 1000
     cps_scale: float = 7.0
@@ -63,27 +73,32 @@ class HPFG(DualAlgorithm):
         self.cutmix_generator.manual_seed(int(cfg.get("seed", 0)) + 2)
 
     def step(self, batch: dict, mask: torch.Tensor | None = None) -> dict:
-        """One iteration; ``mask`` [U, H, W, 1] replaces the CutMix draw."""
+        """One iteration; ``mask`` [U, H, W, 1] (over the global unlabelled
+        batch) replaces the CutMix draw."""
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
         lb, ub = self.label_bs, self.unlabel_bs
         reps = ub // lb
-        gen = self.dropout_generator
+        mesh = self.mesh
+        kw = self.train_kwargs(lb, ub)
 
-        label_img1 = batch["label_img1"].repeat(reps, 1, 1, 1)
-        target_label1 = batch["label1"].repeat(reps, 1, 1)
+        # the tiled label1 rows of this rank's unlabelled rows
+        label_img1 = shard_batch(mesh, gather_rows(
+            batch["label_img1"], mesh).repeat(reps, 1, 1, 1))
+        target_label1 = shard_batch(mesh, gather_rows(
+            batch["label1"], mesh).repeat(reps, 1, 1))
         if mask is None:
             mask = box_masks(self.cutmix_generator, ub, self.crop,
                              self.device)
-        mask = mask.to(self.device, torch.float32)
+        mask = shard_batch(mesh, mask.to(self.device, torch.float32))
+        lb = self.local(lb)
         batch_un_mix = label_img1 * (1.0 - mask) + batch["unlabel_img"] * mask
         batch_mix = torch.cat([batch["label_img"], batch_un_mix], dim=0)
         volume_batch = torch.cat([batch["label_img"], batch["unlabel_img"]],
                                  dim=0)
 
         with torch.no_grad():
-            ema_out, ema_h1, ema_h2 = self.ema(volume_batch, train=True,
-                                               generator=gen)
+            ema_out, ema_h1, ema_h2 = self.ema(volume_batch, **kw)
             ema_soft = torch.softmax(ema_out, dim=-1)
             mask_hw = mask[..., 0]
             pseudo1 = ema_soft[lb:].argmax(-1).float()
@@ -93,18 +108,20 @@ class HPFG(DualAlgorithm):
                                              self.rampup)
         mt_on = float(cur_itrs >= self.mt_gate_iters)
 
-        out1, _, _ = self.model1(batch_mix, train=True, generator=gen)
-        out2, h1, h2 = self.model2(volume_batch, train=True, generator=gen)
+        out1, _, _ = self.model1(batch_mix, **kw)
+        out2, h1, h2 = self.model2(volume_batch, **kw)
         soft1 = torch.softmax(out1, dim=-1)
         soft2 = torch.softmax(out2, dim=-1)
-        loss_sup = (med_sup_loss(out1[:lb], batch["label"], self.num_classes)
+        loss_sup = (med_sup_loss(out1[:lb], batch["label"], self.num_classes,
+                                 mesh=mesh)
                     + med_sup_loss(out2[:lb], batch["label"],
-                                   self.num_classes))
-        loss_contr = (dense_contrastive_loss(h1, ema_h1)
-                      + dense_contrastive_loss(h2, ema_h2))
+                                   self.num_classes, mesh=mesh))
+        loss_contr = (dense_contrastive_loss(h1, ema_h1, mesh=mesh)
+                      + dense_contrastive_loss(h2, ema_h2, mesh=mesh))
         pseudo_sup1 = dice_loss_multiclass(soft1[lb:], pseudo1,
-                                           self.num_classes)
-        consistency2 = mt_on * ((soft2[lb:] - ema_soft[lb:]) ** 2).mean()
+                                           self.num_classes, mesh=mesh)
+        consistency2 = mt_on * global_mean((soft2[lb:] - ema_soft[lb:]) ** 2,
+                                           mesh)
         loss_semi = (self.cps_scale * w * pseudo_sup1
                      + w * consistency2 + w * loss_contr)
         loss = loss_sup + loss_semi

@@ -14,7 +14,11 @@ from __future__ import annotations
 import torch
 
 from hpfg_tpu_torch.ops.ema import ema_update
-from hpfg_tpu_torch.ops.losses import med_sup_loss, softmax_mse_loss
+from hpfg_tpu_torch.ops.losses import (
+    global_mean,
+    med_sup_loss,
+    softmax_mse_loss,
+)
 from hpfg_tpu_torch.ops.rampup import sigmoid_rampup
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import (
@@ -29,6 +33,7 @@ from hpfg_tpu_torch.train.optim import build_optimizer, set_lr
 @register(["mean_teacher", "mt"])
 class MeanTeacher(Algorithm):
     name = "mean_teacher"
+    data_parallel = True
 
     def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)
@@ -43,26 +48,30 @@ class MeanTeacher(Algorithm):
         self.consistency = float(cfg.get("consistency", 0.1))
         self.rampup = float(cfg.get("consistency_rampup", 200.0))
         self.ema_decay = float(cfg.get("ema_decay", 0.99))
+        self.broadcast_models()
 
     def step(self, batch: dict) -> dict:
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
-        lb = self.label_bs
+        lb = self.local(self.label_bs)
+        kw = self.train_kwargs(self.label_bs, self.unlabel_bs)
         x = torch.cat([batch["label_img"], batch["unlabel_img"]], dim=0)
 
         with torch.no_grad():
-            ema_out = self.ema(x, train=True,
-                               generator=self.dropout_generator)
+            ema_out = self.ema(x, **kw)
         consistency_weight = self.consistency * sigmoid_rampup(
             cur_itrs // self.epoch_iters, self.rampup)
 
-        out = self.model(x, train=True, generator=self.dropout_generator)
-        loss_sup = med_sup_loss(out[:lb], batch["label"], self.num_classes)
-        loss_cons = softmax_mse_loss(out[lb:], ema_out[lb:]).mean()
+        out = self.model(x, **kw)
+        loss_sup = med_sup_loss(out[:lb], batch["label"], self.num_classes,
+                                mesh=self.mesh)
+        loss_cons = global_mean(softmax_mse_loss(out[lb:], ema_out[lb:]),
+                                self.mesh)
         loss = loss_sup + consistency_weight * loss_cons
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.sync_grads(self.model)
         lr = self.schedule(self.step_count)
         set_lr(self.optimizer, lr)
         self.optimizer.step()

@@ -25,6 +25,7 @@ from hpfg_tpu_torch.train.optim import build_optimizer, set_lr
 @register(["supervised", "sup"])
 class Supervised(Algorithm):
     name = "supervised"
+    data_parallel = True
 
     def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)
@@ -33,18 +34,20 @@ class Supervised(Algorithm):
             cfg, self.model.parameters())
         self.ce_weight = float(cfg.get("ce_weight", 0.5))
         self.dice_weight = float(cfg.get("dice_weight", 0.5))
+        self.broadcast_models()
 
     def step(self, batch: dict) -> dict:
         batch = to_device(batch, self.device)
-        out = self.model(batch["image"], train=True,
-                         generator=self.dropout_generator)
+        out = self.model(batch["image"], **self.train_kwargs(
+            len(batch["image"]) * self.mesh.world))
         if isinstance(out, tuple):
             out = out[0]
         loss = med_sup_loss(out, batch["label"], self.num_classes,
-                            self.ce_weight, self.dice_weight)
+                            self.ce_weight, self.dice_weight, mesh=self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         zero_missing_grads(self.model)
+        self.sync_grads(self.model)
         lr = self.schedule(self.step_count)
         set_lr(self.optimizer, lr)
         self.optimizer.step()

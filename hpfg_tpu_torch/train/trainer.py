@@ -26,6 +26,16 @@ the loop evaluates and saves inline. An eval error re-raises in ``fit``;
 one during shutdown after a training error is logged and the training
 error propagates.
 
+Data parallelism (JAX ``trainer.py``: every process steps, process 0
+writes): every rank runs ``fit`` on its rank-sharded loaders and steps its
+algorithm; only rank 0 makes the workdir, writes the log file, TensorBoard
+and the checkpoints, and evaluates (on the whole test set, overlapped as in
+one process). At each eval boundary and at the end of ``fit`` every rank
+meets the others in ``coordination_barrier`` (``BARRIER_TIMEOUT_S``,
+1800 s), which raises where a peer is dead or hung instead of waiting for
+ever. ``resume`` reads the same files on every
+rank.
+
 A set ``pretrain_ckpt`` (a Swin-MAE run's ``<save_path>/model``; tag
 ``pretrain_tag``, default ``last``) transfers that encoder into every
 module of the algorithm with a SwinUNet encoder (``model``, ``model1``,
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import logging
 import os
 import time
 
@@ -53,6 +64,12 @@ import numpy as np
 import torch
 
 from hpfg_tpu_torch.evals.volume import evaluate_images, evaluate_volumes_multi
+from hpfg_tpu_torch.parallel.distributed import (
+    BARRIER_TIMEOUT_S,
+    coordination_barrier,
+    is_main_process,
+    process_count,
+)
 from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS, CheckpointManager
 from hpfg_tpu_torch.utils.logging import get_logger, mk_path
 from hpfg_tpu_torch.utils.tb import TBWriter
@@ -88,15 +105,23 @@ class Trainer:
                  log_every: int = 20):
         self.cfg = cfg
         self.algorithm = algorithm
+        #: rank 0 (or the one process) writes and evaluates; every rank steps
+        self.is_main = is_main_process()
         self.workdir = workdir or cfg.get("save_path", "checkpoint/run")
-        mk_path(self.workdir)
-        self.logger = get_logger(os.path.join(self.workdir, "log.log"))
+        if self.is_main:
+            mk_path(self.workdir)
+        self.logger = get_logger(os.path.join(self.workdir, "log.log")
+                                 if self.is_main else None)
+        if not self.is_main:
+            self.logger.setLevel(logging.WARNING)
         self.writer = TBWriter(os.path.join(self.workdir, "tensorboardX")
-                               if enable_tb else None, self.logger)
+                               if enable_tb and self.is_main else None,
+                               self.logger)
         if self.writer.enabled:
             self.logger.info("TensorBoard: %s", self.writer.backend)
         self.log_every = log_every
-        self.ckpt = CheckpointManager(os.path.join(self.workdir, "model"))
+        self.ckpt = CheckpointManager(os.path.join(self.workdir, "model"),
+                                      create=self.is_main)
         #: the best mean dice of each evaluated model so far
         self.best_dice: dict[str, float] = {}
         if loaders is None:
@@ -172,14 +197,15 @@ class Trainer:
         start = algo.step_count
         t_window, iter_window = t_start, start
         pending: list[tuple[int, dict]] = []
+        world = process_count()
         # the eval worker is joined even when training raises, and an error
         # of its own then must not hide the training error
         failed = False
         try:
             while algo.step_count < self.total_itrs:
                 batch = next(batches)
-                images = sum(len(v) for k, v in batch.items()
-                             if "img" in k or k == "image")
+                images = world * sum(len(v) for k, v in batch.items()
+                                     if "img" in k or k == "image")
                 metrics = algo.step(batch)
                 cur = algo.step_count
                 pending.append((cur, metrics))
@@ -199,7 +225,9 @@ class Trainer:
                         t_window, iter_window = now, cur
                 if eval_enabled and cur % self.step_size == 0:
                     self._flush_metrics(pending)
-                    self._dispatch_eval(cur)
+                    if self.is_main:
+                        self._dispatch_eval(cur)
+                    self._barrier(f"eval {cur}")
                     panels = getattr(algo, "image_panels", None)
                     if panels is not None and self.writer.enabled:
                         for tag, img in panels(batch).items():
@@ -222,6 +250,7 @@ class Trainer:
                 self._eval_pool.shutdown(wait=True)
                 self._eval_pool = None
         self.save("last")
+        self._barrier("last")
         # a later fit's first write opens a new event file
         self.writer.close()
         elapsed = time.time() - t_start
@@ -237,7 +266,13 @@ class Trainer:
                 "best_dice": dict(self.best_dice)}
 
     def save(self, tag: str) -> None:
-        self.ckpt.save(tag, self.state_dict())
+        """Write checkpoint ``tag`` (rank 0 only)."""
+        if self.is_main:
+            self.ckpt.save(tag, self.state_dict())
+
+    def _barrier(self, tag: str) -> None:
+        """Every rank meets the others (a no-op in one process)."""
+        coordination_barrier(f"trainer {tag}", BARRIER_TIMEOUT_S)
 
     def resume(self, tag: str = "last", strict: bool = False) -> bool:
         """Restore checkpoint ``tag`` into the algorithm and ``best_dice``;

@@ -35,9 +35,12 @@ OPTIMIZER_FIELDS = ("optimizer", "optimizer1", "optimizer2")
 class CheckpointManager:
     ROTATE_TAGS = ("last_a", "last_b")
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, create: bool = True):
+        """``create``: make the directory (a data-parallel run's other ranks
+        only read, and leave it to rank 0)."""
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
         self._rot_idx: int | None = None
 
     def _path(self, tag: str) -> str:

@@ -7,7 +7,10 @@ the 8x16 tiles; channel splits that are not multiples of the 16-channel
 tile; windows of 9, 16, 49 and 64 tokens, head widths of 8 to 64 (not all
 multiples of the 16-wide MMA step, one not a multiple of the 8-element
 copy piece), window counts that are not multiples of the hash's 16-window
-block).
+block). The ConvBlock masks also with a two-segment image-id map, each
+local image hashing its index in a 2-rank global batch (A's prologue and
+output masks bit-exact, B and K11 against their plain versions), and D's
+reduce alone (``bn_reduce``).
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -376,6 +379,61 @@ def test_cross_block_sums_are_reproducible(dev, dtype):
         assert torch.equal(a, b)
 
 
+def _ids(dev, lb=4, ub=8, rank=1):
+    """Rank ``rank``'s two-segment image-id map of a 2-rank batch of lb
+    labelled and ub unlabelled images."""
+    from hpfg_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(2, rank, dev).rows(lb, ub).ids
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("keep", [0.95, 0.5])
+def test_kernel_hash_masks_with_image_ids_are_bit_exact(dev, keep, dtype):
+    """As above with a two-segment id map: A's prologue and output masks
+    are the global batch's mask rows, bit for bit."""
+    c, ids = 24, _ids(dev)
+    x = torch.ones((len(ids), 20, 20, c), device=dev, dtype=dtype)
+    eye = torch.zeros((3, 3, c, c), device=dev, dtype=dtype)
+    eye[1, 1] = torch.eye(c, device=dev, dtype=dtype)
+    drop = cb.HashDropout(1234, keep, ids)
+    full = cb.hash_mask(drop.seed, 12, 20, 20 * c, keep, dev)
+    ref = full[ids.long()].view(len(ids), 20, 20, c).to(dtype)
+    ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    assert torch.equal(cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
+                                       drop=drop)[0], ref)
+    assert torch.equal(cb.conv3x3_nhwc(x, eye, out_drop=drop)[0], ref)
+    assert not torch.equal(ref, full[:len(ids)].view_as(ref).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b_and_k11_with_image_ids_match_plain(dev, dtype):
+    """B's recomputed prologue and K11's output mask with a two-segment id
+    map against their plain versions; D's reduce alone (``bn_reduce``)
+    against its plain version."""
+    c, f, ids = 16, 32, _ids(dev)
+    n = len(ids)
+    drop = cb.HashDropout(21, 0.8, ids)
+    src = _randn(dev, n, 20, 20, c).to(dtype)
+    dp = _randn(dev, n, 20, 20, f, seed=1).to(dtype)
+    a, b = 1 + _randn(dev, c, scale=0.1), _randn(dev, c, scale=0.1, seed=1)
+    _close(cb.conv3x3_wgrad_nhwc(src, dp, affine=(a, b), drop=drop),
+           cb.conv3x3_wgrad_reference(src, dp, affine=(a, b), drop=drop),
+           dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    m, inv = _randn(dev, c, scale=0.1, seed=2), 1 + _randn(dev, c).abs()
+    wf = cb.flip_transpose(w)
+    got = cb.conv3x3_dgrad_reduce(dp, wf, src, a, b, m, inv, out_drop=drop)
+    ref = cb.conv3x3_dgrad_reduce_reference(dp, wf, src, a, b, m, inv,
+                                            out_drop=drop)
+    for g, r in zip(got, ref):
+        _close(g, r, dtype)
+    _close(ba.bn_reduce(got[0], src, a, b, m, inv),
+           ba.bn_reduce_reference(got[0], src, a, b, m, inv), dtype)
+    with pytest.raises(ValueError, match="image_ids"):
+        cb.conv3x3_nhwc(dp, wf, out_drop=cb.HashDropout(21, 0.8, ids[:3]))
+
+
 def test_wrappers_count_their_launches(dev):
     x = _randn(dev, 1, 8, 8, 16)
     w = _randn(dev, 3, 3, 16, 16)
@@ -383,7 +441,7 @@ def test_wrappers_count_their_launches(dev):
     v = torch.ones(16, device=dev)
     fns = [cb.conv3x3_nhwc, cb.conv3x3_wgrad_nhwc, ba.bn_act, ba.bn_act_bwd,
            ba.bn_act_dpre, cb.conv3x3_pair_nhwc, cb.conv3x3_dgrad_pair,
-           cb.conv3x3_wgrad_pair, cb.conv3x3_dgrad_reduce]
+           cb.conv3x3_wgrad_pair, cb.conv3x3_dgrad_reduce, ba.bn_reduce]
     before = [fn.launches for fn in fns]
     cb.conv3x3_nhwc(x, w, want_stats=True)
     cb.conv3x3_wgrad_nhwc(x, x)
@@ -394,7 +452,8 @@ def test_wrappers_count_their_launches(dev):
     cb.conv3x3_dgrad_pair(x, cb.flip_transpose(w2), 16)
     cb.conv3x3_wgrad_pair(x, x, x)
     cb.conv3x3_dgrad_reduce(x, w, x, v, v, v, v)
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [1] * 9
+    ba.bn_reduce(x, x, v, v, v, v)
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [1] * 10
 
 
 def _attn_inputs(dev, dtype, bn, l, n_mask, heads=3, d=32):

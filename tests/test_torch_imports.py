@@ -38,6 +38,13 @@ import hpfg_tpu_torch.data.h5, hpfg_tpu_torch.data.prefetch
 import hpfg_tpu_torch.data.synthetic, hpfg_tpu_torch.utils.logging
 import hpfg_tpu_torch.utils.profiling, hpfg_tpu_torch.utils.tb
 import hpfg_tpu_torch.utils.visual
+import hpfg_tpu_torch.parallel, hpfg_tpu_torch.parallel.distributed
+import hpfg_tpu_torch.parallel.mesh, hpfg_tpu_torch.ops.contrastive
+import hpfg_tpu_torch.ops.misc, hpfg_tpu_torch.ops.freeze
+import hpfg_tpu_torch.scripts
+for _name in ("cps", "ctct", "hpfg", "ict", "mean_teacher", "s4cvnet",
+              "ssnet", "supervised", "swin_mae", "uamt"):
+    __import__(f"hpfg_tpu_torch.scripts.train_{_name}")
 from hpfg_tpu_torch.ops import bn_act, conv_block
 from hpfg_tpu_torch.train.algorithms import build_algorithm
 
@@ -65,7 +72,8 @@ print(json.dumps({
                  conv_block.conv3x3_pair_nhwc.launches,
                  conv_block.conv3x3_dgrad_pair.launches,
                  conv_block.conv3x3_wgrad_pair.launches,
-                 conv_block.conv3x3_dgrad_reduce.launches]}))
+                 conv_block.conv3x3_dgrad_reduce.launches,
+                 bn_act.bn_reduce.launches]}))
 """
 
 
@@ -77,7 +85,7 @@ def test_port_step_imports_no_jax_and_launches_no_kernel():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] == [] and out["hpfg_tpu"] == []
     assert out["loss"] == out["loss"] and out["loss"] > 0
-    assert out["launches"] == [0] * 9
+    assert out["launches"] == [0] * 10
 
 
 _CLI = r"""
