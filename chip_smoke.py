@@ -199,20 +199,28 @@ are the processes phases 15 and 16 start. Phases, each of which fails the run on
      (its one-model call) on that ACDC-size split: exactly equal, both
      times;
   15. ``dp``: data parallelism over processes on this one card. Three
-     one-process steps of Mean-Teacher and of HPFG at the configs' full
-     width (224^2, global batch 8 + 24, bf16), then the same global batches
-     over 2 ranks (``python3 chip_smoke.py --dp-worker``, gloo on cuda:0,
-     each rank its contiguous half; the rows of a batch differ in mean and
-     scale, so the halves do): each step's loss within 1e-4 relative, the
-     parameters and BN buffers after the three steps within 1e-3 of each
-     model's largest magnitude (tighter than tests/test_sharding.py's 2e-3
-     and the bf16 kernel bound, which a rank hashing its local image index
-     passes), both ranks' launch counters as the structure
-     predicts under W = 2 (A, C, D's reduce alone and its dpre, K8 to K11:
-     ``bn_act_bwd`` gives way to ``bn_reduce`` + all-reduce + dpre), the
-     step time at W = 1 and per rank at W = 2, the collectives' calls and
-     bytes a step and their time in a step where each is timed alone, and
-     which gloo collectives take CUDA tensors;
+     one-process steps of ten paths at the configs' full width and global
+     batches (bf16): Mean-Teacher, HPFG, UAMT, ICT, SS-Net, S4CVNet (8 + 24
+     at 224^2), Swin-MAE (24), CMT and UniFormer HPFG (8 + 24) and the
+     LIDC TransUNet (24 at 96^2), the state saved after each step; then the
+     same global batches over 2 ranks (``python3 chip_smoke.py
+     --dp-worker``, gloo on cuda:0, each rank its contiguous half; the rows
+     of a batch differ in mean and scale, so the halves do), each step
+     taken from the one process's state before it: each step's loss within
+     1e-4 relative, the parameters and BN buffers after it within 1e-3 of
+     each model's largest magnitude (tighter than tests/test_sharding.py's
+     2e-3 and the bf16 kernel bound, which a rank hashing its local image
+     index passes), SS-Net's memory bank bitwise equal on the ranks, its
+     validity equal to one process's and its rows within the state bound;
+     SS-Net, S4CVNet and TransUNet again in fp32; both
+     ranks' launch counters as the structure predicts under W = 2 (the
+     UNet's A, C, D's reduce alone and its dpre, K8 to K11: ``bn_act_bwd``
+     gives way to ``bn_reduce`` + all-reduce + dpre; K13 and K14 on
+     S4CVNet's SwinUNet and on Swin-MAE, with the image-id map; 0 on the
+     kernel-free paths), the step time at W = 1 and per rank at W = 2, the
+     collectives' calls and bytes a step and their time in the last step,
+     where each is timed alone, and which gloo collectives take CUDA
+     tensors;
   16. ``nccl``: a 1-rank NCCL group initialises and all-reduces on cuda:0
      (``--nccl-worker``);
   17. ``cli dp``: the HPFG CLI from phase 10's tree through ``python -m
@@ -224,8 +232,11 @@ are the processes phases 15 and 16 start. Phases, each of which fails the run on
 Phase 2e checks A, B and K11 with a two-segment image-id map (the hash
 dropout of a data-parallel rank: each image hashes its index in the global
 batch) against their plain versions, A's masks bit-exact, and D's reduce
-alone, and times each with and without the ids; its rows stay out of the
-kernels' totals.
+alone, and times each with and without the ids; then K13 and K14 with
+that map (each window hashes its index in the global batch's windows) at
+the SwinUNet's first and last stage, their attention-dropout masks
+bit-exact against the full batch's, and times each with and without the
+ids. Its rows stay out of the kernels' totals.
 
 Checkpoint writes are left out of the timed and traced main-path steps (the
 trainer's ``save`` is a no-op there); phase 5 times one.
@@ -949,11 +960,14 @@ def device_ms(fn, reps: int = 10, rounds: int = 3) -> float:
 
 
 def masked_kernel_times() -> dict:
-    """The kernels whose dropout mask hashes the image index, bf16, batch
-    32, at phase 2's main-path shapes: K11 (``conv3x3_dgrad_reduce``) at
-    the nine conv2 shapes (the encoder's with their dropout, the decoder's
-    without), A with the masked prologue (conv2's forward, ``A2``) and B
-    with it (conv2's wgrad, ``B2``) at the five encoder shapes. ms per call
+    """The kernels whose dropout mask hashes an image or window index, bf16,
+    batch 32, at phase 2's main-path shapes: K11 (``conv3x3_dgrad_reduce``)
+    at the nine conv2 shapes (the encoder's with their dropout, the
+    decoder's without), A with the masked prologue (conv2's forward,
+    ``A2``) and B with it (conv2's wgrad, ``B2``) at the five encoder
+    shapes, K13 and K14 with attention dropout (keep 0.9) at the
+    SwinUNet's four stages (shifted where a stage has more than one
+    window). ms per call
     by phase 2's method (``cuda_ms``, the host's cost included) and on the
     device alone (``device_ms``), each shape and summed; printed as one
     JSON line. It calls only the wrappers' long-standing arguments, so a
@@ -962,7 +976,9 @@ def masked_kernel_times() -> dict:
     trees in turns."""
     import torch
 
+    from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
     from hpfg_tpu_torch.ops import conv_block as cb
+    from hpfg_tpu_torch.ops import window_attention as wa
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -971,7 +987,8 @@ def masked_kernel_times() -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    out = {k: {"host": {}, "device": {}} for k in ("K11", "A2", "B2")}
+    out = {k: {"host": {}, "device": {}}
+           for k in ("K11", "A2", "B2", "K13", "K14")}
     for name, hh, _, f, keep in BLOCKS:
         dp = randn(BATCH, hh, hh, f).to(dt)
         w = randn(3, 3, f, f, scale=(9 * f) ** -0.5).to(dt)
@@ -991,6 +1008,23 @@ def masked_kernel_times() -> dict:
         for kernel, fn in calls.items():
             out[kernel]["host"][name] = cuda_ms(fn)
             out[kernel]["device"][name] = device_ms(fn)
+    l = ATTN_WS * ATTN_WS
+    for stage, side, heads in ATTN_STAGES:
+        nw = (side // ATTN_WS) ** 2
+        c = heads * ATTN_D
+        qkv = randn(BATCH * nw, l, 3 * c).to(dt)
+        do = randn(BATCH * nw, l, c).to(dt)
+        bias = randn(heads, l, l, scale=0.02)
+        mask = (torch.from_numpy(_shift_attention_mask(
+            side, side, ATTN_WS, ATTN_WS // 2)).to(dev) if nw > 1 else None)
+        drop = cb.HashDropout(66 + stage, 0.9)
+        calls = {"K13": lambda: wa.window_attention_fwd(qkv, bias, mask,
+                                                        heads, drop),
+                 "K14": lambda: wa.window_attention_bwd(qkv, bias, mask, do,
+                                                        heads, drop)}
+        for kernel, fn in calls.items():
+            out[kernel]["host"][f"stage{stage}"] = cuda_ms(fn)
+            out[kernel]["device"][f"stage{stage}"] = device_ms(fn)
     for row in out.values():
         for kind in ("host", "device"):
             row[f"{kind}_total"] = sum(row[kind].values())
@@ -2649,23 +2683,37 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
 #: the global batches of the data-parallel phase (the configs' 8 + 24)
 #: and its ranks, all on the one card over gloo
 DP_WORLD, DP_STEPS = 2, 3
-#: the bounds of the data-parallel phase against one process: each step's
-#: loss (relative) and the parameters and BN buffers after the steps
-#: (over each model's largest magnitude). They lie between the sound
+#: the bounds of the data-parallel phase against one process, each step
+#: taken from the one process's state: the step's loss (relative) and the
+#: parameters and BN buffers after it (over each model's largest
+#: magnitude). They lie between the sound
 #: readings (2.1e-6, 7.3e-5) and those of a rank that keeps its BN
 #: statistics (8.2e-4, 0.14) or its image indices (2.1e-4, 2.9e-3) local
 #: (PERF.md, PR 12); tests/test_sharding.py's 2e-3 and the bf16 kernel
 #: bound 2e-2 pass the second fault.
 DP_LOSS_RTOL, DP_STATE_TOL = 1e-4, 1e-3
-#: the algorithms the data-parallel phase runs: (label, config, the UNet
-#: whose kernels are counted, its forwards and backwards a step)
-DP_PATHS = (("mean_teacher", MT_CONFIG, "model", 2, 1),
-            ("hpfg", HPFG_CONFIG, "model1", 3, 2))
-#: the kernels the ranks' counters must show on each path (D is its
-#: reduce alone and its dpre under W > 1)
-DP_KERNELS = ("conv3x3_nhwc", "bn_act", "bn_reduce", "bn_act_dpre",
-              "conv3x3_pair_nhwc", "conv3x3_dgrad_pair",
-              "conv3x3_wgrad_pair", "conv3x3_dgrad_reduce")
+#: the main paths (PATHS) the data-parallel phase runs: every algorithm
+#: of the ACDC configs, and the three models without kernels
+DP_PATHS = ("mean_teacher", "hpfg", "uamt", "ict", "ssnet", "s4cvnet",
+            "swin_mae", "acdc_cmt_hpfg", "acdc_uniformer_hpfg",
+            "lidc_transunet")
+#: the checks of bf16 runs that bf16 rounding alone carries past the
+#: bounds within one step from the one process's state (PERF.md, section
+#: 6, PR 13): SS-Net's bank (the K lowest bf16 selector scores of 400,000
+#: pixel rows: 96 of 128 slots swap), S4CVNet's state (adamW's first step
+#: is +-lr wherever a gradient is rounding noise: 1.6e-3), UniFormer's
+#: state (its BatchNorms' E[x^2] - E[x]^2: 9.9e-4) and TransUNet's loss
+#: and state (3.3e-4, 1.3e-3). They are printed as unmet and not held;
+#: each of these paths is held to the bounds by its fp32 run.
+DP_UNMET_BF16 = {"ssnet": ("bank",), "s4cvnet": ("state",),
+                 "acdc_uniformer_hpfg": ("state",),
+                 "lidc_transunet": ("loss", "state")}
+#: the phase's runs: (main path, dtype), each at the config's global
+#: batches: every path in bf16, and in fp32 those of DP_UNMET_BF16
+DP_RUNS = tuple((label, "bfloat16") for label in DP_PATHS) + tuple(
+    (label, "float32") for label in DP_UNMET_BF16)
+#: seconds the data-parallel phase may take, its ranks' start included
+DP_TIMEOUT_S = 900
 #: (ConvBlock, H = W, channels, keep) of the id checks: the stem's and the
 #: bottleneck's conv2 of the full-width UNet
 ID_SHAPES = (("in_conv", 224, 16, 0.95), ("down4", 14, 256, 0.5))
@@ -2757,85 +2805,233 @@ def check_image_ids(rep: Report, dev) -> None:
             torch.cuda.empty_cache()
     print("hash masks with ids: bit-exact check done (prologue and output, "
           "float32 and bfloat16)", flush=True)
+    check_attention_ids(rep, dev)
+
+
+#: (stage, token side, heads) of the attention id checks: the S4CVNet
+#: SwinUNet's first and last stage (64 and 1 windows an image)
+ID_ATTN_STAGES = ((0, 56, 3), (3, 7, 24))
+
+
+def check_attention_ids(rep: Report, dev) -> None:
+    """K13 and K14 with a two-segment image-id map (rank 1's rows of a
+    2-rank global batch of 8 + 24: 16 images) and attention dropout (keep
+    0.9) against their plain versions at ID_ATTN_STAGES, unshifted and
+    shifted; the masks bit-exact (K13's output and K14's dv with q = k = 0
+    and v, do the identity) and equal to the full batch's masks at those
+    windows; in bf16 each timed with and without the ids. The rows stay
+    out of the kernels' totals."""
+    import torch
+
+    from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
+    from hpfg_tpu_torch.ops import window_attention as wa
+    from hpfg_tpu_torch.ops.conv_block import HashDropout
+    from hpfg_tpu_torch.parallel.mesh import Mesh
+
+    rows = Mesh(DP_WORLD, 1, dev).rows(8, 24)
+    n, l, ws = len(rows.ids), ATTN_WS * ATTN_WS, ATTN_WS
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # the masks, bit-exact: 4 windows an image (global count 128)
+    heads, d, nw = 2, 64, 4
+    bn = n * nw
+    drop = HashDropout(2468, 0.9, rows.ids, rows.total)
+    full = wa.attn_drop_mask(drop.seed, rows.total * nw, heads, l, drop.keep,
+                             dev)[rows.expand(nw).index]
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.zeros((bn, l, 3 * heads * d), device=dev)
+        do = torch.zeros((bn, l, heads * d), device=dev)
+        for h in range(heads):
+            o = 2 * heads * d + h * d
+            qkv[:, :, o:o + l] = torch.eye(l, device=dev)
+            do[:, :, h * d:h * d + l] = torch.eye(l, device=dev)
+        qkv, do = qkv.to(dt), do.to(dt)
+        zero_bias = torch.zeros((heads, l, l), device=dev)
+        out = wa.window_attention_fwd(qkv, zero_bias, None, heads,
+                                      drop).view(bn, l, heads, d)
+        dv = wa.window_attention_bwd(qkv, zero_bias, None, do, heads,
+                                     drop)[0][..., 2 * heads * d:]
+        dv = dv.reshape(bn, l, heads, d)
+        ref = (full * (torch.tensor(1.0, device=dev) / l)).to(dt)
+        for name, got, perm in (("K13 output", out, (0, 2, 1, 3)),
+                                ("K14 dv", dv, (0, 2, 3, 1))):
+            if not (torch.equal(got[..., :l].permute(*perm), ref)
+                    and not got[..., l:].any()):
+                rep.fail(f"attention dropout mask with ids {name} {dt}: not "
+                         "bit-exact to the full batch's")
+    print("attention dropout masks with ids: bit-exact check done (K13 "
+          "output and K14 dv against the full batch's masks, fp32 and "
+          "bf16)", flush=True)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        clock = cuda_ms if dt == torch.bfloat16 else (lambda fn: None)
+        for stage, side, heads in ID_ATTN_STAGES:
+            nw = (side // ws) ** 2
+            bn, c = n * nw, heads * ATTN_D
+            qkv = randn(bn, l, 3 * c).to(dt)
+            bias = randn(heads, l, l, scale=0.02)
+            do = randn(bn, l, c).to(dt)
+            q, k, v = qkv.split(c, dim=-1)
+            drop = HashDropout(77 + stage, 0.9, rows.ids, rows.total)
+            plain = HashDropout(drop.seed, drop.keep)
+            smask = torch.from_numpy(_shift_attention_mask(
+                side, side, ws, ws // 2)).to(dev) if nw > 1 else None
+            for mask in (None, smask) if nw > 1 else (None,):
+                shift = "unshifted" if mask is None else "shifted"
+                what = f"stage {stage} {shift} ids"
+                got = wa.window_attention_fwd(qkv, bias, mask, heads, drop)
+                r = rep.compare("window_attention_fwd", what, dname, got,
+                                wa.window_attention_reference(
+                                    q, k, v, bias, mask, heads, drop),
+                                main=False)
+                (dqkv, dbias) = wa.window_attention_bwd(qkv, bias, mask, do,
+                                                        heads, drop)
+                *ref, dbias_r = wa.window_attention_bwd_reference(
+                    q, k, v, bias, mask, do, heads, drop)
+                rb = max(rep.compare("window_attention_bwd", f"{what} {g}",
+                                     dname, a, b, main=False)
+                         for g, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                            (*dqkv.split(c, -1), dbias),
+                                            (*ref, dbias_r)))
+                line = (f"{dname} attention {what} Bn={bn} H={heads} L={l}, "
+                        f"{n} images with ids: K13 {r:.1e} K14 {rb:.1e}")
+                ms = clock(lambda: wa.window_attention_fwd(
+                    qkv, bias, mask, heads, drop))
+                if ms is not None:
+                    ms0 = clock(lambda: wa.window_attention_fwd(
+                        qkv, bias, mask, heads, plain))
+                    bms = clock(lambda: wa.window_attention_bwd(
+                        qkv, bias, mask, do, heads, drop))
+                    bms0 = clock(lambda: wa.window_attention_bwd(
+                        qkv, bias, mask, do, heads, plain))
+                    line += (f" | K13 {ms:.3f} ms with ids, {ms0:.3f} "
+                             f"without | K14 {bms:.3f} ms with ids, "
+                             f"{bms0:.3f} without")
+                print(line, flush=True)
+            del qkv, do, q, k, v
+            torch.cuda.empty_cache()
 
 
 def dp_batch(cfg: dict, step: int) -> dict:
     """The global batch of the data-parallel phase's ``step`` for ``cfg``
-    (HPFG's with its second labelled batch), from a seed. Row i of a batch
-    of k images is normal with mean 2i/(k-1) - 1 and scale 0.5 + 1.5i/(k-1):
-    the ranks' shares differ in distribution, so a rank that normalises by
-    its own rows' statistics gets other activations."""
+    (HPFG's with its second labelled batch; one labelled batch of
+    ``batch_size`` for Supervised and Swin-MAE), from a seed. Row i of a
+    batch of k images is normal with mean 2i/(k-1) - 1 and scale
+    0.5 + 1.5i/(k-1): the ranks' shares differ in distribution, so a rank
+    that normalises by its own rows' statistics gets other activations."""
     import numpy as np
 
     rng = np.random.default_rng((71, step))
-    hw, lb, ub = crop(cfg), int(cfg["batch_size"]), int(
-        cfg["unlabel_batch_size"])
+    hw, lb = crop(cfg), int(cfg["batch_size"])
+    ch, nc = int(cfg.get("in_channels", 1)), int(cfg.get("num_classes", 4))
 
     def img(k):
         r = (np.arange(k, dtype=np.float32) / (k - 1)).reshape(k, 1, 1, 1)
-        return (rng.normal(size=(k, hw, hw, 1)) * (0.5 + 1.5 * r)
+        return (rng.normal(size=(k, hw, hw, ch)) * (0.5 + 1.5 * r)
                 + (2 * r - 1)).astype(np.float32)
 
     def lab(k):
-        return rng.integers(0, 4, (k, hw, hw)).astype(np.int32)
+        return rng.integers(0, nc, (k, hw, hw)).astype(np.int32)
 
-    batch = {"label_img": img(lb), "label": lab(lb), "unlabel_img": img(ub)}
+    if cfg["algorithm"] in ("supervised", "swin_mae"):
+        return {"image": img(lb), "label": lab(lb)}
+    batch = {"label_img": img(lb), "label": lab(lb),
+             "unlabel_img": img(int(cfg["unlabel_batch_size"]))}
     if cfg["algorithm"] == "hpfg":
         batch.update(label_img1=img(lb), label1=lab(lb))
     return batch
 
 
-def dp_predicted(model, forwards: int, backwards: int, world: int) -> dict:
-    """``predicted_launches`` of DP_STEPS steps; under W > 1 D's backward
-    runs as its reduce (``bn_reduce``) and its dpre, not ``bn_act_bwd``."""
-    pred = predicted_launches(model, DP_STEPS, forwards, backwards)
+def dp_predicted(algo, path: MainPath, world: int) -> dict:
+    """The path's ``predicted_launches`` and ``predicted_attention`` of
+    DP_STEPS steps; under W > 1 D's backward runs as its reduce
+    (``bn_reduce``) and its dpre, not ``bn_act_bwd``."""
+    pred = predicted_launches(
+        getattr(algo, path.unet) if path.unet else None, DP_STEPS,
+        path.forwards, path.backwards, path.inner_backwards)
+    if path.attn_fwd:
+        pred.update(predicted_attention(algo, DP_STEPS, path.attn_fwd,
+                                        path.attn_bwd))
     if world > 1:
         pred["bn_reduce"], pred["bn_act_bwd"] = pred["bn_act_bwd"], 0
         pred["bn_act_dpre"] += pred["bn_reduce"]
     return pred
 
 
-def dp_steps(dev, config: str, unet: str, forwards: int, backwards: int,
+def run_label(run) -> str:
+    """A DP_RUNS entry's name: the path, and its dtype where not bf16."""
+    label, dtype = run
+    return label if dtype == "bfloat16" else f"{label} {dtype}"
+
+
+def dp_steps(dev, run, states: str, publish: bool,
              collectives=None) -> dict:
-    """DP_STEPS steps of the config's algorithm (bf16, on ``dev``) on this
-    process's rows of the global batches: losses, ms per step, launch
-    counts against their prediction, and after the steps the parameters
-    and BN buffers (on the host) of every model."""
+    """DP_STEPS steps of a DP_RUNS entry's algorithm (in its dtype, on
+    ``dev``) on this process's rows of the global batches, each step from
+    the one process's state. ``publish`` (the one process): its state after
+    step s is saved as ``<states>/<s + 1>.pt``. Else (a rank): that state
+    is loaded before step s + 1, and after each step ``_state_diff`` says
+    how far this rank's state lies from it. Returns the losses, ms per
+    step, the launch counts against their prediction, and a rank's
+    ``_state_diff`` of each step. With ``collectives`` (a rank: the bytes
+    of each call, and a switch that times each call alone) the calls and
+    bytes of every step, and in the last step each collective's time, the
+    card drained before and after it (that step's own time is left out of
+    ``ms``)."""
     import torch
 
     from hpfg_tpu_torch.parallel.mesh import get_mesh, shard_batch
     from hpfg_tpu_torch.train.algorithms import build_algorithm
-    from hpfg_tpu_torch.utils.checkpoint import MODEL_FIELDS
 
-    cfg = load_config(config)
-    algo = build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
-                           device=dev)
+    label, dtype = run
+    path = {p.label: p for p in PATHS}[label]
+    cfg = load_config(path.config)
+    algo = build_algorithm(cfg["algorithm"], cfg,
+                           dtype=getattr(torch, dtype), device=dev)
     mesh = get_mesh()
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
-    losses, ms, per_step = [], [], []
+    losses, ms, per_step, diffs, ref = [], [], [], [], None
     for s in range(DP_STEPS):
+        if ref is not None:
+            algo.load_state_dict(ref)
         batch = shard_batch(mesh, dp_batch(cfg, s))
+        timed = collectives is not None and s == DP_STEPS - 1
         if collectives is not None:
-            collectives.clear()
+            collectives["bytes"].clear()
+            collectives["ms"] = 0.0
+            collectives["on"] = timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = float(algo.step(batch)["loss"])
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        if not timed:
+            ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
         if collectives is not None:
-            per_step.append(dict(calls=len(collectives),
-                                 bytes=sum(collectives)))
+            per_step.append(dict(calls=len(collectives["bytes"]),
+                                 bytes=sum(collectives["bytes"])))
+            if timed:
+                per_step[-1]["ms_timed_alone"] = collectives["ms"]
+                collectives["on"] = False
+        file = os.path.join(states, f"{s + 1}.pt")
+        if publish:
+            torch.save(algo.state_dict(), file + ".tmp")
+            os.replace(file + ".tmp", file)
+        else:
+            # each tensor where it was saved: generator states stay on the
+            # host
+            ref = torch.load(file, weights_only=False)
+            diffs.append(_state_diff(algo.state_dict(), ref))
     launches = {k: fn.launches for k, fn in counters().items()}
-    state = {f"{field}.{k}": v.detach().float().cpu()
-             for field in MODEL_FIELDS if hasattr(algo, field)
-             for k, v in getattr(algo, field).state_dict().items()}
     return dict(losses=losses, ms=ms, launches=launches,
-                predicted=dp_predicted(getattr(algo, unet), forwards,
-                                       backwards, mesh.world),
-                state=state, collectives=per_step)
+                predicted=dp_predicted(algo, path, mesh.world),
+                steps=diffs, collectives=per_step)
 
 
 def gloo_cuda_support(dev) -> dict:
@@ -2872,11 +3068,12 @@ def gloo_cuda_support(dev) -> dict:
 def dp_worker(rank: int, world: int, port: int, out_dir: str) -> int:
     """One rank of the data-parallel phase, over gloo on cuda:0 (every rank
     on the one card): the gloo collectives tried on CUDA tensors first;
-    then DP_STEPS steps of each
-    DP_PATHS algorithm (the collectives' calls and bytes counted per
-    step), then one more Mean-Teacher step with the collectives timed
-    alone (the card drained before and after each). Writes
-    ``rank<r>.pt``."""
+    then, for each run i of DP_RUNS, once the one process has written
+    ``run<i>/ready``, DP_STEPS steps of it from the one process's states
+    in ``run<i>`` (``dp_steps``), the collectives' calls and bytes counted
+    per step and, in the last step, each timed alone (the card drained
+    before and after it); then ``run<i>/done<r>``.
+    Writes ``rank<r>.pt``."""
     import torch
     import torch.distributed as dist
 
@@ -2886,46 +3083,32 @@ def dp_worker(rank: int, world: int, port: int, out_dir: str) -> int:
     init_distributed(f"127.0.0.1:{port}", world, rank, device=dev,
                      backend="gloo", timeout_s=240)
     res = {"gloo_cuda": gloo_cuda_support(dev)}
-    seen: list = []  # bytes of each collective call
-    timing = {"on": False, "ms": 0.0}
+    seen = {"bytes": [], "on": False, "ms": 0.0}
     real = {"all_reduce": dist.all_reduce, "broadcast": dist.broadcast}
 
     def counting(name):
         def call(t, *a, **k):
-            seen.append(t.numel() * t.element_size())
-            if not timing["on"]:
+            seen["bytes"].append(t.numel() * t.element_size())
+            if not seen["on"]:
                 return real[name](t, *a, **k)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = real[name](t, *a, **k)
             torch.cuda.synchronize()
-            timing["ms"] += (time.perf_counter() - t0) * 1e3
+            seen["ms"] += (time.perf_counter() - t0) * 1e3
             return r
         return call
 
     dist.all_reduce = counting("all_reduce")
     dist.broadcast = counting("broadcast")
+    deadline = time.monotonic() + DP_TIMEOUT_S
     try:
-        for label, config, unet, fwd, bwd in DP_PATHS:
-            res[label] = dp_steps(dev, config, unet, fwd, bwd, seen)
+        for i, run in enumerate(DP_RUNS):
+            states = os.path.join(out_dir, f"run{i}")
+            _await([os.path.join(states, "ready")], [], deadline)
+            res[run_label(run)] = dp_steps(dev, run, states, False, seen)
             torch.cuda.empty_cache()
-        cfg = load_config(MT_CONFIG)
-        from hpfg_tpu_torch.parallel.mesh import get_mesh, shard_batch
-        from hpfg_tpu_torch.train.algorithms import build_algorithm
-
-        algo = build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
-                               device=dev)
-        batch = shard_batch(get_mesh(), dp_batch(cfg, 0))
-        algo.step(batch)
-        timing["on"] = True
-        seen.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        algo.step(batch)
-        torch.cuda.synchronize()
-        res["timed_step"] = dict(
-            ms=(time.perf_counter() - t0) * 1e3, calls=len(seen),
-            bytes=sum(seen), collective_ms=timing["ms"])
+            open(os.path.join(states, f"done{rank}"), "w").close()
     finally:
         dist.all_reduce, dist.broadcast = real["all_reduce"], \
             real["broadcast"]
@@ -2976,99 +3159,191 @@ def _run_group(cmds: list, timeout: int) -> tuple[list, list]:
     return outs, codes
 
 
-def _model_err(got: dict, ref: dict) -> float:
+def _model_err(got: dict, ref: dict) -> tuple[float, str]:
     """The largest difference over a model's tensors over the largest
-    magnitude among them, the worst model of the state."""
-    worst = 0.0
+    magnitude among them, the worst model of the state, and the tensor
+    where it lies."""
+    worst, where = 0.0, ""
     for model in {k.split(".")[0] for k in ref}:
         keys = [k for k in ref if k.split(".")[0] == model]
         scale = max(max(float(ref[k].abs().max()) for k in keys), 1e-30)
-        err = max(float((got[k] - ref[k]).abs().max()) for k in keys)
-        worst = max(worst, err / scale)
-    return worst
+        for k in keys:
+            err = float((got[k] - ref[k]).abs().max()) / scale
+            if err > worst:
+                worst, where = err, k
+    return worst, where
+
+
+def _state_diff(own: dict, ref: dict) -> dict:
+    """How far a rank's ``state_dict()`` lies from the one process's:
+    the parameters and BN buffers over each model's largest magnitude (the
+    worst tensor named); SS-Net's bank likewise, the slots whose row moved
+    by more than DP_STATE_TOL of the bank's largest magnitude, whether its
+    validity is equal, and the rank's bank itself (on the host)."""
+    import torch
+
+    def flat(state):
+        return {f"{field}.{k}": v.float()
+                for field, sd in state["models"].items()
+                for k, v in sd.items()}
+
+    out = dict(zip(("state", "worst"), _model_err(flat(own), flat(ref))))
+    if "memory" in ref:
+        mem, ref_mem = own["memory"]["memory"], ref["memory"]["memory"]
+        out["bank"] = _model_err({"memory.bank": mem.float()},
+                                 {"memory.bank": ref_mem.float()})[0]
+        out["slots"] = int(((mem - ref_mem).abs().amax(-1) > DP_STATE_TOL
+                            * ref_mem.abs().max()).sum())
+        out["valid"] = torch.equal(own["memory"]["memory_valid"],
+                                   ref["memory"]["memory_valid"])
+        out["memory"] = {k: v.cpu() for k, v in own["memory"].items()}
+    return out
+
+
+def _await(paths: list, procs: list, deadline: float) -> None:
+    """Wait until every file of ``paths`` exists; raise if one of
+    ``procs`` ends first or the ``time.monotonic()`` deadline passes."""
+    while not all(os.path.exists(p) for p in paths):
+        ended = [p.returncode for p in procs if p.poll() is not None]
+        if ended:
+            raise RuntimeError(f"a rank ended with exit code {ended[0]} "
+                               f"before {paths}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"waited past the deadline for {paths}")
+        time.sleep(0.02)
 
 
 def check_data_parallel(rep: Report, dev, card: str) -> dict:
-    """Phase 15: DP_STEPS one-process steps of Mean-Teacher and HPFG at full
-    width (224^2, 8 + 24 images, bf16) here, then the same global batches
-    over DP_WORLD ranks (``--dp-worker`` processes) over gloo, all on this
-    card: each step's loss within DP_LOSS_RTOL, the parameters and BN
-    buffers after the steps within DP_STATE_TOL of each model's largest
-    magnitude, both ranks' launch counters as the model's structure
-    predicts (A, C, D's reduce and dpre, K8-K11 all launched), the step
-    times, the collectives' calls, bytes and time, and which gloo
-    collectives take CUDA tensors."""
-    import statistics
+    """Phase 15: each DP_RUNS run at full width (the configs' global
+    batches) for DP_STEPS steps, first in one process here, its state
+    saved after each step, then over DP_WORLD ranks (``--dp-worker``
+    processes, started at once and waiting for the run) over gloo, all on
+    this card, each step of a rank taken from the one process's state:
+    each step's loss within DP_LOSS_RTOL and the parameters and BN buffers
+    after it within DP_STATE_TOL of each model's largest magnitude;
+    SS-Net's bank bitwise equal on the ranks, its validity equal to one
+    process's and its rows within DP_STATE_TOL (the checks of
+    DP_UNMET_BF16 printed, not held, in bf16); both ranks' launch
+    counters as the model's structure predicts; the step times, the
+    collectives' calls, bytes and time, and which gloo collectives take
+    CUDA tensors."""
+    import signal
 
     import torch
 
-    single = {}
-    for label, config, unet, fwd, bwd in DP_PATHS:
-        single[label] = dp_steps(dev, config, unet, fwd, bwd)
-        torch.cuda.empty_cache()
+    single, procs, logs = {}, [], []
     out_dir = tempfile.mkdtemp(prefix="hpfg_dp_")
     try:
         port = _free_port()
-        outs, codes = _run_group(
-            [[sys.executable, os.path.abspath(__file__), "--dp-worker",
-              str(r), str(DP_WORLD), str(port), out_dir]
-             for r in range(DP_WORLD)], timeout=300)
+        for r in range(DP_WORLD):
+            logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w",
+                             encoding="utf-8"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker",
+                 str(r), str(DP_WORLD), str(port), out_dir], cwd=REPO,
+                env=_repo_env(), stdout=logs[-1], stderr=subprocess.STDOUT,
+                start_new_session=True))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for i, run in enumerate(DP_RUNS):
+            states = os.path.join(out_dir, f"run{i}")
+            os.makedirs(states)
+            single[run_label(run)] = dp_steps(dev, run, states, True)
+            torch.cuda.empty_cache()
+            open(os.path.join(states, "ready"), "w").close()
+            _await([os.path.join(states, f"done{r}")
+                    for r in range(DP_WORLD)], procs, deadline)
+            shutil.rmtree(states)
+        codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                 for p in procs]
         if codes != [0] * DP_WORLD:
-            rep.fail(f"data parallel: worker exit codes {codes}; output "
-                     f"tails: {[o[-1500:] for o in outs]}")
-            return {}
+            raise RuntimeError(f"worker exit codes {codes}")
         ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                             weights_only=False) for r in range(DP_WORLD)]
+    except Exception as exc:  # noqa: BLE001 - reported with the ranks' logs
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        tails = []
+        for f in logs:
+            f.close()
+            with open(f.name, encoding="utf-8", errors="replace") as g:
+                tails.append(g.read()[-3000:])
+        rep.fail(f"data parallel: {type(exc).__name__}: {exc}; the ranks' "
+                 f"output tails: {tails}")
+        return {}
     finally:
+        for f in logs:
+            f.close()
         shutil.rmtree(out_dir, ignore_errors=True)
     where = f"{DP_WORLD} ranks on one card over gloo"
     summary = {"gloo_cuda": ranks[0]["gloo_cuda"], "card": card,
                "world": DP_WORLD}
     print(f"dp: gloo with CUDA tensors: {ranks[0]['gloo_cuda']}",
           flush=True)
-    for label, *_ in DP_PATHS:
+    for run in DP_RUNS:
+        label = run_label(run)
+        unmet = DP_UNMET_BF16.get(run[0], ()) if run[1] == "bfloat16" else ()
         ref = single[label]
-        row = dict(losses_1=ref["losses"], ms_1=ref["ms"])
+        row = dict(losses_1=ref["losses"], ms_1=ref["ms"], not_held=unmet)
         for r, res in enumerate(ranks):
             got = res[label]
-            rel = [abs(g - w) / abs(w) for g, w in zip(got["losses"],
-                                                       ref["losses"])]
-            err = _model_err(got["state"], ref["state"])
-            bad = {k: (got["launches"][k], got["predicted"][k])
-                   for k in got["predicted"]
-                   if got["launches"][k] != got["predicted"][k]}
-            unlaunched = [k for k in DP_KERNELS if got["launches"][k] == 0]
-            if max(rel) > DP_LOSS_RTOL or err > DP_STATE_TOL or bad \
-                    or unlaunched:
-                rep.fail(f"dp {label} rank {r}: loss rel err {rel} (bound "
-                         f"{DP_LOSS_RTOL}), state err {err:.2e} (bound "
-                         f"{DP_STATE_TOL}), launches off prediction "
-                         f"{bad}, not launched {unlaunched}")
+            loss = [abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                        ref["losses"])]
+            state = [d["state"] for d in got["steps"]]
+            worst = got["steps"][max(range(DP_STEPS),
+                                     key=state.__getitem__)]["worst"]
+            bad = {n: (got["launches"][n], got["predicted"][n])
+                   for n in got["predicted"]
+                   if got["launches"][n] != got["predicted"][n]}
+            bank, missed = "", {"loss": max(loss) > DP_LOSS_RTOL,
+                                "state": max(state) > DP_STATE_TOL}
+            if "bank" in got["steps"][0]:
+                banks = [d["bank"] for d in got["steps"]]
+                valid = all(d["valid"] for d in got["steps"])
+                same = all(torch.equal(d["memory"][n], d0["memory"][n])
+                           for d, d0 in zip(got["steps"],
+                                            ranks[0][label]["steps"])
+                           for n in ("memory", "memory_valid"))
+                bank = (f"; bank rel err {[f'{b:.2e}' for b in banks]} "
+                        f"(slots off {[d['slots'] for d in got['steps']]} "
+                        f"of {got['steps'][0]['memory']['memory_valid'].numel()}"
+                        f"; bound {DP_STATE_TOL:.0e}), validity equal "
+                        f"{valid}, equal to rank 0's {same}")
+                missed["bank"] = max(banks) > DP_STATE_TOL
+                if not valid or not same:
+                    rep.fail(f"dp {label} rank {r}: memory bank{bank}")
+            unmet_now = [k for k in unmet if missed[k]]
+            if any(v for k, v in missed.items() if k not in unmet) or bad:
+                rep.fail(f"dp {label} rank {r}: loss rel err per step "
+                         f"{loss} (bound {DP_LOSS_RTOL:.0e}), state err per "
+                         f"step {state} at {worst} (bound "
+                         f"{DP_STATE_TOL:.0e}), launches off prediction "
+                         f"{bad}{bank}")
+            launched = {n: v for n, v in got["launches"].items() if v}
             row[f"rank{r}"] = dict(
-                losses=got["losses"], loss_rel_err=rel, state_rel_err=err,
-                ms=got["ms"], launches={k: got["launches"][k]
-                                        for k in DP_KERNELS},
-                collectives=got["collectives"])
-            print(f"dp {label} rank {r}: losses {got['losses']} vs one "
-                  f"process {ref['losses']} (rel err {max(rel):.2e}, bound "
-                  f"{DP_LOSS_RTOL}); parameters and BN buffers after "
-                  f"{DP_STEPS} steps: rel err {err:.2e} (bound "
-                  f"{DP_STATE_TOL}); launches "
-                  f"{ {k: got['launches'][k] for k in DP_KERNELS} } as "
-                  f"predicted; collectives a step {got['collectives']}",
-                  flush=True)
-        row["ms_per_step_1"] = statistics.median(ref["ms"][1:])
-        row["ms_per_step_rank"] = [statistics.median(res[label]["ms"][1:])
-                                   for res in ranks]
-        print(f"dp {label}: ms/step one process {row['ms_per_step_1']:.1f}, "
-              f"per rank, {where}: "
-              f"{[round(v, 1) for v in row['ms_per_step_rank']]} ({card})",
-              flush=True)
+                losses=got["losses"], loss_err=loss, state_err=state,
+                worst=worst, ms=got["ms"], launches=launched,
+                collectives=got["collectives"], unmet=unmet_now,
+                **({"bank_err": banks} if bank else {}))
+            print(f"dp {label} rank {r}: each step from the one process's "
+                  f"state: losses {got['losses']} vs one process "
+                  f"{ref['losses']} (rel err "
+                  f"{[f'{v:.2e}' for v in loss]}, bound {DP_LOSS_RTOL:.0e}"
+                  f"); parameters and BN buffers after each step: rel err "
+                  f"{[f'{v:.2e}' for v in state]} (worst at {worst}; bound "
+                  f"{DP_STATE_TOL:.0e}){bank}; launches {launched} "
+                  f"{'off prediction' if bad else 'as predicted'}; "
+                  f"collectives a step {got['collectives']}" + (
+                      f"; not held in bf16: {list(unmet)}, unmet: "
+                      f"{unmet_now}" if unmet else ""), flush=True)
+        row["ms_per_step_1"] = ref["ms"][1]
+        row["ms_per_step_rank"] = [res[label]["ms"][1] for res in ranks]
+        print(f"dp {label}: ms/step (step 2 of {DP_STEPS}, a single "
+              f"sample) one process {row['ms_per_step_1']:.1f}, per rank, "
+              f"{where}: {[round(v, 1) for v in row['ms_per_step_rank']]} "
+              f"({card})", flush=True)
         summary[label] = row
-    summary["timed_step"] = [res["timed_step"] for res in ranks]
-    print(f"dp: a Mean-Teacher step with each collective timed alone (card "
-          f"drained before and after), {where}: {summary['timed_step']} "
-          f"({card})", flush=True)
     return summary
 
 
@@ -3190,6 +3465,10 @@ def ptxas_summary(log: str) -> list[str]:
 def main() -> int:
     import torch
 
+    # strict fp32 in every process, the data-parallel ranks' too: their
+    # fp32 runs are compared with this process's
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         sys.path.insert(0, REPO)
         return dp_worker(*map(int, sys.argv[2:5]), sys.argv[5])
@@ -3208,8 +3487,6 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rep = Report()
     t_start = time.perf_counter()

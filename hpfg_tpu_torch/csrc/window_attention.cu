@@ -86,9 +86,14 @@
 //     dV, dQ and dK, and sums dbias from the fp32 dS;
 //   * the attention-dropout hash (hash.cuh) keys on b_idx = (w / blk) * 1024
 //     + h and row = (w % blk) * L + i with lane j and row width L, where w is
-//     the window index and blk = min(16, Bn), the TPU kernel's WINDOW_BLOCK:
-//     derived from the window index and the fragment's (i, j), never from
-//     the CTA index;
+//     the window's index in the global batch and blk = min(16, the global
+//     window count), the TPU kernel's WINDOW_BLOCK: derived from the window
+//     index and the fragment's (i, j), never from the CTA index. Under data
+//     parallelism a rank's local window w of image w / nW is global window
+//     ids[w / nW] * nW + w % nW (WindowIds, the image-id map, the kernels'
+//     last parameter, read only by the IDS instantiation of each kernel;
+//     one-process launches take the other, which is the code without the
+//     map);
 //   * dq = (ds k) * scale and dk = ds^T (q * scale), as _attn_bwd_kernel
 //     (the bf16 kernels scale the fp32 sum of ds^T q).
 
@@ -115,6 +120,19 @@ struct Drop {
   uint32_t thresh;
   float scale;
 };
+
+// The image-id map of a data-parallel rank's windows.
+struct WindowIds {
+  const int* ids;  // [Bn / nw] global image index of each image, or null
+  int nw;          // windows per image
+};
+
+// The window the hash keys on: w itself, or with IDS its index in the global
+// batch's windows.
+template <bool IDS>
+__device__ __forceinline__ int global_window(const WindowIds& g, int w) {
+  return IDS ? g.ids[w / g.nw] * g.nw + w % g.nw : w;
+}
 
 // The windows of CTA x: w = r + n_mask * (b0 + t), t < n. The Python side
 // (attention_walk) sizes the grid so that every CTA has n >= 1.
@@ -191,12 +209,14 @@ __device__ __forceinline__ void softmax_rows(float* sp, int L) {
 }
 
 // K13, fp32: grid (ctas, H); one head, a run of windows (Walk)
+template <bool IDS>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ bias,
                     const float* __restrict__ mask, int n_mask,
                     float* __restrict__ out, int Bn, int L, int H, int D,
-                    float scale, Drop drop, int blk, int windows_per_cta) {
+                    float scale, Drop drop, int blk, int windows_per_cta,
+                    WindowIds wid) {
   extern __shared__ float smem[];
   const int h = blockIdx.y;
   const int C = H * D;
@@ -218,11 +238,12 @@ __global__ void __launch_bounds__(kThreads)
     softmax_rows(sp, L);
     __syncthreads();
     if (drop.on) {
+      const int wg = global_window<IDS>(wid, w);
       for (int idx = threadIdx.x; idx < L * L; idx += kThreads) {
         const int i = idx / L, j = idx - (idx / L) * L;
         sp[i * (L + 1) + j] *= hash_keep(drop.seed, drop.thresh, drop.scale,
-                                         (w / blk) * 1024 + h,
-                                         (w % blk) * L + i, L, j);
+                                         (wg / blk) * 1024 + h,
+                                         (wg % blk) * L + i, L, j);
       }
       __syncthreads();
     }
@@ -238,13 +259,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K14, fp32: grid (ctas, H); one head, a run of windows (Walk)
+template <bool IDS>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ bias,
                     const float* __restrict__ mask, int n_mask,
                     const float* __restrict__ dout, float* __restrict__ dqkv,
                     float* __restrict__ part, int Bn, int L, int H, int D,
-                    float scale, Drop drop, int blk, int windows_per_cta) {
+                    float scale, Drop drop, int blk, int windows_per_cta,
+                    WindowIds wid) {
   extern __shared__ float smem[];
   const int h = blockIdx.y;
   const int C = H * D;
@@ -275,6 +298,7 @@ __global__ void __launch_bounds__(kThreads)
     scores(sp, sq, sk, bias_h, mask_w, L, D);
     __syncthreads();
     softmax_rows(sp, L);
+    const int wg = global_window<IDS>(wid, w);
     // dp[i][j] = (do[i] . v[j]) * m[i][j]
     for (int idx = threadIdx.x; idx < LL; idx += kThreads) {
       const int i = idx / L, j = idx - (idx / L) * L;
@@ -285,7 +309,7 @@ __global__ void __launch_bounds__(kThreads)
       float m = 1.f;
       if (drop.on)
         m = hash_keep(drop.seed, drop.thresh, drop.scale,
-                      (w / blk) * 1024 + h, (w % blk) * L + i, L, j);
+                      (wg / blk) * 1024 + h, (wg % blk) * L + i, L, j);
       sm[i * (L + 1) + j] = m;
       sdp[i * (L + 1) + j] = drop.on ? a * m : a;
     }
@@ -597,7 +621,8 @@ __device__ __forceinline__ void softmax_frag(float (&s)[kN8][4],
 }
 
 // The dropout multiplier of score (i, j) of window w: hash_keep keyed on
-// b_idx = (w / blk) * 1024 + h and row (w % blk) * L + i.
+// b_idx = (w / blk) * 1024 + h and row (w % blk) * L + i, w the global
+// window (global_window).
 struct DropKey {
   Drop drop;
   int b_idx, row0, L;
@@ -611,14 +636,14 @@ struct DropKey {
 
 // K13, bf16: grid (ctas, H); one head, a run of windows of one mask class.
 // Shared memory: two buffers of the q, k, v tiles.
-template <int DT>
+template <int DT, bool IDS>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_bf16_kernel(const uint16_t* __restrict__ qkv,
                          const float* __restrict__ bias,
                          const float* __restrict__ mask, int n_mask,
                          uint16_t* __restrict__ out, int Bn, int L, int H,
                          int D, float scale, Drop drop, int blk,
-                         int windows_per_cta, int vec) {
+                         int windows_per_cta, int vec, WindowIds wid) {
   extern __shared__ __align__(16) uint16_t attn_smem[];
   constexpr int TE = Tile<DT>::ELEMS;
   const int h = blockIdx.y, C = H * D, warp = threadIdx.x >> 5;
@@ -649,7 +674,7 @@ __global__ void __launch_bounds__(kThreads)
     rows_bt<DT>(s, sq, sq + TE);
     softmax_frag(s, bm, scale);
     if (drop.on) {
-      const DropKey m(drop, w, h, blk, L);
+      const DropKey m(drop, global_window<IDS>(wid, w), h, blk, L);
 #pragma unroll
       for (int t8 = 0; t8 < kN8; ++t8)
 #pragma unroll
@@ -674,7 +699,7 @@ __global__ void __launch_bounds__(kThreads)
 // K14, bf16: grid (ctas, H); one head, a run of windows of one mask class.
 // Shared memory: two buffers of the q, k, v, do tiles, then the P o M and
 // dS tiles [kRows][kPRow].
-template <int DT>
+template <int DT, bool IDS>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_bf16_kernel(const uint16_t* __restrict__ qkv,
                          const float* __restrict__ bias,
@@ -682,7 +707,8 @@ __global__ void __launch_bounds__(kThreads)
                          const uint16_t* __restrict__ dout,
                          uint16_t* __restrict__ dqkv, float* __restrict__ part,
                          int Bn, int L, int H, int D, float scale, Drop drop,
-                         int blk, int windows_per_cta, int vec) {
+                         int blk, int windows_per_cta, int vec,
+                         WindowIds wid) {
   extern __shared__ __align__(16) uint16_t attn_smem[];
   constexpr int TE = Tile<DT>::ELEMS;
   uint16_t* s_pm = attn_smem + 8 * TE;
@@ -730,7 +756,7 @@ __global__ void __launch_bounds__(kThreads)
       rows_bt<DT>(dp, sdo, sv);
       // P = 0 in padded rows; dP o M; P o M to shared memory (bf16);
       // r = sum_j dP P per row
-      const DropKey mk(drop, w, h, blk, L);
+      const DropKey mk(drop, global_window<IDS>(wid, w), h, blk, L);
       float r[2] = {0.f, 0.f};
 #pragma unroll
       for (int t8 = 0; t8 < kN8; ++t8)
@@ -833,36 +859,76 @@ void opt_in(K kernel, size_t bytes, bool& done) {
   }
 }
 
-template <int DT>
+// IDS: the instantiation that reads the image-id map (Drop::ids)
+template <int DT, bool IDS>
 void launch_fwd_bf16(dim3 grid, const void* qkv, const void* bias,
                      const void* mask, int n_mask, void* out, int Bn, int L,
-                     int H, int D, float scale, Drop drop, int blk,
-                     int windows_per_cta, cudaStream_t stream) {
+                     int H, int D, float scale, Drop drop, WindowIds wid,
+                     int blk, int windows_per_cta, cudaStream_t stream) {
   static bool opted_in = false;
-  opt_in(attn_fwd_bf16_kernel<DT>, fwd_bf16_smem<DT>(), opted_in);
+  opt_in(attn_fwd_bf16_kernel<DT, IDS>, fwd_bf16_smem<DT>(), opted_in);
   const int vec = D % 8 == 0 && aligned16(qkv) && aligned16(out);
-  attn_fwd_bf16_kernel<DT><<<grid, kThreads, fwd_bf16_smem<DT>(), stream>>>(
+  attn_fwd_bf16_kernel<DT, IDS>
+      <<<grid, kThreads, fwd_bf16_smem<DT>(), stream>>>(
       static_cast<const uint16_t*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), n_mask, static_cast<uint16_t*>(out),
-      Bn, L, H, D, scale, drop, blk, windows_per_cta, vec);
+      Bn, L, H, D, scale, drop, blk, windows_per_cta, vec, wid);
 }
 
-template <int DT>
+template <int DT, bool IDS>
 void launch_bwd_bf16(dim3 grid, const void* qkv, const void* bias,
                      const void* mask, int n_mask, const void* dout,
                      void* dqkv, void* part, int Bn, int L, int H, int D,
-                     float scale, Drop drop, int blk, int windows_per_cta,
-                     cudaStream_t stream) {
+                     float scale, Drop drop, WindowIds wid, int blk,
+                     int windows_per_cta, cudaStream_t stream) {
   static bool opted_in = false;
-  opt_in(attn_bwd_bf16_kernel<DT>, bwd_bf16_smem<DT>(), opted_in);
+  opt_in(attn_bwd_bf16_kernel<DT, IDS>, bwd_bf16_smem<DT>(), opted_in);
   const int vec =
       D % 8 == 0 && aligned16(qkv) && aligned16(dout) && aligned16(dqkv);
-  attn_bwd_bf16_kernel<DT><<<grid, kThreads, bwd_bf16_smem<DT>(), stream>>>(
+  attn_bwd_bf16_kernel<DT, IDS>
+      <<<grid, kThreads, bwd_bf16_smem<DT>(), stream>>>(
       static_cast<const uint16_t*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), n_mask,
       static_cast<const uint16_t*>(dout), static_cast<uint16_t*>(dqkv),
       static_cast<float*>(part), Bn, L, H, D, scale, drop, blk,
-      windows_per_cta, vec);
+      windows_per_cta, vec, wid);
+}
+
+template <bool IDS>
+void launch_fwd_f32(dim3 grid, const void* qkv, const void* bias,
+                    const void* mask, int n_mask, void* out, int Bn, int L,
+                    int H, int D, float scale, Drop drop, WindowIds wid,
+                    int blk, int windows_per_cta, cudaStream_t stream) {
+  static bool opted_in = false;
+  opt_in(attn_fwd_kernel<IDS>, fwd_smem(kMaxL, kMaxD), opted_in);
+  attn_fwd_kernel<IDS><<<grid, kThreads, fwd_smem(L, D), stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), n_mask, static_cast<float*>(out), Bn,
+      L, H, D, scale, drop, blk, windows_per_cta, wid);
+}
+
+template <bool IDS>
+void launch_bwd_f32(dim3 grid, const void* qkv, const void* bias,
+                    const void* mask, int n_mask, const void* dout,
+                    void* dqkv, void* part, int Bn, int L, int H, int D,
+                    float scale, Drop drop, WindowIds wid, int blk,
+                    int windows_per_cta, cudaStream_t stream) {
+  static bool opted_in = false;
+  opt_in(attn_bwd_kernel<IDS>, bwd_smem(kMaxL, kMaxD), opted_in);
+  attn_bwd_kernel<IDS><<<grid, kThreads, bwd_smem(L, D), stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), n_mask,
+      static_cast<const float*>(dout), static_cast<float*>(dqkv),
+      static_cast<float*>(part), Bn, L, H, D, scale, drop, blk,
+      windows_per_cta, wid);
+}
+
+// The launcher of a dtype and head width (by_dt: DT - 1), with or without
+// the image-id map.
+template <typename F>
+F pick(const F (&f32)[2], const F (&by_dt)[2][4], int is_bf16, int D,
+       bool ids) {
+  return is_bf16 ? by_dt[ids][(D + 15) / 16 - 1] : f32[ids];
 }
 
 }  // namespace
@@ -874,33 +940,32 @@ int hpfg_attn_max_d() { return kMaxD; }
 
 // K13. qkv [Bn, L, 3*H*D] and out [Bn, L, H*D] (bf16 when is_bf16, else
 // fp32), bias [H, L, L] fp32, mask [n_mask, L, L] fp32 or null (n_mask 1);
-// blk is the hash's window block min(16, Bn); the grid is (ctas, H), each
-// CTA walking windows_per_cta windows (attention_walk).
+// ids int32 [Bn / nw] (each image's index in the global batch, nw windows
+// an image) or null; blk is the hash's window block min(16, global window
+// count); the grid is (ctas, H), each CTA walking windows_per_cta windows
+// (attention_walk).
 int hpfg_window_attention_fwd(const void* qkv, const void* bias,
                               const void* mask, int n_mask, void* out, int Bn,
                               int L, int H, int D, float scale, int drop_on,
                               unsigned seed, unsigned thresh, float drop_scale,
-                              int blk, int windows_per_cta, int ctas,
-                              int is_bf16, void* stream) {
-  if (L > kMaxL || D > kMaxD || windows_per_cta < 1 || Bn % n_mask)
+                              const void* ids, int nw, int blk,
+                              int windows_per_cta, int ctas, int is_bf16,
+                              void* stream) {
+  if (L > kMaxL || D > kMaxD || windows_per_cta < 1 || Bn % n_mask ||
+      (ids != nullptr && (nw < 1 || Bn % nw)))
     return (int)cudaErrorInvalidValue;
-  Drop drop{drop_on, seed, thresh, drop_scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ctas, H);
-  if (!is_bf16) {
-    static bool opted_in = false;
-    opt_in(attn_fwd_kernel, fwd_smem(kMaxL, kMaxD), opted_in);
-    attn_fwd_kernel<<<grid, kThreads, fwd_smem(L, D), s>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(mask), n_mask, static_cast<float*>(out), Bn,
-        L, H, D, scale, drop, blk, windows_per_cta);
-    return (int)cudaGetLastError();
-  }
-  constexpr decltype(&launch_fwd_bf16<1>) by_dt[] = {
-      launch_fwd_bf16<1>, launch_fwd_bf16<2>, launch_fwd_bf16<3>,
-      launch_fwd_bf16<4>};
-  by_dt[(D + 15) / 16 - 1](grid, qkv, bias, mask, n_mask, out, Bn, L, H, D,
-                           scale, drop, blk, windows_per_cta, s);
+  const Drop drop{drop_on, seed, thresh, drop_scale};
+  const WindowIds wid{static_cast<const int*>(ids), nw};
+  using Fn = decltype(&launch_fwd_f32<false>);
+  static constexpr Fn f32[2] = {launch_fwd_f32<false>, launch_fwd_f32<true>};
+  static constexpr Fn by_dt[2][4] = {
+      {launch_fwd_bf16<1, false>, launch_fwd_bf16<2, false>,
+       launch_fwd_bf16<3, false>, launch_fwd_bf16<4, false>},
+      {launch_fwd_bf16<1, true>, launch_fwd_bf16<2, true>,
+       launch_fwd_bf16<3, true>, launch_fwd_bf16<4, true>}};
+  pick(f32, by_dt, is_bf16, D, drop_on && ids != nullptr)(
+      dim3(ctas, H), qkv, bias, mask, n_mask, out, Bn, L, H, D, scale, drop,
+      wid, blk, windows_per_cta, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -911,30 +976,26 @@ int hpfg_window_attention_bwd(const void* qkv, const void* bias,
                               const void* mask, int n_mask, const void* dout,
                               void* dqkv, void* part, int Bn, int L, int H,
                               int D, float scale, int drop_on, unsigned seed,
-                              unsigned thresh, float drop_scale, int blk,
+                              unsigned thresh, float drop_scale,
+                              const void* ids, int nw, int blk,
                               int windows_per_cta, int ctas, int is_bf16,
                               void* stream) {
-  if (L > kMaxL || D > kMaxD || windows_per_cta < 1 || Bn % n_mask)
+  if (L > kMaxL || D > kMaxD || windows_per_cta < 1 || Bn % n_mask ||
+      (ids != nullptr && (nw < 1 || Bn % nw)))
     return (int)cudaErrorInvalidValue;
-  Drop drop{drop_on, seed, thresh, drop_scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ctas, H);
-  if (!is_bf16) {
-    static bool opted_in = false;
-    opt_in(attn_bwd_kernel, bwd_smem(kMaxL, kMaxD), opted_in);
-    attn_bwd_kernel<<<grid, kThreads, bwd_smem(L, D), s>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(mask), n_mask,
-        static_cast<const float*>(dout), static_cast<float*>(dqkv),
-        static_cast<float*>(part), Bn, L, H, D, scale, drop, blk,
-        windows_per_cta);
-    return (int)cudaGetLastError();
-  }
-  constexpr decltype(&launch_bwd_bf16<1>) by_dt[] = {
-      launch_bwd_bf16<1>, launch_bwd_bf16<2>, launch_bwd_bf16<3>,
-      launch_bwd_bf16<4>};
-  by_dt[(D + 15) / 16 - 1](grid, qkv, bias, mask, n_mask, dout, dqkv, part,
-                           Bn, L, H, D, scale, drop, blk, windows_per_cta, s);
+  const Drop drop{drop_on, seed, thresh, drop_scale};
+  const WindowIds wid{static_cast<const int*>(ids), nw};
+  using Fn = decltype(&launch_bwd_f32<false>);
+  static constexpr Fn f32[2] = {launch_bwd_f32<false>, launch_bwd_f32<true>};
+  static constexpr Fn by_dt[2][4] = {
+      {launch_bwd_bf16<1, false>, launch_bwd_bf16<2, false>,
+       launch_bwd_bf16<3, false>, launch_bwd_bf16<4, false>},
+      {launch_bwd_bf16<1, true>, launch_bwd_bf16<2, true>,
+       launch_bwd_bf16<3, true>, launch_bwd_bf16<4, true>}};
+  pick(f32, by_dt, is_bf16, D, drop_on && ids != nullptr)(
+      dim3(ctas, H), qkv, bias, mask, n_mask, dout, dqkv, part, Bn, L, H, D,
+      scale, drop, wid, blk, windows_per_cta,
+      static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

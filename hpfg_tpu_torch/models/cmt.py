@@ -71,12 +71,13 @@ class CMTMlp(nn.Module):
         self.conv2 = Conv(hidden, out, 1, generator)
         self.bn2 = BatchNorm(out)
 
-    def forward(self, x, train: bool):
+    def forward(self, x, train: bool, rows=None):
         dt = self.dtype
-        x = self.bn1(F.gelu(conv_nhwc(x, self.conv1)), train).to(dt)
+        x = self.bn1(F.gelu(conv_nhwc(x, self.conv1)), train,
+                     rows=rows).to(dt)
         y = conv_same(x, self.proj, groups=self.hidden)
-        x = self.proj_bn(F.gelu(y + x), train).to(dt)
-        return self.bn2(conv_nhwc(x, self.conv2), train).to(dt)
+        x = self.proj_bn(F.gelu(y + x), train, rows=rows).to(dt)
+        return self.bn2(conv_nhwc(x, self.conv2), train, rows=rows).to(dt)
 
 
 class CMTAttention(nn.Module):
@@ -98,14 +99,14 @@ class CMTAttention(nn.Module):
         self.proj = Dense(dim, dim, generator)
         self.dtype = dtype
 
-    def forward(self, x, rel_pos: torch.Tensor, train: bool):
+    def forward(self, x, rel_pos: torch.Tensor, train: bool, rows=None):
         b, h, w, c = x.shape
         heads, hd = self.heads, self.dim // self.heads
         q = self.q(x).reshape(b, h * w, heads, hd).transpose(1, 2)
         kv_in = x
         if self.sr_ratio > 1:
             kv_in = conv_same(x, self.sr_conv, self.sr_ratio, groups=c)
-            kv_in = self.sr_bn(kv_in, train).to(self.dtype)
+            kv_in = self.sr_bn(kv_in, train, rows=rows).to(self.dtype)
         m = kv_in.shape[1] * kv_in.shape[2]
         kv_in = kv_in.reshape(b, m, c)
         k = self.k(kv_in).reshape(b, m, heads, hd).transpose(1, 2)
@@ -128,10 +129,10 @@ class CMTBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = CMTMlp(dim, int(dim * mlp_ratio), dim, dtype, generator)
 
-    def forward(self, x, rel_pos, train: bool):
+    def forward(self, x, rel_pos, train: bool, rows=None):
         x = x + conv_same(x, self.lpu, groups=self.dim)
-        x = x + self.attn(self.norm1(x).to(self.dtype), rel_pos, train)
-        return x + self.mlp(self.norm2(x).to(self.dtype), train)
+        x = x + self.attn(self.norm1(x).to(self.dtype), rel_pos, train, rows)
+        return x + self.mlp(self.norm2(x).to(self.dtype), train, rows)
 
 
 def _stage_sizes(img_size: int) -> list[int]:
@@ -179,21 +180,21 @@ class CMT(nn.Module):
                     dtype, generator))
             c = embed_dims[s]
 
-    def forward(self, x, train: bool) -> list[torch.Tensor]:
+    def forward(self, x, train: bool, rows=None) -> list[torch.Tensor]:
         x = x.to(self.dtype)
         for i in range(3):
             s, p = (2, 3) if i == 0 else (1, 1)
             x = conv_nhwc(x, getattr(self, f"stem_conv{i + 1}"), s,
                           (p, p, p, p))
-            x = getattr(self, f"stem_norm{i + 1}")(F.gelu(x), train).to(
-                self.dtype)
+            x = getattr(self, f"stem_norm{i + 1}")(F.gelu(x), train,
+                                                   rows=rows).to(self.dtype)
         feats = []
         for s in range(4):
             x = conv_same(x, getattr(self, f"patch_embed_{s}"), 2)
             x = getattr(self, f"patch_norm_{s}")(x).to(self.dtype)
             rel_pos = getattr(self, f"relative_pos_{s}")
             for i in range(self.depths[s]):
-                x = getattr(self, f"block{s}_{i}")(x, rel_pos, train)
+                x = getattr(self, f"block{s}_{i}")(x, rel_pos, train, rows)
             feats.append(x)
         return feats
 
@@ -218,8 +219,9 @@ class CMTSeg(nn.Module):
                                      generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        return self.decoder(self.encoder(x, train), train, generator)
+                generator: torch.Generator | None = None, rows=None):
+        return self.decoder(self.encoder(x, train, rows), train, generator,
+                            rows)
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x, False), False)
@@ -247,9 +249,9 @@ class CMTPlus(CMTSeg):
             generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        feats = self.encoder(x, train)
-        logits = self.decoder(feats, train, generator)
+                generator: torch.Generator | None = None, rows=None):
+        feats = self.encoder(x, train, rows)
+        logits = self.decoder(feats, train, generator, rows)
         high = self.dense_projection_high(feats[-1])
         head = self.dense_projection_head(logits.to(self.dtype))
         return logits, high, head

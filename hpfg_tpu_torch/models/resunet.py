@@ -46,8 +46,9 @@ def _conv(in_ch: int, out_ch: int, k: int, generator) -> Conv:
     return Conv(in_ch, out_ch, k, generator, init="lecun")
 
 
-def _bn_relu(bn: BatchNorm, x, train: bool, dtype) -> torch.Tensor:
-    return torch.relu(bn(x, train)).to(dtype)
+def _bn_relu(bn: BatchNorm, x, train: bool, dtype, rows=None
+             ) -> torch.Tensor:
+    return torch.relu(bn(x, train, rows=rows)).to(dtype)
 
 
 def _conv_strided(x, conv: Conv, stride: int) -> torch.Tensor:
@@ -74,10 +75,11 @@ class ResidualConv(nn.Module):
         self.conv2 = _conv(features, features, 3, generator)
         self.skip = _conv(in_ch, features, 3, generator)
 
-    def forward(self, x, train: bool) -> torch.Tensor:
-        y = _bn_relu(self.bn1, x, train, self.dtype)
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
+        y = _bn_relu(self.bn1, x, train, self.dtype, rows)
         y = _conv_strided(y, self.conv1, self.stride)
-        y = conv_same(_bn_relu(self.bn2, y, train, self.dtype), self.conv2)
+        y = conv_same(_bn_relu(self.bn2, y, train, self.dtype, rows),
+                      self.conv2)
         return y + _conv_strided(x, self.skip, self.stride)
 
 
@@ -106,19 +108,20 @@ class ResUNet(nn.Module):
         self.output_layer = _conv(f[0], num_classes, 1, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
         x = x.to(self.dtype)
         y = conv_same(x, self.input_conv1)
-        y = conv_same(_bn_relu(self.input_bn, y, train, self.dtype),
+        y = conv_same(_bn_relu(self.input_bn, y, train, self.dtype, rows),
                       self.input_conv2)
         x1 = y + conv_same(x, self.input_skip)
-        x2 = self.residual_conv_1(x1, train)
-        x3 = self.residual_conv_2(x2, train)
-        y = self.bridge(x3, train)
+        x2 = self.residual_conv_1(x1, train, rows)
+        x3 = self.residual_conv_2(x2, train, rows)
+        y = self.bridge(x3, train, rows)
         for skip, block in ((x3, self.up_residual_conv1),
                             (x2, self.up_residual_conv2),
                             (x1, self.up_residual_conv3)):
-            y = block(torch.cat([_up2(y), skip], dim=-1), train)
+            y = block(torch.cat([_up2(y), skip], dim=-1), train, rows)
         return conv_nhwc(y, self.output_layer).float()
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,11 +161,12 @@ class StemBlock(nn.Module):
         self.c2_bn = BatchNorm(features)
         self.attn = SqueezeExcitation(features, generator=generator)
 
-    def forward(self, x, train: bool) -> torch.Tensor:
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
         y = _conv_strided(x, self.c1_conv1, self.stride)
-        y = conv_same(_bn_relu(self.c1_bn, y, train, self.dtype),
+        y = conv_same(_bn_relu(self.c1_bn, y, train, self.dtype, rows),
                       self.c1_conv2)
-        s = self.c2_bn(conv_same(x, self.c2_conv, self.stride), train)
+        s = self.c2_bn(conv_same(x, self.c2_conv, self.stride), train,
+                       rows=rows)
         return self.attn(y + s.to(self.dtype))
 
 
@@ -183,11 +187,13 @@ class ResNetBlockSE(nn.Module):
         self.skip_bn = BatchNorm(features)
         self.attn = SqueezeExcitation(features, generator=generator)
 
-    def forward(self, x, train: bool) -> torch.Tensor:
-        y = _bn_relu(self.bn1, x, train, self.dtype)
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
+        y = _bn_relu(self.bn1, x, train, self.dtype, rows)
         y = _conv_strided(y, self.conv1, self.stride)
-        y = conv_same(_bn_relu(self.bn2, y, train, self.dtype), self.conv2)
-        s = self.skip_bn(conv_same(x, self.skip, self.stride), train)
+        y = conv_same(_bn_relu(self.bn2, y, train, self.dtype, rows),
+                      self.conv2)
+        s = self.skip_bn(conv_same(x, self.skip, self.stride), train,
+                         rows=rows)
         return self.attn(y + s.to(self.dtype))
 
 
@@ -207,11 +213,11 @@ class ASPP(nn.Module):
             setattr(self, f"bn{i + 1}", BatchNorm(features))
         self.out = _conv(features, features, 1, generator)
 
-    def forward(self, x, train: bool) -> torch.Tensor:
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
         y = 0
         for i, rate in enumerate(self.rates, start=1):
             z = conv_same(x, getattr(self, f"c{i}"), dilation=rate)
-            y = y + getattr(self, f"bn{i}")(z, train).to(self.dtype)
+            y = y + getattr(self, f"bn{i}")(z, train, rows=rows).to(self.dtype)
         return conv_nhwc(y, self.out)
 
 
@@ -231,12 +237,12 @@ class AttentionBlock(nn.Module):
         self.gc_bn = BatchNorm(features)
         self.gc_conv = _conv(features, 1, 1, generator)
 
-    def forward(self, g, x, train: bool) -> torch.Tensor:
+    def forward(self, g, x, train: bool, rows=None) -> torch.Tensor:
         dt = self.dtype
-        gp = max_pool_2x2(conv_same(_bn_relu(self.g_bn, g, train, dt),
+        gp = max_pool_2x2(conv_same(_bn_relu(self.g_bn, g, train, dt, rows),
                                     self.g_conv))
-        xc = conv_same(_bn_relu(self.x_bn, x, train, dt), self.x_conv)
-        gate = _bn_relu(self.gc_bn, gp + xc, train, dt)
+        xc = conv_same(_bn_relu(self.x_bn, x, train, dt, rows), self.x_conv)
+        gate = _bn_relu(self.gc_bn, gp + xc, train, dt, rows)
         return conv_nhwc(gate, self.gc_conv) * x
 
 
@@ -266,16 +272,17 @@ class ResUNetPlusPlus(nn.Module):
         self.output = _conv(16, num_classes, 1, g)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        c1 = self.c1(x.to(self.dtype), train)
-        c2 = self.c2(c1, train)
-        c3 = self.c3(c2, train)
-        y = self.b1(self.c4(c3, train), train)
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
+        c1 = self.c1(x.to(self.dtype), train, rows)
+        c2 = self.c2(c1, train, rows)
+        c3 = self.c3(c2, train, rows)
+        y = self.b1(self.c4(c3, train, rows), train, rows)
         for name, skip in (("d1", c3), ("d2", c2), ("d3", c1)):
-            a = _up2(getattr(self, f"{name}_attn")(skip, y, train))
+            a = _up2(getattr(self, f"{name}_attn")(skip, y, train, rows))
             y = getattr(self, f"{name}_res")(torch.cat([a, skip], dim=-1),
-                                             train)
-        y = self.aspp_out(y, train)
+                                             train, rows)
+        y = self.aspp_out(y, train, rows)
         return conv_nhwc(y, self.output).float()
 
     def val(self, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,10 @@ The heads are plain torch (Dense matmuls and an fp32 BatchNorm over rows),
 as the JAX package leaves them to XLA; their module names are flax's
 (``Dense_0``, ``BatchNorm_0``, ``Dense_1``), so ``utils/jax_weights.py``
 maps a flax tree by flattening it.
+
+``rows`` (``parallel.mesh.Rows``, default None) goes down the UNet as in
+``models/unet.py``; a head given ``rows`` normalizes its train-mode rows
+with the statistics of every rank's rows (their sums all-reduced).
 """
 
 from __future__ import annotations
@@ -48,12 +52,12 @@ class SSNetDecoder(nn.Module):
         self.out_conv = Conv(ft[0], num_classes, 3, generator)
 
     def forward(self, feature, train: bool, generator=None,
-                fold: bool = True):
+                fold: bool = True, rows=None):
         x0, x1, x2, x3, x4 = feature
-        x = self.up1(x4, x3, train, generator, fold)
-        x = self.up2(x, x2, train, generator, fold)
-        x = self.up3(x, x1, train, generator, fold)
-        x_last = self.up4(x, x0, train, generator, fold)
+        x = self.up1(x4, x3, train, generator, fold, rows)
+        x = self.up2(x, x2, train, generator, fold, rows)
+        x = self.up3(x, x1, train, generator, fold, rows)
+        x_last = self.up4(x, x0, train, generator, fold, rows)
         logits = conv3x3_plain(x_last, self.out_conv.kernel,
                                self.out_conv.bias).float()
         return logits, x_last
@@ -74,8 +78,9 @@ class MLPHead(nn.Module):
         self.Dense_1 = Dense(hidden, out, generator)
 
     def forward(self, x: torch.Tensor, train: bool,
-                fold: bool = True) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Dense_0(x.to(self.dtype)), train, fold)
+                fold: bool = True, rows=None) -> torch.Tensor:
+        x = self.BatchNorm_0(self.Dense_0(x.to(self.dtype)), train, fold,
+                             rows)
         if self.negative_slope:
             x = F.leaky_relu(x, self.negative_slope)
         else:
@@ -113,25 +118,29 @@ class SSNet(nn.Module):
                 feat_dim, feat_dim, 1, 0.2, dtype, generator))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None, fold: bool = True):
-        feature = self.encoder(x.to(self.dtype), train, generator, fold)
-        return self.decoder(feature, train, generator, fold)
+                generator: torch.Generator | None = None, fold: bool = True,
+                rows=None):
+        feature = self.encoder(x.to(self.dtype), train, generator, fold,
+                               rows)
+        return self.decoder(feature, train, generator, fold, rows)
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, train=False)[0]
 
-    def project(self, features, train: bool = False, fold: bool = True):
-        return self.projection_head(features, train, fold)
+    def project(self, features, train: bool = False, fold: bool = True,
+                rows=None):
+        return self.projection_head(features, train, fold, rows)
 
-    def predict(self, features, train: bool = False, fold: bool = True):
-        return self.prediction_head(features, train, fold)
+    def predict(self, features, train: bool = False, fold: bool = True,
+                rows=None):
+        return self.prediction_head(features, train, fold, rows)
 
     def select(self, c: int, features, train: bool = False,
-               fold: bool = True):
+               fold: bool = True, rows=None):
         return getattr(self, f"contrastive_class_selector_{c}")(
-            features, train, fold)
+            features, train, fold, rows)
 
     def select_memory(self, c: int, features, train: bool = False,
-                      fold: bool = True):
+                      fold: bool = True, rows=None):
         return getattr(self, f"contrastive_class_selector_memory{c}")(
-            features, train, fold)
+            features, train, fold, rows)

@@ -19,7 +19,9 @@ block, so the window attentions (K13 / K14 on the card) run over all
 windows. The noise is drawn on the device from a seed of ``generator``
 (or injected). An eval-mode forward masks with a fixed-seed generator: the
 same mask every call, but not the mask of the JAX package's
-``PRNGKey(0)``.
+``PRNGKey(0)``. Under data parallelism (``rows``, ``parallel.mesh.Rows``)
+the noise is drawn for the global batch and this rank's rows are kept, and
+``rows`` goes down to every block as in the SwinUNet.
 
 A fixed 2-D sin-cos table is kept, as in the reference and the JAX model,
 and never added to the tokens.
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hpfg_tpu_torch.models.layers import Dense, LayerNorm, device_uniform
+from hpfg_tpu_torch.models.layers import Dense, LayerNorm, _draw
 from hpfg_tpu_torch.models.swinunet import (
     PatchEmbedding,
     PatchExpanding,
@@ -153,16 +155,17 @@ class SwinMAE(nn.Module):
                                self.mask_token.to(tokens.dtype))
         return x_masked.reshape(b, h, w, c), 1.0 - keep_mask
 
-    def forward_encoder(self, x, noise, train: bool, generator=None):
+    def forward_encoder(self, x, noise, train: bool, generator=None,
+                        rows=None):
         x, mask = self.window_masking(self.patch_embed(x), noise)
         for i in range(self.n):
-            x = getattr(self, f"layer{i}")(x, train, generator)
+            x = getattr(self, f"layer{i}")(x, train, generator, rows)
         return x, mask
 
-    def forward_decoder(self, x, train: bool, generator=None):
+    def forward_decoder(self, x, train: bool, generator=None, rows=None):
         x = self.first_patch_expanding(x)
         for i in range(self.n - 1):
-            x = getattr(self, f"layer_up{i}")(x, train, generator)
+            x = getattr(self, f"layer_up{i}")(x, train, generator, rows)
         x = self.norm_up(x)
         b, h, w, c = x.shape
         return self.decoder_pred(x.reshape(b, h * w, c).to(self.dtype)).float()
@@ -181,22 +184,24 @@ class SwinMAE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None):
-        """``noise`` [B, d^2] replaces the mask's uniform draw: from
-        ``generator``'s seed in train mode, from EVAL_MASK_SEED else."""
+                noise: torch.Tensor | None = None, rows=None):
+        """``noise`` [B, d^2] (this forward's rows) replaces the mask's
+        uniform draw: from ``generator``'s seed in train mode (with
+        ``rows``, the global batch's draw at this rank's rows), from
+        EVAL_MASK_SEED else."""
         x = x.to(self.dtype)
         if noise is None:
             shape = (x.shape[0], self.windows())
             if train:
-                noise = device_uniform(shape, generator, x.device)
+                noise = _draw(shape, generator, x.device, rows)
             else:
                 gen = torch.Generator(device=x.device)
                 gen.manual_seed(EVAL_MASK_SEED)
                 noise = torch.rand(shape, generator=gen, device=x.device)
         latent, mask = self.forward_encoder(x, noise.to(x.device), train,
-                                            generator)
+                                            generator, rows)
         pred_img = self.unpatchify(self.forward_decoder(latent, train,
-                                                        generator))
+                                                        generator, rows))
         rep = self.patch_size ** 2 * self.in_channels
         mask_img = self.unpatchify(mask[:, :, None].repeat(1, 1, rep))
         return pred_img, mask_img

@@ -24,6 +24,13 @@ once per shape (cached) and held as non-persistent buffers, so they move
 with the module, cost no host copy per forward and stay out of the weight
 map. Each ``WindowAttention`` is built for the token resolution of its
 stage (``img_size``), which fixes its shift mask.
+
+Every train-mode forward takes ``rows`` (``parallel.mesh.Rows``, default
+None) down to each block, as the UNet does (``models/layers.py``): under
+data parallelism the attention dropout hashes each window's index in the
+global batch (``rows.ids`` and ``rows.total`` into K13 / K14), and the
+dropouts and drop paths draw for the global batch and keep this rank's
+rows. LayerNorm mixes no images, so nothing else changes.
 """
 
 from __future__ import annotations
@@ -128,7 +135,8 @@ class WindowAttention(nn.Module):
         self.register_buffer("attn_mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor, train: bool,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
         b, h, w, c = x.shape
         if (h, w) != self.resolution:
             raise ValueError(f"WindowAttention built for {self.resolution} "
@@ -142,9 +150,11 @@ class WindowAttention(nn.Module):
         drop = None
         if train and self.attn_drop > 0.0:
             seed = int(torch.randint(0, 1 << 23, (), generator=generator))
-            drop = HashDropout(seed, 1.0 - self.attn_drop)
+            ids = () if rows is None else (rows.ids, rows.total)
+            drop = HashDropout(seed, 1.0 - self.attn_drop, *ids)
         out = window_attention(qkv, bias, self.attn_mask, self.heads, drop)
-        out = dropout(self.proj(out), self.proj_drop, train, generator)
+        out = dropout(self.proj(out), self.proj_drop, train, generator,
+                      None if rows is None else rows.expand(len(out) // b))
         out = window_reverse(out, ws, h, w)
         if shift:
             out = torch.roll(out, (shift, shift), dims=(1, 2))
@@ -160,11 +170,11 @@ class Mlp(nn.Module):
         self.fc1 = _swin_dense(dim, hidden, generator)
         self.fc2 = _swin_dense(hidden, out, generator)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         x = F.gelu(self.fc1(x.to(self.dtype)))  # exact erf GELU
-        x = dropout(x, self.drop, train, generator)
+        x = dropout(x, self.drop, train, generator, rows)
         x = self.fc2(x)
-        return dropout(x, self.drop, train, generator)
+        return dropout(x, self.drop, train, generator, rows)
 
 
 class SwinBlock(nn.Module):
@@ -186,11 +196,11 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, dtype, generator)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x, train: bool, generator=None):
-        y = self.attn(self.norm1(x), train, generator)
-        x = x + self.drop_path1(y, train, generator)
-        y = self.mlp(self.norm2(x), train, generator)
-        return x + self.drop_path2(y, train, generator)
+    def forward(self, x, train: bool, generator=None, rows=None):
+        y = self.attn(self.norm1(x), train, generator, rows)
+        x = x + self.drop_path1(y, train, generator, rows)
+        y = self.mlp(self.norm2(x), train, generator, rows)
+        return x + self.drop_path2(y, train, generator, rows)
 
 
 class PatchEmbedding(nn.Module):
@@ -313,9 +323,9 @@ class SwinStage(nn.Module):
                                              generator)
                            if patch_merging else None)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         for i in range(self.n):
-            x = getattr(self, f"block{i}")(x, train, generator)
+            x = getattr(self, f"block{i}")(x, train, generator, rows)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -339,9 +349,9 @@ class SwinStageUp(nn.Module):
                                         generator)
                          if patch_expanding else None)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         for i in range(self.n):
-            x = getattr(self, f"block{i}")(x, train, generator)
+            x = getattr(self, f"block{i}")(x, train, generator, rows)
         return x if self.upsample is None else self.upsample(x)
 
 
@@ -367,13 +377,15 @@ class SwinUNetEncoder(nn.Module):
                 qkv_bias, drop_rate, attn_drop_rate, drop_path_rate,
                 i != n - 1, (r, r), dtype, generator))
 
-    def forward(self, x, train: bool, generator=None) -> list[torch.Tensor]:
-        x = dropout(self.patch_embed(x), self.drop_rate, train, generator)
+    def forward(self, x, train: bool, generator=None,
+                rows=None) -> list[torch.Tensor]:
+        x = dropout(self.patch_embed(x), self.drop_rate, train, generator,
+                    rows)
         feats = []
         for i in range(self.n):
             if i != self.n - 1:
                 feats.append(x)
-            x = getattr(self, f"layer{i}")(x, train, generator)
+            x = getattr(self, f"layer{i}")(x, train, generator, rows)
         feats.append(x)
         return feats
 
@@ -407,13 +419,14 @@ class SwinUNetDecoder(nn.Module):
             (1, 1, embed_dim, num_classes), 1.0 / float(np.sqrt(embed_dim)),
             generator))
 
-    def forward(self, feats, train: bool, generator=None) -> torch.Tensor:
+    def forward(self, feats, train: bool, generator=None,
+                rows=None) -> torch.Tensor:
         x = self.first_patch_expanding(feats[-1])
         for i in range(self.n - 1):
             skip = feats[len(feats) - i - 2]
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
             x = getattr(self, f"skip{i}")(x.to(self.dtype))
-            x = getattr(self, f"layer_up{i}")(x, train, generator)
+            x = getattr(self, f"layer_up{i}")(x, train, generator, rows)
         x = self.final_patch_expanding(self.norm_up(x))
         x = torch.matmul(x.to(self.dtype), self.head.kernel[0, 0].to(
             self.dtype))
@@ -423,7 +436,8 @@ class SwinUNetDecoder(nn.Module):
 class SwinUNet(nn.Module):
     """NHWC image [B, H, W, in_channels] -> fp32 logits [B, H, W,
     num_classes]; ``train`` turns dropout, attention dropout and drop path
-    on, their draws made from ``generator``."""
+    on, their draws made from ``generator``; ``rows`` places a
+    data-parallel forward's rows in the global batch."""
 
     def __init__(self, in_channels: int = 3, num_classes: int = 4,
                  img_size: int = 224, patch_size: int = 4,
@@ -449,10 +463,11 @@ class SwinUNet(nn.Module):
                                        patch_size=patch_size, **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
         x = x.to(self.dtype)
-        return self.decoder(self.encoder(x, train, generator), train,
-                            generator)
+        return self.decoder(self.encoder(x, train, generator, rows), train,
+                            generator, rows)
 
     def val(self, x: torch.Tensor) -> torch.Tensor:
         return self(x, train=False)
@@ -480,9 +495,9 @@ class SwinUNetPlus(SwinUNet):
             generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        feats = self.encoder(x.to(self.dtype), train, generator)
-        logits = self.decoder(feats, train, generator)
+                generator: torch.Generator | None = None, rows=None):
+        feats = self.encoder(x.to(self.dtype), train, generator, rows)
+        logits = self.decoder(feats, train, generator, rows)
         high = self.dense_projection_high(feats[-1])
         head = self.dense_projection_head(logits.to(self.dtype))
         return logits, high, head

@@ -48,8 +48,8 @@ EPS = 1e-5
 OUT_CHANNELS, HEADS, MLP_DIM, BLOCKS, PATCH = 128, 4, 512, 8, 16
 
 
-def _bn_relu(bn: BatchNorm, x, train: bool, dtype):
-    return torch.relu(bn(x, train)).to(dtype)
+def _bn_relu(bn: BatchNorm, x, train: bool, dtype, rows=None):
+    return torch.relu(bn(x, train, rows=rows)).to(dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -86,12 +86,12 @@ class TransformerBlock(nn.Module):
         self.fc2 = Dense(mlp_dim, dim, generator)
         self.norm2 = LayerNorm(dim, eps=EPS)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         r = self.drop_rate
-        y = dropout(self.attn(x), r, train, generator)
+        y = dropout(self.attn(x), r, train, generator, rows)
         x = self.norm1(x + y).to(self.dtype)
-        y = dropout(F.gelu(self.fc1(x)), r, train, generator)
-        y = dropout(self.fc2(y), r, train, generator)
+        y = dropout(F.gelu(self.fc1(x)), r, train, generator, rows)
+        y = dropout(self.fc2(y), r, train, generator, rows)
         return self.norm2(x + y).to(self.dtype)
 
 
@@ -115,13 +115,13 @@ class ViT(nn.Module):
             setattr(self, f"block{i}", TransformerBlock(
                 dim, heads, mlp_dim, drop_rate, dtype, generator))
 
-    def forward(self, tokens, train: bool, generator=None):
+    def forward(self, tokens, train: bool, generator=None, rows=None):
         x = self.projection(tokens)
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.embedding.to(x.dtype)
-        x = dropout(x, self.drop_rate, train, generator)
+        x = dropout(x, self.drop_rate, train, generator, rows)
         for i in range(self.blocks):
-            x = getattr(self, f"block{i}")(x, train, generator)
+            x = getattr(self, f"block{i}")(x, train, generator, rows)
         return x[:, 1:]
 
 
@@ -143,13 +143,14 @@ class EncoderBottleneck(nn.Module):
         self.conv3 = Conv(out_ch, out_ch, 1, generator, use_bias=False)
         self.norm3 = BatchNorm(out_ch)
 
-    def forward(self, x, train: bool):
+    def forward(self, x, train: bool, rows=None):
         dt = self.dtype
-        down = self.down_bn(conv_same(x, self.down_conv, 2), train).to(dt)
-        y = _bn_relu(self.norm1, conv_nhwc(x, self.conv1), train, dt)
+        down = self.down_bn(conv_same(x, self.down_conv, 2), train,
+                            rows=rows).to(dt)
+        y = _bn_relu(self.norm1, conv_nhwc(x, self.conv1), train, dt, rows)
         y = _bn_relu(self.norm2, conv_nhwc(y, self.conv2, 2, (1, 1, 1, 1)),
-                     train, dt)
-        y = self.norm3(conv_nhwc(y, self.conv3), train).to(dt)
+                     train, dt, rows)
+        y = self.norm3(conv_nhwc(y, self.conv3), train, rows=rows).to(dt)
         return torch.relu(y + down).to(dt)
 
 
@@ -167,14 +168,15 @@ class DecoderBottleneck(nn.Module):
         self.conv2 = Conv(out_ch, out_ch, 3, generator)
         self.bn2 = BatchNorm(out_ch)
 
-    def forward(self, x, skip, train: bool):
+    def forward(self, x, skip, train: bool, rows=None):
         x = resize_bilinear_align_corners(x, (2 * x.shape[1],
                                               2 * x.shape[2]))
         if skip is not None:
             x = torch.cat([skip.to(x.dtype), x], dim=-1)
-        x = _bn_relu(self.bn1, conv_same(x, self.conv1), train, self.dtype)
+        x = _bn_relu(self.bn1, conv_same(x, self.conv1), train, self.dtype,
+                     rows)
         return _bn_relu(self.bn2, conv_same(x, self.conv2), train,
-                        self.dtype)
+                        self.dtype, rows)
 
 
 class TransUNet(nn.Module):
@@ -182,7 +184,8 @@ class TransUNet(nn.Module):
     num_classes] (flax ``TransUNet``); H = W = ``image_size``, a multiple of
     16. ``train`` turns the dropouts on, their draws made from
     ``generator``, and the BatchNorms to batch statistics, which they fold
-    into their running ones."""
+    into their running ones; ``rows`` places a data-parallel forward's rows
+    in the global batch."""
 
     def __init__(self, image_size: int = 224, num_classes: int = 4,
                  in_channels: int = 3, drop_rate: float = 0.1,
@@ -209,21 +212,22 @@ class TransUNet(nn.Module):
         self.head = Conv(oc // 8, num_classes, 1, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
         dt = self.dtype
         x = conv_nhwc(x.to(dt), self.conv1, 2, (3, 3, 3, 3))
-        x1 = _bn_relu(self.norm1, x, train, dt)
-        x2 = self.encoder1(x1, train)
-        x3 = self.encoder2(x2, train)
-        x4 = self.encoder3(x3, train)
+        x1 = _bn_relu(self.norm1, x, train, dt, rows)
+        x2 = self.encoder1(x1, train, rows)
+        x3 = self.encoder2(x2, train, rows)
+        x4 = self.encoder3(x3, train, rows)
         b, g, c = x4.shape[0], self.grid, x4.shape[-1]
-        tokens = self.vit(x4.reshape(b, g * g, c), train, generator)
+        tokens = self.vit(x4.reshape(b, g * g, c), train, generator, rows)
         x4 = conv_same(tokens.reshape(b, g, g, c), self.conv2)
-        x4 = _bn_relu(self.norm2, x4, train, dt)
-        y = self.decoder1(x4, x3, train)
-        y = self.decoder2(y, x2, train)
-        y = self.decoder3(y, x1, train)
-        y = self.decoder4(y, None, train)
+        x4 = _bn_relu(self.norm2, x4, train, dt, rows)
+        y = self.decoder1(x4, x3, train, rows)
+        y = self.decoder2(y, x2, train, rows)
+        y = self.decoder3(y, x1, train, rows)
+        y = self.decoder4(y, None, train, rows)
         return conv_nhwc(y, self.head).float()
 
     def val(self, x: torch.Tensor) -> torch.Tensor:

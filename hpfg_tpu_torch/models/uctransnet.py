@@ -66,9 +66,9 @@ class ConvBatchNorm(nn.Module):
         self.conv = Conv(in_ch, features, 3, generator, init="lecun")
         self.norm = BatchNorm(features)
 
-    def forward(self, x, train: bool) -> torch.Tensor:
-        return torch.relu(self.norm(conv_same(x, self.conv), train)).to(
-            self.dtype)
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
+        return torch.relu(self.norm(conv_same(x, self.conv), train,
+                                    rows=rows)).to(self.dtype)
 
 
 class NConvs(nn.Module):
@@ -83,9 +83,9 @@ class NConvs(nn.Module):
             setattr(self, f"conv{i}", ConvBatchNorm(
                 in_ch if i == 0 else features, features, dtype, generator))
 
-    def forward(self, x, train: bool) -> torch.Tensor:
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"conv{i}")(x, train)
+            x = getattr(self, f"conv{i}")(x, train, rows)
         return x
 
 
@@ -196,7 +196,7 @@ class ChannelTransformer(nn.Module):
                                                   init="lecun"))
             setattr(self, f"reconstruct_bn{i}", BatchNorm(c))
 
-    def forward(self, feats, train: bool, generator=None):
+    def forward(self, feats, train: bool, generator=None, rows=None):
         embs, grids = [], []
         for i, (f, p) in enumerate(zip(feats, PATCH_SIZES)):
             e = conv_same(f, getattr(self, f"patch_embed{i}"), p)
@@ -204,7 +204,7 @@ class ChannelTransformer(nn.Module):
             grids.append(g)
             e = e.reshape(e.shape[0], g * g, -1) \
                 + getattr(self, f"pos_embed{i}").to(e.dtype)
-            embs.append(dropout(e, self.drop_rate, train, generator))
+            embs.append(dropout(e, self.drop_rate, train, generator, rows))
         for layer in range(LAYERS):
             embs = getattr(self, f"block{layer}")(embs)
         outs = []
@@ -212,7 +212,8 @@ class ChannelTransformer(nn.Module):
             e = getattr(self, f"encoder_norm{i}")(e).to(self.dtype)
             img = _nearest(e.reshape(e.shape[0], g, g, -1), p)
             img = conv_nhwc(img, getattr(self, f"reconstruct{i}"))
-            img = torch.relu(getattr(self, f"reconstruct_bn{i}")(img, train))
+            img = torch.relu(getattr(self, f"reconstruct_bn{i}")(
+                img, train, rows=rows))
             outs.append(feats[i] + img.to(self.dtype))
         return outs
 
@@ -244,10 +245,10 @@ class UpBlockAttention(nn.Module):
         self.coatt = CCA(skip_ch, in_ch, skip_ch, generator)
         self.nconvs = NConvs(skip_ch + in_ch, features, 2, dtype, generator)
 
-    def forward(self, x, skip, train: bool) -> torch.Tensor:
+    def forward(self, x, skip, train: bool, rows=None) -> torch.Tensor:
         up = _nearest(x, 2)
         skip = self.coatt(up, skip)
-        return self.nconvs(torch.cat([skip, up], dim=-1), train)
+        return self.nconvs(torch.cat([skip, up], dim=-1), train, rows)
 
 
 class UCTransNet(nn.Module):
@@ -276,16 +277,17 @@ class UCTransNet(nn.Module):
         self.outc = Conv(c, num_classes, 1, generator, init="lecun")
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        feats = [self.inc(x.to(self.dtype), train)]
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
+        feats = [self.inc(x.to(self.dtype), train, rows)]
         for i in range(1, 5):
             feats.append(getattr(self, f"down{i}")(max_pool_2x2(feats[-1]),
-                                                   train))
-        x1, x2, x3, x4 = self.mtc(feats[:4], train, generator)
-        y = self.up4(feats[4], x4, train)
-        y = self.up3(y, x3, train)
-        y = self.up2(y, x2, train)
-        y = self.up1(y, x1, train)
+                                                   train, rows))
+        x1, x2, x3, x4 = self.mtc(feats[:4], train, generator, rows)
+        y = self.up4(feats[4], x4, train, rows)
+        y = self.up3(y, x3, train, rows)
+        y = self.up2(y, x2, train, rows)
+        y = self.up1(y, x1, train, rows)
         return torch.sigmoid(conv_nhwc(y, self.outc).float())
 
     def val(self, x: torch.Tensor) -> torch.Tensor:

@@ -179,10 +179,10 @@ class DoubleConvLarge(nn.Module):
         self.conv2 = Conv(mid, out, 3, generator, use_bias=False)
         self.bn2 = BatchNorm(out)
 
-    def forward(self, x, train: bool) -> torch.Tensor:
-        x = torch.relu(self.bn1(conv_same(x, self.conv1), train))
+    def forward(self, x, train: bool, rows=None) -> torch.Tensor:
+        x = torch.relu(self.bn1(conv_same(x, self.conv1), train, rows=rows))
         x = conv_same(x.to(self.dtype), self.conv2)
-        return torch.relu(self.bn2(x, train)).to(self.dtype)
+        return torch.relu(self.bn2(x, train, rows=rows)).to(self.dtype)
 
 
 class UNetLarge(nn.Module):
@@ -212,11 +212,12 @@ class UNetLarge(nn.Module):
         self.out_conv = Conv(c, num_classes, 1, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        y = self.in_conv(x.to(self.dtype), train)
+                generator: torch.Generator | None = None,
+                rows=None) -> torch.Tensor:
+        y = self.in_conv(x.to(self.dtype), train, rows)
         feats = [y]
         for i in range(1, 5):
-            y = getattr(self, f"down{i}")(max_pool_2x2(y), train)
+            y = getattr(self, f"down{i}")(max_pool_2x2(y), train, rows)
             feats.append(y)
         for i, skip in enumerate(feats[3::-1], start=1):
             y = resize_bilinear_align_corners(y, (2 * y.shape[1],
@@ -226,7 +227,7 @@ class UNetLarge(nn.Module):
                 y = F.pad(y, (0, 0, dx // 2, dx - dx // 2, dy // 2,
                               dy - dy // 2))
             y = torch.cat([skip, y], dim=-1)
-            y = getattr(self, f"up{i}")(y, train)
+            y = getattr(self, f"up{i}")(y, train, rows)
         return conv_nhwc(y, self.out_conv).float()
 
     def val(self, x: torch.Tensor) -> torch.Tensor:

@@ -68,14 +68,16 @@ class CBlock(nn.Module):
         self.mlp_fc2 = Conv(hidden, dim, 1, generator)
         self.dp2 = DropPath(drop_path)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         x = x + conv_same(x, self.pos_embed, groups=self.dim)
-        y = conv_nhwc(self.norm1(x, train).to(self.dtype), self.conv1)
+        y = conv_nhwc(self.norm1(x, train, rows=rows).to(self.dtype),
+                      self.conv1)
         y = conv_same(y, self.attn, groups=self.dim)
-        x = x + self.dp1(conv_nhwc(y, self.conv2), train, generator)
-        y = conv_nhwc(self.norm2(x, train).to(self.dtype), self.mlp_fc1)
+        x = x + self.dp1(conv_nhwc(y, self.conv2), train, generator, rows)
+        y = conv_nhwc(self.norm2(x, train, rows=rows).to(self.dtype),
+                      self.mlp_fc1)
         y = conv_nhwc(F.gelu(y), self.mlp_fc2)
-        return x + self.dp2(y, train, generator)
+        return x + self.dp2(y, train, generator, rows)
 
 
 class SABlock(nn.Module):
@@ -98,7 +100,7 @@ class SABlock(nn.Module):
         self.mlp_fc2 = Dense(hidden, dim, generator, std=DENSE_STD)
         self.dp2 = DropPath(drop_path)
 
-    def forward(self, x, train: bool, generator=None):
+    def forward(self, x, train: bool, generator=None, rows=None):
         x = x + conv_same(x, self.pos_embed, groups=self.dim)
         b, h, w, c = x.shape
         hd = self.dim // self.heads
@@ -107,10 +109,10 @@ class SABlock(nn.Module):
             b, h * w, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
         o = attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)
         o = self.proj(o.transpose(1, 2).reshape(b, h * w, self.dim))
-        t = t + self.dp1(o, train, generator)
+        t = t + self.dp1(o, train, generator, rows)
         y = self.mlp_fc1(self.norm2(t).to(self.dtype))
         y = self.mlp_fc2(F.gelu(y))
-        t = t + self.dp2(y, train, generator)
+        t = t + self.dp2(y, train, generator, rows)
         return t.reshape(b, h, w, c)
 
 
@@ -147,7 +149,8 @@ class UniFormer(nn.Module):
             cur += depth[s]
             c = embed_dim[s]
 
-    def forward(self, x, train: bool, generator=None) -> list[torch.Tensor]:
+    def forward(self, x, train: bool, generator=None,
+                rows=None) -> list[torch.Tensor]:
         x = x.to(self.dtype)
         feats = []
         for s in range(4):
@@ -155,8 +158,10 @@ class UniFormer(nn.Module):
             x = conv_same(x, getattr(self, f"patch_embed{s + 1}"), p)
             x = getattr(self, f"patch_norm{s + 1}")(x).to(self.dtype)
             for i in range(self.depth[s]):
-                x = getattr(self, f"block{s + 1}_{i}")(x, train, generator)
-            x = getattr(self, f"norm{s + 1}")(x, train).to(self.dtype)
+                x = getattr(self, f"block{s + 1}_{i}")(x, train, generator,
+                                                        rows)
+            x = getattr(self, f"norm{s + 1}")(x, train, rows=rows).to(
+                self.dtype)
             feats.append(x)
         return feats
 
@@ -188,9 +193,9 @@ class UniformerPlus(nn.Module):
             generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        feats = self.encoder(x, train, generator)
-        logits = self.decoder(feats, train, generator)
+                generator: torch.Generator | None = None, rows=None):
+        feats = self.encoder(x, train, generator, rows)
+        logits = self.decoder(feats, train, generator, rows)
         high = self.dense_projection_high(feats[-1])
         head = self.dense_projection_head(logits.to(self.dtype))
         return logits, high, head

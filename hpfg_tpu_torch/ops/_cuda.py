@@ -50,9 +50,10 @@ _SIGNATURES = {
     "hpfg_attn_max_l": [],
     "hpfg_attn_max_d": [],
     "hpfg_window_attention_fwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
-                                  _U, _U, _F, _I, _I, _I, _I, _P],
+                                  _U, _U, _F, _P, _I, _I, _I, _I, _I, _P],
     "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _I, _U, _U, _F, _I, _I, _I, _I, _P],
+                                  _F, _I, _U, _U, _F, _P, _I, _I, _I, _I, _I,
+                                  _P],
     "hpfg_bn_reduce_ctas_per_sm": [_I],
     "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_bn_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,

@@ -74,11 +74,15 @@ class HashDropout:
     [0, 2^23). The mask is regenerated from (seed, image, row, lane).
     ``image_ids``: int32 [B] on the data's device, each local image's index
     in the global batch (data parallelism: ``parallel.mesh.Rows``), which
-    the hash takes as the image; None takes the local index, arange(B)."""
+    the hash takes as the image; None takes the local index, arange(B).
+    ``total``: the global batch's image count, which sets the attention
+    kernels' window block; they require it with ``image_ids`` (the conv
+    kernels do not read it)."""
 
     seed: int
     keep: float
     image_ids: torch.Tensor | None = None
+    total: int | None = None
 
     @property
     def thresh(self) -> int:

@@ -15,6 +15,13 @@ weight-gradient kernel, and it adds nothing to the parameters' gradients.
 Both callables run train mode without folding the BN statistics (the
 reference's ``_disable_tracking_bn_stats``); the caller gives all passes
 one dropout draw.
+
+Under data parallelism (``mesh``) ``x`` and ``d`` are this rank's rows of
+the global batch (the caller draws d for the global batch), the
+distance's sums are all-reduced, so it is the global batch's, and the
+per-image normalizations stay local. The inner gradient reaches d through
+the collectives' backward (every rank's gradient is W times its rows'
+share, which the normalization removes).
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from hpfg_tpu_torch.parallel.distributed import all_reduce_sum, spans_ranks
 
 
 def _l2_normalize(d: torch.Tensor) -> torch.Tensor:
@@ -31,7 +40,7 @@ def _l2_normalize(d: torch.Tensor) -> torch.Tensor:
 
 
 def soft_dice_probs(probs: torch.Tensor, target_probs: torch.Tensor,
-                    smooth: float = 1e-10) -> torch.Tensor:
+                    smooth: float = 1e-10, mesh=None) -> torch.Tensor:
     """The reference's softDiceLoss over probability maps: per class global
     sums with sum(p^2) / sum(t^2) denominators, 1 - dice averaged over the
     classes."""
@@ -40,16 +49,22 @@ def soft_dice_probs(probs: torch.Tensor, target_probs: torch.Tensor,
     intersect = (p * t).sum(dims)
     z = (p * p).sum(dims)
     y = (t * t).sum(dims)
+    if spans_ranks(mesh):  # one all-reduce of the three sums
+        intersect, z, y = all_reduce_sum(torch.stack([intersect, z, y]),
+                                         mesh)
     return (1.0 - (2.0 * intersect + smooth) / (z + y + smooth)).mean()
 
 
 def binary_dice_probs(probs: torch.Tensor, target_probs: torch.Tensor,
-                      ep: float = 1e-8) -> torch.Tensor:
+                      ep: float = 1e-8, mesh=None) -> torch.Tensor:
     """The reference's Binary_dice_loss over probability maps: ONE global
     intersection / union over every element, sum(p) / sum(t)
     denominators."""
     p, t = probs.float(), target_probs.float()
-    return 1.0 - (2.0 * (p * t).sum() + ep) / (p.sum() + t.sum() + ep)
+    inter, ps, ts = (p * t).sum(), p.sum(), t.sum()
+    if spans_ranks(mesh):
+        inter, ps, ts = all_reduce_sum(torch.stack([inter, ps, ts]), mesh)
+    return 1.0 - (2.0 * inter + ep) / (ps + ts + ep)
 
 
 def vat_loss(apply_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -58,11 +73,12 @@ def vat_loss(apply_fn: Callable[[torch.Tensor], torch.Tensor],
              epi: float = 6.0, ip: int = 1,
              apply_fn_frozen: Callable[[torch.Tensor], torch.Tensor]
              | None = None,
-             distance: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-             = soft_dice_probs) -> torch.Tensor:
+             distance: Callable[..., torch.Tensor] = soft_dice_probs,
+             mesh=None) -> torch.Tensor:
     """``apply_fn(x)`` -> logits [..., C]. ``d``: the raw random direction
     (JAX's ``uniform(rng, x.shape) - 0.5``), else drawn from ``generator``
-    on x's device; it is normalized here."""
+    on x's device (one process); it is normalized here. ``distance`` takes
+    ``mesh``."""
     frozen = apply_fn_frozen if apply_fn_frozen is not None else apply_fn
     with torch.no_grad():
         pred = torch.softmax(frozen(x), dim=-1)
@@ -73,10 +89,11 @@ def vat_loss(apply_fn: Callable[[torch.Tensor], torch.Tensor],
         d = d.detach().requires_grad_(True)
         with torch.enable_grad():
             p_hat = torch.softmax(frozen(x + xi * d), dim=-1)
-            (grad_d,) = torch.autograd.grad(distance(p_hat, pred), d)
+            (grad_d,) = torch.autograd.grad(
+                distance(p_hat, pred, mesh=mesh), d)
         d = _l2_normalize(grad_d.detach())
     p_hat = torch.softmax(apply_fn(x + epi * d), dim=-1)
-    return distance(p_hat, pred)
+    return distance(p_hat, pred, mesh=mesh)
 
 
 def vat_loss_3d(apply_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -84,10 +101,10 @@ def vat_loss_3d(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                 generator: torch.Generator | None = None, xi: float = 10.0,
                 epi: float = 6.0, ip: int = 1,
                 apply_fn_frozen: Callable[[torch.Tensor], torch.Tensor]
-                | None = None) -> torch.Tensor:
+                | None = None, mesh=None) -> torch.Tensor:
     """VAT3d: :func:`vat_loss`'s power iteration with the global
     :func:`binary_dice_probs` distance (rank-agnostic: x may be
     [N, D, H, W, 1])."""
     return vat_loss(apply_fn, x, d, generator, xi=xi, epi=epi, ip=ip,
                     apply_fn_frozen=apply_fn_frozen,
-                    distance=binary_dice_probs)
+                    distance=binary_dice_probs, mesh=mesh)

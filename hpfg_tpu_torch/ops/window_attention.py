@@ -20,7 +20,12 @@ same function as the JAX entry's tiled [Bn, L, L] mask, which is never
 built here. Attention dropout (``HashDropout``: keep probability and a host
 seed in [0, 2^23)) is the JAX package's in-kernel hash, keyed on
 b_idx = (w // blk) * 1024 + h and row = (w % blk) * L + i with
-blk = min(16, Bn), whatever tile the kernels use.
+blk = min(16, the global window count), whatever tile the kernels use; w is
+the window's index in the global batch. Under data parallelism the
+dropout's ``image_ids`` (``Rows.ids``) place the local windows there: local
+window w of image w // nW is global window ids[w // nW] * nW + w % nW, and
+its ``total`` is the global image count. Without ids w is the local index
+and blk = min(16, Bn), as in one process.
 
 Both kernels run on a grid of (CTAs, heads) in which a CTA walks a run of
 windows of one head and one mask class (``attention_walk``); in bf16 they
@@ -86,16 +91,37 @@ def attention_walk(bn: int, heads: int, n_mask: int) -> AttentionWalk:
     return AttentionWalk(wpc, n_mask * -(-per // wpc), n_mask, bn)
 
 
+def window_block(bn: int, image_ids: torch.Tensor | None = None,
+                 total: int | None = None) -> int:
+    """The hash's window block: min(WINDOW_BLOCK, the global window count)
+    for Bn local windows of the images ``image_ids`` of a global batch of
+    ``total`` images (without ids, Bn is the count; with ids, ``total`` is
+    required)."""
+    if image_ids is None:
+        return min(WINDOW_BLOCK, bn)
+    if total is None:
+        raise ValueError("image_ids need the global image count (total)")
+    return min(WINDOW_BLOCK, bn // len(image_ids) * total)
+
+
 def attn_drop_mask(seed: int, bn: int, heads: int, l: int, keep: float,
-                   device=None) -> torch.Tensor:
+                   device=None, image_ids: torch.Tensor | None = None,
+                   total: int | None = None) -> torch.Tensor:
     """The pre-scaled attention-dropout masks [Bn, H, L, L] (1/keep or 0,
-    fp32) the kernels regenerate (``attn_drop_mask_reference``)."""
-    blk = min(WINDOW_BLOCK, bn)
+    fp32) the kernels regenerate (``attn_drop_mask_reference``).
+    ``image_ids`` (int32 [B], Bn = B nW) and ``total`` as in
+    :class:`HashDropout`: the masks of these windows in the global batch's
+    masks."""
+    blk = window_block(bn, image_ids, total)
 
     def ar(n, *view):
         return torch.arange(n, dtype=torch.int64, device=device).view(*view)
 
     w, h = ar(bn, -1, 1, 1, 1), ar(heads, 1, -1, 1, 1)
+    if image_ids is not None:
+        nw = bn // len(image_ids)
+        ids = image_ids.to(device=device, dtype=torch.int64)
+        w = ids[w // nw] * nw + w % nw
     i, j = ar(l, 1, 1, -1, 1), ar(l, 1, 1, 1, -1)
     rows = (w % blk) * l + i
     return hash_keep(seed, (w // blk) * 1024 + h, rows * l + j, keep)
@@ -134,7 +160,8 @@ def window_attention_reference(q, k, v, bias, mask, heads: int,
     bn, l, c = q.shape
     p = _probs(q, k, bias, mask, heads)[0]
     if drop is not None:
-        p = p * attn_drop_mask(drop.seed, bn, heads, l, drop.keep, q.device)
+        p = p * attn_drop_mask(drop.seed, bn, heads, l, drop.keep, q.device,
+                               drop.image_ids, drop.total)
     o = torch.einsum("bhlm,bhmd->bhld", p, _heads(v, heads))
     return o.transpose(1, 2).reshape(bn, l, c).to(q.dtype)
 
@@ -149,7 +176,8 @@ def window_attention_bwd_reference(q, k, v, bias, mask, do, heads: int,
     dp = torch.einsum("bhld,bhmd->bhlm", doh, vh)
     pm = p
     if drop is not None:
-        m = attn_drop_mask(drop.seed, bn, heads, l, drop.keep, q.device)
+        m = attn_drop_mask(drop.seed, bn, heads, l, drop.keep, q.device,
+                           drop.image_ids, drop.total)
         pm, dp = p * m, dp * m
     dv = torch.einsum("bhlm,bhld->bhmd", pm, doh)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
@@ -193,6 +221,21 @@ def _check(qkv, bias, mask, heads: int):
     return bn, l, c3 // 3
 
 
+def _check_ids(drop: HashDropout | None, bn: int, device) -> None:
+    """A dropout's image ids: int32 [B] with B dividing Bn, contiguous, on
+    ``device``, with the global image count ``total``."""
+    ids = None if drop is None else drop.image_ids
+    if ids is None:
+        return
+    if drop.total is None:
+        raise ValueError("image_ids need the global image count (total)")
+    if ids.dtype != torch.int32 or ids.dim() != 1 or not len(ids) or \
+            bn % len(ids) or not ids.is_contiguous() or ids.device != device:
+        raise ValueError(f"image_ids: expected contiguous int32 [B] on "
+                         f"{device} with B dividing Bn = {bn}, got "
+                         f"{ids.dtype} {tuple(ids.shape)} on {ids.device}")
+
+
 def _kernel_args(qkv, mask, heads: int, drop: HashDropout | None):
     """The launch arguments K13 and K14 share after their pointers."""
     lib = library(qkv.device)
@@ -202,10 +245,13 @@ def _kernel_args(qkv, mask, heads: int, drop: HashDropout | None):
         raise ValueError(f"window attention kernels take L <= "
                          f"{lib.attn_max_l} and D <= {lib.attn_max_d}, got "
                          f"L = {l}, D = {d}")
-    dr = ([1, drop.seed, drop.thresh, drop.scale] if drop is not None
-          else [0, 0, 0, 0.0])
+    dr = ([0, 0, 0, 0.0] if drop is None
+          else [1, drop.seed, drop.thresh, drop.scale])
+    ids = None if drop is None else drop.image_ids
+    nw = 1 if ids is None else bn // len(ids)
+    blk = window_block(bn, ids, None if drop is None else drop.total)
     return lib, [bn, l, heads, d, float(np.float32(d ** -0.5)), *dr,
-                 min(WINDOW_BLOCK, bn)]
+                 ptr(ids), nw, blk]
 
 
 @launch_counter
@@ -216,6 +262,7 @@ def window_attention_fwd(qkv, bias, mask, heads: int,
     [nW, L, L] (or None), optional in-kernel attention dropout. Returns o
     [Bn, L, C] in qkv's dtype."""
     bn, l, c = _check(qkv, bias, mask, heads)
+    _check_ids(drop, bn, qkv.device)
     if qkv.device.type == "cpu":
         q, k, v = qkv.split(c, dim=-1)
         return window_attention_reference(q, k, v, bias, mask, heads, drop)
@@ -241,6 +288,7 @@ def window_attention_bwd(qkv, bias, mask, do, heads: int,
             or not do.is_contiguous() or do.device != qkv.device):
         raise ValueError(f"do: expected contiguous [{bn}, {l}, {c}] "
                          f"{qkv.dtype}, got {tuple(do.shape)} {do.dtype}")
+    _check_ids(drop, bn, qkv.device)
     if qkv.device.type == "cpu":
         q, k, v = qkv.split(c, dim=-1)
         *dqkv, dbias = window_attention_bwd_reference(q, k, v, bias, mask,

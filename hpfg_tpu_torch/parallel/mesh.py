@@ -72,6 +72,14 @@ class Rows:
         """This rank's rows of a tensor over the global batch."""
         return x.index_select(0, self.index)
 
+    def expand(self, k: int) -> "Rows":
+        """The rows of a tensor that holds k consecutive rows per image
+        (a SwinUNet's windows): local row b*k + j is global row
+        index[b]*k + j of total*k."""
+        index = (self.index[:, None] * k + torch.arange(
+            k, device=self.index.device)).reshape(-1)
+        return Rows(self.mesh, index, index.to(torch.int32), self.total * k)
+
 
 def local_rows(n: int, world: int) -> int:
     """n / world, refusing a global batch that ``world`` does not divide."""

@@ -15,18 +15,16 @@ their rows sit in the global batch (``Rows``), the losses are global,
 the gradients are averaged over the ranks before each optimizer step
 (``sync_grads``), and construction and ``load_state_dict`` broadcast rank
 0's parameters and buffers. The host generators are seeded alike on every
-rank, so every rank draws the same dropout seeds and CutMix boxes. The
-step then computes what one process computes on the global batch. Only
-the algorithms with ``data_parallel`` set (Supervised, Mean-Teacher, CPS,
-CTCT, HPFG), on the models whose forward takes ``rows`` (the UNets and
-the SegFormers), run under W > 1; the others raise
-``NotImplementedError``.
+rank, so every rank draws the same dropout seeds and CutMix boxes, and
+every device draw (noise, masks, mixing factors, VAT's direction) is made
+for the global batch, each rank keeping its rows. The step then computes
+what one process computes on the global batch. Every algorithm and every
+model runs so: each model's train-mode forward takes ``rows``.
 """
 
 from __future__ import annotations
 
 import copy
-import inspect
 from typing import Iterator
 
 import numpy as np
@@ -66,18 +64,11 @@ class Algorithm:
     on the CPU by itself."""
 
     name: str = "base"
-    #: whether ``step`` runs under data parallelism over W > 1 ranks
-    data_parallel: bool = False
 
     def __init__(self, cfg, dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         #: the data-parallel mesh (one process unless a group was formed)
         self.mesh = get_mesh()
-        if self.mesh.world > 1 and not self.data_parallel:
-            raise NotImplementedError(
-                f"algorithm {self.name!r} does not run under data "
-                f"parallelism over {self.mesh.world} ranks yet (ROADMAP.md, "
-                "Queue 1); run it in one process")
         self.cfg = cfg
         self.dtype = dtype
         self.device = torch.device(device)
@@ -103,12 +94,6 @@ class Algorithm:
     def _build(self, model_cfg) -> torch.nn.Module:
         model = build_model(model_cfg, dtype=self.dtype,
                             generator=self.init_generator)
-        if self.mesh.world > 1 and \
-                "rows" not in inspect.signature(model.forward).parameters:
-            raise NotImplementedError(
-                f"model {type(model).__name__} does not run under data "
-                f"parallelism over {self.mesh.world} ranks yet (only the "
-                "UNets and the SegFormers take the global batch's rows)")
         return model.to(self.device)
 
     def local(self, n: int) -> int:

@@ -23,7 +23,6 @@ from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
 @register("cps")
 class CPS(DualAlgorithm):
     name = "cps"
-    data_parallel = True
 
     def step(self, batch: dict) -> dict:
         cur_itrs = self.step_count + 1

@@ -27,7 +27,6 @@ from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
 @register("ctct")
 class CTCT(DualAlgorithm):
     name = "ctct"
-    data_parallel = True
 
     def step(self, batch: dict) -> dict:
         cur_itrs = self.step_count + 1

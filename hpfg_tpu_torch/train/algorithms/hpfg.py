@@ -57,7 +57,6 @@ from hpfg_tpu_torch.train.algorithms.dual import DualAlgorithm
 @register("hpfg")
 class HPFG(DualAlgorithm):
     name = "hpfg"
-    data_parallel = True
     requires_features = True
     mt_gate_iters: int = 1000
     cps_scale: float = 7.0

@@ -16,8 +16,17 @@ student, then the teacher's parameters take an EMA step.
 The factors are drawn on the card as G1 / (G1 + G2), G1 and G2 ~
 Gamma(alpha) from ``torch._standard_gamma`` on a device generator
 (``torch.distributions.Beta`` takes no generator), so they are not
-``jax.random.beta``'s: ``step`` takes injected ``factors`` so that a test
-can give both implementations the same draw.
+``jax.random.beta``'s: ``step`` takes injected ``factors`` (over the global
+batch's U/2 pairs) so that a test can give both implementations the same
+draw.
+
+Under data parallelism the pairs cross ranks: global unlabelled row k
+mixes with row k + U/2, which another rank usually holds (at W = 2 rank 0
+holds all of u0 and rank 1 all of u1). So the unlabelled rows are gathered,
+u0, u1 and the factors (drawn for the global batch) formed whole, and each
+rank keeps its rows of each; the teacher's u0 and u1 forwards and the
+student's [labelled, mixed] forward take their rows in their global
+batches, and the losses are the global batch's.
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ from __future__ import annotations
 import torch
 
 from hpfg_tpu_torch.ops.ema import ema_update
-from hpfg_tpu_torch.ops.losses import med_sup_loss
+from hpfg_tpu_torch.ops.losses import global_mean, med_sup_loss
 from hpfg_tpu_torch.ops.rampup import sigmoid_rampup
+from hpfg_tpu_torch.parallel.distributed import gather_rows
+from hpfg_tpu_torch.parallel.mesh import shard_batch
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import (
     Algorithm,
@@ -68,39 +79,44 @@ class ICTMedSeg(Algorithm):
         #: the mixing factors' draws, on the device
         self.mix_generator = torch.Generator(device=self.device)
         self.mix_generator.manual_seed(int(cfg.get("seed", 0)) + 3)
+        self.broadcast_models()
 
     def step(self, batch: dict, factors: torch.Tensor | None = None) -> dict:
-        """One iteration; ``factors`` [U/2, 1, 1, 1] replaces the Beta
-        draw."""
+        """One iteration; ``factors`` [U/2, 1, 1, 1] (over the global
+        batch's pairs) replaces the Beta draw."""
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
-        gen = self.dropout_generator
+        mesh = self.mesh
         lb, half = self.label_bs, self.unlabel_bs // 2
-        u0 = batch["unlabel_img"][:half]
-        u1 = batch["unlabel_img"][half:2 * half]
+        unlabel = gather_rows(batch["unlabel_img"], mesh)
         if factors is None:
             factors = sample_beta(self.ict_alpha, (half, 1, 1, 1),
                                   self.mix_generator, self.device)
-        factors = factors.to(self.device, torch.float32)
+        factors = shard_batch(mesh, factors.to(self.device, torch.float32))
+        u0 = shard_batch(mesh, unlabel[:half])
+        u1 = shard_batch(mesh, unlabel[half:2 * half])
         mixed = u0 * (1.0 - factors) + u1 * factors
         x = torch.cat([batch["label_img"], mixed], dim=0)
 
         with torch.no_grad():
-            ema0 = self.ema(u0, train=True, generator=gen)
-            ema1 = self.ema(u1, train=True, generator=gen)
+            ema0 = self.ema(u0, **self.train_kwargs(half))
+            ema1 = self.ema(u1, **self.train_kwargs(half))
             pred_mixed = (torch.softmax(ema0, dim=-1) * (1.0 - factors)
                           + torch.softmax(ema1, dim=-1) * factors)
         consistency_weight = self.consistency * sigmoid_rampup(
             cur_itrs // self.epoch_iters, self.rampup)
 
-        out = self.model(x, train=True, generator=gen)
+        out = self.model(x, **self.train_kwargs(lb, half))
         out_soft = torch.softmax(out, dim=-1)
-        loss_sup = med_sup_loss(out[:lb], batch["label"], self.num_classes)
-        loss_cons = ((out_soft[lb:] - pred_mixed) ** 2).mean()
+        lb = self.local(lb)
+        loss_sup = med_sup_loss(out[:lb], batch["label"], self.num_classes,
+                                mesh=mesh)
+        loss_cons = global_mean((out_soft[lb:] - pred_mixed) ** 2, mesh)
         loss = loss_sup + consistency_weight * loss_cons
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.sync_grads(self.model)
         lr = self.schedule(self.step_count)
         set_lr(self.optimizer, lr)
         self.optimizer.step()

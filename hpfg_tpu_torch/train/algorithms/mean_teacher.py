@@ -33,7 +33,6 @@ from hpfg_tpu_torch.train.optim import build_optimizer, set_lr
 @register(["mean_teacher", "mt"])
 class MeanTeacher(Algorithm):
     name = "mean_teacher"
-    data_parallel = True
 
     def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)

@@ -16,8 +16,11 @@ Two students (model1 a UNet with SGD, model2 a SwinUNet with adamW in the
     towards model2's.
 
 The noise comes from a ``torch.Generator`` on the device, so it is not
-``jax.random``'s: ``step`` takes an injected ``noise`` so that a test can give
-both implementations the same draw.
+``jax.random``'s: ``step`` takes an injected ``noise`` (over the global
+unlabelled batch) so that a test can give both implementations the same
+draw. Under data parallelism the noise is drawn for the global batch and
+this rank's rows are kept, both students and the teacher take their rows
+in the global batch, and every loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -25,8 +28,13 @@ from __future__ import annotations
 import torch
 
 from hpfg_tpu_torch.ops.ema import ema_update
-from hpfg_tpu_torch.ops.losses import dice_loss_multiclass, med_sup_loss
+from hpfg_tpu_torch.ops.losses import (
+    dice_loss_multiclass,
+    global_mean,
+    med_sup_loss,
+)
 from hpfg_tpu_torch.ops.rampup import linear_rampup
+from hpfg_tpu_torch.parallel.mesh import shard_batch
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import (
     ssl_batches,
@@ -54,41 +62,44 @@ class S4CVNet(DualAlgorithm):
         self.noise_generator.manual_seed(int(cfg.get("seed", 0)) + 3)
 
     def step(self, batch: dict, noise: torch.Tensor | None = None) -> dict:
-        """One iteration; ``noise`` (the unlabelled batch's shape) replaces
-        the teacher's input-noise draw."""
+        """One iteration; ``noise`` (the global unlabelled batch's shape)
+        replaces the teacher's input-noise draw."""
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
-        lb = self.label_bs
-        gen = self.dropout_generator
+        mesh, nc = self.mesh, self.num_classes
+        lb, ub = self.label_bs, self.unlabel_bs
+        kw = self.train_kwargs(lb, ub)
         unlabel = batch["unlabel_img"]
         x = torch.cat([batch["label_img"], unlabel], dim=0)
         if noise is None:
             noise = torch.clamp(
-                torch.randn(unlabel.shape, generator=self.noise_generator,
+                torch.randn((ub,) + tuple(unlabel.shape[1:]),
+                            generator=self.noise_generator,
                             device=self.device) * NOISE_STD,
                 -NOISE_CLIP, NOISE_CLIP)
+        noise = shard_batch(mesh, noise.to(self.device))
+        lb = self.local(lb)
 
         with torch.no_grad():
-            ema_out = self.ema(unlabel + noise.to(self.device), train=True,
-                               generator=gen)
+            ema_out = self.ema(unlabel + noise, **self.train_kwargs(ub))
             ema_soft = torch.softmax(ema_out, dim=-1)
         w = self.consistency * linear_rampup(cur_itrs // self.epoch_iters,
                                              self.rampup)
         mt_on = float(cur_itrs >= self.mt_gate_iters)
 
-        out1 = self.model1(x, train=True, generator=gen)
-        out2 = self.model2(x, train=True, generator=gen)
+        out1 = self.model1(x, **kw)
+        out2 = self.model2(x, **kw)
         soft1 = torch.softmax(out1, dim=-1)
         soft2 = torch.softmax(out2, dim=-1)
-        loss_sup = (med_sup_loss(out1[:lb], batch["label"], self.num_classes)
-                    + med_sup_loss(out2[:lb], batch["label"],
-                                   self.num_classes))
+        loss_sup = (med_sup_loss(out1[:lb], batch["label"], nc, mesh=mesh)
+                    + med_sup_loss(out2[:lb], batch["label"], nc,
+                                   mesh=mesh))
         pseudo1 = soft1[lb:].detach().argmax(-1)
         pseudo2 = soft2[lb:].detach().argmax(-1)
-        ps1 = dice_loss_multiclass(soft1[lb:], pseudo2, self.num_classes)
-        ps2 = dice_loss_multiclass(soft2[lb:], pseudo1, self.num_classes)
-        cons1 = mt_on * ((soft1[lb:] - ema_soft) ** 2).mean()
-        cons2 = mt_on * ((soft2[lb:] - ema_soft) ** 2).mean()
+        ps1 = dice_loss_multiclass(soft1[lb:], pseudo2, nc, mesh=mesh)
+        ps2 = dice_loss_multiclass(soft2[lb:], pseudo1, nc, mesh=mesh)
+        cons1 = mt_on * global_mean((soft1[lb:] - ema_soft) ** 2, mesh)
+        cons2 = mt_on * global_mean((soft2[lb:] - ema_soft) ** 2, mesh)
         loss_semi = self.cps_scale * w * (ps1 + ps2) + w * (cons1 + cons2)
         loss = loss_sup + loss_semi
 

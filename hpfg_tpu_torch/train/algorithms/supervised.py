@@ -25,7 +25,6 @@ from hpfg_tpu_torch.train.optim import build_optimizer, set_lr
 @register(["supervised", "sup"])
 class Supervised(Algorithm):
     name = "supervised"
-    data_parallel = True
 
     def __init__(self, cfg, dtype=torch.float32, device="cuda"):
         super().__init__(cfg, dtype, device)

@@ -9,8 +9,10 @@ image-space loss); adamW with the warmup-cosine schedule of the config
 empty. ``image_panels`` gives the image, masked-input and reconstruction
 panels as uint8 arrays (the TensorBoard writer that shows them is not
 ported yet). The mask noise is drawn on the device from a seed of the
-dropout generator: ``step`` takes an injected ``noise`` [B, d^2] so that a
-test can give both implementations the same draw.
+dropout generator: ``step`` takes an injected ``noise`` [B, d^2] (over the
+global batch) so that a test can give both implementations the same draw.
+Under data parallelism the noise is the global batch's at this rank's rows
+and the loss is the global batch's mean.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hpfg_tpu_torch.ops.losses import global_mean
+from hpfg_tpu_torch.parallel.mesh import shard_batch
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import (
     Algorithm,
@@ -46,17 +50,22 @@ class SwinMAEPretrain(Algorithm):
         self.mask_ratio = float(cfg.get("mask_ratio", 0.75))
         self.optimizer, self.schedule = build_optimizer(
             cfg, self.model.parameters())
+        self.broadcast_models()
 
     def step(self, batch: dict, noise: torch.Tensor | None = None) -> dict:
-        """One iteration; ``noise`` replaces the mask's uniform draw."""
+        """One iteration; ``noise`` (over the global batch) replaces the
+        mask's uniform draw."""
         batch = to_device(batch, self.device)
         img = batch["image"]
-        pred, mask = self.model(img, train=True,
-                                generator=self.dropout_generator,
-                                noise=noise)
-        loss = ((pred - img) ** 2 * mask).mean() / self.mask_ratio
+        if noise is not None:
+            noise = shard_batch(self.mesh, noise.to(self.device))
+        pred, mask = self.model(img, noise=noise, **self.train_kwargs(
+            len(img) * self.mesh.world))
+        loss = global_mean((pred - img) ** 2 * mask, self.mesh) \
+            / self.mask_ratio
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.sync_grads(self.model)
         lr = self.schedule(self.step_count)
         set_lr(self.optimizer, lr)
         self.optimizer.step()

@@ -27,6 +27,12 @@ shape: the target pass's, then one per MC copy) and ``dropout_seeds`` (T + 1
 ints: the target pass's, then one per MC pass, of which ``unroll`` reads
 each chunk's first), each seeding the host generator that draws that pass's
 dropout seeds.
+
+Under data parallelism each noise tensor is drawn (or injected) for the
+global unlabelled batch and this rank's rows are kept; every teacher and
+student forward takes its rows in the global batch (an ``unroll`` chunk's
+input, the batch tiled c times, is c global segments of U rows), and the
+loss's sums are all-reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import torch
 from hpfg_tpu_torch.ops.ema import ema_update
 from hpfg_tpu_torch.ops.losses import med_sup_loss, softmax_mse_loss
 from hpfg_tpu_torch.ops.rampup import sigmoid_rampup
+from hpfg_tpu_torch.parallel.distributed import all_reduce_sum, spans_ranks
+from hpfg_tpu_torch.parallel.mesh import shard_batch
 from hpfg_tpu_torch.train.algorithms import register
 from hpfg_tpu_torch.train.algorithms.base import (
     Algorithm,
@@ -78,12 +86,21 @@ class UAMT(Algorithm):
         #: the teacher passes' input-noise draws, on the device
         self.noise_generator = torch.Generator(device=self.device)
         self.noise_generator.manual_seed(int(cfg.get("seed", 0)) + 3)
+        self.broadcast_models()
 
     def _noise(self, like: torch.Tensor) -> torch.Tensor:
+        """One noise draw over the global unlabelled batch."""
         return torch.clamp(
-            torch.randn(like.shape, generator=self.noise_generator,
+            torch.randn((self.unlabel_bs,) + tuple(like.shape[1:]),
+                        generator=self.noise_generator,
                         device=self.device) * NOISE_STD,
             -NOISE_CLIP, NOISE_CLIP)
+
+    def _kw(self, seeds, i: int, *segments: int) -> dict:
+        """A teacher pass's train-mode keywords: pass ``i``'s dropout
+        generator and its rows."""
+        return dict(self.train_kwargs(*segments),
+                    generator=self._generator(seeds, i))
 
     def _generator(self, seeds, i: int) -> torch.Generator:
         if seeds is None:
@@ -98,13 +115,12 @@ class UAMT(Algorithm):
     @torch.no_grad()
     def _mean_softmax(self, unlabel, noise, seeds) -> torch.Tensor:
         """The mean softmax of the T noisy MC passes (no folding)."""
-        t, u = self.T, unlabel.shape[0]
+        t, u, ub = self.T, unlabel.shape[0], self.unlabel_bs
         if self.mc_mode == "map":
             psum = 0.0
             for i in range(t):
-                out = self.ema(unlabel + noise[1 + i], train=True,
-                               generator=self._generator(seeds, 1 + i),
-                               fold=False)
+                out = self.ema(unlabel + noise[1 + i], fold=False,
+                               **self._kw(seeds, 1 + i, ub))
                 psum = psum + torch.softmax(out, dim=-1)
             return psum / t
         c = self.mc_chunk
@@ -112,9 +128,8 @@ class UAMT(Algorithm):
         for i in range(t // c):
             xin = unlabel.repeat(c, *([1] * (unlabel.dim() - 1)))
             xin = xin + torch.cat([noise[1 + i * c + j] for j in range(c)])
-            out = self.ema(xin, train=True,
-                           generator=self._generator(seeds, 1 + i * c),
-                           fold=False)
+            out = self.ema(xin, fold=False,
+                           **self._kw(seeds, 1 + i * c, *[ub] * c))
             sm = torch.softmax(out, dim=-1)
             psum = psum + sm.reshape((c, u) + sm.shape[1:]).sum(0)
         return psum / t
@@ -124,16 +139,16 @@ class UAMT(Algorithm):
         replace the step's own draws."""
         cur_itrs = self.step_count + 1
         batch = to_device(batch, self.device)
-        lb = self.label_bs
+        mesh, lb = self.mesh, self.label_bs
         unlabel = batch["unlabel_img"]
         x = torch.cat([batch["label_img"], unlabel], dim=0)
         if noise is None:
             noise = [self._noise(unlabel) for _ in range(self.T + 1)]
-        noise = [n.to(self.device) for n in noise]
+        noise = [shard_batch(mesh, n.to(self.device)) for n in noise]
 
         with torch.no_grad():
-            ema_out = self.ema(unlabel + noise[0], train=True,
-                               generator=self._generator(dropout_seeds, 0))
+            ema_out = self.ema(unlabel + noise[0],
+                               **self._kw(dropout_seeds, 0, self.unlabel_bs))
         preds = self._mean_softmax(unlabel, noise, dropout_seeds)
         uncertainty = -torch.sum(preds * torch.log(preds + 1e-6), dim=-1,
                                  keepdim=True)
@@ -142,14 +157,20 @@ class UAMT(Algorithm):
         consistency_weight = self.consistency * sigmoid_rampup(
             cur_itrs // self.epoch_iters, self.rampup)
 
-        out = self.model(x, train=True, generator=self.dropout_generator)
-        loss_sup = med_sup_loss(out[:lb], batch["label"], self.num_classes)
+        out = self.model(x, **self.train_kwargs(lb, self.unlabel_bs))
+        lb = self.local(lb)
+        loss_sup = med_sup_loss(out[:lb], batch["label"], self.num_classes,
+                                mesh=mesh)
         dist = softmax_mse_loss(out[lb:], ema_out)
-        loss_cons = torch.sum(mask * dist) / (2 * torch.sum(mask) + 1e-16)
+        masked, count = torch.sum(mask * dist), torch.sum(mask)
+        if spans_ranks(mesh):  # one all-reduce of the two sums
+            masked, count = all_reduce_sum(torch.stack([masked, count]), mesh)
+        loss_cons = masked / (2 * count + 1e-16)
         loss = loss_sup + consistency_weight * loss_cons
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self.sync_grads(self.model)
         lr = self.schedule(self.step_count)
         set_lr(self.optimizer, lr)
         self.optimizer.step()

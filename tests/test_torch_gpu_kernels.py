@@ -9,8 +9,11 @@ multiples of the 16-wide MMA step, one not a multiple of the 8-element
 copy piece), window counts that are not multiples of the hash's 16-window
 block). The ConvBlock masks also with a two-segment image-id map, each
 local image hashing its index in a 2-rank global batch (A's prologue and
-output masks bit-exact, B and K11 against their plain versions), and D's
-reduce alone (``bn_reduce``).
+output masks bit-exact, B and K11 against their plain versions), K13 and
+K14 with that map (each window hashing its index in the global batch's
+windows: the masks bit-exact against the full batch's, the outputs and
+gradients against the plain versions), and D's reduce alone
+(``bn_reduce``).
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -548,6 +551,67 @@ def test_attention_backward_dropout_mask_is_bit_exact(dev, dtype, bn):
     ref = (wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev) * p).to(dtype)
     assert torch.equal(dv[..., :l].permute(0, 2, 3, 1), ref)
     assert not dv[..., l:].any()
+
+
+def _two_segment_rows(dev, lb, ub):
+    """Rank 1's rows of a 2-rank global batch of lb + ub images."""
+    from hpfg_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(2, 1, dev).rows(lb, ub)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lb,ub,nw", [(8, 24, 4), (2, 2, 3)])
+def test_attention_dropout_masks_with_image_ids_are_bit_exact(dev, dtype, lb,
+                                                               ub, nw):
+    """With a two-segment image-id map, K13's output and K14's dv carry the
+    full batch's masks at the rank's windows (each window hashes its
+    global index; the global window counts 128 and 12, over and under the
+    hash's block of 16), bit for bit, as attn_drop_mask with the same ids
+    does."""
+    rows = _two_segment_rows(dev, lb, ub)
+    heads, d, l, keep = 2, 64, 49, 0.9
+    bn = len(rows.ids) * nw
+    qkv, do = _mask_inputs(dev, dtype, bn, heads, d, l)
+    drop = cb.HashDropout(4243, keep, rows.ids, rows.total)
+    zero = torch.zeros((heads, l, l), device=dev)
+    p = torch.tensor(1.0, device=dev) / l
+    full = wa.attn_drop_mask(drop.seed, rows.total * nw, heads, l, keep, dev)
+    ref = (full[rows.expand(nw).index] * p).to(dtype)
+    assert torch.equal(ref, (wa.attn_drop_mask(
+        drop.seed, bn, heads, l, keep, dev, rows.ids, rows.total)
+        * p).to(dtype))
+    out = wa.window_attention_fwd(qkv, zero, None, heads, drop).view(
+        bn, l, heads, d)
+    assert torch.equal(out[..., :l].permute(0, 2, 1, 3), ref)
+    dqkv, _ = wa.window_attention_bwd(qkv, zero, None, do, heads, drop)
+    dv = dqkv[..., 2 * heads * d:].reshape(bn, l, heads, d)
+    assert torch.equal(dv[..., :l].permute(0, 2, 3, 1), ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("l,nw,n_mask", [(49, 4, 4), (9, 16, 1)])
+def test_attention_with_image_ids_matches_plain(dev, dtype, l, nw, n_mask):
+    """K13 and K14 (dq, dk, dv, dbias) with attention dropout and a
+    two-segment image-id map against their plain versions, shifted and
+    unshifted."""
+    rows = _two_segment_rows(dev, 8, 24)
+    bn = len(rows.ids) * nw
+    qkv, bias, mask, do = _attn_inputs(dev, dtype, bn, l, n_mask)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    drop = cb.HashDropout(322, 0.9, rows.ids, rows.total)
+    for m in (None, mask):
+        _close(wa.window_attention_fwd(qkv, bias, m, 3, drop),
+               wa.window_attention_reference(q, k, v, bias, m, 3, drop),
+               dtype)
+        dqkv, dbias = wa.window_attention_bwd(qkv, bias, m, do, 3, drop)
+        *ref, dbias_r = wa.window_attention_bwd_reference(q, k, v, bias, m,
+                                                          do, 3, drop)
+        for got, r in zip(dqkv.split(q.shape[-1], dim=-1), ref):
+            _close(got, r, dtype)
+        _close(dbias, dbias_r, dtype)
+    with pytest.raises(ValueError, match="image_ids"):
+        wa.window_attention_fwd(qkv[:-1], bias, None, 3, drop)
 
 
 @pytest.mark.parametrize("drop", [None, 0.9])

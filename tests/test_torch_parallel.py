@@ -27,10 +27,12 @@ mesh (``tests/test_sharding.py``) from the same weights, to the 1e-5 of
 ``tests/test_torch_mean_teacher.py``.
 
 Then the pieces on their own: the hash dropout with a two-segment image-id
-map, ``shard_batch`` / ``pad_and_shard``, the rank-sharded ``BatchLoader``,
-the five algorithms that refuse W > 1, and ``coordination_barrier`` against
-a dead and a hung peer (it raises within its timeout plus 5 s; the harness
-kills every worker it started).
+map, ``shard_batch`` / ``pad_and_shard``, the rank-sharded ``BatchLoader``
+and ``coordination_barrier`` against a dead and a hung peer (it raises
+within its timeout plus 5 s; the harness kills every worker it started).
+The other five algorithms and the models without kernels are held the
+same way in ``tests/test_torch_parallel_ssl.py`` and
+``tests/test_torch_parallel_zoo.py``.
 """
 
 import json
@@ -386,30 +388,6 @@ def test_rank_sharded_loader_visits_the_one_process_indices():
         assert sum((r[i] for r in ranks), []) == batch
     with pytest.raises(ValueError, match="does not divide"):
         BatchLoader(Source(), 6).shard(0, 4)
-
-
-@pytest.mark.parametrize("name", ["uamt", "ict", "ssnet", "s4cvnet",
-                                  "swin_mae"])
-def test_other_algorithms_refuse_two_ranks(name, monkeypatch):
-    from hpfg_tpu_torch.parallel.mesh import Mesh
-    from hpfg_tpu_torch.train.algorithms import base, build_algorithm
-
-    monkeypatch.setattr(base, "get_mesh",
-                        lambda: Mesh(WORLD, 0, torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match=f"algorithm '{name}'"):
-        build_algorithm(name, {}, device="cpu")
-
-
-def test_unported_model_refuses_two_ranks(monkeypatch):
-    from hpfg_tpu_torch.parallel.mesh import Mesh
-    from hpfg_tpu_torch.train.algorithms import base, build_algorithm
-
-    monkeypatch.setattr(base, "get_mesh",
-                        lambda: Mesh(WORLD, 0, torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="UNetLarge"):
-        build_algorithm("supervised", dict(model="unet_large", base_c=4,
-                                           lr=0.01, total_itrs=2),
-                        device="cpu")
 
 
 def test_init_distributed_without_a_group_is_one_process(monkeypatch):
