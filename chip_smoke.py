@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and exits non-zero without one. It imports neither jax
-nor the JAX package. The ``--dp-worker`` and ``--nccl-worker`` modes
-are the processes phases 15 and 16 start. Phases, each of which fails the run on error:
+nor the JAX package. The ``--dp-worker``, ``--nccl-worker`` and
+``--eval-worker`` modes are the processes phases 15, 16 and 18 start.
+Phases, each of which fails the run on error:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
      CUDA kernels from ``hpfg_tpu_torch/csrc`` (nvcc, with its seconds);
@@ -226,8 +227,17 @@ are the processes phases 15 and 16 start. Phases, each of which fails the run on
   17. ``cli dp``: the HPFG CLI from phase 10's tree through ``python -m
      torch.distributed.run --nproc-per-node 2`` (``distributed=true``,
      ``device=cuda:0``, ``dist_backend=gloo``), 4 iterations, one eval
-     boundary: rank 0 alone writes the log (each eval line once), the
-     TensorBoard events (one file) and the checkpoints.
+     boundary, in which every rank evaluates its share of the test set
+     (the log's ``eval over 2 rank(s)`` line): rank 0 alone writes the log
+     (each eval line once), the TensorBoard events (one file) and the
+     checkpoints;
+  18. ``sharded eval`` (after phase 14): Mean-Teacher's student and EMA
+     teacher, and S4CVNet's SwinUNet and EMA SwinUNet (K13 in their
+     forwards; its UNet is Mean-Teacher's student at this seed), over
+     phase 13's ACDC-size test split in one process and on 2 gloo ranks
+     on the card (``--eval-worker``), each rank its share of the volumes:
+     per-class dice and HD95 bitwise equal to the one process's; the
+     eval's wall time in one process and on each rank.
 
 Phase 2e checks A, B and K11 with a two-segment image-id map (the hash
 dropout of a data-parallel rank: each image hashes its index in the global
@@ -2541,6 +2551,150 @@ def check_multi_eval(rep: Report, dev, card: str, algo, root: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the eval over every rank
+# ---------------------------------------------------------------------------
+
+#: the eval over ranks, (label, config, eval models): Mean-Teacher's
+#: student and EMA teacher, and S4CVNet's SwinUNet and its EMA teacher
+#: (its UNet, built from the same seed, is Mean-Teacher's student)
+EVAL_RUNS = (("mean_teacher", MT_CONFIG, ("model1", "model2")),
+             ("s4cvnet", S4_CONFIG, ("model2", "ema")))
+
+
+def eval_groups(models: dict, volumes, dev, mesh) -> dict:
+    """{name: per-class [C-1, 2] dice and HD95} of ``models`` over
+    ``volumes``, grouped by architecture as ``Trainer.evaluate`` groups
+    them (one ``evaluate_volumes_multi`` call a group), on ``mesh``."""
+    from hpfg_tpu_torch.evals.volume import evaluate_volumes_multi
+    from hpfg_tpu_torch.train.trainer import _architecture
+
+    groups: dict = {}
+    for name, model in models.items():
+        groups.setdefault(_architecture(model), {})[name] = model
+    out = {}
+    for group in groups.values():
+        res = evaluate_volumes_multi(group, volumes, 4, (HW, HW), dev,
+                                     mesh=mesh)
+        out.update({n: r[2] for n, r in res.items()})
+    return out
+
+
+def timed_evals(dev, root: str, mesh, before=None) -> dict:
+    """Each EVAL_RUNS algorithm's listed eval models (the config's seed,
+    bf16) over the test volumes of ``root`` (read from the h5 files,
+    uncached), on ``mesh``: {label: (per-class results, ms)}. ``before``
+    runs once the models are built, before each timed eval."""
+    import torch
+
+    from hpfg_tpu_torch.data.acdc import ACDCDataset
+    from hpfg_tpu_torch.data.loader import VolumeLoader
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+
+    out = {}
+    for label, config, names in EVAL_RUNS:
+        cfg = load_config(config)
+        algo = build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
+                               device=dev)
+        models = {n: m for n, m in algo.eval_models().items() if n in names}
+        vols = VolumeLoader(ACDCDataset(root, "test", cache=False))
+        if before is not None:
+            before(label)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eval_groups(models, vols, dev, mesh)
+        out[label] = (res, (time.perf_counter() - t0) * 1e3)
+        del algo, models
+        torch.cuda.empty_cache()
+    return out
+
+
+def eval_worker(rank: int, world: int, port: int, out_dir: str,
+                root: str) -> int:
+    """One rank of phase 18 over gloo on cuda:0: ``timed_evals`` on the
+    mesh of the ranks, the ranks meeting at a barrier before each; writes
+    ``rank<r>.pt``."""
+    import torch
+
+    from hpfg_tpu_torch.parallel.distributed import (
+        coordination_barrier,
+        init_distributed,
+    )
+    from hpfg_tpu_torch.parallel.mesh import get_mesh
+
+    dev = torch.device("cuda", 0)
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=dev,
+                     backend="gloo", timeout_s=240)
+    res = timed_evals(dev, root, get_mesh(),
+                      lambda label: coordination_barrier(label, 240))
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def check_sharded_eval(rep: Report, dev, card: str, root: str) -> dict:
+    """Phase 18: on the ACDC-size test split of ``root`` (40 volumes of
+    10 slices), Mean-Teacher's student and EMA teacher, and S4CVNet's
+    SwinUNet and EMA SwinUNet, each pair through one
+    ``evaluate_volumes_multi`` call, first in one process here, then over
+    DP_WORLD ranks (``--eval-worker`` processes, gloo on this card), each
+    rank its share of the volumes: every rank's per-class dice and HD95
+    bitwise equal to the one process's. The eval's wall time on one
+    process and on each rank (from the barrier before it to its result),
+    printed, not gated."""
+    import numpy as np
+    import torch
+
+    single = timed_evals(dev, root, None)
+    out_dir = tempfile.mkdtemp(prefix="hpfg_eval_")
+    try:
+        port = _free_port()
+        t0 = time.perf_counter()
+        outs, codes = _run_group(
+            [[sys.executable, os.path.abspath(__file__), "--eval-worker",
+              str(r), str(DP_WORLD), str(port), out_dir, root]
+             for r in range(DP_WORLD)], 600)
+        run_s = time.perf_counter() - t0
+        if codes != [0] * DP_WORLD:
+            rep.fail(f"sharded eval: worker exit codes {codes}; output "
+                     f"tails {[o[-1500:] for o in outs]}")
+            return {}
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    summary = {"card": card, "world": DP_WORLD, "workers_s": run_s}
+    for label, _, _ in EVAL_RUNS:
+        want, ms_1 = single[label]
+        same = all(
+            set(r[label][0]) == set(want)
+            and all(r[label][0][n].dtype == want[n].dtype
+                    and r[label][0][n].tobytes() == want[n].tobytes()
+                    for n in want) for r in ranks)
+        hits = {n: int(np.count_nonzero(v[:, 1])) for n, v in want.items()}
+        summary[label] = dict(equal=same, ms_1=ms_1,
+                              ms_ranks=[r[label][1] for r in ranks],
+                              dice={n: float(v[:, 0].mean())
+                                    for n, v in want.items()},
+                              hd95_classes_hit=hits)
+        print(f"sharded eval {label} ({sorted(want)}; {ACDC_EVAL_VOLUMES} "
+              f"volumes of {ACDC_EVAL_DEPTH} x {ACDC_HW}): per-class dice "
+              f"and HD95 on {DP_WORLD} ranks "
+              f"{'bitwise equal to' if same else 'DIFFER from'} one "
+              f"process (mean dice "
+              + ", ".join(f"{n} {v[:, 0].mean():.4f}"
+                          for n, v in want.items())
+              + f"; classes with an HD95 {hits}); the eval takes "
+              f"{ms_1:.1f} ms in one process, "
+              + " / ".join(f"{r[label][1]:.1f}" for r in ranks)
+              + f" ms on ranks 0 / 1 ({card})", flush=True)
+        if not same:
+            rep.fail(f"sharded eval {label}: the ranks' results differ "
+                     f"from one process's: {want} vs "
+                     f"{[r[label][0] for r in ranks]}")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the models no config names; phase 9: the config both packages
 # refuse
 # ---------------------------------------------------------------------------
@@ -3408,7 +3562,7 @@ def check_cli_dp(rep: Report, card: str, root: str, tmp: str) -> dict:
     events = [f for f in (os.listdir(tb) if os.path.isdir(tb) else [])
               if f.startswith("events.out")]
     lines = [f"iter 4 {m} dice" for m in CLI_ACDC[HPFG_CONFIG]] + [
-        "done: 4 iters"]
+        f"iter 4 eval over {DP_WORLD} rank(s)", "done: 4 iters"]
     counts = {k: log.count(k) for k in lines}
     if (codes != [0] or any(n != 1 for n in counts.values())
             or not {"last", "last_a"} <= set(ckpts) or len(events) > 1):
@@ -3472,6 +3626,9 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         sys.path.insert(0, REPO)
         return dp_worker(*map(int, sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--eval-worker":
+        sys.path.insert(0, REPO)
+        return eval_worker(*map(int, sys.argv[2:5]), *sys.argv[5:7])
     if len(sys.argv) > 1 and sys.argv[1] == "--nccl-worker":
         sys.path.insert(0, REPO)
         return nccl_worker(int(sys.argv[2]))
@@ -3568,7 +3725,7 @@ def main() -> int:
     cli = phase("cli", lambda: check_cli(rep, card))
     tmp = tempfile.mkdtemp(prefix="hpfg_acdc_")
     acdc = os.path.join(tmp, "acdc")
-    dp = nccl = cli_dp = None
+    dp = nccl = cli_dp = sharded = None
     try:
         h5_out = phase("h5", lambda: check_h5(rep, card, acdc))
         cli_acdc = phase("cli acdc", lambda: check_cli_acdc(rep, card, acdc,
@@ -3585,6 +3742,8 @@ def main() -> int:
             rep, dev, card, hpfg, acdc_eval)) if hpfg is not None else None)
         del out, hpfg
         torch.cuda.empty_cache()
+        sharded = (phase("sharded eval", lambda: check_sharded_eval(
+            rep, dev, card, acdc_eval)) if acdc_eval is not None else None)
         dp = phase("data parallel", lambda: check_data_parallel(rep, dev,
                                                                 card))
         nccl = phase("nccl", lambda: check_nccl(rep, card))
@@ -3608,6 +3767,8 @@ def main() -> int:
     if not dp or nccl is None or cli_dp is None:
         rep.fail("a phase of 15-17 (data parallel, nccl, cli dp) did not "
                  "complete")
+    if not sharded:
+        rep.fail("phase 18 (sharded eval) did not complete")
     if None in zoo.values() or refused is None:
         rep.fail("a zoo model did not train, or ccnet_transunet was not "
                  "refused")
@@ -3623,7 +3784,8 @@ def main() -> int:
                    "refused": refused, "h5": h5_out, "cli_acdc": cli_acdc,
                    "prefetch": prefetch, "async_eval": async_eval,
                    "multi_eval": multi, "data_parallel": dp, "nccl": nccl,
-                   "cli_dp": cli_dp, "kernels": kernels}, f, indent=1,
+                   "cli_dp": cli_dp, "sharded_eval": sharded,
+                   "kernels": kernels}, f, indent=1,
                   default=str)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     if rep.failures:

@@ -11,10 +11,10 @@ An unknown name raises ``ValueError``. Under data parallelism over W > 1
 ranks (``parallel.mesh.get_mesh``) the training loaders are rank-sharded
 (``BatchLoader.shard``: each rank yields its 1/W of every global batch;
 ``batch_size`` and ``unlabel_batch_size`` are global, and W must divide
-them); the test and validation loaders stay whole, as rank 0 evaluates.
-The on-device augmentation path
-(``device_augment``, ``ops/augment.py``) is not ported yet (ROADMAP.md,
-Queue 1) and raises.
+them); the test and validation loaders stay whole, and the eval splits
+them over the ranks by whole volumes or batches (``evals/volume.py``).
+The JAX package's on-device augmentation path (``device_augment``) is not
+ported (ROADMAP.md, "Do not port") and raises.
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def _build(cfg, seed: int | None):
         raise ValueError(f"unknown datasets {cfg.get('datasets')!r}")
     if bool(cfg.get("device_augment", False)):
         raise NotImplementedError(
-            "device_augment is not ported to hpfg_tpu_torch yet (ops/augment.py;"
-            " ROADMAP.md, Queue 1): set device_augment=false")
+            "device_augment is not ported to hpfg_tpu_torch (ROADMAP.md, "
+            "'Do not port'): set device_augment=false")
     if name in _SSL:
         module = importlib.import_module(f"hpfg_tpu_torch.data.{_SSL[name]}")
         return getattr(module, f"get_ssl_{_SSL[name]}_loader")(

@@ -17,7 +17,9 @@ ranks together visit exactly the indices of a one-process run. The draws
 of an ``rng`` transform depend on the sample alone and equal the
 one-process ones; a 2-D transform's one generator is a per-rank stream
 (each rank's copy draws for its own rows), so those draws differ from a
-one-process run's.
+one-process run's. The eval is split by whole items instead
+(``share``): rank r loads the volumes, or the test batches, whose index is
+r modulo W.
 """
 
 from __future__ import annotations
@@ -126,7 +128,23 @@ class BatchLoader:
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         epoch = self._epoch
         self._epoch += 1
+        yield from self._assemble(self._batches_for_epoch(epoch), epoch)
+
+    def share(self, rank: int, world: int):
+        """One pass (an epoch) of a loader that is not rank-sharded, over
+        the batches whose index j is ``rank`` modulo ``world``, as (j,
+        batch): a rank's part of an eval over the ranks."""
+        if self.world > 1:
+            raise ValueError("share() splits a whole loader's batches; this "
+                             "one is rank-sharded")
+        epoch = self._epoch
+        self._epoch += 1
         batches = self._batches_for_epoch(epoch)
+        picked = list(range(rank, len(batches), world))
+        return zip(picked, self._assemble([batches[j] for j in picked],
+                                          epoch))
+
+    def _assemble(self, batches: list, epoch: int):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -184,3 +202,10 @@ class VolumeLoader:
     def __iter__(self):
         for i in range(len(self.source)):
             yield self.source.load(i)
+
+    def share(self, rank: int, world: int):
+        """(i, volume) for the volumes whose index i is ``rank`` modulo
+        ``world``: a rank's part of an eval over the ranks, which loads
+        only its own volumes."""
+        for i in range(rank, len(self.source), world):
+            yield i, self.source.load(i)

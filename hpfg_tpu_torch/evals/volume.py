@@ -13,6 +13,14 @@ the per-volume work shared (dice on the device, HD95 through
 ``evaluate_volumes`` is its one-model call. ``evaluate_images`` scores the
 binary 2-D datasets (LIDC, ISIC, Building) batch by batch through the same
 forward.
+
+Over W ranks (``mesh``), rank r evaluates the volumes (or batches) whose
+index is r modulo W, loading only those (the loaders' ``share``); each
+yields a float64 row, the rows are exchanged on the host
+(``parallel.distributed.gather_objects``) and summed in index order, as
+one process sums them, so every rank gets one process's result bit for
+bit. The JAX package splits each volume's slices over its devices instead;
+the function computed is the same.
 """
 
 from __future__ import annotations
@@ -28,6 +36,31 @@ from hpfg_tpu_torch.evals.metrics import (
 )
 
 DEFAULT_CHUNK = 16
+
+
+def _share(items, mesh):
+    """(index, item) of this rank's share: the items whose index is the
+    rank modulo W, from the loader's ``share``, which loads only those (in
+    one process: every item)."""
+    if mesh is None or mesh.world == 1:
+        return enumerate(items)
+    if not hasattr(items, "share"):
+        raise TypeError(f"an eval over {mesh.world} ranks needs a loader "
+                        f"with share(rank, world), not {type(items).__name__}")
+    return items.share(mesh.rank, mesh.world)
+
+
+def _gather(tag: str, rows: dict, mesh) -> list:
+    """Every rank's {index: row}, merged and in index order."""
+    if mesh is None or mesh.world == 1:
+        merged = rows
+    else:
+        from hpfg_tpu_torch.parallel.distributed import gather_objects
+
+        merged = {}
+        for part in gather_objects(tag, rows):
+            merged.update(part)
+    return [merged[i] for i in sorted(merged)]
 
 
 def _zoom_index_map(in_size: int, out_size: int) -> np.ndarray:
@@ -93,33 +126,34 @@ def evaluate_volumes(model: torch.nn.Module, volumes, num_classes: int,
 def evaluate_volumes_multi(models: dict, volumes, num_classes: int,
                            patch_size, device: torch.device,
                            zoom_order: int = 0, want_first: bool = False,
-                           chunk: int = DEFAULT_CHUNK) -> dict:
+                           chunk: int = DEFAULT_CHUNK, mesh=None) -> dict:
     """Evaluate several models ({name: module}) over the same volumes with
     the per-volume work shared:
 
       * each volume's slices and labels upload once, for every model;
-      * each volume's dice is computed and summed on the device (float64,
-        the arithmetic of ``calculate_metric_percase``), one readback per
-        model at the end;
+      * each volume's dice is computed on the device (float64, the
+        arithmetic of ``calculate_metric_percase``) and read back as one
+        row per model;
       * HD95's ground-truth border and distance transform are computed once
         per (volume, class) and shared (``metrics.gt_surface_cache``);
-      * the prediction still comes back once per (model, volume), at patch
-        size, for HD95.
+      * the prediction comes back once per (model, volume), at patch size,
+        for HD95.
+
+    The rows (dice per class, HD95 per class and whether it counts) are
+    summed in volume order. With a ``mesh`` of W ranks each rank evaluates
+    its share of the volumes and every rank gets the same sums.
 
     Returns {name: (mean_dice, mean_hd95, per_class [C-1, 2], first)} with
     the reference's volume-then-class averaging, each model's exactly what
-    it would get alone (``first``: (image, label, prediction) of the first
-    volume with ``want_first``, else None)."""
+    it would get alone (``first``: (image, label, prediction) of volume 0
+    with ``want_first`` on the rank that evaluates it, else None)."""
     if num_classes > 256:
         raise ValueError(f"{num_classes} classes do not fit uint8")
     names = list(models)
-    dice_sum = {n: torch.zeros(num_classes - 1, dtype=torch.float64,
-                               device=device) for n in names}
-    hd_sum = {n: np.zeros(num_classes - 1, dtype=np.float64) for n in names}
     firsts = {n: None for n in names}
-    count = 0
+    rows = {}
     ph, pw = patch_size
-    for image, label in volumes:
+    for i, (image, label) in _share(volumes, mesh):
         image = np.asarray(image, dtype=np.float32)
         label = np.asarray(label)
         d, h, w = image.shape
@@ -132,26 +166,37 @@ def evaluate_volumes_multi(models: dict, volumes, num_classes: int,
         ys_d, xs_d = (torch.from_numpy(ys).to(device),
                       torch.from_numpy(xs).to(device))
         gt = [gt_surface_cache(label == c) for c in range(1, num_classes)]
+        rows[i] = {}
         for n in names:
-            patch = torch.cat([models[n].val(slices[i:i + chunk]).argmax(-1)
-                               for i in range(0, d, chunk)])
+            patch = torch.cat([models[n].val(slices[j:j + chunk]).argmax(-1)
+                               for j in range(0, d, chunk)])
             pred_d = patch if same else patch[:, ys_d[:, None], xs_d[None, :]]
-            dice_sum[n] += _volume_dice(pred_d, label_d, num_classes)
+            dice = _volume_dice(pred_d, label_d, num_classes).cpu().numpy()
             pred = patch.to(torch.uint8).cpu().numpy()
             if not same:
                 pred = pred[:, ys[:, None], xs[None, :]]
+            hd = np.zeros(num_classes - 1, dtype=np.float64)
+            hit = np.zeros(num_classes - 1, dtype=bool)
             for c in range(1, num_classes):
                 pmask = pred == c
                 if pmask.any() and gt[c - 1]["any"]:
-                    hd_sum[n][c - 1] += binary_hd95(pmask, label == c,
-                                                    gt_cache=gt[c - 1])
-            if want_first and firsts[n] is None:
+                    hd[c - 1] = binary_hd95(pmask, label == c,
+                                            gt_cache=gt[c - 1])
+                    hit[c - 1] = True
+            rows[i][n] = (dice, hd, hit)
+            if want_first and i == 0:
                 firsts[n] = (image, label, pred)
-        count += 1
+    ordered = _gather("volumes", rows, mesh)
     out = {}
     for n in names:
-        per_class = np.stack([dice_sum[n].cpu().numpy(), hd_sum[n]],
-                             axis=1) / max(count, 1)
+        dice_sum = np.zeros(num_classes - 1, dtype=np.float64)
+        hd_sum = np.zeros(num_classes - 1, dtype=np.float64)
+        for row in ordered:
+            dice, hd, hit = row[n]
+            dice_sum += dice
+            hd_sum[hit] += hd[hit]
+        per_class = np.stack([dice_sum, hd_sum], axis=1) / max(len(ordered),
+                                                                1)
         out[n] = (float(per_class[:, 0].mean()), float(per_class[:, 1].mean()),
                   per_class, firsts[n])
     return out
@@ -177,22 +222,26 @@ def _volume_dice(pred: torch.Tensor, label: torch.Tensor,
 
 
 def evaluate_images(model: torch.nn.Module, loader, device: torch.device,
-                    full_metrics: bool = False):
+                    full_metrics: bool = False, mesh=None):
     """Binary 2-D evaluation of a loader of (images [B, H, W, C], labels
     [B, H, W]) batches: each batch's class-1 prediction is scored as one
     case (HD95's distances over the batch's stacked masks) and weighted by
-    its size. Returns the means (dice, hd95), or (dice, hd95, jaccard, asd)
-    with ``full_metrics``."""
+    its size. With a ``mesh`` of W ranks each rank scores its share of the
+    batches and every rank gets the same means. Returns the means (dice,
+    hd95), or (dice, hd95, jaccard, asd) with ``full_metrics``."""
     metric = (calculate_metric_percase_full if full_metrics
               else calculate_metric_percase)
-    sums = np.zeros(4 if full_metrics else 2, dtype=np.float64)
-    n = 0
-    for images, labels in loader:
+    rows = {}
+    for j, (images, labels) in _share(loader, mesh):
         images = np.asarray(images, dtype=np.float32)
         labels = np.asarray(labels)
         preds = forward_slices(model, images, device)
         bs = images.shape[0]
-        sums += np.asarray(metric(preds == 1, labels == 1)) * bs
+        rows[j] = (np.asarray(metric(preds == 1, labels == 1)) * bs, bs)
+    sums = np.zeros(4 if full_metrics else 2, dtype=np.float64)
+    n = 0
+    for weighted, bs in _gather("images", rows, mesh):
+        sums += weighted
         n += bs
     sums /= max(n, 1)
     return tuple(float(v) for v in sums)

@@ -14,6 +14,11 @@ collectives:
   * process-0 gating for logging / TensorBoard / checkpoint writes
     (``is_main_process``), and barriers that never hang
     (``coordination_barrier``);
+  * ``gather_objects``, the eval's exchange of its small per-volume rows
+    over the rendezvous store, on a client connection of its own: the eval
+    runs on a worker thread while the training thread's steps issue
+    collectives, and collectives of one group issued from two threads can
+    run in a different order on each rank;
   * the collectives the step needs, each the identity in one process:
     ``all_reduce_sum`` and ``all_gather_rows`` (differentiable),
     ``gather_rows`` (not), ``broadcast_tensors`` and ``all_reduce_grads``.
@@ -30,6 +35,7 @@ divided by W) gives that gradient exactly.
 from __future__ import annotations
 
 import os
+import pickle
 from datetime import timedelta
 
 import numpy as np
@@ -40,11 +46,13 @@ from hpfg_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 #: the default deadline of init and of every collective (seconds)
 DEFAULT_TIMEOUT_S = 600.0
-#: how long a rank waits for the others at the trainer's barriers (seconds):
-#: rank 0 evaluates the whole test set while the others wait
+#: how long a rank waits for the others at the trainer's barriers and at
+#: the eval's exchange of rows (seconds): a rank's share of the test set
+#: may take longer than its peers'
 BARRIER_TIMEOUT_S = 1800.0
 
-_STATE: dict = {"store": None, "device": None, "barriers": {}}
+_STATE: dict = {"store": None, "eval_store": None, "device": None,
+                "barriers": {}}
 
 
 def _address(coordinator_address: str) -> str:
@@ -110,8 +118,12 @@ def init_distributed(coordinator_address: str | None = None,
         _refuse_shared_cards(store, rank, world, device)
     dist.init_process_group(backend, store=dist.PrefixStore("pg", store),
                             rank=rank, world_size=world, timeout=timeout)
-    _STATE.update(store=dist.PrefixStore("hpfg", store), device=device,
-                  barriers={})
+    # the eval's rows go through a connection of their own: a store client
+    # serves one request at a time, and the training thread's barrier must
+    # not queue behind the eval thread's wait for its peers' rows
+    _STATE.update(store=dist.PrefixStore("hpfg", store),
+                  eval_store=dist.PrefixStore("hpfg-eval", store.clone()),
+                  device=device, barriers={})
     return world > 1
 
 
@@ -187,6 +199,44 @@ def coordination_barrier(tag: str = "barrier",
         raise RuntimeError(f"coordination_barrier {tag!r} (round {n}): not "
                            f"every rank of {world} arrived within "
                            f"{timeout_s} s: {exc}") from exc
+
+
+def gather_objects(tag: str, obj, timeout_s: float = BARRIER_TIMEOUT_S
+                   ) -> list:
+    """Every rank's ``obj`` (small and picklable), in rank order, on every
+    rank: each rank writes its own under the tag's next round and reads
+    the W entries once all are there. A rank writes round n only after it
+    has read round n - 1, so once round n is complete rank 0 deletes
+    round n - 1's entries: the store holds one round a tag. Goes through
+    the rendezvous store on the eval's own connection, never through a
+    process group, so it may run on a worker thread while the training
+    thread issues collectives. A dead
+    or hung peer makes it raise ``RuntimeError`` once ``timeout_s`` has
+    passed; it never hangs. In one process: ``[obj]``, with no call at
+    all."""
+    if process_count() <= 1:
+        return [obj]
+    store = _STATE["eval_store"]
+    if store is None:
+        raise RuntimeError("gather_objects: the process group was not "
+                           "formed by init_distributed")
+    key = f"gather {tag}"
+    n = _STATE["barriers"].get(key, 0)
+    _STATE["barriers"][key] = n + 1
+    rank, world = dist.get_rank(), dist.get_world_size()
+    keys = [f"gather/{tag}/{n}/{r}" for r in range(world)]
+    try:
+        store.set(keys[rank], pickle.dumps(obj))
+        store.wait(keys, timedelta(seconds=timeout_s))
+        out = [pickle.loads(store.get(k)) for k in keys]
+        if rank == 0 and n > 0:
+            for r in range(world):
+                store.delete_key(f"gather/{tag}/{n - 1}/{r}")
+        return out
+    except Exception as exc:
+        raise RuntimeError(f"gather_objects {tag!r} (round {n}): not every "
+                           f"rank of {world} arrived within {timeout_s} s: "
+                           f"{exc}") from exc
 
 
 # ---------------------------------------------------------------------------

@@ -26,15 +26,19 @@ the loop evaluates and saves inline. An eval error re-raises in ``fit``;
 one during shutdown after a training error is logged and the training
 error propagates.
 
-Data parallelism (JAX ``trainer.py``: every process steps, process 0
-writes): every rank runs ``fit`` on its rank-sharded loaders and steps its
-algorithm; only rank 0 makes the workdir, writes the log file, TensorBoard
-and the checkpoints, and evaluates (on the whole test set, overlapped as in
-one process). At each eval boundary and at the end of ``fit`` every rank
-meets the others in ``coordination_barrier`` (``BARRIER_TIMEOUT_S``,
-1800 s), which raises where a peer is dead or hung instead of waiting for
-ever. ``resume`` reads the same files on every
-rank.
+Data parallelism (JAX ``trainer.py``: every process steps and evaluates,
+process 0 writes): every rank runs ``fit`` on its rank-sharded loaders,
+steps its algorithm and, at each boundary, evaluates its share of the test
+set (overlapped as in one process; ``evals/volume.py`` splits the volumes or
+batches over the ranks and exchanges their rows through the rendezvous
+store, never through the training group), so every rank's ``history`` and
+``best_dice`` hold one process's results. Only rank 0 makes the workdir,
+writes the log file, TensorBoard and the checkpoints. At each eval boundary
+and at the end of ``fit`` every rank meets the others in
+``coordination_barrier`` (``BARRIER_TIMEOUT_S``, 1800 s), which raises
+where a peer is dead or hung instead of waiting for ever; the eval's
+exchange of rows has the same deadline. ``resume`` reads the same files on
+every rank.
 
 A set ``pretrain_ckpt`` (a Swin-MAE run's ``<save_path>/model``; tag
 ``pretrain_tag``, default ``last``) transfers that encoder into every
@@ -105,7 +109,7 @@ class Trainer:
                  log_every: int = 20):
         self.cfg = cfg
         self.algorithm = algorithm
-        #: rank 0 (or the one process) writes and evaluates; every rank steps
+        #: rank 0 (or the one process) writes; every rank steps and evaluates
         self.is_main = is_main_process()
         self.workdir = workdir or cfg.get("save_path", "checkpoint/run")
         if self.is_main:
@@ -225,8 +229,7 @@ class Trainer:
                         t_window, iter_window = now, cur
                 if eval_enabled and cur % self.step_size == 0:
                     self._flush_metrics(pending)
-                    if self.is_main:
-                        self._dispatch_eval(cur)
+                    self._dispatch_eval(cur)
                     self._barrier(f"eval {cur}")
                     panels = getattr(algo, "image_panels", None)
                     if panels is not None and self.writer.enabled:
@@ -315,9 +318,11 @@ class Trainer:
 
     # -- evaluation ------------------------------------------------------
     def _dispatch_eval(self, cur_itrs: int) -> None:
-        """Evaluate and save the crash-recovery checkpoint: inline, or with
-        ``async_eval`` on a snapshot in the worker thread (evals run one at
-        a time: a boundary first joins the previous one)."""
+        """Evaluate (every rank its share) and save the crash-recovery
+        checkpoint (rank 0): inline, or with ``async_eval`` on a snapshot in
+        the worker thread (evals run one at a time: a boundary first joins
+        the previous one). Only rank 0 snapshots the whole state, which it
+        alone writes."""
         if not self.async_eval:
             self._eval_task(cur_itrs)
             return
@@ -329,7 +334,8 @@ class Trainer:
         self._join_eval()
         device = self.algorithm.device
         with torch.no_grad():
-            state = _clone_state(self.algorithm.state_dict())
+            state = (_clone_state(self.algorithm.state_dict())
+                     if self.is_main else None)
             models = copy.deepcopy(self.algorithm.eval_models())
         ready = None
         if device.type == "cuda":
@@ -351,7 +357,8 @@ class Trainer:
             stream = torch.cuda.stream(self._eval_stream)
         with stream:
             self.evaluate(cur_itrs, models, state)
-            self.ckpt.save_rotating(self._checkpoint(state))
+            if self.is_main:
+                self.ckpt.save_rotating(self._checkpoint(state))
         if ready is not None:
             # the snapshot's memory belongs to the training stream: it is
             # freed only after this stream has finished reading it
@@ -372,12 +379,14 @@ class Trainer:
 
     def evaluate(self, cur_itrs: int, models: dict | None = None,
                  state: dict | None = None) -> dict:
-        """Evaluate ``models`` (default: the algorithm's eval models) and
-        save ``best_<model>`` from ``state`` (default: the live state) on
-        each new best dice."""
+        """Evaluate ``models`` (default: the algorithm's eval models), this
+        rank's share of the test set under data parallelism, and save
+        ``best_<model>`` from ``state`` (default: the live state) on each
+        new best dice (rank 0)."""
         if models is None:
             models = self.algorithm.eval_models()
-        device = self.algorithm.device
+        device, mesh = self.algorithm.device, self.algorithm.mesh
+        t0 = time.perf_counter()
         dsname = str(self.cfg.get("datasets")).lower()
         results = {}
         if dsname in VOLUME_DATASETS:
@@ -389,7 +398,7 @@ class Trainer:
                 res = evaluate_volumes_multi(
                     group, self.test_loader, self.num_classes,
                     self.test_crop, device, zoom_order=order,
-                    want_first=self.writer.enabled)
+                    want_first=self.writer.enabled, mesh=mesh)
                 for name, (dice, hd95, _, first) in res.items():
                     self._log_panels(name, first, cur_itrs)
                     results[name] = (dice, hd95)
@@ -397,7 +406,10 @@ class Trainer:
         else:
             for name, model in models.items():
                 results[name] = evaluate_images(model, self.test_loader,
-                                                device)
+                                                device, mesh=mesh)
+        self.logger.info("iter %d eval over %d rank(s): %d model(s) in %.1f s",
+                         cur_itrs, mesh.world, len(results),
+                         time.perf_counter() - t0)
         for name, (dice, hd95) in results.items():
             self.writer.add_scalar(f"{self.algorithm.name}/{name}_dice",
                                    dice, cur_itrs)
@@ -407,7 +419,8 @@ class Trainer:
                              name, dice, hd95)
             if dice > self.best_dice.get(name, 0.0):
                 self.best_dice[name] = dice
-                self.ckpt.save(f"best_{name}", self._checkpoint(state))
+                if self.is_main:
+                    self.ckpt.save(f"best_{name}", self._checkpoint(state))
         self.history.append({"iter": cur_itrs, "results": results})
         return results
 

@@ -441,8 +441,8 @@ def test_cli_refuses_distributed_without_a_group(synthetic_acdc, tmp_path,
 
 def test_cli_under_two_ranks_writes_from_rank_0(synthetic_acdc, tmp_path):
     """``torch.distributed.run`` of the CLI (HPFG, 4 steps, eval at 2 and
-    4) over 2 gloo ranks: every rank trains, rank 0 alone logs, evaluates
-    and writes the checkpoints."""
+    4) over 2 gloo ranks: every rank trains and evaluates its share of the
+    test volumes, rank 0 alone logs and writes the checkpoints."""
     run = tmp_path / "run"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
            str(WORLD), "--master-port", str(_free_port()), "-m",
@@ -469,7 +469,8 @@ def test_cli_under_two_ranks_writes_from_rank_0(synthetic_acdc, tmp_path):
             proc.wait()
     assert proc.returncode == 0, out
     log = (run / "log.log").read_text()
-    for line in ("iter 2 model1 dice", "iter 4 ema dice", "done: 4 iters"):
+    for line in ("iter 2 model1 dice", "iter 4 ema dice", "done: 4 iters",
+                 "iter 2 eval over 2 rank(s)", "iter 4 eval over 2 rank(s)"):
         assert log.count(line) == 1, line
     assert {"last.pt", "last_a.pt", "last_b.pt", "best_model1.pt"} <= set(
         os.listdir(run / "model"))
