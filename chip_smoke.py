@@ -237,7 +237,19 @@ Phases, each of which fails the run on error:
      phase 13's ACDC-size test split in one process and on 2 gloo ranks
      on the card (``--eval-worker``), each rank its share of the volumes:
      per-class dice and HD95 bitwise equal to the one process's; the
-     eval's wall time in one process and on each rank.
+     eval's wall time in one process and on each rank;
+  19. ``losses`` (after phase 4): the loss library's functions that no
+     algorithm calls (``ops/losses.py``: soft-target, binary and
+     per-sample dice, KL with softmax and with sigmoid, symmetric MSE,
+     entropy and its map, focal with and without alpha and
+     ``size_average``, BCE + dice, BCE + dice + smooth L1) on the card on
+     the Mean-Teacher UNet's logits (8 + 24 images at 224^2, 4 classes, the
+     student's train-mode forward through the kernels, the EMA teacher's
+     as the target), in fp32 and on the bf16 logits: each value and its
+     gradient with respect to the logits against the same loss on a CPU
+     copy, fp32 within 1e-5 and bf16 within 2e-2 of the largest magnitude,
+     and each loss's forward + backward time on the card; then their sum
+     back through the student, which must launch A, B, C and D.
 
 Phase 2e checks A, B and K11 with a two-segment image-id map (the hash
 dropout of a data-parallel rank: each image hashes its index in the global
@@ -1750,6 +1762,140 @@ def fp32_twin(model, cfg: dict):
     twin = build_model(cfg, dtype=torch.float32)
     twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     return twin
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the loss library on the card
+# ---------------------------------------------------------------------------
+
+#: the losses of ``ops/losses.py`` that no algorithm calls, and
+#: ``softmax_kl_loss``: label -> (function, first argument, other arguments,
+#: keywords); the arguments are derived from the logits (``loss_inputs``)
+LOSS_CASES = {
+    "dice_loss_from_probs": ("dice_loss_from_probs", "probs",
+                             ("target_probs",), {}),
+    "softmax_dice_loss": ("softmax_dice_loss", "logits", ("target",), {}),
+    "dice_loss_binary": ("dice_loss_binary", "probs1", ("mask",), {}),
+    "softmax_kl_loss": ("softmax_kl_loss", "logits", ("target",), {}),
+    "softmax_kl_loss sigmoid": ("softmax_kl_loss", "logits", ("target",),
+                                {"sigmoid": True}),
+    "symmetric_mse_loss": ("symmetric_mse_loss", "logits", ("target",), {}),
+    "entropy_loss": ("entropy_loss", "probs", (), {"num_classes": 4}),
+    "entropy_loss_map": ("entropy_loss_map", "probs", (),
+                         {"num_classes": 4}),
+    "focal_loss": ("focal_loss", "logits", ("labels",), {}),
+    "focal_loss alpha sum": ("focal_loss", "logits", ("labels",),
+                             {"alpha": [0.1, 0.2, 0.3, 0.4],
+                              "size_average": False}),
+    "bce_dice_loss": ("bce_dice_loss", "logits1", ("mask",), {}),
+    "bce_dice_l1_loss": ("bce_dice_l1_loss", "logits1", ("mask",), {}),
+}
+#: the losses' tolerance against the CPU, relative to the largest
+#: magnitude: fp32 another summation order over 6.4M elements; bf16 logits
+#: rounded once more where a gradient is cast back to them
+LOSS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def loss_inputs(logits, target, labels, mask) -> dict:
+    """Every argument of ``LOSS_CASES`` from the student's ``logits`` (the
+    gradient's leaf), the teacher's ``target`` logits, the labels and a
+    binary mask: probabilities by softmax, the binary losses on the first
+    class's channel."""
+    import torch
+
+    return {"logits": logits, "target": target, "labels": labels,
+            "mask": mask, "probs": torch.softmax(logits.float(), dim=-1),
+            "target_probs": torch.softmax(target.float(), dim=-1),
+            "logits1": logits[..., :1],
+            "probs1": torch.sigmoid(logits[..., :1].float())}
+
+
+def run_loss(case: str, leaf, fixed: dict):
+    """(value, gradient of ``leaf``) of one loss on a fresh copy of the
+    logits ``leaf``; a map's gradient is that of its mean."""
+    from hpfg_tpu_torch.ops import losses
+
+    fn, first, rest, kwargs = LOSS_CASES[case]
+    x = leaf.detach().clone().requires_grad_(True)
+    args = loss_inputs(x, **fixed)
+    out = getattr(losses, fn)(args[first], *(args[k] for k in rest),
+                              **kwargs)
+    (out.mean() if out.dim() else out).backward()
+    return out.detach(), x.grad
+
+
+def check_losses(rep: Report, dev, card: str) -> dict:
+    """The loss library on the card in fp32 and bf16 on the Mean-Teacher
+    UNet's logits (configs/mean_teacher_unet_30k_224x224_ACDC.yaml, bf16,
+    8 + 24 images at 224^2, 4 classes: the student's train-mode forward
+    through A, C and K8, the EMA teacher's as the target), each value and
+    gradient against the same loss on a CPU copy of its inputs; then the
+    sum of the losses back through the student (B, D, K9 to K11), every
+    one of A to D launched. Returns each loss's card ms (forward and
+    backward, the derivation of its inputs included) by dtype."""
+    import numpy as np
+    import torch
+
+    from hpfg_tpu_torch.ops import losses
+    from hpfg_tpu_torch.train.algorithms import build_algorithm
+
+    cfg = load_config(MT_CONFIG)
+    algo = build_algorithm(cfg["algorithm"], cfg, dtype=torch.bfloat16,
+                           device=dev)
+    rng = np.random.default_rng(19)
+    n = algo.label_bs + algo.unlabel_bs
+    x = torch.from_numpy(rng.normal(size=(n, HW, HW, 1)).astype(
+        np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 4, (n, HW, HW))).to(dev)
+    mask = (torch.rand(n, HW, HW, 1, generator=torch.Generator().manual_seed(
+        19)) < 0.4).float().to(dev)
+    for fn in counters().values():
+        fn.launches = 0
+    kw = algo.train_kwargs(algo.label_bs, algo.unlabel_bs)
+    with torch.no_grad():
+        target = algo.ema(x, **kw)
+    logits = algo.model(x, **kw)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        leaf = logits.detach().to(dtype)
+        fixed = dict(target=target.to(dtype), labels=labels, mask=mask)
+        fixed_cpu = {k: v.cpu() for k, v in fixed.items()}
+        tol = LOSS_TOL[name]
+        for case in LOSS_CASES:
+            value, grad = run_loss(case, leaf, fixed)
+            ref, ref_grad = run_loss(case, leaf.cpu(), fixed_cpu)
+            errs = [((got.cpu().float() - want.float()).abs().max()
+                     / want.float().abs().max().clamp(min=1e-30)).item()
+                    for got, want in ((value, ref), (grad, ref_grad))]
+            finite = bool(value.isfinite().all() and grad.isfinite().all())
+            ms = cuda_ms(lambda: run_loss(case, leaf, fixed))
+            out.setdefault(name, {})[case] = dict(
+                value_err=errs[0], grad_err=errs[1], ms=ms)
+            shown = (f"{value.item():.6g} (cpu {ref.item():.6g})"
+                     if value.dim() == 0 else f"map {tuple(value.shape)}")
+            print(f"losses {case} {name}: value {shown}, value rel err "
+                  f"{errs[0]:.2e}, grad rel err {errs[1]:.2e} (tol {tol}); "
+                  f"{ms:.3f} ms forward + backward on the card ({card})",
+                  flush=True)
+            if not finite or max(errs) > tol:
+                rep.fail(f"losses {case} {name}: value err {errs[0]:.3e}, "
+                         f"grad err {errs[1]:.3e} > {tol} or not finite")
+    args = loss_inputs(logits, target, labels, mask)
+    total = sum(getattr(losses, fn)(
+        args[first], *(args[k] for k in rest), **kwargs).float().mean()
+        for fn, first, rest, kwargs in LOSS_CASES.values())
+    total.backward()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"losses: the Mean-Teacher UNet's forwards and the losses' "
+          f"backward launched {launches}", flush=True)
+    for kernel in ("conv3x3_nhwc", "conv3x3_wgrad_nhwc", "bn_act",
+                   "bn_act_bwd"):
+        if launches[kernel] == 0:
+            rep.fail(f"losses: kernel {kernel} was not launched")
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3718,6 +3864,8 @@ def main() -> int:
             del model
         del algo
         torch.cuda.empty_cache()
+    loss_out = phase("losses", lambda: check_losses(rep, dev, card))
+    torch.cuda.empty_cache()
     resume = {label: phase(f"resume {label}", lambda: check_resume(
         rep, dev, card, config, label))
         for label, config in (("ctct", CTCT_CONFIG), ("ssnet", SSNET_CONFIG))}
@@ -3769,6 +3917,8 @@ def main() -> int:
                  "complete")
     if not sharded:
         rep.fail("phase 18 (sharded eval) did not complete")
+    if loss_out is None:
+        rep.fail("phase 19 (losses) did not complete")
     if None in zoo.values() or refused is None:
         rep.fail("a zoo model did not train, or ccnet_transunet was not "
                  "refused")
@@ -3785,6 +3935,7 @@ def main() -> int:
                    "prefetch": prefetch, "async_eval": async_eval,
                    "multi_eval": multi, "data_parallel": dp, "nccl": nccl,
                    "cli_dp": cli_dp, "sharded_eval": sharded,
+                   "losses": loss_out,
                    "kernels": kernels}, f, indent=1,
                   default=str)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,5 +1,5 @@
-"""Batch loading (port of the part of ``hpfg_tpu/data/loader.py`` the
-dataset loaders use).
+"""Batch loading (port of ``hpfg_tpu/data/loader.py``: what the dataset
+loaders use, and the reference's ``patients_to_slices``).
 
 A thread pool assembles each batch while a background thread keeps a few
 batches ready; numpy and scipy release the GIL, so decode and augmentation
@@ -209,3 +209,16 @@ class VolumeLoader:
         only its own volumes."""
         for i in range(rank, len(self.source), world):
             yield i, self.source.load(i)
+
+
+def patients_to_slices(dataset: str, patients_num) -> int:
+    """The reference's count of labelled slices for a count of labelled
+    patients: ACDC's table, or for any ``dataset`` without "ACDC" in its
+    name the Prostate table; an unlisted count raises KeyError."""
+    if "ACDC" in dataset:
+        ref = {"3": 68, "7": 136, "14": 256, "21": 396, "28": 512,
+               "35": 664, "140": 1312}
+    else:
+        ref = {"2": 27, "4": 53, "8": 120, "12": 179, "16": 256,
+               "21": 312, "42": 623}
+    return ref[str(patients_num)]

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from hpfg_tpu_torch.models.layers import adaptive_avg_pool
+from hpfg_tpu_torch.ops.losses import _kl_pointwise, softmax_kl_loss
 from hpfg_tpu_torch.parallel.distributed import all_gather_rows
 
 _NEG_INF = torch.finfo(torch.float32).min
@@ -27,12 +28,6 @@ _NEG_INF = torch.finfo(torch.float32).min
 def _l2n(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True),
                            min=eps)
-
-
-def _kl_pointwise(logp: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """torch ``kl_div`` pointwise: q * (log q - log p), 0 where q == 0."""
-    return torch.where(q > 0, q * (torch.log(torch.clamp(q, min=1e-30))
-                                   - logp), 0.0)
 
 
 def simclr_loss(out_1: torch.Tensor, out_2: torch.Tensor,
@@ -155,19 +150,6 @@ def entropy_minimization(p: torch.Tensor) -> torch.Tensor:
     """Mean pixel entropy of probability maps (reference
     entropy_minmization)."""
     return (-(p * torch.log(p + 1e-6)).sum(-1)).mean()
-
-
-def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor,
-                    sigmoid: bool = False) -> torch.Tensor:
-    """KL(target || input), mean over all elements (torch
-    ``F.kl_div(reduction="mean")``; JAX ``losses.softmax_kl_loss``)."""
-    if sigmoid:
-        logp = torch.log(torch.sigmoid(input_logits.float()))
-        q = torch.sigmoid(target_logits.float())
-    else:
-        logp = torch.log_softmax(input_logits.float(), dim=-1)
-        q = torch.softmax(target_logits.float(), dim=-1)
-    return _kl_pointwise(logp, q).mean()
 
 
 def compute_kl_loss(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,22 @@
-"""Segmentation / SSL losses used by the main path (port of
-``hpfg_tpu/ops/losses.py``). Class axis last (NHWC); reductions in fp32.
+"""The segmentation / SSL loss library (port of
+``hpfg_tpu/ops/losses.py``): the main path's losses and the rest of the
+reference's library (soft-target, binary and per-sample dice, KL, MSE,
+entropy, focal, BCE + dice (+ smooth L1)). Class axis last (NHWC);
+reductions in fp32.
 
-Each loss takes ``mesh`` (default None, one process): under data
-parallelism over W > 1 ranks (``parallel.mesh.Mesh``) the inputs are this
-rank's rows, every sum behind the loss is all-reduced over the ranks and
-every count is the global one, so each rank computes the loss of the
-global batch (the contrastive losses run on the gathered rows of both
-views). Their backward follows the scaling rule of
-``parallel/distributed.py``.
+Each loss that reduces over the batch takes ``mesh`` (default None, one
+process): under data parallelism over W > 1 ranks
+(``parallel.mesh.Mesh``) the inputs are this rank's rows, every sum behind
+the loss is all-reduced over the ranks and every count is the global one,
+so each rank computes the loss of the global batch (the contrastive losses
+run on the gathered rows of both views). Their backward follows the
+scaling rule of ``parallel/distributed.py``. The pointwise
+``softmax_mse_loss`` and ``entropy_loss_map`` take none.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,6 +45,16 @@ def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
     return all_reduce_sum(x.sum(), mesh) / (x.numel() * mesh.world)
 
 
+def _dice_loss(smooth: float, mesh, intersect: torch.Tensor,
+               z_sum: torch.Tensor, y_sum: torch.Tensor) -> torch.Tensor:
+    """1 - (2*intersect+s) / (z_sum+y_sum+s), the three sums all-reduced
+    together over the ranks."""
+    if spans_ranks(mesh):
+        intersect, z_sum, y_sum = all_reduce_sum(
+            torch.stack([intersect, z_sum, y_sum]), mesh)
+    return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
+
+
 def soft_dice_per_class(probs: torch.Tensor, target_one_hot: torch.Tensor,
                         smooth: float = SMOOTH, mesh=None) -> torch.Tensor:
     """Per-class soft dice loss (1 - dice) over all pixels of the batch:
@@ -46,13 +62,8 @@ def soft_dice_per_class(probs: torch.Tensor, target_one_hot: torch.Tensor,
     p = probs.float()
     t = target_one_hot.float()
     dims = tuple(range(p.dim() - 1))
-    intersect = (p * t).sum(dims)
-    z_sum = (p * p).sum(dims)
-    y_sum = (t * t).sum(dims)
-    if spans_ranks(mesh):  # one all-reduce of the three sums
-        intersect, z_sum, y_sum = all_reduce_sum(
-            torch.stack([intersect, z_sum, y_sum]), mesh)
-    return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
+    return _dice_loss(smooth, mesh, (p * t).sum(dims), (p * p).sum(dims),
+                      (t * t).sum(dims))
 
 
 def dice_loss_multiclass(probs: torch.Tensor, labels: torch.Tensor,
@@ -66,6 +77,37 @@ def dice_loss_multiclass(probs: torch.Tensor, labels: torch.Tensor,
         per_class = per_class * torch.as_tensor(weight, dtype=per_class.dtype,
                                                 device=per_class.device)
     return per_class.mean()
+
+
+def dice_loss_from_probs(probs: torch.Tensor, target_probs: torch.Tensor,
+                         smooth: float = SMOOTH, mesh=None) -> torch.Tensor:
+    """Soft-target dice loss, mean over classes; sum(t), not sum(t^2), in
+    the denominator."""
+    p = probs.float()
+    t = target_probs.float()
+    dims = tuple(range(p.dim() - 1))
+    return _dice_loss(smooth, mesh, (p * t).sum(dims), p.sum(dims),
+                      t.sum(dims)).mean()
+
+
+def softmax_dice_loss(input_logits: torch.Tensor,
+                      target_logits: torch.Tensor,
+                      mesh=None) -> torch.Tensor:
+    """Softmax of both sides, then the soft-target dice loss."""
+    return dice_loss_from_probs(torch.softmax(input_logits.float(), dim=-1),
+                                torch.softmax(target_logits.float(), dim=-1),
+                                mesh=mesh)
+
+
+def dice_loss_binary(probs: torch.Tensor, targets: torch.Tensor,
+                     smooth: float = SMOOTH, mesh=None) -> torch.Tensor:
+    """1 - the batch mean of each sample's dice over its flattened
+    pixels."""
+    n = probs.shape[0]
+    p = probs.float().reshape(n, -1)
+    t = targets.float().reshape(n, -1)
+    dice = (2.0 * (p * t).sum(1) + smooth) / (p.sum(1) + t.sum(1) + smooth)
+    return 1.0 - global_mean(dice, mesh)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -104,6 +146,93 @@ def softmax_mse_loss(input_logits: torch.Tensor, target_logits: torch.Tensor,
         a = torch.softmax(input_logits.float(), dim=-1)
         b = torch.softmax(target_logits.float(), dim=-1)
     return (a - b) ** 2
+
+
+def _kl_pointwise(logp: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """torch ``kl_div`` pointwise: q * (log q - log p), 0 where q == 0."""
+    return torch.where(q > 0, q * (torch.log(torch.clamp(q, min=1e-30))
+                                   - logp), 0.0)
+
+
+def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor,
+                    sigmoid: bool = False, mesh=None) -> torch.Tensor:
+    """KL(target || input), mean over all elements (torch
+    ``F.kl_div(reduction="mean")``)."""
+    if sigmoid:
+        logp = torch.log(torch.sigmoid(input_logits.float()))
+        q = torch.sigmoid(target_logits.float())
+    else:
+        logp = torch.log_softmax(input_logits.float(), dim=-1)
+        q = torch.softmax(target_logits.float(), dim=-1)
+    return global_mean(_kl_pointwise(logp, q), mesh)
+
+
+def symmetric_mse_loss(a: torch.Tensor, b: torch.Tensor,
+                       mesh=None) -> torch.Tensor:
+    """Mean squared difference, gradients to both sides."""
+    return global_mean((a.float() - b.float()) ** 2, mesh)
+
+
+def entropy_loss_map(probs: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Per-pixel entropy over the class axis, normalised by log(C)
+    ([..., 1])."""
+    p = probs.float()
+    return -(p * torch.log(p + 1e-6)).sum(-1, keepdim=True) / math.log(
+        num_classes)
+
+
+def entropy_loss(probs: torch.Tensor, num_classes: int,
+                 mesh=None) -> torch.Tensor:
+    """Mean normalised pixel entropy."""
+    return global_mean(entropy_loss_map(probs, num_classes), mesh)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+               gamma: float = 2.0, alpha=None, size_average: bool = True,
+               mesh=None) -> torch.Tensor:
+    """Focal loss -(1 - pt)^gamma * alpha_t * log pt, with no gradient
+    through pt; the mean over pixels, or with ``size_average=False`` the
+    sum."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    oh = one_hot_labels(labels, logits.shape[-1])
+    logpt = (logp * oh).sum(-1)
+    pt = torch.exp(logpt.detach())
+    if alpha is not None:
+        logpt = logpt * (torch.as_tensor(alpha, dtype=torch.float32,
+                                         device=oh.device) * oh).sum(-1)
+    loss = -((1.0 - pt) ** gamma) * logpt
+    if size_average:
+        return global_mean(loss, mesh)
+    return all_reduce_sum(loss.sum(), mesh)
+
+
+def _binary_ce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                           mesh=None) -> torch.Tensor:
+    """Mean BCE with logits in the stable form
+    max(x, 0) - x*t + log1p(exp(-|x|))."""
+    x = logits.float()
+    t = targets.float()
+    return global_mean(torch.clamp(x, min=0) - x * t
+                       + torch.log1p(torch.exp(-x.abs())), mesh)
+
+
+def bce_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
+    """0.5 * BCE with logits + the binary per-sample dice loss."""
+    bce = _binary_ce_with_logits(logits, targets, mesh)
+    dice = dice_loss_binary(torch.sigmoid(logits.float()), targets,
+                            mesh=mesh)
+    return 0.5 * bce + dice
+
+
+def bce_dice_l1_loss(logits: torch.Tensor, targets: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
+    """bce_dice_loss + 0.1 * the mean smooth L1 of (logits - targets),
+    quadratic below |x - t| = 1."""
+    diff = (logits.float() - targets.float()).abs()
+    l1 = global_mean(torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5),
+                     mesh)
+    return bce_dice_loss(logits, targets, mesh) + 0.1 * l1
 
 
 def _l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12

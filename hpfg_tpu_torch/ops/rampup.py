@@ -24,3 +24,9 @@ def linear_rampup(current: float, rampup_length: float) -> float:
     if rampup_length == 0:
         return 1.0
     return min(max(float(current) / rampup_length, 0.0), 1.0)
+
+
+def get_current_consistency_weight(step: float, consistency: float,
+                                   consistency_rampup: float) -> float:
+    """consistency * sigmoid_rampup(step, consistency_rampup)."""
+    return consistency * sigmoid_rampup(step, consistency_rampup)

@@ -88,6 +88,49 @@ def test_port_step_imports_no_jax_and_launches_no_kernel():
     assert out["launches"] == [0] * 10
 
 
+_EXPORTS = r"""
+import json, sys
+import hpfg_tpu_torch, hpfg_tpu_torch.ops
+from hpfg_tpu_torch import Config, load_config
+from hpfg_tpu_torch.ops import (
+    bce_dice_l1_loss, bce_dice_loss, cross_entropy_loss,
+    dense_contrastive_loss, dice_loss_binary, dice_loss_from_probs,
+    dice_loss_multiclass, entropy_loss, entropy_loss_map, focal_loss,
+    med_sup_loss, one_hot_labels, soft_dice_per_class, softmax_dice_loss,
+    softmax_kl_loss, softmax_mse_loss, symmetric_mse_loss,
+    get_current_consistency_weight, linear_rampup, sigmoid_rampup,
+    ema_update, ema_update_subtree, box_masks)
+from hpfg_tpu_torch.evals import calculate_metric_percase, MedicalMetric
+from hpfg_tpu_torch.utils import TBWriter, get_logger, mk_path
+from hpfg_tpu_torch.data import build_loader
+from hpfg_tpu_torch.train import build_lr_schedule, build_optimizer
+from hpfg_tpu_torch.parallel import get_mesh, make_mesh, shard_batch
+cuda = sys.modules.get("hpfg_tpu_torch.ops._cuda")
+with open("/proc/self/maps") as f:
+    mapped = "libhpfg_kernels" in f.read()
+print(json.dumps({
+    "jax_side": sorted(k for k in sys.modules
+                       if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                              "hpfg_tpu")),
+    "library": cuda is not None and cuda._LIB is not None,
+    "mapped": mapped}))
+"""
+
+
+def test_package_exports_import_no_jax_and_load_no_kernel_library():
+    """The package ``__init__`` exports (the JAX package's, name for name;
+    ``tests/test_torch_api_parity.py``) import in a fresh process without
+    ``jax``, ``flax`` or ``hpfg_tpu`` and without building or loading the
+    kernel library."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _EXPORTS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"jax_side": [], "library": False, "mapped": False}
+
+
 _CLI = r"""
 import json, sys
 from hpfg_tpu_torch.run import run

@@ -525,6 +525,24 @@ def _worker(mode: str, rank: int, world: int, port: int, out: str,
         loss.backward()
         torch.save({"loss": loss.detach(), "grads": [t.grad for t in z]},
                    os.path.join(out, f"nt_xent{rank}.pt"))
+    elif mode == "losses":
+        # the mesh-taking losses of ops/losses.py on this rank's rows of
+        # the inputs saved by tests/test_torch_losses_lib.py, with the
+        # gradient of each one's first argument
+        from hpfg_tpu_torch.ops import losses
+        from hpfg_tpu_torch.parallel.mesh import get_mesh, shard_batch
+
+        mesh = get_mesh()
+        saved = torch.load(os.path.join(out, "losses.pt"), weights_only=True)
+        rows = shard_batch(mesh, saved["inputs"])
+        res = {}
+        for name, (fn, first, rest, kwargs) in saved["cases"].items():
+            x = rows[first].clone().requires_grad_(True)
+            loss = getattr(losses, fn)(x, *(rows[k] for k in rest),
+                                       mesh=mesh, **kwargs)
+            loss.backward()
+            res[name] = (loss.detach(), x.grad)
+        torch.save(res, os.path.join(out, f"losses{rank}.pt"))
     else:
         raise ValueError(f"unknown mode {mode!r}")
     sys.stdout.flush()
