@@ -29,6 +29,16 @@ Phases, each of which fails the run on error:
      and its FLOPs over 989 TFLOP/s (H100 SXM bf16 peak);
      A's dgrad into F = 1 at the stem (32 x 224^2 x 16 -> 1) is SS-Net's:
      its VAT differentiates the model with respect to its 1-channel image;
+     K8 and K10 in bf16 take their wgmma/TMA kernels
+     (csrc/conv3x3_sm90.cu; ops/conv_block.py pair_route): each shape
+     also checks PR 4's mma.sync route (the wrappers' launchers for fp32
+     and odd splits) against the plain version, the statistics, y and dW
+     bitwise the same in two runs, and times beside the wrapper's
+     host-inclusive ms the device-only ms of both routes and of cuDNN,
+     the mma route's host-inclusive ms and both routes' enqueue µs (the
+     ``route_times`` keys of kernels.jsonl); the build's SASS
+     (cuobjdump) must show wgmma (HGMMA) and TMA (UTMALDG) in both
+     kernels;
   2b. phase 2's kernel checks again at batch 24, the supervised path's,
      and at ICT's batches 20 (the student) and 12 (each teacher half), at
      the same shapes (every shape those paths give A, B, C, D and K8 to
@@ -59,7 +69,9 @@ Phases, each of which fails the run on error:
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
      in the ACDC layout, 2 warm-up and 5 timed steps, with ``F.conv2d`` /
      ``torch.conv2d`` patched to raise; the launch counters must rise by
-     what the model's structure predicts; one more step traced (device
+     what the model's structure predicts, and every K8 and K10 launch
+     must take the wgmma route (their ``routes`` counters); one more
+     step traced (device
      busy time, the conv kernels' and C's and D's time, and the count of
      device kernels, copies and memsets in the step);
   3b. the HPFG main path the same way, with the values of
@@ -301,6 +313,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
 CU = "hpfg_tpu_torch/csrc/conv3x3.cu"
+CU90 = "hpfg_tpu_torch/csrc/conv3x3_sm90.cu"
 ATTN_CU = "hpfg_tpu_torch/csrc/window_attention.cu"
 BN_CU = "hpfg_tpu_torch/csrc/bn_act.cu"
 PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
@@ -415,15 +428,17 @@ KERNELS = {
                        replaces=f"{PALLAS}:1151",
                        also_replaces=[f"{PALLAS}:1166"],
                        counters=["bn_act_bwd", "bn_act_dpre", "bn_reduce"]),
-    "conv3x3_pair_nhwc": dict(route="cuda", source=CU,
+    "conv3x3_pair_nhwc": dict(route="cuda", source=CU90,
                               replaces=f"{PALLAS}:772", also_replaces=[],
-                              counters=["conv3x3_pair_nhwc"]),
+                              counters=["conv3x3_pair_nhwc"],
+                              routes={"wgmma": CU90, "mma": CU}),
     "conv3x3_dgrad_pair": dict(route="cuda", source=CU,
                                replaces=f"{PALLAS}:1364", also_replaces=[],
                                counters=["conv3x3_dgrad_pair"]),
-    "conv3x3_wgrad_pair": dict(route="cuda", source=CU,
+    "conv3x3_wgrad_pair": dict(route="cuda", source=CU90,
                                replaces=f"{PALLAS}:1453", also_replaces=[],
-                               counters=["conv3x3_wgrad_pair"]),
+                               counters=["conv3x3_wgrad_pair"],
+                               routes={"wgmma": CU90, "mma": CU}),
     "conv3x3_dgrad_reduce": dict(route="cuda", source=CU,
                                  replaces=f"{PALLAS}:1525", also_replaces=[],
                                  counters=["conv3x3_dgrad_reduce"],
@@ -527,9 +542,10 @@ class Report:
 
     def compare(self, kernel: str, what: str, dtype: str, got, ref,
                 ms=None, plain_ms=None, tol=None, library_ms=None,
-                work=None, main=True) -> float:
+                work=None, main=True, **extra) -> float:
         """``work``: (FLOPs, bytes) of the timed call; ``main``: the timed
-        call is one the main path makes (it enters the kernel's totals)."""
+        call is one the main path makes (it enters the kernel's totals);
+        ``extra``: more timings of the row (``route_times``)."""
         tol = TOL[dtype] if tol is None else tol
         got, ref = got.float(), ref.float()
         err = (got - ref).abs().max().item()
@@ -537,7 +553,8 @@ class Report:
         rel = err / scale
         row = dict(kernel=kernel, what=what, dtype=dtype, max_abs_err=err,
                    rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, main=main, geometry=self.geometry)
+                   library_ms=library_ms, main=main, geometry=self.geometry,
+                   **extra)
         if work is not None:
             row["flops"], row["bytes"] = work
             row["bound_ms"], row["bound_by"] = bound(*work)
@@ -861,17 +878,38 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
                 return cb.conv3x3_pair_reference(xa, xb, w, bias,
                                                  want_stats=True)
 
+            y_m = xa.new_empty((batch, hh, hh, f))
+
+            def k8_mma():  # PR 4's route, which the wrapper keeps for fp32
+                return y_m, cb._launch_conv(xa, w, y_m, x2=xb, bias=bias,
+                                            want_sums=True)
+
+            def k8_cudnn():
+                return F.conv2d(nchw(cat), w_c, bias.to(dt), padding=1)
+
+            route = cb.pair_route(ca, cbh, f, dt, True)
             (y, st), (y_r, st_r) = k8(), k8_plain()
             ms, pms = clock(k8), clock(k8_plain)
-            lms = lib(lambda: F.conv2d(nchw(cat), w_c, bias.to(dt),
-                                       padding=1))
+            lms = lib(k8_cudnn)
             work = conv_work(hh, c, f, es, 2 * f, batch=batch)
+            bf16_timed = timed and dt == torch.bfloat16
+            extra = route_times(bf16_timed, k8, k8_mma, k8_cudnn)
             r = max(rep.compare("conv3x3_pair_nhwc", f"{name} fwd{sfx}",
                                 dname, y, y_r, ms, pms, library_ms=lms,
-                                work=work, main=timed),
+                                work=work, main=timed, route=route, **extra),
                     rep.compare("conv3x3_pair_nhwc", f"{name} stats{sfx}",
                                 dname, st, st_r))
-            line.append(f"K8 {r:.1e}{perf(ms, pms, lms, work)}")
+            same_twice(rep, f"conv3x3_pair_nhwc {name} {dname}{sfx}", k8)
+            if route == "wgmma":  # the other route at the same shape
+                got_m, st_m = k8_mma()
+                r = max(r, rep.compare(
+                    "conv3x3_pair_nhwc", f"{name} fwd mma route{sfx}", dname,
+                    got_m, y_r, main=False),
+                    rep.compare("conv3x3_pair_nhwc",
+                                f"{name} stats mma route{sfx}", dname, st_m,
+                                st_r, main=False))
+            line.append(f"K8 {route} {r:.1e}{perf(ms, pms, lms, work)}"
+                        f"{route_note(extra)}")
 
             wf = cb.flip_transpose(w)
             got = cb.conv3x3_dgrad_pair(dp, wf, ca)
@@ -891,23 +929,40 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
                          f"contiguous")
             line.append(f"K9 {r:.1e}{perf(ms, pms, lms, work)}")
 
-            got = cb.conv3x3_wgrad_pair(xa, xb, dp)
+            def k10():
+                return cb.conv3x3_wgrad_pair(xa, xb, dp)
+
+            def k10_mma():
+                return cb._launch_wgrad(xa, dp, src2=xb)
+
+            def k10_cudnn():
+                return torch.nn.grad.conv2d_weight(
+                    nchw(cat), (f, c, 3, 3), nchw(dp), padding=1)
+
+            got = k10()
             ref = cb.conv3x3_wgrad_pair_reference(xa, xb, dp)
-            ms = clock(lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
+            ms = clock(k10)
             pms = clock(lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))
-            lms = lib(lambda: torch.nn.grad.conv2d_weight(
-                nchw(cat), (f, c, 3, 3), nchw(dp), padding=1))
+            lms = lib(k10_cudnn)
             work = conv_work(hh, c, f, es, w_es=4, batch=batch)
+            extra = route_times(bf16_timed, k10, k10_mma, k10_cudnn)
             r = max(rep.compare("conv3x3_wgrad_pair", f"{name} dw_skip{sfx}",
                                 dname, got[0], ref[0], ms, pms,
-                                library_ms=lms, work=work, main=timed),
+                                library_ms=lms, work=work, main=timed,
+                                route=route, **extra),
                     rep.compare("conv3x3_wgrad_pair", f"{name} dw_up{sfx}",
                                 dname, got[1], ref[1]))
-            same_twice(rep, f"conv3x3_wgrad_pair {name} {dname}{sfx}",
-                       lambda: cb.conv3x3_wgrad_pair(xa, xb, dp))
-            line.append(f"K10 {r:.1e}{perf(ms, pms, lms, work)}")
+            same_twice(rep, f"conv3x3_wgrad_pair {name} {dname}{sfx}", k10)
+            if route == "wgmma":
+                dw_m = k10_mma()
+                r = max(r, rep.compare(
+                    "conv3x3_wgrad_pair", f"{name} dw mma route{sfx}", dname,
+                    dw_m, torch.cat([ref[0].reshape(-1), ref[1].reshape(-1)]),
+                    main=False))
+            line.append(f"K10 {route} {r:.1e}{perf(ms, pms, lms, work)}"
+                        f"{route_note(extra)}")
             print(" | ".join(line), flush=True)
-            del xa, xb, cat, dp, y, y_r, got, ref
+            del xa, xb, cat, dp, y, y_r, y_m, got, ref
             torch.cuda.empty_cache()
 
         # the main path's K11 calls: each encoder conv2 dgrad with its
@@ -1051,6 +1106,114 @@ def masked_kernel_times() -> dict:
         for kind in ("host", "device"):
             row[f"{kind}_total"] = sum(row[kind].values())
     print("MASKED " + json.dumps(out), flush=True)
+    return out
+
+
+def route_times(timed: bool, call, mma, library) -> dict:
+    """Phase 2's K8 and K10 rows beside the wrapper's host-inclusive ms
+    (``cuda_ms``): ms on the device alone (``device_ms``) of the wrapper's
+    call, of PR 4's mma.sync route at the same shape and of the library
+    call, the mma route's host-inclusive ms, and the µs the wrapper's call
+    and the mma route take to enqueue (the wgmma route encodes its tensor
+    maps on the host at every call). Empty when untimed."""
+    if not timed:
+        return {}
+    return dict(device_ms=device_ms(call), mma_ms=cuda_ms(mma),
+                mma_device_ms=device_ms(mma),
+                library_device_ms=device_ms(library),
+                enqueue_us=enqueue_us(call), mma_enqueue_us=enqueue_us(mma))
+
+
+def route_note(extra: dict) -> str:
+    """' device call/mma/library ms, enqueue call/mma µs' of
+    ``route_times``."""
+    if not extra:
+        return ""
+    return (f" device {extra['device_ms']:.4f}/{extra['mma_device_ms']:.4f}/"
+            f"{extra['library_device_ms']:.4f}ms (mma host "
+            f"{extra['mma_ms']:.4f}ms) enqueue {extra['enqueue_us']:.0f}/"
+            f"{extra['mma_enqueue_us']:.0f}us")
+
+
+def enqueue_us(fn, reps: int = 20) -> float:
+    """µs of host time to enqueue one call of ``fn``: ``reps`` calls timed
+    on the host clock behind a sleep kernel of about 30 ms, so the device's
+    queue never pushes back on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(60_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def pair_kernel_times(batch: int = BATCH) -> dict:
+    """K8 (``conv3x3_pair_nhwc`` with its statistics) and K10
+    (``conv3x3_wgrad_pair`` with its column sum) in bf16 at the four
+    UpBlock shapes, beside the cuDNN call phase 2 times for each (F.conv2d
+    and conv2d_weight on the materialised concat): ms per call on the
+    device alone (``device_ms``) and by phase 2's host-inclusive method
+    (``cuda_ms``), and µs of host time to enqueue one call
+    (``enqueue_us``). Routes: ``call`` is the wrapper as a user calls it;
+    ``mma`` PR 4's mma.sync kernels through the launchers the wrappers use
+    for the other calls (``_launch_conv``, ``_launch_wgrad``), the same as
+    ``call`` on a tree without the wgmma route. Printed as one ``PAIR``
+    JSON line and returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {}
+    for name, hh, c, f, _ in BLOCKS:
+        if not name.startswith("up"):
+            continue
+        ca = c // 2
+        xa = randn(batch, hh, hh, ca).to(dt)
+        xb = randn(batch, hh, hh, c - ca).to(dt)
+        w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
+        bias = randn(f, scale=0.1)
+        dp = randn(batch, hh, hh, f).to(dt)
+        cat, w_c = torch.cat([xa, xb], dim=-1), oihw(w)
+        y = torch.empty((batch, hh, hh, f), dtype=dt, device=dev)
+        calls = {
+            "K8 call": lambda: cb.conv3x3_pair_nhwc(xa, xb, w, bias,
+                                                    want_stats=True),
+            "K8 mma": lambda: cb._launch_conv(xa, w, y, x2=xb, bias=bias,
+                                              want_sums=True),
+            "K8 cudnn": lambda: F.conv2d(nchw(cat), w_c, bias.to(dt),
+                                         padding=1),
+            "K10 call": lambda: cb.conv3x3_wgrad_pair(xa, xb, dp),
+            "K10 mma": lambda: cb._launch_wgrad(xa, dp, src2=xb),
+            "K10 cudnn": lambda: torch.nn.grad.conv2d_weight(
+                nchw(cat), (f, c, 3, 3), nchw(dp), padding=1)}
+        row = {}
+        for what, fn in calls.items():
+            row[what] = dict(device_ms=device_ms(fn), host_ms=cuda_ms(fn),
+                             enqueue_us=enqueue_us(fn))
+        out[f"{name} {hh}^2 {ca}+{c - ca}->{f}"] = row
+        del xa, xb, dp, cat, y
+        torch.cuda.empty_cache()
+    totals = {}
+    for row in out.values():
+        for what, t in row.items():
+            acc = totals.setdefault(what, dict(device_ms=0.0, host_ms=0.0))
+            acc["device_ms"] += t["device_ms"]
+            acc["host_ms"] += t["host_ms"]
+    out["total"] = totals
+    print("PAIR " + json.dumps(out), flush=True)
     return out
 
 
@@ -1453,6 +1616,15 @@ def counters() -> dict:
             "window_attention_bwd": wa.window_attention_bwd}
 
 
+def route_counters() -> dict:
+    """The wrappers whose launches each route counts too (K8, K10):
+    ``fn.routes[route].launches``."""
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    return {"conv3x3_pair_nhwc": cb.conv3x3_pair_nhwc,
+            "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair}
+
+
 def crop(cfg: dict) -> int:
     return int(cfg["train_crop_size"][0])
 
@@ -1543,6 +1715,9 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         torch.cuda.synchronize()
         for fn in counters().values():
             fn.launches = 0
+        for fn in route_counters().values():
+            for c in fn.routes.values():
+                c.launches = 0
         torch.cuda.reset_peak_memory_stats()
         trainer.total_itrs = WARMUP + STEPS
         t0 = time.perf_counter()
@@ -1550,6 +1725,8 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters().items()}
+        routes = {k: {r: c.launches for r, c in fn.routes.items()}
+                  for k, fn in route_counters().items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         F.conv2d, torch.conv2d, F.scaled_dot_product_attention = saved
@@ -1576,6 +1753,12 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         if (label in meta.get("paths", CONV_PATHS)
                 and sum(launches[c] for c in meta["counters"]) == 0):
             rep.fail(f"{label} path: kernel {name} was not launched")
+    # every K8 and K10 launch of the path on the wgmma route (bf16, aligned)
+    for name, by_route in routes.items():
+        print(f"{label} routes {name}: {by_route}", flush=True)
+        if by_route["wgmma"] != launches[name] or by_route["mma"]:
+            rep.fail(f"{label} path: {name} launches off the wgmma route: "
+                     f"{by_route} of {launches[name]}")
     busy, conv, bn, step_launches = profile_step(trainer, card, label)
     ms = elapsed / STEPS * 1e3
     imgs = images * STEPS / elapsed
@@ -1586,7 +1769,8 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     summary = dict(ms_per_step=ms, img_per_s=imgs, images_per_step=images,
                    peak_gib=peak, traced_busy_ms=busy, traced_conv_ms=conv,
                    traced_bn_ms=bn, traced_device_launches=step_launches,
-                   busy_share=(busy / ms if busy is not None else None))
+                   busy_share=(busy / ms if busy is not None else None),
+                   launches_by_route=routes)
     return launches, algo, summary
 
 
@@ -1623,7 +1807,8 @@ def profile_step(trainer, card: str, label: str):
     # the port's conv kernels by name (cuDNN's, on the CTCT path's
     # SegFormer, have "wgrad" in theirs too)
     conv = sum(v[1] for k, v in by_name.items()
-               if re.search(r"\b(conv3x3|wgrad)(_bf16)?_kernel\b", k))
+               if re.search(r"\b(conv3x3|wgrad|pair_conv|pair_wgrad)(_bf16)?"
+                            r"_kernel\b", k))
     bn = sum(v[1] for k, v in by_name.items()
              if any(f"bn_{n}_kernel" in k for n in ("act", "reduce", "dpre")))
     launches = sum(v[0] for v in by_name.values())
@@ -2925,12 +3110,17 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_line(rep: Report, paths: dict) -> list[dict]:
+def kernel_line(rep: Report, paths: dict, routes: dict | None = None
+                ) -> list[dict]:
     """The per-kernel summary: launches on each main path's timed run and
     their sum over the paths (``launches``), the largest error over every
     check, and the bf16 times and bounds summed over the timed shapes of
     the ACDC main paths, and in ``at_geometries`` over those of each new
-    path (phase 2d)."""
+    path (phase 2d). For K8 and K10, ``routes`` (each path's launches by
+    route) gives ``launches_by_route`` summed over the paths, and their
+    rows' device-only times give ``device_ms`` (the route the wrapper
+    takes), ``mma_ms`` / ``mma_device_ms`` (PR 4's mma.sync kernels) and
+    ``library_device_ms``, each summed like ``ms``."""
     kernels = []
     for name, meta in KERNELS.items():
         rows = [r for r in rep.rows if r["kernel"] == name]
@@ -2971,8 +3161,25 @@ def kernel_line(rep: Report, paths: dict) -> list[dict]:
             library_ms=(sum(lib) if lib and None not in lib else None),
             **({"library_note": meta["library_note"]}
                if "library_note" in meta else {}),
+            **(route_line(meta["routes"], name, timed, routes or {})
+               if "routes" in meta else {}),
             timed_shapes=len(timed), at_geometries=at))
     return kernels
+
+
+def route_line(sources: dict, name: str, timed: list, routes: dict) -> dict:
+    """K8's or K10's keys of the kernels line for its two routes."""
+    out = dict(route_sources=sources, launches_by_route={
+        r: sum(by.get(name, {}).get(r, 0) for by in routes.values())
+        for r in sources})
+    for key in ("device_ms", "mma_ms", "mma_device_ms", "library_device_ms"):
+        vals = [r.get(key) for r in timed]
+        out[key] = sum(vals) if vals and None not in vals else None
+    out["ms_by_shape"] = {r["what"]: {k: r.get(k) for k in (
+        "ms", "device_ms", "mma_ms", "mma_device_ms", "library_ms",
+        "library_device_ms", "bound_ms", "enqueue_us", "mma_enqueue_us")}
+        for r in timed}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3762,6 +3969,39 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
+#: the wgmma kernels (K8, K10) whose SASS must hold wgmma and TMA
+#: instructions, not mma.sync's
+WGMMA_KERNELS = ("pair_conv_kernel", "pair_wgrad_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(lib_path) -> dict:
+    """Per instantiation of each WGMMA_KERNELS kernel in the library's SASS
+    (``cuobjdump -sass``): how many HGMMA (wgmma), UTMALDG (TMA loads) and
+    HMMA (mma.sync) instructions it holds."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                           "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            n = re.search(r"_kernelILi(\d+)E", m.group(1))
+            func = next((f"{k}<{n.group(1) if n else ''}>"
+                         for k in WGMMA_KERNELS if k in m.group(1)), None)
+            if func:
+                out[func] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if func:
+            op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                           line)
+            if op and op.group(1) in SASS_OPS:
+                out[func][op.group(1)] += 1
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3801,6 +4041,14 @@ def main() -> int:
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
     for line in ptxas_summary(lib.build_log):
         print(f"  ptxas: {line}")
+    sass = sass_counts(lib.path)
+    for func, ops in sass.items():
+        print(f"  sass: {func}: {ops}")
+    for k in WGMMA_KERNELS:
+        insts = [ops for f, ops in sass.items() if f.startswith(k)]
+        if not insts or not all(o["HGMMA"] and o["UTMALDG"] for o in insts):
+            rep.fail(f"{k}: no wgmma (HGMMA) or TMA (UTMALDG) in its SASS: "
+                     f"{insts}")
 
     def phase(name, fn):
         t0 = time.perf_counter()
@@ -3926,7 +4174,8 @@ def main() -> int:
                       ("jax", "jaxlib", "flax", "hpfg_tpu"))
     if jax_side:
         rep.fail(f"JAX-side modules were imported: {jax_side[:5]}")
-    kernels = kernel_line(rep, paths)
+    kernels = kernel_line(rep, paths, {
+        p: summaries[p].get("launches_by_route", {}) for p in summaries})
     with open(os.path.join(OUT_DIR, "summary.json"), "w",
               encoding="utf-8") as f:
         json.dump({"card": card, "paths": summaries, "resume": resume,

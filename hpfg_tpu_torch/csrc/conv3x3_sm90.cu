@@ -1,0 +1,1002 @@
+// The UpBlock pair convs K8 and K10 in bf16 on Hopper's own tensor-core path:
+// wgmma (warpgroup MMA, fp32 sums in registers) fed by TMA (tensor-map bulk
+// copies into shared memory, completion on mbarriers). sm_90a only.
+//
+// Replaces (hpfg_tpu/ops/pallas/conv_block.py):
+//   * K8 _conv_stats_cat_kernel (conv_block.py:772): the UpBlock conv1 over
+//     the implicit channel concat (skip || up) + bias, with the BN
+//     [sum, sum^2] of the fp32 result: pair_conv_kernel, launcher
+//     hpfg_pair_conv_sm90;
+//   * K10 _wgrad_pair_kernel (conv_block.py:1453): that conv's weight
+//     gradients, [3,3,Ca,F] then [3,3,Cb,F], in one launch:
+//     pair_wgrad_kernel, launcher hpfg_pair_wgrad_sm90.
+// Both are the identity-operand forms (no BN prologue, no dropout), which
+// is what lets TMA copy their operands untouched. ops/conv_block.py
+// (pair_route) sends a bf16 pair call here when TMA can take its tensors
+// (Ca, Cb and F multiples of 8, 16-byte aligned bases); every other pair
+// call (fp32, odd splits) keeps conv3x3.cu's mma.sync kernels.
+//
+// What bounds them on an H100: each UpBlock conv1 is 14.8 GFLOP at batch
+// 32 (15 us at 989 TFLOP/s); at 28^2 and 56^2 (128 and 64 channels a half)
+// operations bound them, at 112^2 and 224^2 (32 and 16) the bytes of x and
+// y (23 and 46 us at 3.35 TB/s). wgmma is Hopper's only path to its full
+// tensor rate; at the byte-bound shapes what counts is keeping enough
+// copies in flight. K10 also writes a split-K partial row a CTA, which
+// the column sum reads back (19 MB each way at 28^2 and 56^2, batch 32).
+//
+// What the design does about it:
+//   * operands come by TMA into a ring of stages (four; three in K8 at
+//     N >= 64, whose output tile takes the room), one mbarrier each
+//     (expect-tx bytes); one thread issues the copies of step s + stages
+//     once every warp is past step s, so the ring's steps of loads are in
+//     flight while the warpgroups multiply (two stages measured as fast
+//     as six: the loads are not what bounds these kernels);
+//   * the activations come as a halo box of 16 channels (one source's
+//     channel group: a step's K never spans the two halves, so the concat
+//     is never written) over the tile plus its one-pixel rim, from a 4-D
+//     tensor map [C, W, H, B] of xa or xb. TMA fills what lies outside the
+//     image (or past the source's channels) with zeros: that is the SAME
+//     padding, and a split that is a multiple of 8 but not 16 gets a zero
+//     group tail. 32-byte swizzle: the 16-byte halves of eight consecutive
+//     pixels fall in eight different bank groups;
+//   * A is staged as a tiled halo box and read into registers by ldmatrix
+//     at each tap's shift (wgmma's register-A form), not by im2col boxes
+//     straight into swizzled shared memory: the register fragment of each
+//     warp is mma.sync's, so conv3x3.cu's shifted-halo addressing carries
+//     over, one halo box serves all nine taps (im2col mode would copy it
+//     nine times), and in K8 one fragment serves three taps (ky reuse);
+//   * B comes from shared memory through wgmma descriptors: in K8 the
+//     weights [9 taps][16 channels][N] by one 3-D box per chunk (two for
+//     N = 128), in K10 the dp tile [8 rows][16 pixels][N]; both are N-major
+//     (wgmma's transposed-B form, which 16-bit types allow), with the
+//     swizzle of their row width (32, 64 or 128 bytes), so the canonical
+//     MN-major layout is exactly what TMA writes. K8's weights stay
+//     resident when all chunks fit (Ca + Cb <= 64 at N <= 32);
+//   * K8: a CTA of two warpgroups takes an 8 x 32 pixel tile (16 columns
+//     each), M = 2 x 64 per warpgroup (output rows 2w and 2w + 1 of warp
+//     w), N = up to 128 output channels, K = 9 taps x 16-channel chunks; a
+//     CTA walks a run of tiles, the epilogue adds the bias, takes the
+//     statistics of the fp32 result on in-image pixels and stores bf16 (at
+//     N >= 64 through a swizzled shared-memory tile and a TMA store, which
+//     clips the tile's out-of-image rows and columns; below, from the
+//     registers); the statistics go per tile through shared memory in a
+//     fixed order into per-CTA sums, and the CTA that takes the last
+//     ticket sums the CTAs' rows in row order, so the sums are bitwise the
+//     same from run to run and no column-sum launch follows;
+//   * K10: dW[tap, c, f] = sum_p x[p + tap, c] dp[p, f] as a split-K GEMM,
+//     M = (tap, channel) rows, N = up to 64 output channels, K = pixels. A
+//     CTA of three warpgroups holds four channel groups: warpgroup g takes
+//     the taps of kernel row ky = g, warp q channel group q, and keeps the
+//     three taps kx of its row as three accumulators. So the nine taps
+//     fold into M at any channel count (at 16 and 32 channels a group is
+//     one tap's whole M; the groups a call lacks idle); A comes from the
+//     halo by ldmatrix.trans at the tap's shift, one k16 step per tile row
+//     of 16 pixels. A CTA walks a run of 8 x 16 tiles and writes its
+//     partial row, which the fixed-order column sum (colsum_f32) adds, so
+//     dW is bitwise the same from run to run.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace {
+
+constexpr int GC = 16;       // channels of one group: a k16 step
+constexpr int STAGES = 4;    // TMA ring depth
+constexpr int MAX_SMEM = 232448;
+
+// -- mbarrier, TMA, wgmma ---------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1,
+                                       int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory (it may be rewritten)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// generic-proxy shared-memory writes made visible to TMA (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_a(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t_a(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across a
+// wgmma wait or fence (the asm statements do not name them).
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The shared-memory descriptor of an N-major (MN-major) B operand with the
+// swizzle of its row width sw (32, 64 or 128 bytes): k16 rows of sw bytes,
+// eight-row groups sbo = 8 sw bytes apart, 64-column atoms lbo bytes apart
+// (only N = 128 has two). Layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo,
+                                            int sw) {
+  const uint64_t type = sw == 128 ? 1 : sw == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(((8 * sw) >> 4) & 0x3FFF) << 32) | (type << 62);
+}
+
+// d (this warp's 16 rows of a 64 x N tile) += a (its 16 x 16 fragment, in
+// registers, mma.sync's A layout) * B (16 x N at desc_b, transposed: N-major)
+static __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+static __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+static __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+static __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, desc_b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
+  else wgmma_rs_n128(d, a, desc_b);
+}
+
+// Byte offset of 16-byte half h (channels 8h..8h+7) of pixel p in a halo
+// box of 16-channel (32-byte) pixels, as TMA's 32-byte swizzle lays it out
+// (address bit 4 ^= bit 7) from a 1024-byte aligned base.
+__device__ __forceinline__ uint32_t halo_byte(int p, int h) {
+  return (uint32_t)(p * 32 + ((h ^ ((p >> 2) & 1)) << 4));
+}
+
+// A channel group g of the pair: source b when g >= na (the groups of
+// source a first), and its first channel in that source.
+__device__ __forceinline__ bool group_src(int g, int na, int& c) {
+  const bool second = g >= na;
+  c = GC * (second ? g - na : g);
+  return second;
+}
+
+// -- K8 ---------------------------------------------------------------------
+
+constexpr int CV_TH = 8;   // tile rows
+constexpr int CV_TW = 32;  // tile columns: warpgroup g takes 16g..16g+15
+constexpr int CV_HW = CV_TW + 2;
+constexpr int CV_HH = CV_TH + 2;
+constexpr int CV_A_BYTES = CV_HH * CV_HW * GC * 2;               // 10880
+constexpr int CV_A_SLOT = (CV_A_BYTES + 1023) / 1024 * 1024;     // 11264
+constexpr int CV_NT = 256;
+
+template <int BN>
+struct PairConv {
+  static constexpr int NJ = BN / 8;                      // n8 blocks
+  static constexpr int BNB = BN < 64 ? BN : 64;          // TMA box width
+  static constexpr int SW = BNB * 2;                     // B row bytes
+  static constexpr int B_BYTES = 9 * GC * BN * 2;        // one chunk
+  static constexpr int B_SLOT = (B_BYTES + 1023) / 1024 * 1024;
+  static constexpr int HALF = 9 * GC * BNB * 2;          // one 64-wide box
+  // [8 warps][BN][2] fp32, and the last CTA's [CV_NT] float4 after it
+  static constexpr int RED_BYTES = 8 * BN * 2 * 4 > 16 * 256 ? 8 * BN * 2 * 4
+                                                             : 16 * 256;
+  // N >= 64 (the operation-bound stages): the rounded tile goes out by
+  // TMA from a shared-memory tile, [8 rows][32 pixels][BNB] a 64-wide
+  // half, swizzled as B (measured 9% faster at 28^2 and 56^2 than stores
+  // from the registers, which leave the tile's end exposed); N <= 32: from
+  // the registers, as the extra tile and barriers cost the byte-bound
+  // stages their second CTA an SM (slower at 112^2)
+  static constexpr bool TMA_Y = BN >= 64;
+  static constexpr int OUT_HALF = CV_TH * CV_TW * BNB * 2;
+  static constexpr int OUT_BYTES = TMA_Y ? CV_TH * CV_TW * BN * 2 : 0;
+  static constexpr int ST = TMA_Y ? 3 : STAGES;  // ring stages
+  // barriers and the bias at the head, then the output tile, the A ring,
+  // B, the reduction
+  static constexpr int OUT_OFF = 1024;
+  static constexpr int A_OFF = OUT_OFF + OUT_BYTES;
+  static int smem(int b_slots) {
+    return 1024 + A_OFF + ST * CV_A_SLOT + b_slots * B_SLOT + RED_BYTES;
+  }
+};
+
+struct PairConvMaps {
+  CUtensorMap xa, xb, w, y;
+};
+
+struct PairConvArgs {
+  const float* bias;    // [F] or null
+  uint16_t* y;          // [B,H,W,F] bf16 (written by TMA through maps.y)
+  float* part;          // [gridDim.x, 2F] or null (no statistics)
+  float* stats;         // [2F]: the summed [sum, sum^2]
+  unsigned* counter;    // the ticket, 0 between launches
+  int H, W, F, ca, cb;
+  int tiles_x, tiles_per_img, total_tiles, tiles_per_cta;
+  int wres;             // the weights of every chunk stay resident
+};
+
+// N <= 32: two CTAs an SM (at most 128 registers a thread), which the
+// byte-bound stages (112^2, 224^2) need to keep enough copies in flight
+template <int BN>
+__global__ void __launch_bounds__(CV_NT, BN <= 32 ? 2 : 1)
+pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
+                 const PairConvArgs a) {
+  using K = PairConv<BN>;
+  constexpr int NJ = K::NJ, SW = K::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [K::ST]
+  uint64_t* wbar = full + K::ST;
+  // the last-CTA flag: dynamic like the rest, as the opt-in of MAX_SMEM
+  // bytes leaves no room for static shared memory
+  int* s_last = reinterpret_cast<int*>(smem + 48);
+  float* s_bias = reinterpret_cast<float*>(smem + 64);  // [BN]
+  uint8_t* out_s = smem + K::OUT_OFF;
+  uint8_t* ring_a = smem + K::A_OFF;
+  uint8_t* ring_b = ring_a + K::ST * CV_A_SLOT;
+  const int na = (a.ca + GC - 1) / GC;
+  const int nch = na + (a.cb + GC - 1) / GC;
+  float* red = reinterpret_cast<float*>(
+      ring_b + (a.wres ? nch : K::ST) * K::B_SLOT);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;          // warpgroup: pixel columns 16wg..
+  const int w = (tid >> 5) & 3;     // warp of the warpgroup: rows 2w, 2w+1
+  const int lr = lane & 7, lq = lane >> 3;
+  const int n0 = blockIdx.y * BN;
+  const int H = a.H, W = a.W, F = a.F;
+  const int t_begin = blockIdx.x * a.tiles_per_cta;
+  const int t_end = min(t_begin + a.tiles_per_cta, a.total_tiles);
+  const int nsteps = (t_end - t_begin) * nch;
+
+  auto tile_of = [&](int t, int& b, int& ty0, int& tx0) {
+    b = t / a.tiles_per_img;
+    const int tt = t - b * a.tiles_per_img;
+    ty0 = (tt / a.tiles_x) * CV_TH;
+    tx0 = (tt % a.tiles_x) * CV_TW;
+  };
+  // weights of chunk k (concat channels from its group) into dst
+  auto load_w = [&](uint32_t dst, uint64_t* bar, int k) {
+    int c;
+    const bool second = group_src(k, na, c);
+    const int row = second ? a.ca + c : c;
+#pragma unroll
+    for (int hb = 0; hb < BN / K::BNB; ++hb)
+      tma_3d(dst + hb * K::HALF, &maps.w, bar, n0 + hb * K::BNB, row, 0);
+  };
+  auto issue = [&](int s) {
+    const int st = s % K::ST;
+    const int k = s % nch;
+    int b, ty0, tx0;
+    tile_of(t_begin + s / nch, b, ty0, tx0);
+    mbar_expect_tx(&full[st], CV_A_BYTES + (a.wres ? 0 : K::B_BYTES));
+    int c;
+    const bool second = group_src(k, na, c);
+    tma_4d(smem_u32(ring_a + st * CV_A_SLOT), second ? &maps.xb : &maps.xa,
+           &full[st], c, tx0 - 1, ty0 - 1, b);
+    if (!a.wres) load_w(smem_u32(ring_b + st * K::B_SLOT), &full[st], k);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= K::ST; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < BN; i += CV_NT)
+    s_bias[i] = a.bias != nullptr && n0 + i < F ? a.bias[n0 + i] : 0.f;
+  __syncthreads();
+  if (tid == 0) {
+    if (a.wres) {
+      mbar_expect_tx(wbar, nch * K::B_BYTES);
+      for (int k = 0; k < nch; ++k)
+        load_w(smem_u32(ring_b + k * K::B_SLOT), wbar, k);
+    }
+    for (int s = 0; s < K::ST && s < nsteps; ++s) issue(s);
+  }
+  if (a.wres) mbar_wait(wbar, 0);
+
+  float acc[2][BN / 2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[i][e] = 0.f;
+  float run0 = 0.f, run1 = 0.f;  // thread tid < BN: column tid's sums
+
+  for (int s = 0; s < nsteps; ++s) {
+    const int st = s % K::ST;
+    const int k = s % nch;
+    mbar_wait(&full[st], (s / K::ST) & 1);
+    const uint32_t sa = smem_u32(ring_a + st * CV_A_SLOT);
+    const uint32_t sb =
+        smem_u32(ring_b + (a.wres ? k : st) * K::B_SLOT);
+    // halo row 2w + r at shift kx is output row 2w + i's A at tap
+    // (r - i, kx): four fragments serve both rows at the three ky
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = (2 * w + r) * CV_HW + 16 * wg + kx + lr + 8 * (lq & 1);
+        ldsm_x4_a(af[r], sa + halo_byte(p, lq >> 1));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const uint64_t d =
+            desc_mn(sb + (ky * 3 + kx) * GC * SW, K::HALF, SW);
+        wgmma_rs<BN>(acc[0], af[ky], d);
+        wgmma_rs<BN>(acc[1], af[ky + 1], d);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+
+    if (k == nch - 1) {
+      // the epilogue: acc[i][4j + 2h + e] is pixel (ty0 + 2w + i,
+      // tx0 + 16wg + lane/4 + 8h), channel n0 + 8j + 2(lane%4) + e; the
+      // rounded tile goes to out_s and leaves by one TMA store a 64-wide
+      // half (which writes only what lies in the image and below F)
+      int b, ty0, tx0;
+      tile_of(t_begin + s / nch, b, ty0, tx0);
+      if constexpr (K::TMA_Y) {
+        if (tid == 0) bulk_wait_read();  // the last store has read out_s
+        __syncthreads();
+      }
+      float sm[NJ][2], sq[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) sm[j][0] = sm[j][1] = sq[j][0] = sq[j][1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int oy = ty0 + 2 * w + i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = 16 * wg + (lane >> 2) + 8 * h;
+          const int ox = tx0 + px;
+          const bool in = oy < H && ox < W;
+          const int pix = (2 * w + i) * CV_TW + px;  // in the tile
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int col = 8 * j + 2 * (lane & 3);
+            const float o0 = acc[i][4 * j + 2 * h] + s_bias[col];
+            const float o1 = acc[i][4 * j + 2 * h + 1] + s_bias[col + 1];
+            acc[i][4 * j + 2 * h] = 0.f;
+            acc[i][4 * j + 2 * h + 1] = 0.f;
+            if (in && n0 + col < F) {  // F % 8 == 0: col + 1 < F too
+              sm[j][0] += o0;
+              sq[j][0] += o0 * o0;
+              sm[j][1] += o1;
+              sq[j][1] += o1 * o1;
+              if constexpr (!K::TMA_Y)
+                *reinterpret_cast<uint32_t*>(
+                    a.y + (((size_t)b * H + oy) * W + ox) * F + n0 + col) =
+                    pack_bf16(o0, o1);
+            }
+            if constexpr (K::TMA_Y) {
+              // 16-byte chunk (col % BNB) / 8 of row pix, swizzled as TMA
+              // lays a row of SW bytes (chunk ^= address bits 7.. of it)
+              const int hc = (col % K::BNB) >> 3;
+              const uint32_t off =
+                  (col / K::BNB) * K::OUT_HALF + pix * SW +
+                  ((hc ^ ((pix * SW >> 7) & (SW / 16 - 1))) << 4) +
+                  (col & 7) * 2;
+              *reinterpret_cast<uint32_t*>(out_s + off) = pack_bf16(o0, o1);
+            }
+          }
+        }
+      }
+      if (a.part != nullptr) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              sm[j][e] += __shfl_xor_sync(0xffffffffu, sm[j][e], off);
+              sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], off);
+            }
+        if (lane < 4) {
+          const int wv = (tid >> 5);  // warp of the CTA, 0..7
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * lane + e;
+              red[(wv * BN + col) * 2] = sm[j][e];
+              red[(wv * BN + col) * 2 + 1] = sq[j][e];
+            }
+        }
+      }
+      if constexpr (K::TMA_Y) fence_proxy_async();
+      __syncthreads();
+      if (K::TMA_Y && tid == 0) {
+#pragma unroll
+        for (int hb = 0; hb < BN / K::BNB; ++hb)
+          tma_store_4d(&maps.y, smem_u32(out_s + hb * K::OUT_HALF),
+                       n0 + hb * K::BNB, tx0, ty0, b);
+        bulk_commit();
+      }
+      if (a.part != nullptr && tid < BN) {
+        float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+        for (int wv = 0; wv < 8; ++wv) {
+          t0 += red[(wv * BN + tid) * 2];
+          t1 += red[(wv * BN + tid) * 2 + 1];
+        }
+        run0 += t0;
+        run1 += t1;
+      }
+    }
+    __syncthreads();  // every warp is past stage st (and the reduction)
+    if (tid == 0 && s + K::ST < nsteps) issue(s + K::ST);
+  }
+
+  if (K::TMA_Y && tid == 0) bulk_wait();  // y written before the CTA leaves
+  if (a.part == nullptr) return;
+  const int row2 = 2 * F;
+  if (tid < BN && n0 + tid < F) {
+    a.part[(size_t)blockIdx.x * row2 + n0 + tid] = run0;
+    a.part[(size_t)blockIdx.x * row2 + F + n0 + tid] = run1;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    *s_last = atomicAdd(a.counter, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  // the last CTA: every column over the CTAs' rows in row order, in Q
+  // interleaved slices of rows (slice q takes rows q, q + Q, ...) added in
+  // order; 16-byte loads that bypass L1, 16 in flight a thread
+  const int rows = gridDim.x, WQ = row2 / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(a.part);
+  const int Q = WQ >= CV_NT ? 1 : CV_NT / WQ;
+  float4* fin = reinterpret_cast<float4*>(red);  // [CV_NT] float4: 4 KB
+  for (int j0 = 0; j0 < WQ; j0 += CV_NT) {
+    const int q = Q == 1 ? 0 : tid / WQ;
+    const int j = Q == 1 ? j0 + tid : tid % WQ;
+    float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < Q && j < WQ) {
+      int r = q;
+      for (; r + 15 * Q < rows; r += 16 * Q) {
+        float4 v[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          v[i] = __ldcg(p4 + (size_t)(r + i * Q) * WQ + j);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          s4.x += v[i].x;
+          s4.y += v[i].y;
+          s4.z += v[i].z;
+          s4.w += v[i].w;
+        }
+      }
+      for (; r < rows; r += Q) {
+        const float4 v = __ldcg(p4 + (size_t)r * WQ + j);
+        s4.x += v.x;
+        s4.y += v.y;
+        s4.z += v.z;
+        s4.w += v.w;
+      }
+    }
+    fin[tid] = s4;
+    __syncthreads();
+    if (q == 0 && j < WQ) {
+      float4 t = fin[tid];
+      for (int qq = 1; qq < Q; ++qq) {
+        const float4 u = fin[qq * WQ + j];
+        t.x += u.x;
+        t.y += u.y;
+        t.z += u.z;
+        t.w += u.w;
+      }
+      reinterpret_cast<float4*>(a.stats)[j] = t;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) *a.counter = 0u;
+}
+
+// -- K10 --------------------------------------------------------------------
+
+constexpr int WG_TH = 8;   // tile rows: one k16 step each
+constexpr int WG_TW = 16;  // tile columns: the step's 16 pixels
+constexpr int WG_HW = WG_TW + 2;
+constexpr int WG_A_BYTES = (WG_TH + 2) * WG_HW * GC * 2;  // 5760
+constexpr int WG_A_SLOT = 6144;
+constexpr int WG_GROUPS = 4;   // channel groups a CTA holds: warp q takes q
+constexpr int WG_NT = 384;     // three warpgroups: kernel rows ky = 0, 1, 2
+
+template <int BN>
+struct PairWgrad {
+  static constexpr int SW = BN * 2;                  // dp row bytes
+  static constexpr int D_BYTES = WG_TH * WG_TW * BN * 2;
+  static constexpr int STAGE = WG_GROUPS * WG_A_SLOT + D_BYTES;
+  static constexpr int SMEM = 1024 + 1024 + STAGES * STAGE;
+};
+
+struct PairWgradMaps {
+  CUtensorMap xa, xb, dp;
+};
+
+struct PairWgradArgs {
+  float* part;  // [gridDim.x, 9*(ca+cb)*F]: [3,3,ca,F] then [3,3,cb,F]
+  int H, W, F, ca, cb;
+  int tiles_x, tiles_per_img, total_tiles, tiles_per_cta, cblocks;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(WG_NT, 1)
+pair_wgrad_kernel(const __grid_constant__ PairWgradMaps maps,
+                  const PairWgradArgs a) {
+  using K = PairWgrad<BN>;
+  constexpr int SW = K::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint8_t* ring = smem + 1024;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int ky = tid >> 7;        // warpgroup: kernel row
+  const int q = (tid >> 5) & 3;   // warp: channel group of the CTA
+  const int lr = lane & 7, lq = lane >> 3;
+  const int cblk = blockIdx.y % a.cblocks;
+  const int n0 = (blockIdx.y / a.cblocks) * BN;
+  const int na = (a.ca + GC - 1) / GC;
+  const int ngroups = na + (a.cb + GC - 1) / GC;
+  const int g0 = cblk * WG_GROUPS;
+  const int nvalid = min(WG_GROUPS, ngroups - g0);
+  const int t_begin = blockIdx.x * a.tiles_per_cta;
+  const int t_end = min(t_begin + a.tiles_per_cta, a.total_tiles);
+  const int nsteps = t_end - t_begin;
+
+  auto issue = [&](int s) {
+    const int st = s % STAGES;
+    const int t = t_begin + s;
+    const int b = t / a.tiles_per_img;
+    const int tt = t - b * a.tiles_per_img;
+    const int ty0 = (tt / a.tiles_x) * WG_TH;
+    const int tx0 = (tt % a.tiles_x) * WG_TW;
+    const uint32_t base = smem_u32(ring + st * K::STAGE);
+    mbar_expect_tx(&full[st], K::D_BYTES + nvalid * WG_A_BYTES);
+    for (int gq = 0; gq < nvalid; ++gq) {
+      int c;
+      const bool second = group_src(g0 + gq, na, c);
+      tma_4d(base + gq * WG_A_SLOT, second ? &maps.xb : &maps.xa, &full[st],
+             c, tx0 - 1, ty0 - 1, b);
+    }
+    tma_4d(base + WG_GROUPS * WG_A_SLOT, &maps.dp, &full[st], n0, tx0, ty0,
+           b);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < STAGES && s < nsteps; ++s) issue(s);
+
+  float acc[3][BN / 2];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[kx][e] = 0.f;
+
+  for (int s = 0; s < nsteps; ++s) {
+    const int st = s % STAGES;
+    mbar_wait(&full[st], (s / STAGES) & 1);
+    const uint32_t base = smem_u32(ring + st * K::STAGE);
+    const uint32_t ga = base + q * WG_A_SLOT;
+    const uint32_t gd = base + WG_GROUPS * WG_A_SLOT;
+    uint32_t af[2][3][4];
+#pragma unroll
+    for (int y = 0; y < WG_TH; ++y) {
+      // A of tap (ky, kx) at tile row y: rows m = the group's 16 channels,
+      // k = the row's 16 pixels at the tap's shift, transposed by ldmatrix
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const int p = (y + ky) * WG_HW + kx + lr + 8 * (lq >> 1);
+        ldsm_x4_t_a(af[y & 1][kx], ga + halo_byte(p, lq & 1));
+      }
+      wgmma_fence();
+      const uint64_t d = desc_mn(gd + y * GC * SW, K::D_BYTES, SW);
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) wgmma_rs<BN>(acc[kx], af[y & 1][kx], d);
+      wgmma_commit();
+      wgmma_wait<1>();  // the group before this one is done: its A is free
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) fence_acc(acc[kx]);
+    __syncthreads();  // every warp is past stage st
+    if (tid == 0 && s + STAGES < nsteps) issue(s + STAGES);
+  }
+
+  // acc[kx][4j + 2h + e]: tap (ky, kx), channel 16 * group + lane/4 + 8h
+  // of its source, output channel n0 + 8j + 2(lane%4) + e
+  if (q >= nvalid) return;
+  int c;
+  const bool second = group_src(g0 + q, na, c);
+  const int cs = second ? a.cb : a.ca;
+  const size_t C = (size_t)a.ca + a.cb;
+  float* row = a.part + (size_t)blockIdx.x * 9 * C * a.F +
+               (second ? (size_t)9 * a.ca * a.F : 0);
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ci = c + (lane >> 2) + 8 * h;
+      if (ci >= cs) continue;
+      float* out = row + ((size_t)(ky * 3 + kx) * cs + ci) * a.F;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int f = n0 + 8 * j + 2 * (lane & 3);
+        if (f < a.F)
+          *reinterpret_cast<float2*>(out + f) =
+              make_float2(acc[kx][4 * j + 2 * h], acc[kx][4 * j + 2 * h + 1]);
+      }
+    }
+}
+
+// -- host --------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, fetched once through the runtime
+// (cudaGetDriverEntryPoint), so the build links nothing beyond cudart.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// launcher errors that are not CUDA's: the driver entry point is missing
+// (1000), or the driver refused a tensor map (1000 + its CUresult)
+constexpr int ERR_ENCODE = 1000;
+
+CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// A bf16 tensor of dims d[0..rank) (d[0] innermost, dense) as a tensor map
+// with box box[0..rank) and the swizzle of box[0]'s bytes.
+int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
+           const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_ENCODE;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t boxes[5], elem[5];
+  uint64_t stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    dims[i] = d[i];
+    boxes[i] = box[i];
+    elem[i] = 1;
+    stride *= d[i];
+    if (i + 1 < rank) strides[i] = stride;
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), dims, strides, boxes, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle_of(box[0] * 2),
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// An NHWC activation [B,H,W,C] as halo boxes of one channel group
+int encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, int C,
+                int box_w, int box_h) {
+  const uint64_t d[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint32_t box[4] = {GC, (uint32_t)box_w, (uint32_t)box_h, 1};
+  return encode(map, x, 4, d, box);
+}
+
+template <int BN>
+int launch_pair_conv(const void* xa, const void* xb, const void* w,
+                     const PairConvArgs& args, int B, int ctas, int ntn,
+                     cudaStream_t stream) {
+  using K = PairConv<BN>;
+  PairConvMaps maps;
+  const int C = args.ca + args.cb;
+  int err = encode_halo(&maps.xa, xa, B, args.H, args.W, args.ca, CV_HW, CV_HH);
+  if (!err)
+    err = encode_halo(&maps.xb, xb, B, args.H, args.W, args.cb, CV_HW, CV_HH);
+  if (!err) {
+    const uint64_t d[3] = {(uint64_t)args.F, (uint64_t)C, 9};
+    const uint32_t box[3] = {(uint32_t)K::BNB, GC, 9};
+    err = encode(&maps.w, w, 3, d, box);
+  }
+  if (!err) {
+    const uint64_t d[4] = {(uint64_t)args.F, (uint64_t)args.W,
+                           (uint64_t)args.H, (uint64_t)B};
+    const uint32_t box[4] = {(uint32_t)K::BNB, CV_TW, CV_TH, 1};
+    err = encode(&maps.y, args.y, 4, d, box);
+  }
+  if (err) return err;
+  const int nch = (args.ca + GC - 1) / GC + (args.cb + GC - 1) / GC;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pair_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_SMEM);
+  (void)attr;  // a refusal shows as the launch's error
+  pair_conv_kernel<BN><<<dim3(ctas, ntn), CV_NT,
+                         K::smem(args.wres ? nch : K::ST), stream>>>(maps,
+                                                                      args);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_pair_wgrad(const void* xa, const void* xb, const void* dp,
+                      const PairWgradArgs& args, int B, int ctas, int nnb,
+                      cudaStream_t stream) {
+  using K = PairWgrad<BN>;
+  PairWgradMaps maps;
+  int err = encode_halo(&maps.xa, xa, B, args.H, args.W, args.ca, WG_HW,
+                        WG_TH + 2);
+  if (!err)
+    err = encode_halo(&maps.xb, xb, B, args.H, args.W, args.cb, WG_HW,
+                      WG_TH + 2);
+  if (!err) {
+    const uint64_t d[4] = {(uint64_t)args.F, (uint64_t)args.W,
+                           (uint64_t)args.H, (uint64_t)B};
+    const uint32_t box[4] = {(uint32_t)BN, WG_TW, WG_TH, 1};
+    err = encode(&maps.dp, dp, 4, d, box);
+  }
+  if (err) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pair_wgrad_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K::SMEM);
+  (void)attr;
+  pair_wgrad_kernel<BN><<<dim3(ctas, args.cblocks * nnb), WG_NT, K::SMEM,
+                          stream>>>(maps, args);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The wgmma kernels' pixel tiles (rows, columns) of K8 and K10, which the
+// Python geometry (ops/conv_block.py pair_conv_grid, pair_wgrad_grid) sizes
+// the grids and buffers by.
+int hpfg_pair_conv_tile_h() { return CV_TH; }
+int hpfg_pair_conv_tile_w() { return CV_TW; }
+int hpfg_pair_wgrad_tile_h() { return WG_TH; }
+int hpfg_pair_wgrad_tile_w() { return WG_TW; }
+
+// K8 on wgmma: xa [B,H,W,ca], xb [B,H,W,cb], w [3,3,ca+cb,F] bf16 (16-byte
+// aligned; ca, cb, F multiples of 8), bias [F] fp32 or null, y [B,H,W,F]
+// bf16; part [ctas, 2F] fp32, stats [2F] fp32 and counter (a zeroed uint32
+// the kernel leaves zeroed) or all null (no statistics). bn: the N tile
+// (16, 32, 64 or 128; ntn = ceil(F / bn) tiles over grid.y); a CTA takes
+// tiles_per_cta 8 x 32 tiles in order, ctas of them; wres: every chunk's
+// weights stay resident (sized by the caller).
+int hpfg_pair_conv_sm90(const void* xa, const void* xb, const void* w,
+                        const void* bias, void* y, void* part, void* stats,
+                        void* counter, int B, int H, int W, int ca, int cb,
+                        int F, int bn, int tiles_per_cta, int ctas, int wres,
+                        void* stream) {
+  const int tiles_x = (W + CV_TW - 1) / CV_TW;
+  const int tiles_per_img = tiles_x * ((H + CV_TH - 1) / CV_TH);
+  const PairConvArgs args{static_cast<const float*>(bias),
+                          static_cast<uint16_t*>(y),
+                          static_cast<float*>(part),
+                          static_cast<float*>(stats),
+                          static_cast<unsigned*>(counter),
+                          H, W, F, ca, cb, tiles_x, tiles_per_img,
+                          B * tiles_per_img, tiles_per_cta, wres};
+  const int ntn = (F + bn - 1) / bn;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 16: return launch_pair_conv<16>(xa, xb, w, args, B, ctas, ntn, s);
+    case 32: return launch_pair_conv<32>(xa, xb, w, args, B, ctas, ntn, s);
+    case 64: return launch_pair_conv<64>(xa, xb, w, args, B, ctas, ntn, s);
+    case 128: return launch_pair_conv<128>(xa, xb, w, args, B, ctas, ntn, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K10 on wgmma: xa, xb as hpfg_pair_conv_sm90's, dp [B,H,W,F] bf16, part
+// [ctas, 9*(ca+cb)*F] fp32 ([3,3,ca,F] then [3,3,cb,F] a row), summed by
+// hpfg_colsum_f32. bn: the N tile (16, 32 or 64); cblocks: blocks of four
+// 16-channel groups (those of xa, then xb's); grid (ctas, cblocks x
+// ceil(F / bn)); a CTA takes tiles_per_cta 8 x 16 tiles in order.
+int hpfg_pair_wgrad_sm90(const void* xa, const void* xb, const void* dp,
+                         void* part, int B, int H, int W, int ca, int cb,
+                         int F, int bn, int tiles_per_cta, int ctas,
+                         int cblocks, void* stream) {
+  const int tiles_x = (W + WG_TW - 1) / WG_TW;
+  const int tiles_per_img = tiles_x * ((H + WG_TH - 1) / WG_TH);
+  const PairWgradArgs args{static_cast<float*>(part), H, W, F, ca, cb,
+                           tiles_x, tiles_per_img, B * tiles_per_img,
+                           tiles_per_cta, cblocks};
+  const int nnb = (F + bn - 1) / bn;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 16: return launch_pair_wgrad<16>(xa, xb, dp, args, B, ctas, nnb, s);
+    case 32: return launch_pair_wgrad<32>(xa, xb, dp, args, B, ctas, nnb, s);
+    case 64: return launch_pair_wgrad<64>(xa, xb, dp, args, B, ctas, nnb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

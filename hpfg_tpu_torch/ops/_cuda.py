@@ -26,10 +26,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("conv3x3.cu", "window_attention.cu", "bn_act.cu")
+SOURCES = ("conv3x3.cu", "conv3x3_sm90.cu", "window_attention.cu",
+           "bn_act.cu")
 HEADERS = ("hash.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +48,14 @@ _SIGNATURES = {
     "hpfg_conv3x3_wgrad_nhwc": [_P, _P, _I, _P, _P, _P, _I, _U, _U, _F, _P,
                                 _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_colsum_f32": [_P, _P, _I, _I, _I, _P],
+    "hpfg_pair_conv_tile_h": [],
+    "hpfg_pair_conv_tile_w": [],
+    "hpfg_pair_wgrad_tile_h": [],
+    "hpfg_pair_wgrad_tile_w": [],
+    "hpfg_pair_conv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P],
+    "hpfg_pair_wgrad_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
     "hpfg_attn_max_l": [],
     "hpfg_attn_max_d": [],
     "hpfg_window_attention_fwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
@@ -77,6 +86,11 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         # the conv and wgrad kernels' output tile (rows, columns)
         self.tile = (self.lib.hpfg_tile_h(), self.lib.hpfg_tile_w())
+        # the wgmma pair kernels' pixel tiles (K8, K10)
+        self.pair_conv_tile = (self.lib.hpfg_pair_conv_tile_h(),
+                               self.lib.hpfg_pair_conv_tile_w())
+        self.pair_wgrad_tile = (self.lib.hpfg_pair_wgrad_tile_h(),
+                                self.lib.hpfg_pair_wgrad_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()
         self.attn_max_d = self.lib.hpfg_attn_max_d()
         self._bn_occupancy: dict[bool, int] = {}
@@ -129,13 +143,28 @@ def build() -> KernelLibrary:
     t0 = time.perf_counter()
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libhpfg_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        pid = os.getpid()
+        objs = [out_dir / f"{Path(s).stem}.{pid}.o" for s in SOURCES]
+        # one nvcc a source, all at once, then one link
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        tmp = out_dir / f"libhpfg_kernels.{pid}.so"
+        if not failed:
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = ["link"]
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         log_path.write_text(log)
         os.replace(tmp, lib_path)  # atomic: concurrent builds agree
     log = log_path.read_text() if log_path.exists() else ""
@@ -206,6 +235,29 @@ def reporting_flops():
 
 #: the torch.library registrations, kept alive for the process
 _LIBRARIES: list = []
+
+
+_SMS: dict[int, int] = {}
+_TICKETS: dict[tuple[int, str], torch.Tensor] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of CUDA ``device``, read from its properties once."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
+def ticket(device: torch.device, kernel: str) -> torch.Tensor:
+    """The ticket counter of ``kernel``'s last-CTA reduction on CUDA
+    ``device``: an int32 allocated zeroed once, which the kernel's last CTA
+    resets to 0 at every launch."""
+    key = (device.index, kernel)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                    device=torch.device("cuda", key[0]))
+    return _TICKETS[key]
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

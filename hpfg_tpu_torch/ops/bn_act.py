@@ -37,7 +37,9 @@ from hpfg_tpu_torch.ops._cuda import (
     launch_counter,
     library,
     ptr,
+    sm_count,
     stream,
+    ticket,
 )
 
 LRELU_SLOPE = 0.01
@@ -144,8 +146,6 @@ def bn_walk(p: int, f: int, elem_bytes: int, aligned: bool = True,
                   -(-2 * f // 4) * 4, p)
 
 
-_SMS: dict[int, int] = {}
-_COUNTERS: dict[int, torch.Tensor] = {}
 _WALKS: dict[tuple, BnWalk] = {}
 
 
@@ -162,10 +162,7 @@ def _walk(reduce: bool, t: torch.Tensor, ptrs: tuple[int, ...]):
     if w is None:
         resident = None
         if reduce:
-            if dev not in _SMS:
-                _SMS[dev] = torch.cuda.get_device_properties(
-                    dev).multi_processor_count
-            resident = _SMS[dev] * lib.bn_reduce_ctas_per_sm(
+            resident = sm_count(t.device) * lib.bn_reduce_ctas_per_sm(
                 t.dtype == torch.bfloat16)
         w = _WALKS[key] = bn_walk(t.numel() // f, f, t.element_size(),
                                   aligned, resident)
@@ -173,13 +170,8 @@ def _walk(reduce: bool, t: torch.Tensor, ptrs: tuple[int, ...]):
 
 
 def _counter(device: torch.device) -> torch.Tensor:
-    """The device's ticket counter of D's reduce: allocated zeroed once,
-    reset to 0 by the last CTA of every call."""
-    dev = device.index
-    if dev not in _COUNTERS:
-        _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32,
-                                     device=torch.device("cuda", dev))
-    return _COUNTERS[dev]
+    """The device's ticket counter of D's reduce."""
+    return ticket(device, "bn_reduce")
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor | None = None,

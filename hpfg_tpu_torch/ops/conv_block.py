@@ -32,6 +32,8 @@ to an active ``utils.profiling.count_flops`` (``_cuda.counted``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +45,9 @@ from hpfg_tpu_torch.ops._cuda import (
     launch_counter,
     library,
     ptr,
+    sm_count,
     stream,
+    ticket,
 )
 from hpfg_tpu_torch.ops.bn_act import (
     LRELU_SLOPE,
@@ -66,6 +70,18 @@ _MUR2 = 0xC2B2AE35
 WGRAD_TARGET_BLOCKS = 2048
 # the most bytes its per-block dW partials may take
 WGRAD_PART_BYTES = 2 ** 25
+# K8 and K10 on wgmma (csrc/conv3x3_sm90.cu): the CTAs per SM each grid
+# aims at (K8: two of two warpgroups; K10: one of three, with four TMA
+# stages of up to 40 KB), the channels of one TMA channel group, K10's
+# groups per CTA, and the most bytes K8's resident weights may take
+PAIR_CONV_CTAS_PER_SM = 2
+PAIR_WGRAD_CTAS_PER_SM = 1
+PAIR_GROUP = 16
+PAIR_WGRAD_GROUPS = 4
+PAIR_RESIDENT_BYTES = 48 * 1024
+#: the routes of K8 and K10: "wgmma" (csrc/conv3x3_sm90.cu) and "mma"
+#: (PR 4's mma.sync kernels of csrc/conv3x3.cu)
+PAIR_ROUTES = ("wgmma", "mma")
 
 
 @dataclass(frozen=True)
@@ -311,6 +327,141 @@ def wgrad_split(b: int, h: int, w: int, c: int, f: int,
     return per_block, -(-total // per_block)
 
 
+def pair_route(ca: int, cb: int, f: int, dtype, aligned: bool) -> str:
+    """The kernel a pair call (K8, K10) takes on the card. "wgmma" where
+    TMA can take its tensors: bf16 (wgmma has no fp32 product at fp32
+    precision), Ca, Cb and F multiples of 8 (a tensor map's strides are
+    multiples of 16 bytes) and every base 16-byte aligned (``aligned``).
+    Anything else, the GPU tests' 12 + 20 split, odd splits at small
+    stages and fp32, takes "mma": PR 4's kernels, which stage any split
+    element by element. No call falls back from one to the other."""
+    ok = (dtype == torch.bfloat16 and aligned and ca % 8 == 0
+          and cb % 8 == 0 and f % 8 == 0)
+    return "wgmma" if ok else "mma"
+
+
+def _n_tile(f: int, most: int) -> int:
+    """The wgmma N tile for F output channels: F rounded up to 16, 32, 64
+    or 128, at most ``most`` (more channels take more N tiles)."""
+    return next(n for n in (16, 32, 64, 128) if n >= min(f, most))
+
+
+def pair_tile_origin(t: int, h: int, w: int,
+                     tile: tuple[int, int]) -> tuple[int, int, int]:
+    """(image, first row, first column) of pixel tile ``t`` in the wgmma
+    kernels' walk over [*, h, w]: images, then tile rows, then tile
+    columns (``tile_of`` in csrc/conv3x3_sm90.cu); CTA i of a grid walks
+    tiles [i * tiles_per_cta, (i + 1) * tiles_per_cta)."""
+    tiles_x = -(-w // tile[1])
+    per_img = tiles_x * -(-h // tile[0])
+    b, tt = divmod(t, per_img)
+    return b, tt // tiles_x * tile[0], tt % tiles_x * tile[1]
+
+
+def pair_group(g: int, ca: int) -> tuple[int, int]:
+    """Channel group ``g`` of a pair in the wgmma kernels (PAIR_GROUP
+    channels each, xa's groups first, then xb's): (source 0 for xa or 1
+    for xb, its first channel there) (``group_src`` in
+    csrc/conv3x3_sm90.cu). A source's last group may reach past its
+    channels: TMA reads zeros there."""
+    na = -(-ca // PAIR_GROUP)
+    return (0, PAIR_GROUP * g) if g < na else (1, PAIR_GROUP * (g - na))
+
+
+class PairConvGrid(NamedTuple):
+    """K8's wgmma launch: N tile, tiles a CTA walks, CTAs over the tiles
+    (the rows of its statistics partials), N tiles, resident weights."""
+    n_tile: int
+    tiles_per_cta: int
+    ctas: int
+    n_tiles: int
+    resident: bool
+
+
+def pair_conv_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
+                   tile: tuple[int, int], sms: int) -> PairConvGrid:
+    """K8's wgmma grid: CTAs of ``tile`` pixel tiles (8 x 32), about
+    PAIR_CONV_CTAS_PER_SM an SM over the N tiles, each walking a run of
+    consecutive tiles; the weights of every 16-channel chunk stay resident
+    when they fit PAIR_RESIDENT_BYTES."""
+    total = conv_tiles(b, h, w, tile)
+    bn = _n_tile(f, 128)
+    n_tiles = -(-f // bn)
+    per = max(1, -(-total * n_tiles // (sms * PAIR_CONV_CTAS_PER_SM)))
+    chunks = -(-ca // PAIR_GROUP) + -(-cb // PAIR_GROUP)
+    resident = chunks * 9 * PAIR_GROUP * bn * 2 <= PAIR_RESIDENT_BYTES
+    return PairConvGrid(bn, per, -(-total // per), n_tiles, resident)
+
+
+class PairWgradGrid(NamedTuple):
+    """K10's wgmma launch: N tile, tiles a CTA walks, CTAs over the tiles
+    (the rows of its dW partials), channel blocks of PAIR_WGRAD_GROUPS
+    16-channel groups, N tiles."""
+    n_tile: int
+    tiles_per_cta: int
+    ctas: int
+    channel_blocks: int
+    n_tiles: int
+
+
+def pair_wgrad_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
+                    tile: tuple[int, int], sms: int) -> PairWgradGrid:
+    """K10's wgmma grid: 16-channel groups of xa then xb, four a channel
+    block; N tiles of up to 64; CTAs of ``tile`` pixel tiles (8 x 16),
+    about PAIR_WGRAD_CTAS_PER_SM an SM over the blocks, each walking a run
+    of consecutive tiles into its own partial row."""
+    total = conv_tiles(b, h, w, tile)
+    bn = _n_tile(f, 64)
+    n_tiles = -(-f // bn)
+    groups = -(-ca // PAIR_GROUP) + -(-cb // PAIR_GROUP)
+    blocks = -(-groups // PAIR_WGRAD_GROUPS)
+    per = max(1, -(-total * blocks * n_tiles
+                   // (sms * PAIR_WGRAD_CTAS_PER_SM)))
+    return PairWgradGrid(bn, per, -(-total // per), blocks, n_tiles)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _launch_pair_conv(xa, xb, w, bias, y, want_stats):
+    """One launch of K8's wgmma kernel (``hpfg_pair_conv_sm90``) into
+    ``y``; its last CTA sums the statistics. Returns them as [2, F] when
+    ``want_stats``, else None."""
+    lib = library(xa.device)
+    b, h, wd, ca = xa.shape
+    cb, f = xb.shape[3], w.shape[3]
+    g = pair_conv_grid(b, h, wd, ca, cb, f, lib.pair_conv_tile,
+                       sm_count(xa.device))
+    part = stats = counter = None
+    if want_stats:
+        part = torch.empty((g.ctas, 2 * f), dtype=torch.float32,
+                           device=xa.device)
+        stats = torch.empty(2 * f, dtype=torch.float32, device=xa.device)
+        counter = ticket(xa.device, "pair_conv")
+    lib.call("hpfg_pair_conv_sm90", ptr(xa), ptr(xb), ptr(w), ptr(bias),
+             ptr(y), ptr(part), ptr(stats), ptr(counter), b, h, wd, ca, cb,
+             f, g.n_tile, g.tiles_per_cta, g.ctas, int(g.resident),
+             stream(xa))
+    return stats.view(2, f) if want_stats else None
+
+
+def _launch_pair_wgrad(xa, xb, dp):
+    """One launch of K10's wgmma kernel (``hpfg_pair_wgrad_sm90``), then the
+    fixed-order column sum: [9 * C * F] fp32, [3,3,Ca,F] then [3,3,Cb,F]."""
+    lib = library(xa.device)
+    b, h, wd, ca = xa.shape
+    cb, f = xb.shape[3], dp.shape[3]
+    g = pair_wgrad_grid(b, h, wd, ca, cb, f, lib.pair_wgrad_tile,
+                        sm_count(xa.device))
+    part = torch.empty((g.ctas, 9 * (ca + cb) * f), dtype=torch.float32,
+                       device=xa.device)
+    lib.call("hpfg_pair_wgrad_sm90", ptr(xa), ptr(xb), ptr(dp), ptr(part), b,
+             h, wd, ca, cb, f, g.n_tile, g.tiles_per_cta, g.ctas,
+             g.channel_blocks, stream(xa))
+    return colsum(part)
+
+
 def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
                  reduce=None, y2=None, want_sums=False):
     """One launch of the CUDA conv kernel (csrc/conv3x3.cu
@@ -378,7 +529,12 @@ def conv3x3_pair_nhwc(xa, xb, w, bias=None, want_stats=False):
     if xa.device.type == "cpu":
         return conv3x3_pair_reference(xa, xb, w, bias, want_stats)
     y = torch.empty((b, h, wd, f), dtype=xa.dtype, device=xa.device)
-    stats = _launch_conv(xa, w, y, x2=xb, bias=bias, want_sums=want_stats)
+    route = pair_route(ca, xb.shape[-1], f, xa.dtype, _aligned(xa, xb, w))
+    if route == "wgmma":
+        stats = _launch_pair_conv(xa, xb, w, bias, y, want_stats)
+    else:
+        stats = _launch_conv(xa, w, y, x2=xb, bias=bias, want_sums=want_stats)
+    counted(conv3x3_pair_nhwc.routes[route], xa)
     counted(conv3x3_pair_nhwc, xa, 18 * b * h * wd * w.shape[2] * f)
     return y, stats
 
@@ -472,7 +628,9 @@ def conv3x3_wgrad_nhwc(src, dp, affine=None, drop=None):
 @launch_counter
 def conv3x3_wgrad_pair(xa, xb, dp):
     """K10: the pair conv's weight gradients (identity operands) in one
-    launch: returns (dW_skip [3,3,Ca,F], dW_up [3,3,Cb,F]) fp32."""
+    launch: returns (dW_skip [3,3,Ca,F], dW_up [3,3,Cb,F]) fp32. On the
+    card the call takes :func:`pair_route`'s kernel and counts it in
+    ``routes[route]``."""
     _check_act("xa", xa)
     _check_like("xb", xb, xa)
     _check_like("dp", dp, xa)
@@ -480,10 +638,20 @@ def conv3x3_wgrad_pair(xa, xb, dp):
     cb, f = xb.shape[3], dp.shape[3]
     if xa.device.type == "cpu":
         return conv3x3_wgrad_pair_reference(xa, xb, dp)
-    dw = _launch_wgrad(xa, dp, src2=xb)
+    route = pair_route(ca, cb, f, xa.dtype, _aligned(xa, xb, dp))
+    if route == "wgmma":
+        dw = _launch_pair_wgrad(xa, xb, dp)
+    else:
+        dw = _launch_wgrad(xa, dp, src2=xb)
+    counted(conv3x3_wgrad_pair.routes[route], xa)
     counted(conv3x3_wgrad_pair, xa, 18 * b * h * w * (ca + cb) * f)
     return (dw[:9 * ca * f].view(3, 3, ca, f),
             dw[9 * ca * f:].view(3, 3, cb, f))
+
+
+for _fn in (conv3x3_pair_nhwc, conv3x3_wgrad_pair):
+    # each route's own launch count, beside the wrapper's total
+    _fn.routes = {r: SimpleNamespace(launches=0) for r in PAIR_ROUTES}
 
 
 # ---------------------------------------------------------------------------

@@ -249,9 +249,12 @@ class Trainer:
                 self.logger.exception(
                     "overlapped eval also failed during shutdown (the "
                     "training error follows)")
-            if self._eval_pool is not None:
-                self._eval_pool.shutdown(wait=True)
-                self._eval_pool = None
+            finally:
+                # shut even when the join raises: the eval's error still
+                # propagates, and no worker thread outlives fit
+                if self._eval_pool is not None:
+                    self._eval_pool.shutdown(wait=True)
+                    self._eval_pool = None
         self.save("last")
         self._barrier("last")
         # a later fit's first write opens a new event file

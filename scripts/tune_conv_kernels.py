@@ -1,18 +1,27 @@
-"""Time variants of hpfg_tpu_torch/csrc/conv3x3.cu against each other on
-one CUDA card, at every bf16 conv form and shape of the full-width UNet's
-main path (batch 32, 224^2), beside cuDNN.
+"""Time variants of the conv kernels (hpfg_tpu_torch/csrc/conv3x3.cu and
+conv3x3_sm90.cu) against each other on one CUDA card, at every bf16 conv
+form and shape of the full-width UNet's main path (batch 32, 224^2),
+beside cuDNN.
 
-    python3 scripts/tune_conv_kernels.py DIR[:PART_BYTES[:TARGET_BLOCKS]] ...
+    python3 scripts/tune_conv_kernels.py [--only K8,K10] \
+        DIR[:PART_BYTES[:TARGET_BLOCKS]] ...
 
-Each DIR holds a conv3x3.cu (a copy of the repo's with one change, say);
-all are built in parallel with the repo's window_attention.cu and hash.cuh,
-and checked against the first DIR on every case (relative error above
-2e-2 prints MISMATCH). The optional numbers set the wgrad split
+Each DIR holds any of the port's CUDA sources (a copy of the repo's with
+one change, say); every DIR's library is built from those and the repo's
+other sources, all DIRs in parallel, as the port builds its own, and
+checked against the first DIR on every case (relative error above 2e-2
+prints MISMATCH). The optional numbers set the wgrad split
 (conv_block.WGRAD_PART_BYTES, WGRAD_TARGET_BLOCKS) for that entry, so one
-build can be timed under several splits. Each case is timed under each
-entry in turn, 20 calls between CUDA events, three rounds; the least
-round counts. Prints one line per case and the totals; the rounds go to
-chiprun_out/tune.json. Needs nvcc and one card; imports no JAX.
+build can be timed under several splits. K8 and K10 are timed on the
+route their wrappers take (wgmma for these bf16 shapes) and, as "K8 mma"
+and "K10 mma", on PR 4's mma.sync kernels through the wrappers' other
+launchers, so one call compares the two routes. ``--only`` keeps the
+cases whose name holds one of the words. Each case is timed under each
+entry in turn, 20 calls between CUDA events (host-inclusive), three
+rounds, the least round counting, and once on the device alone
+(chip_smoke.device_ms). Prints one line per case (host-inclusive, then
+device-only ms) and the totals; the rounds go to chiprun_out/tune.json.
+Needs nvcc and one card; imports no JAX.
 """
 
 import json
@@ -35,26 +44,42 @@ REPS, ROUNDS = 20, 3
 
 
 def build(dirs):
-    procs = {}
+    """One library a DIR, from its own sources and the repo's others; a
+    source that no DIR changes is compiled once for all."""
+    jobs, objs = {}, {}
     for d in dirs:
-        out = os.path.join(d, "lib.so")
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
-               out, os.path.join(d, "conv3x3.cu"),
-               str(_cuda.CSRC / "window_attention.cu")]
-        procs[d] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), out)
+        objs[d] = []
+        for name in _cuda.SOURCES:
+            own = os.path.join(d, name)
+            src = own if os.path.exists(own) else str(_cuda.CSRC / name)
+            obj = (os.path.join(d, name + ".o") if src == own else
+                   os.path.join(dirs[0], "repo_" + name + ".o"))
+            if obj not in jobs:
+                cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I",
+                       str(_cuda.CSRC), "-c", "-o", obj, src]
+                jobs[obj] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True)
+            objs[d].append(obj)
+    logs = {obj: p.communicate()[0] for obj, p in jobs.items()}
     libs = {}
-    for d, (p, out) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
+    for d in dirs:
+        log = "".join(logs[o] for o in objs[d])
+        out = os.path.join(d, "lib.so")
+        ok = not any(jobs[o].returncode for o in objs[d])
+        if ok:
+            link = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS[:2],
+                                   "-shared", "-o", out, *objs[d]],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            ok = link.returncode == 0
+        if not ok:
             print(f"BUILD FAIL {d}\n{log[-3000:]}")
             continue
         libs[d] = _cuda.KernelLibrary(pathlib.Path(out), 0, log)
-        spills = [line.strip() for line in log.splitlines()
-                  if "spill stores" in line and not line.strip().startswith("0 bytes")]
-        regs = [line.split("Used")[1].split(",")[0].strip()
-                for line in log.splitlines() if "Used" in line]
-        print(f"built {d}: regs {regs}; spills {spills}", flush=True)
+        for line in cs.ptxas_summary(log):
+            if "pair" in line or " 0 bytes spill stores" not in line:
+                print(f"built {d}: {line}", flush=True)
     return libs
 
 
@@ -91,12 +116,21 @@ def cases(dev):
             out.append((f"{name} K8", lambda xa=xa, xb=xb, w=w1, b=bias:
                         cb.conv3x3_pair_nhwc(xa, xb, w, b, True),
                         lambda x=x, w=w1: F.conv2d(cs.nchw(x), cs.oihw(w), padding=1)))
+            y = torch.empty((B, hh, hh, f), dtype=dt, device=dev)
+            out.append((f"{name} K8 mma", lambda xa=xa, xb=xb, w=w1, b=bias, y=y:
+                        (y, cb._launch_conv(xa, w, y, x2=xb, bias=b,
+                                            want_sums=True)),
+                        lambda x=x, w=w1: F.conv2d(cs.nchw(x), cs.oihw(w), padding=1)))
             wf = cb.flip_transpose(w1)
             out.append((f"{name} K9", lambda dp=dp, wf=wf, ca=c // 2:
                         cb.conv3x3_dgrad_pair(dp, wf, ca),
                         lambda dp=dp, wf=wf: F.conv2d(cs.nchw(dp), cs.oihw(wf), padding=1)))
             out.append((f"{name} K10", lambda xa=xa, xb=xb, dp=dp:
                         cb.conv3x3_wgrad_pair(xa, xb, dp),
+                        lambda x=x, dp=dp, c=c, f=f: torch.nn.grad.conv2d_weight(
+                            cs.nchw(x), (f, c, 3, 3), cs.nchw(dp), padding=1)))
+            out.append((f"{name} K10 mma", lambda xa=xa, xb=xb, dp=dp:
+                        cb._launch_wgrad(xa, dp, src2=xb),
                         lambda x=x, dp=dp, c=c, f=f: torch.nn.grad.conv2d_weight(
                             cs.nchw(x), (f, c, 3, 3), cs.nchw(dp), padding=1)))
         else:
@@ -153,7 +187,11 @@ def use(d, libs):
 
 
 def main():
-    dirs = sys.argv[1:]
+    args = sys.argv[1:]
+    only = []
+    if args[:1] == ["--only"]:
+        only, args = args[1].split(","), args[2:]
+    dirs = args
     libs = build(sorted({d.split(":")[0] for d in dirs}))
     libs.update({d: libs[d.split(":")[0]] for d in dirs
                  if d.split(":")[0] in libs})
@@ -161,8 +199,10 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi_line())
-    rows = cases(dev)
+    rows = [r for r in cases(dev)
+            if not only or any(w in r[0].split() for w in only)]
     res = {name: {d: [] for d in dirs + ["cudnn"]} for name, _, _ in rows}
+    dev_ms = {name: {} for name, _, _ in rows}
     # correctness of each variant against the first on every case
     for name, fn, lib_fn in rows:
         outs = []
@@ -182,17 +222,26 @@ def main():
                 use(d, libs)
                 res[name][d].append(ms(fn))
             res[name]["cudnn"].append(ms(lib_fn))
+    for name, fn, lib_fn in rows:
+        for d in dirs:
+            use(d, libs)
+            dev_ms[name][d] = cs.device_ms(fn)
+        dev_ms[name]["cudnn"] = cs.device_ms(lib_fn)
     tot = {d: 0.0 for d in dirs + ["cudnn"]}
+    dtot = dict(tot)
     for name, r in res.items():
         best = {d: min(v) for d, v in r.items()}
         for d in tot:
             tot[d] += best[d]
-        print(f"{name:18} " + " ".join(f"{os.path.basename(d)[-14:]:>14} {best[d]:.4f}"
-                                       for d in dirs + ["cudnn"]))
-    print("TOTAL " + " ".join(f"{os.path.basename(d)}={v:.3f}" for d, v in tot.items()))
+            dtot[d] += dev_ms[name][d]
+        print(f"{name:18} " + " ".join(
+            f"{os.path.basename(d)[-14:]:>14} {best[d]:.4f} "
+            f"{dev_ms[name][d]:.4f}" for d in dirs + ["cudnn"]))
+    print("TOTAL " + " ".join(f"{os.path.basename(d)}={v:.3f}/{dtot[d]:.3f}"
+                              for d, v in tot.items()))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "tune.json"), "w") as f:
-        json.dump(res, f)
+        json.dump({"host": res, "device": dev_ms}, f)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ grid is written out of bounds. No card and no JAX needed.
 
 import functools
 
+import numpy as np
 import pytest
+import torch
 
 from hpfg_tpu_torch.ops import conv_block as cb
 
@@ -111,3 +113,141 @@ def test_wgrad_split_at_the_2d_dataset_shapes(b, hw, c, f):
     stem (one 16-channel tile with 3 live), the F = 2 and 9 heads, 6^2
     images, and 512^2 at batch 12 (24,576 tiles)."""
     _check_wgrad_split(b, hw, c, f)
+
+
+# -- K8 and K10 on wgmma (csrc/conv3x3_sm90.cu) -------------------------------
+
+PAIR_CONV_TILE = (8, 32)   # hpfg_pair_conv_tile_h / _w
+PAIR_WGRAD_TILE = (8, 16)  # hpfg_pair_wgrad_tile_h / _w
+SMS = 132                  # the H100's SMs
+# (batch, H=W, Ca, Cb, F) of every UpBlock conv1 on the main paths (ACDC
+# 224^2 at batches 12, 20, 24, 32; ISIC 224^2 at 40; LIDC 96^2 at 32;
+# Building 512^2 at 12), and of the GPU tests' aligned pair calls (20^2 at
+# batch 2, 14^2 and 7^2 at 3, 40^2 at 4: 8 + 24 channels, F = 256)
+UPBLOCKS = [(b, hw >> (4 - i), _FEATS[4 - i], _FEATS[4 - i], _FEATS[4 - i])
+            for b, hw in ((12, 224), (20, 224), (24, 224), (32, 224),
+                          (40, 224), (32, 96), (12, 512))
+            for i in range(1, 5)]
+PAIR_SHAPES = UPBLOCKS + [(2, 20, 16, 16, 16), (2, 20, 16, 32, 16),
+                          (2, 20, 128, 128, 128), (3, 14, 16, 16, 64),
+                          (3, 7, 64, 64, 256), (4, 40, 8, 24, 64)]
+
+
+def _fragment_pixels():
+    """K8's warp walk inside an 8 x 32 tile: warpgroup g, warp w, its two
+    accumulators i and lane l's halves h hold pixel (2w + i, 16g + l/4 +
+    8h) (wgmma's m64 D fragment: warp w's rows 16w.., lane l/4 + 8h)."""
+    return [(2 * w + i, 16 * g + lane // 4 + 8 * h)
+            for g in range(2) for w in range(4) for i in range(2)
+            for lane in range(0, 32, 4) for h in range(2)]
+
+
+def _n_walk(f, n_tile, n_tiles):
+    """The output channels the N tiles' fragments hold: N tile y, n8 block
+    j, lane quad q, element e is channel y*n_tile + 8j + 2q + e."""
+    return [y * n_tile + 8 * j + 2 * q + e for y in range(n_tiles)
+            for j in range(n_tile // 8) for q in range(4) for e in range(2)
+            if y * n_tile + 8 * j + 2 * q + e < f]
+
+
+def _cta_tiles(grid, total):
+    runs = [range(i * grid.tiles_per_cta,
+                  min((i + 1) * grid.tiles_per_cta, total))
+            for i in range(grid.ctas)]
+    assert all(len(r) > 0 for r in runs), "a CTA without tiles"
+    return runs
+
+
+@pytest.mark.parametrize("b,hw,ca,cb_,f", PAIR_SHAPES)
+def test_pair_conv_walk_covers_every_output_once(b, hw, ca, cb_, f):
+    """K8's grid: its CTAs' runs of 8 x 32 tiles and the fragments inside a
+    tile hold every output pixel exactly once, its N tiles every channel
+    exactly once; one statistics partial row a CTA, each CTA with tiles."""
+    g = cb.pair_conv_grid(b, hw, hw, ca, cb_, f, PAIR_CONV_TILE, SMS)
+    frag = _fragment_pixels()
+    assert sorted(frag) == [(r, c) for r in range(8) for c in range(32)]
+    total = cb.conv_tiles(b, hw, hw, PAIR_CONV_TILE)
+    count = np.zeros((b, hw, hw), dtype=np.int64)
+    for run in _cta_tiles(g, total):
+        for t in run:
+            bi, ty0, tx0 = cb.pair_tile_origin(t, hw, hw, PAIR_CONV_TILE)
+            rows, cols = np.array(frag).T
+            keep = (ty0 + rows < hw) & (tx0 + cols < hw)
+            np.add.at(count, (bi, ty0 + rows[keep], tx0 + cols[keep]), 1)
+    assert (count == 1).all()
+    assert sorted(_n_walk(f, g.n_tile, g.n_tiles)) == list(range(f))
+    assert g.ctas <= SMS * cb.PAIR_CONV_CTAS_PER_SM or g.tiles_per_cta == 1
+    chunks = -(-ca // 16) + -(-cb_ // 16)
+    assert g.resident == (chunks * 9 * 16 * g.n_tile * 2
+                          <= cb.PAIR_RESIDENT_BYTES)
+
+
+@pytest.mark.parametrize("b,hw,ca,cb_,f", PAIR_SHAPES)
+def test_pair_wgrad_walk_takes_every_pixel_once_per_dw_element(b, hw, ca,
+                                                               cb_, f):
+    """K10's grid: every (channel block, N tile) of CTAs walks the 8 x 16
+    tiles so that each pixel enters K exactly once (its k16 steps: tile
+    row y, 16 pixels); every dW element [tap, c, f] of both halves comes
+    from exactly one (channel block, warp = group, warpgroup = ky,
+    accumulator = kx, N tile) and lane; one partial row a CTA."""
+    g = cb.pair_wgrad_grid(b, hw, hw, ca, cb_, f, PAIR_WGRAD_TILE, SMS)
+    steps = [(y, x) for y in range(8) for x in range(16)]
+    assert sorted(steps) == [(r, c) for r in range(8) for c in range(16)]
+    total = cb.conv_tiles(b, hw, hw, PAIR_WGRAD_TILE)
+    count = np.zeros((b, hw + 8, hw + 16), dtype=np.int64)
+    for run in _cta_tiles(g, total):
+        for t in run:
+            bi, ty0, tx0 = cb.pair_tile_origin(t, hw, hw, PAIR_WGRAD_TILE)
+            count[bi, ty0:ty0 + 8, tx0:tx0 + 16] += 1
+    assert (count[:, :hw, :hw] == 1).all()
+    groups = -(-ca // 16) + -(-cb_ // 16)
+    assert g.channel_blocks == -(-groups // cb.PAIR_WGRAD_GROUPS)
+    dw = [np.zeros((9, c, f), dtype=np.int64) for c in (ca, cb_)]
+    for blk in range(g.channel_blocks):
+        for q in range(cb.PAIR_WGRAD_GROUPS):
+            if blk * cb.PAIR_WGRAD_GROUPS + q >= groups:
+                continue  # an idle warp
+            src, c0 = cb.pair_group(blk * cb.PAIR_WGRAD_GROUPS + q, ca)
+            chans = [c0 + lane // 4 + 8 * h for lane in range(0, 32, 4)
+                     for h in range(2)]
+            chans = [c for c in chans if c < (ca, cb_)[src]]
+            fs = _n_walk(f, g.n_tile, g.n_tiles)
+            for ky in range(3):
+                for kx in range(3):
+                    np.add.at(dw[src], (ky * 3 + kx, np.array(chans)[:, None],
+                                        np.array(fs)[None, :]), 1)
+    assert all((d == 1).all() for d in dw)
+    assert g.ctas * g.channel_blocks * g.n_tiles <= \
+        SMS * cb.PAIR_WGRAD_CTAS_PER_SM or g.tiles_per_cta == 1
+
+
+@pytest.mark.parametrize("ca,cb_,f,dtype,aligned,route", [
+    # the main paths' UpBlocks (bf16, fresh allocations)
+    (16, 16, 16, torch.bfloat16, True, "wgmma"),
+    (32, 32, 32, torch.bfloat16, True, "wgmma"),
+    (64, 64, 64, torch.bfloat16, True, "wgmma"),
+    (128, 128, 128, torch.bfloat16, True, "wgmma"),
+    # the GPU tests: test_pair_kernels_match_plain, small stages, sums
+    (16, 32, 16, torch.bfloat16, True, "wgmma"),
+    (24, 8, 20, torch.bfloat16, True, "mma"),
+    (12, 20, 24, torch.bfloat16, True, "mma"),
+    (16, 16, 64, torch.bfloat16, True, "wgmma"),
+    (64, 64, 256, torch.bfloat16, True, "wgmma"),
+    (10, 10, 4, torch.bfloat16, True, "mma"),
+    (8, 24, 64, torch.bfloat16, True, "wgmma"),
+    # fp32 and unaligned bases stay on the mma.sync kernels
+    (128, 128, 128, torch.float32, True, "mma"),
+    (16, 16, 16, torch.float32, True, "mma"),
+    (64, 64, 64, torch.bfloat16, False, "mma")])
+def test_pair_route(ca, cb_, f, dtype, aligned, route):
+    assert cb.pair_route(ca, cb_, f, dtype, aligned) == route
+
+
+@pytest.mark.parametrize("ca", [8, 16, 24, 128])
+def test_pair_groups_cover_both_sources(ca):
+    """xa's groups first, then xb's, 16 channels each from channel 0."""
+    cb_ = 40
+    groups = -(-ca // 16) + -(-cb_ // 16)
+    got = [cb.pair_group(g, ca) for g in range(groups)]
+    assert got == ([(0, 16 * i) for i in range(-(-ca // 16))]
+                   + [(1, 16 * i) for i in range(-(-cb_ // 16))])

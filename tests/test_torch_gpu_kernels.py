@@ -13,7 +13,10 @@ output masks bit-exact, B and K11 against their plain versions), K13 and
 K14 with that map (each window hashing its index in the global batch's
 windows: the masks bit-exact against the full batch's, the outputs and
 gradients against the plain versions), and D's reduce alone
-(``bn_reduce``).
+(``bn_reduce``). K8 and K10 take their wgmma kernels (bf16, halves and F
+multiples of 8, aligned) at the UNet's four UpBlock shapes at batch 32
+and at 28^2 with batches 12 and 20, with statistics and dW bitwise the
+same in two runs, and each route counts its own launches.
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -236,6 +239,73 @@ def test_pair_kernels_match_plain(dev, dtype, ca, cu, f):
     for got, ref in zip(cb.conv3x3_wgrad_pair(xa, xb, dp),
                         cb.conv3x3_wgrad_pair_reference(xa, xb, dp)):
         _close(got, ref, dtype)
+
+
+def _routes(fn):
+    return {r: c.launches for r, c in fn.routes.items()}
+
+
+# (batch, H=W, C a half, F) of the UNet's UpBlock conv1s at batch 32, and
+# 28^2 at ICT's batches 12 and 20 (ragged tiles: 28 = 3.5 tile rows)
+UPBLOCKS = [(32, 28, 128, 128), (32, 56, 64, 64), (32, 112, 32, 32),
+            (32, 224, 16, 16), (12, 28, 128, 128), (20, 28, 128, 128)]
+
+
+@pytest.mark.parametrize("b,hw,c,f", UPBLOCKS)
+def test_pair_kernels_on_wgmma_at_the_upblock_shapes(dev, b, hw, c, f):
+    """K8 (forward + statistics) and K10 on their wgmma route (bf16,
+    aligned halves) against their plain versions; the statistics, y and
+    both dW bitwise the same in two runs; every launch on that route."""
+    dtype = torch.bfloat16
+    xa = _randn(dev, b, hw, hw, c).to(dtype)
+    xb = _randn(dev, b, hw, hw, c, seed=1).to(dtype)
+    w = _randn(dev, 3, 3, 2 * c, f, scale=(18 * c) ** -0.5).to(dtype)
+    bias = _randn(dev, f, scale=0.1)
+    dp = _randn(dev, b, hw, hw, f, seed=2).to(dtype)
+    k8, k10 = _routes(cb.conv3x3_pair_nhwc), _routes(cb.conv3x3_wgrad_pair)
+    y, st = cb.conv3x3_pair_nhwc(xa, xb, w, bias, want_stats=True)
+    y_r, st_r = cb.conv3x3_pair_reference(xa, xb, w, bias, want_stats=True)
+    _close(y, y_r, dtype)
+    _close(st, st_r, dtype)
+    y2, st2 = cb.conv3x3_pair_nhwc(xa, xb, w, bias, want_stats=True)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    dw = cb.conv3x3_wgrad_pair(xa, xb, dp)
+    for got, ref in zip(dw, cb.conv3x3_wgrad_pair_reference(xa, xb, dp)):
+        _close(got, ref, dtype)
+    assert all(torch.equal(u, v)
+               for u, v in zip(dw, cb.conv3x3_wgrad_pair(xa, xb, dp)))
+    assert _routes(cb.conv3x3_pair_nhwc) == {"wgmma": k8["wgmma"] + 2,
+                                             "mma": k8["mma"]}
+    assert _routes(cb.conv3x3_wgrad_pair) == {"wgmma": k10["wgmma"] + 2,
+                                              "mma": k10["mma"]}
+
+
+@pytest.mark.parametrize("ca,cu,f,dtype,route", [
+    (16, 16, 16, torch.bfloat16, "wgmma"), (8, 24, 64, torch.bfloat16, "wgmma"),
+    (12, 20, 24, torch.bfloat16, "mma"), (16, 16, 16, torch.float32, "mma")])
+def test_pair_routes_count_their_launches(dev, ca, cu, f, dtype, route):
+    """Each route of K8 and K10 counts its own launches: an aligned bf16
+    call (8 + 24: a zero-filled group tail) on wgmma, the 12 + 20 split and
+    fp32 on PR 4's mma.sync kernels; the result against the plain version
+    either way."""
+    xa = _randn(dev, 2, 20, 20, ca).to(dtype)
+    xb = _randn(dev, 2, 20, 20, cu, seed=1).to(dtype)
+    w = _randn(dev, 3, 3, ca + cu, f, scale=(9 * (ca + cu)) ** -0.5).to(dtype)
+    dp = _randn(dev, 2, 20, 20, f, seed=2).to(dtype)
+    other = "mma" if route == "wgmma" else "wgmma"
+    for fn, call, ref in (
+            (cb.conv3x3_pair_nhwc,
+             lambda: cb.conv3x3_pair_nhwc(xa, xb, w, want_stats=True),
+             lambda: cb.conv3x3_pair_reference(xa, xb, w, want_stats=True)),
+            (cb.conv3x3_wgrad_pair, lambda: cb.conv3x3_wgrad_pair(xa, xb, dp),
+             lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))):
+        before, total = _routes(fn), fn.launches
+        for got, want in zip(call(), ref()):
+            _close(got, want, dtype)
+        after = _routes(fn)
+        assert after[route] == before[route] + 1
+        assert after[other] == before[other]
+        assert fn.launches == total + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -208,6 +208,32 @@ def test_an_eval_error_surfaces_from_fit(synthetic_acdc, tmp_path,
     assert t._eval_pool is None and t._eval_future is None
 
 
+def test_a_failing_last_overlapped_eval_still_shuts_the_pool(
+        synthetic_acdc, tmp_path, monkeypatch):
+    """The first boundary's eval passes; the last one, overlapped and
+    joined only in ``fit``'s shutdown, raises on an otherwise clean run: the
+    error propagates, and the pool is shut with no worker thread left."""
+    real = ttrainer.evaluate_volumes_multi
+    pools = []
+
+    def last_breaks(*a, **k):
+        pools.append(threading.current_thread().name)
+        if len(pools) == 2:
+            raise FloatingPointError("last eval broke")
+        return real(*a, **k)
+
+    monkeypatch.setattr(ttrainer, "evaluate_volumes_multi", last_breaks)
+    t = _hpfg(synthetic_acdc, str(tmp_path))
+    t.total_itrs = 4
+    with pytest.raises(FloatingPointError, match="last eval broke"):
+        t.fit()
+    assert len(pools) == 2 and all(p.startswith("hpfg-eval") for p in pools)
+    assert t._eval_pool is None and t._eval_future is None
+    assert not any(th.name.startswith("hpfg-eval") and th.is_alive()
+                   for th in threading.enumerate())
+    assert [h["iter"] for h in t.history] == [2]
+
+
 def test_a_failing_eval_does_not_mask_the_training_error(
         synthetic_acdc, tmp_path, monkeypatch):
     def broken(*_a, **_k):
