@@ -29,16 +29,19 @@ Phases, each of which fails the run on error:
      and its FLOPs over 989 TFLOP/s (H100 SXM bf16 peak);
      A's dgrad into F = 1 at the stem (32 x 224^2 x 16 -> 1) is SS-Net's:
      its VAT differentiates the model with respect to its 1-channel image;
-     K8 and K10 in bf16 take their wgmma/TMA kernels
-     (csrc/conv3x3_sm90.cu; ops/conv_block.py pair_route): each shape
-     also checks PR 4's mma.sync route (the wrappers' launchers for fp32
-     and odd splits) against the plain version, the statistics, y and dW
-     bitwise the same in two runs, and times beside the wrapper's
-     host-inclusive ms the device-only ms of both routes and of cuDNN,
-     the mma route's host-inclusive ms and both routes' enqueue µs (the
-     ``route_times`` keys of kernels.jsonl); the build's SASS
-     (cuobjdump) must show wgmma (HGMMA) and TMA (UTMALDG) in both
-     kernels;
+     A, B, K8 and K10 in bf16 take their wgmma/TMA kernels
+     (csrc/conv3x3_sm90.cu; ops/conv_block.py conv_route, pair_route)
+     where C and F are multiples of 8 (A without an output mask): each
+     such shape also checks the mma.sync route (the wrappers'
+     launchers for fp32, the stems, the heads and odd splits) against the
+     plain version, A's y and statistics, B's and K10's dW and K8's
+     statistics and y bitwise the same in two runs, and times beside the
+     wrapper's host-inclusive ms the device-only ms of both routes and of
+     cuDNN, the mma route's host-inclusive ms and both routes' enqueue
+     µs (the ``route_times`` keys of kernels.jsonl); the build's SASS
+     (cuobjdump) must show wgmma (HGMMA) and TMA (UTMALDG) and no
+     mma.sync (HMMA) in both kernels (conv_sm90_kernel: A and K8;
+     wgrad_sm90_kernel: B and K10);
   2b. phase 2's kernel checks again at batch 24, the supervised path's,
      and at ICT's batches 20 (the student) and 12 (each teacher half), at
      the same shapes (every shape those paths give A, B, C, D and K8 to
@@ -56,7 +59,8 @@ Phases, each of which fails the run on error:
      (every window: the masked tokens go through the blocks too), checked
      and timed the same way;
   2d. the kernels at the new paths' geometries, checked and timed as in
-     phases 2 and 2c: A to D and K8 to K11 at every conv shape of the
+     phases 2 and 2c (the plain versions of A to D and K8 to K11 timed by
+     one call there): A to D and K8 to K11 at every conv shape of the
      LIDC Mean-Teacher UNet (96^2, C = 3 stem, F = 2 head, batch 32:
      stages 96 down to 6), the ISIC HPFG UNet_Plus (224^2, C = 3, F = 2,
      batch 40) and the Building UNet_Plus (512^2, C = 3, F = 2, batch 12),
@@ -69,8 +73,10 @@ Phases, each of which fails the run on error:
      224^2, 8 labelled + 24 unlabelled images, bf16) on numpy-made batches
      in the ACDC layout, 2 warm-up and 5 timed steps, with ``F.conv2d`` /
      ``torch.conv2d`` patched to raise; the launch counters must rise by
-     what the model's structure predicts, and every K8 and K10 launch
-     must take the wgmma route (their ``routes`` counters); one more
+     what the model's structure predicts, every K8 and K10 launch
+     must take the wgmma route and A's and B's launches split between
+     the routes as ``predicted_routes`` says (their ``routes``
+     counters: wgmma wherever C and F are multiples of 8); one more
      step traced (device
      busy time, the conv kernels' and C's and D's time, and the count of
      device kernels, copies and memsets in the step);
@@ -245,9 +251,10 @@ Phases, each of which fails the run on error:
      checkpoints;
   18. ``sharded eval`` (after phase 14): Mean-Teacher's student and EMA
      teacher, and S4CVNet's SwinUNet and EMA SwinUNet (K13 in their
-     forwards; its UNet is Mean-Teacher's student at this seed), over
-     phase 13's ACDC-size test split in one process and on 2 gloo ranks
-     on the card (``--eval-worker``), each rank its share of the volumes:
+     forwards; its UNet is Mean-Teacher's student at this seed), over a
+     test split of 15 volumes of 10 slices (phase 13's ACDC-size one cut
+     for time: the ranks' shares are 8 and 7) in one process and on 2
+     gloo ranks on the card (``--eval-worker``), each rank its share:
      per-class dice and HD95 bitwise equal to the one process's; the
      eval's wall time in one process and on each rank;
   19. ``losses`` (after phase 4): the loss library's functions that no
@@ -415,13 +422,16 @@ ALL_PATHS = tuple(p.label for p in PATHS)
 CONV_PATHS = tuple(p.label for p in PATHS if p.unet)
 ATTN_PATHS = tuple(p.label for p in PATHS if p.attn_fwd)
 KERNELS = {
-    "conv3x3_nhwc": dict(route="cuda", source=CU, replaces=f"{PALLAS}:734",
+    "conv3x3_nhwc": dict(route="cuda", source=CU90,
+                         replaces=f"{PALLAS}:734",
                          also_replaces=[f"{PALLAS}:785", f"{PALLAS}:1176",
                                         f"{PALLAS}:746"],
-                         counters=["conv3x3_nhwc"]),
-    "conv3x3_wgrad_nhwc": dict(route="cuda", source=CU,
+                         counters=["conv3x3_nhwc"],
+                         routes={"wgmma": CU90, "mma": CU}),
+    "conv3x3_wgrad_nhwc": dict(route="cuda", source=CU90,
                                replaces=f"{PALLAS}:1192", also_replaces=[],
-                               counters=["conv3x3_wgrad_nhwc"]),
+                               counters=["conv3x3_wgrad_nhwc"],
+                               routes={"wgmma": CU90, "mma": CU}),
     "bn_act": dict(route="cuda", source=BN_CU, replaces=f"{PALLAS}:810",
                    also_replaces=[], counters=["bn_act"]),
     "bn_act_bwd": dict(route="cuda", source=BN_CU,
@@ -614,6 +624,15 @@ def timer(timed: bool):
     return cuda_ms if timed else (lambda fn: None)
 
 
+def plain_timer(timed: bool, geometry):
+    """The plain versions' clock: ``timer``'s at the ACDC shapes; one call
+    (``cuda_ms`` of one rep, one round) at a new path's geometry, where the
+    fp32 plain versions at 512^2 x 12 would take most of phase 2d."""
+    if timed and geometry is not None:
+        return lambda fn: cuda_ms(fn, reps=1, rounds=1)
+    return timer(timed)
+
+
 def rate(work, ms) -> str:
     """Achieved TFLOP/s and GB/s of a timed call beside its bound in ms."""
     b, by = bound(*work)
@@ -696,6 +715,7 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
     gen = torch.Generator(device=dev).manual_seed(0)
     clock = timer(timed)
     geometry = rep.geometry
+    pclock = plain_timer(timed, geometry)
     sfx = (f" {geometry} batch {batch}" if geometry else
            "" if batch == BATCH else f" batch {batch}")
 
@@ -704,6 +724,8 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
 
     if timed and geometry is None:
         check_hash_masks(rep, dev)
+    # the routes side by side (route_times) at the ACDC shapes only: the
+    # geometries' rows keep the wrapper's times
     print(f"kernel vs plain: rel err (tol float32 {TOL['float32']}, bfloat16 "
           f"{TOL['bfloat16']})" + (" kernel/plain ms" if timed else "") +
           f", batch {batch}" + ("; in bfloat16 a third time: the same conv "
@@ -728,6 +750,7 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
             bias = randn(f, scale=0.1)
             dp = randn(batch, hh, hh, f).to(dt)
             lib = clock if dt == torch.bfloat16 else (lambda fn: None)
+            both_routes = timed and dt == torch.bfloat16 and geometry is None
             concat = name.startswith("up") and name.endswith("conv1")
             conv2 = name.endswith("conv2")
             new_stem = geometry is not None and name == "in_conv.conv1"
@@ -740,52 +763,112 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
             y, st = cb.conv3x3_nhwc(x, w, **args)
             y_r, st_r = cb.conv3x3_reference(x, w, **args)
             ms = clock(lambda: cb.conv3x3_nhwc(x, w, **args))
-            pms = clock(lambda: cb.conv3x3_reference(x, w, **args))
+            pms = pclock(lambda: cb.conv3x3_reference(x, w, **args))
             # the conv alone (no prologue, statistics or mask) by cuDNN
             w_c, bias_c = oihw(w), bias.to(dt)
             cms = lib(lambda: F.conv2d(nchw(x), w_c, bias_c, padding=1))
             work = conv_work(hh, c, f, es, 2 * f, batch=batch)
+            route = cb.conv_route(c, f, dt, True,
+                                  "conv" if keep is None else "prologue")
+            pro = cb._prologue_args(args.get("affine"), args.get("drop"), c,
+                                    batch, dev)
+            y_m = torch.empty_like(y)
+
+            def a_mma():  # the mma.sync route, which fp32 and the stems keep
+                return y_m, cb._launch_conv(x, w, y_m, bias=bias, pro=pro,
+                                            want_sums=True)
+
+            extra = route_times(both_routes,
+                                lambda: cb.conv3x3_nhwc(x, w, **args), a_mma,
+                                lambda: F.conv2d(nchw(x), w_c, bias_c,
+                                                 padding=1))
             r1 = rep.compare("conv3x3_nhwc", f"{name} fwd{sfx}", dname, y,
                              y_r, ms, pms, library_ms=cms,
-                             main=timed and not concat, work=work)
+                             main=timed and not concat, work=work,
+                             route=route, **extra)
             r2 = rep.compare("conv3x3_nhwc", f"{name} stats{sfx}", dname, st,
                              st_r)
-            same_twice(rep, f"conv3x3_nhwc {name} stats {dname}{sfx}",
-                       lambda: (cb.conv3x3_nhwc(x, w, **args)[1],))
-            line.append(f"A fwd {max(r1, r2):.1e}{perf(ms, pms, cms, work)}")
+            same_twice(rep, f"conv3x3_nhwc {name} y, stats {dname}{sfx}",
+                       lambda: cb.conv3x3_nhwc(x, w, **args))
+            if route == "wgmma":  # the other route at the same shape
+                got_m, st_m = a_mma()
+                r2 = max(r2, rep.compare(
+                    "conv3x3_nhwc", f"{name} fwd mma route{sfx}", dname,
+                    got_m, y_r, main=False), rep.compare(
+                    "conv3x3_nhwc", f"{name} stats mma route{sfx}", dname,
+                    st_m, st_r, main=False))
+            line.append(f"A {route} fwd {max(r1, r2):.1e}"
+                        f"{perf(ms, pms, cms, work)}{route_note(extra)}")
 
             wf = cb.flip_transpose(w)
             odrop = args.get("drop")
             dx, _ = cb.conv3x3_nhwc(dp, wf, out_drop=odrop)
             dx_r, _ = cb.conv3x3_reference(dp, wf, out_drop=odrop)
             ms = clock(lambda: cb.conv3x3_nhwc(dp, wf, out_drop=odrop))
-            pms = clock(lambda: cb.conv3x3_reference(dp, wf, out_drop=odrop))
+            pms = pclock(lambda: cb.conv3x3_reference(dp, wf, out_drop=odrop))
             wf_c = oihw(wf)
             cms = lib(lambda: F.conv2d(nchw(dp), wf_c, padding=1))
             work = conv_work(hh, f, c, es, batch=batch)
+            route = cb.conv_route(f, c, dt, True,
+                                  "conv" if odrop is None else "out_drop")
+            dx_m = torch.empty_like(dx)
+
+            def dgrad_mma():
+                cb._launch_conv(dp, wf, dx_m, out_drop=odrop)
+                return dx_m
+
+            extra = route_times(both_routes,
+                                lambda: cb.conv3x3_nhwc(dp, wf,
+                                                        out_drop=odrop),
+                                dgrad_mma,
+                                lambda: F.conv2d(nchw(dp), wf_c, padding=1))
             # a conv2's dgrad runs as K11; the stem's (into F = 1) runs in
             # SS-Net's VAT inner gradient
             r = rep.compare("conv3x3_nhwc", f"{name} dgrad{sfx}", dname, dx,
                             dx_r, ms, pms, library_ms=cms,
                             main=timed and not (concat or conv2 or new_stem),
-                            work=work)
-            line.append(f"A dgrad{f' into F = {c}' if c < 16 else ''} {r:.1e}"
-                        f"{perf(ms, pms, cms, work)}")
+                            work=work, route=route, **extra)
+            if route == "wgmma":
+                r = max(r, rep.compare(
+                    "conv3x3_nhwc", f"{name} dgrad mma route{sfx}", dname,
+                    dgrad_mma(), dx_r, main=False))
+            line.append(f"A {route} dgrad"
+                        f"{f' into F = {c}' if c < 16 else ''} {r:.1e}"
+                        f"{perf(ms, pms, cms, work)}{route_note(extra)}")
 
             wargs = {k: args[k] for k in ("affine", "drop") if k in args}
             dw = cb.conv3x3_wgrad_nhwc(x, dp, **wargs)
             dw_r = cb.conv3x3_wgrad_reference(x, dp, **wargs)
             ms = clock(lambda: cb.conv3x3_wgrad_nhwc(x, dp, **wargs))
-            pms = clock(lambda: cb.conv3x3_wgrad_reference(x, dp, **wargs))
-            cms = lib(lambda: torch.nn.grad.conv2d_weight(
-                nchw(x), (f, c, 3, 3), nchw(dp), padding=1))
+            pms = pclock(lambda: cb.conv3x3_wgrad_reference(x, dp, **wargs))
+
+            def b_cudnn():
+                return torch.nn.grad.conv2d_weight(
+                    nchw(x), (f, c, 3, 3), nchw(dp), padding=1)
+
+            cms = lib(b_cudnn)
             work = conv_work(hh, c, f, es, w_es=4, batch=batch)
+            route = cb.conv_route(c, f, dt, True, "wgrad_prologue" if wargs
+                                  else "wgrad")
+
+            def b_mma():
+                return cb._launch_wgrad(x, dp, pro=pro)
+
+            extra = route_times(both_routes,
+                                lambda: cb.conv3x3_wgrad_nhwc(x, dp, **wargs),
+                                b_mma, b_cudnn)
             r = rep.compare("conv3x3_wgrad_nhwc", f"{name} wgrad{sfx}", dname,
                             dw, dw_r, ms, pms, library_ms=cms,
-                            main=timed and not concat, work=work)
+                            main=timed and not concat, work=work,
+                            route=route, **extra)
             same_twice(rep, f"conv3x3_wgrad_nhwc {name} {dname}{sfx}",
                        lambda: (cb.conv3x3_wgrad_nhwc(x, dp, **wargs),))
-            line.append(f"B {r:.1e}{perf(ms, pms, cms, work)}")
+            if route == "wgmma":
+                r = max(r, rep.compare(
+                    "conv3x3_wgrad_nhwc", f"{name} wgrad mma route{sfx}",
+                    dname, b_mma().view_as(dw_r), dw_r, main=False))
+            line.append(f"B {route} {r:.1e}{perf(ms, pms, cms, work)}"
+                        f"{route_note(extra)}")
 
             if keep is not None:  # block output: BN2 + LeakyReLU fwd / bwd
                 n = batch * hh * hh * f
@@ -793,7 +876,7 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
                 a2, b2 = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
                 y = ba.bn_act(g, a2, b2)
                 ms = clock(lambda: ba.bn_act(g, a2, b2))
-                pms = clock(lambda: ba.bn_act_reference(g, a2, b2))
+                pms = pclock(lambda: ba.bn_act_reference(g, a2, b2))
                 y_r = ba.bn_act_reference(g, a2, b2)
                 work = (3 * n, 2 * es * n)
                 r = rep.compare("bn_act", f"{name} bn_act{sfx}", dname, y,
@@ -806,7 +889,7 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
                 s, d = ba.bn_act_bwd(dp, g, a2, b2, m, inv)
                 s_r, d_r = ba.bn_act_bwd_reference(dp, g, a2, b2, m, inv)
                 ms = clock(lambda: ba.bn_act_bwd(dp, g, a2, b2, m, inv))
-                pms = clock(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
+                pms = pclock(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
                                                             m, inv))
                 work = (17 * n, 3 * es * n)
                 # the sums are fp32 in both dtypes: the fp32 tolerance
@@ -820,7 +903,7 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
                 line.append(f"D {max(r1, r2):.1e}{perf(ms, pms, work=work)}")
                 d = ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r)
                 ms = clock(lambda: ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r))
-                pms = clock(lambda: ba.bn_act_dpre_reference(
+                pms = pclock(lambda: ba.bn_act_dpre_reference(
                     dp, g, a2, b2, m, inv, s_r))
                 work = (9 * n, 3 * es * n)
                 r = rep.compare("bn_act_bwd", f"{name} dpre-only{sfx}", dname,
@@ -848,6 +931,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
     gen = torch.Generator(device=dev).manual_seed(2)
     clock = timer(timed)
     geometry = rep.geometry
+    pclock = plain_timer(timed, geometry)
     sfx = (f" {geometry} batch {batch}" if geometry else
            "" if batch == BATCH else f" batch {batch}")
 
@@ -889,7 +973,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
 
             route = cb.pair_route(ca, cbh, f, dt, True)
             (y, st), (y_r, st_r) = k8(), k8_plain()
-            ms, pms = clock(k8), clock(k8_plain)
+            ms, pms = clock(k8), pclock(k8_plain)
             lms = lib(k8_cudnn)
             work = conv_work(hh, c, f, es, 2 * f, batch=batch)
             bf16_timed = timed and dt == torch.bfloat16
@@ -915,7 +999,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
             got = cb.conv3x3_dgrad_pair(dp, wf, ca)
             ref = cb.conv3x3_dgrad_pair_reference(dp, wf, ca)
             ms = clock(lambda: cb.conv3x3_dgrad_pair(dp, wf, ca))
-            pms = clock(lambda: cb.conv3x3_dgrad_pair_reference(dp, wf, ca))
+            pms = pclock(lambda: cb.conv3x3_dgrad_pair_reference(dp, wf, ca))
             lms = lib(lambda: torch.nn.grad.conv2d_input(
                 (batch, c, hh, hh), w_c, nchw(dp), padding=1))
             work = conv_work(hh, f, c, es, batch=batch)
@@ -942,7 +1026,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
             got = k10()
             ref = cb.conv3x3_wgrad_pair_reference(xa, xb, dp)
             ms = clock(k10)
-            pms = clock(lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))
+            pms = pclock(lambda: cb.conv3x3_wgrad_pair_reference(xa, xb, dp))
             lms = lib(k10_cudnn)
             work = conv_work(hh, c, f, es, w_es=4, batch=batch)
             extra = route_times(bf16_timed, k10, k10_mma, k10_cudnn)
@@ -991,7 +1075,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
                     dp, wf, pre, a, b, m, inv, out_drop=drop)
 
             (dd, s), (dd_r, s_r) = k11(), k11_plain()
-            ms, pms = clock(k11), clock(k11_plain)
+            ms, pms = clock(k11), pclock(k11_plain)
             lms = lib(lambda: torch.nn.grad.conv2d_input(
                 (batch, f, hh, hh), w2_c, nchw(dp), padding=1))
             n = batch * hh * hh * f
@@ -1135,21 +1219,25 @@ def route_note(extra: dict) -> str:
             f"{extra['mma_enqueue_us']:.0f}us")
 
 
-def enqueue_us(fn, reps: int = 20) -> float:
+def enqueue_us(fn, reps: int = 20, rounds: int = 3) -> float:
     """µs of host time to enqueue one call of ``fn``: ``reps`` calls timed
     on the host clock behind a sleep kernel of about 30 ms, so the device's
-    queue never pushes back on the host."""
+    queue never pushes back on the host; the least of ``rounds`` rounds
+    (the host's other work only adds)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(60_000_000)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / reps * 1e6
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda._sleep(60_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        best = min(best, (t1 - t0) / reps * 1e6)
+    return best
 
 
 def pair_kernel_times(batch: int = BATCH) -> dict:
@@ -1214,6 +1302,134 @@ def pair_kernel_times(batch: int = BATCH) -> dict:
             acc["host_ms"] += t["host_ms"]
     out["total"] = totals
     print("PAIR " + json.dumps(out), flush=True)
+    return out
+
+
+def conv_cases(blocks=BLOCKS, plain=PLAIN) -> list[tuple]:
+    """The main path's calls of kernels A and B at ``blocks`` and ``plain``
+    (the UNet's ConvBlocks and plain convs): (kernel, form, name, H=W, C
+    in, F out, keep). A's forms: "identity" (conv1 forward with bias and
+    statistics; a plain conv's forward with bias alone), "prologue"
+    (conv2's forward through BN1 + LeakyReLU + the dropout of ``keep``,
+    None: no dropout, with bias and statistics) and "dgrad" (conv1's or a
+    plain conv's input gradient on the flip-transposed weights: C is the
+    output cotangent's channels, F the input's); B's: "identity" (conv1's
+    and the plain convs' weight gradients) and "prologue" (conv2's,
+    recomputing its operand from h). The UpBlocks' conv1 runs K8 to K10,
+    and the stem's dgrad only in SS-Net's VAT: neither is here."""
+    out = []
+    for name, hh, c, f, keep in blocks:
+        if not name.startswith("up"):
+            out.append(("A", "identity", f"{name}.conv1", hh, c, f, None))
+            if name != "in_conv":
+                out.append(("A", "dgrad", f"{name}.conv1", hh, f, c, None))
+            out.append(("B", "identity", f"{name}.conv1", hh, c, f, None))
+        out.append(("A", "prologue", f"{name}.conv2", hh, f, f, keep))
+        out.append(("B", "prologue", f"{name}.conv2", hh, f, f, keep))
+    for name, hh, c, f, _ in plain:
+        out.append(("A", "identity", name, hh, c, f, None))
+        out.append(("A", "dgrad", name, hh, f, c, None))
+        out.append(("B", "identity", name, hh, c, f, None))
+    return out
+
+
+#: conv_cases' (kernel, form) as ops/conv_block.py conv_route's form
+ROUTE_FORMS = {("A", "identity"): "conv", ("A", "dgrad"): "conv",
+               ("A", "prologue"): "prologue", ("B", "identity"): "wgrad",
+               ("B", "prologue"): "wgrad_prologue"}
+
+
+def conv_kernel_times(batch: int = BATCH, cases=None) -> dict:
+    """Kernels A (``conv3x3_nhwc``) and B (``conv3x3_wgrad_nhwc``) in bf16
+    at each of the main path's calls (``conv_cases``, ACDC shapes at
+    ``batch``): ms per call on the device alone (``device_ms``) and by
+    phase 2's host-inclusive method (``cuda_ms``), and µs of host time to
+    enqueue one call (``enqueue_us``), of the wrapper as a user calls it
+    ("call", with the route it takes), of the mma.sync kernels through
+    the launchers (``_launch_conv``, ``_launch_wgrad``: "mma"), of the
+    wgmma kernels' launchers where the tree has them and C and F are
+    multiples of 8 ("wgmma"), and of
+    cuDNN ("cudnn": F.conv2d, conv2d_input's equal F.conv2d on the
+    flipped weights, conv2d_weight, on channels_last views; for the
+    prologue forms on the already-transformed operand, which is less
+    work), each beside the bound (``conv_work``). It calls only the
+    wrappers' long-standing arguments, so a copy of this file run from an
+    earlier tree's root times that tree's kernels. Printed as one ``CONV``
+    JSON line (with totals by kernel and form) and returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dt = torch.bfloat16
+    route_of = getattr(cb, "conv_route", None)
+    sm90_conv = getattr(cb, "_launch_conv_sm90", None)
+    sm90_wgrad = getattr(cb, "_launch_wgrad_sm90", None)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {}
+    for kernel, form, name, hh, c, f, keep in cases or conv_cases():
+        x = randn(batch, hh, hh, c).to(dt)
+        w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
+        bias = None if form == "dgrad" else randn(f, scale=0.1)
+        stats = form == "prologue" or ".conv1" in name and form != "dgrad"
+        affine = drop = None
+        if form == "prologue":
+            affine = (1.0 + randn(c, scale=0.1), randn(c, scale=0.1))
+            drop = cb.HashDropout(99, keep) if keep else None
+        z = cb._source(x, affine, drop).to(dt)  # the operand cuDNN is given
+        pro = cb._prologue_args(affine, drop, c, batch, dev)
+        y = torch.empty((batch, hh, hh, f), dtype=dt, device=dev)
+        w_c = oihw(w)
+        if kernel == "A":
+            calls = {
+                "call": lambda: cb.conv3x3_nhwc(x, w, bias, affine, drop,
+                                                want_stats=stats),
+                "mma": lambda: cb._launch_conv(x, w, y, bias=bias, pro=pro,
+                                               want_sums=stats),
+                "cudnn": lambda: F.conv2d(nchw(z), w_c, None if bias is None
+                                          else bias.to(dt), padding=1)}
+            if sm90_conv is not None and c % 8 == 0 and f % 8 == 0:
+                calls["wgmma"] = lambda: sm90_conv(x, w, y, bias=bias,
+                                                   pro=pro, want_sums=stats)
+            work = conv_work(hh, c, f, 2, 2 * f if stats else 0, batch=batch)
+        else:
+            dp = randn(batch, hh, hh, f).to(dt)
+            calls = {
+                "call": lambda: cb.conv3x3_wgrad_nhwc(x, dp, affine, drop),
+                "mma": lambda: cb._launch_wgrad(x, dp, pro=pro),
+                "cudnn": lambda: torch.nn.grad.conv2d_weight(
+                    nchw(z), (f, c, 3, 3), nchw(dp), padding=1)}
+            if sm90_wgrad is not None and c % 8 == 0 and f % 8 == 0:
+                calls["wgmma"] = lambda: sm90_wgrad(x, dp, pro=pro)
+            work = conv_work(hh, c, f, 2, w_es=4, batch=batch)
+        b_ms, b_by = bound(*work)
+        row = dict(kernel=kernel, form=form, hh=hh, c=c, f=f, keep=keep,
+                   route=(route_of(c, f, dt, True, ROUTE_FORMS[kernel, form])
+                          if route_of else "mma"),
+                   bound_ms=b_ms, bound_by=b_by)
+        for what, fn in calls.items():
+            row[what] = dict(device_ms=device_ms(fn), host_ms=cuda_ms(fn),
+                             enqueue_us=enqueue_us(fn))
+        out[f"{kernel} {form} {name} {hh}^2 {c}->{f}"] = row
+        del x, w, y, z, calls
+        torch.cuda.empty_cache()
+    totals = {}
+    for row in list(out.values()):
+        for key in (row["kernel"], f"{row['kernel']} {row['form']}"):
+            acc = totals.setdefault(key, {"bound_ms": 0.0})
+            acc["bound_ms"] += row["bound_ms"]
+            for what in ("call", "mma", "wgmma", "cudnn"):
+                if what in row:
+                    t = acc.setdefault(what, dict(device_ms=0.0, host_ms=0.0))
+                    t["device_ms"] += row[what]["device_ms"]
+                    t["host_ms"] += row[what]["host_ms"]
+    out["total"] = totals
+    print("CONV " + json.dumps(out), flush=True)
     return out
 
 
@@ -1617,12 +1833,70 @@ def counters() -> dict:
 
 
 def route_counters() -> dict:
-    """The wrappers whose launches each route counts too (K8, K10):
+    """The wrappers whose launches each route counts too (A, B, K8, K10):
     ``fn.routes[route].launches``."""
     from hpfg_tpu_torch.ops import conv_block as cb
 
-    return {"conv3x3_pair_nhwc": cb.conv3x3_pair_nhwc,
+    return {"conv3x3_nhwc": cb.conv3x3_nhwc,
+            "conv3x3_wgrad_nhwc": cb.conv3x3_wgrad_nhwc,
+            "conv3x3_pair_nhwc": cb.conv3x3_pair_nhwc,
             "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair}
+
+
+def predicted_routes(model, dtype, steps: int, forwards: int, backwards: int,
+                     inner_backwards: int = 0) -> dict:
+    """A's and B's launches by route per run, walking the convs that
+    ``predicted_launches`` counts: a call takes wgmma where its compute
+    dtype is bf16 and its C and F are multiples of 8, else mma (the C = 1
+    and 3 stems, the F = 4, 2 and 9 heads and their dgrads, fp32), and
+    B's prologue form (conv2's) below WGRAD_PROLOGUE_MIN_C channels mma
+    (ops/conv_block.py's static rule: the 224^2 stage). A
+    forward runs A on each ConvBlock's conv1 (not an UpBlock's, which is
+    K8) and conv2 and on each plain conv (an UpBlock's 1x1, the head); a
+    backward A's dgrad on conv1 (but the stem's) and each plain conv, and
+    B on each conv1 (not an UpBlock's), conv2 and plain conv; a backward to
+    the input A's dgrad on every conv1 (the stem's too) and plain conv."""
+    import torch
+
+    from hpfg_tpu_torch.models.layers import ConvBlock, UpBlock
+    from hpfg_tpu_torch.ops.conv_block import WGRAD_PROLOGUE_MIN_C
+
+    out = {k: {"wgmma": 0, "mma": 0}
+           for k in ("conv3x3_nhwc", "conv3x3_wgrad_nhwc")}
+    if model is None:
+        return out
+    bf16 = dtype == torch.bfloat16
+
+    def add(kernel, c, f, n, prologue=False):
+        route = ("wgmma" if bf16 and c % 8 == 0 and f % 8 == 0 and not (
+            prologue and kernel == b and c < WGRAD_PROLOGUE_MIN_C)
+            else "mma")
+        out[kernel][route] += steps * n
+
+    ups = [m for m in model.modules() if isinstance(m, UpBlock)]
+    in_up = {id(u.conv) for u in ups}
+    blocks = [m for m in model.modules() if isinstance(m, ConvBlock)]
+    stem = next(b for b in blocks if id(b) not in in_up)
+    heads = [m for n, m in model.named_modules()
+             if n.split(".")[-1] == "out_conv"]
+    plain = [u.conv1x1.kernel.shape[2:] for u in ups] + [
+        h.kernel.shape[2:] for h in heads]
+    a, b = "conv3x3_nhwc", "conv3x3_wgrad_nhwc"
+    for blk in blocks:
+        c, f = blk.conv1.kernel.shape[2:]
+        own = id(blk) not in in_up
+        add(a, f, f, forwards)
+        add(b, f, f, backwards, prologue=True)
+        if own:
+            add(a, c, f, forwards)
+            add(b, c, f, backwards)
+            add(a, f, c, inner_backwards + (backwards if blk is not stem
+                                            else 0))
+    for c, f in plain:
+        add(a, c, f, forwards)
+        add(a, f, c, backwards + inner_backwards)
+        add(b, c, f, backwards)
+    return out
 
 
 def crop(cfg: dict) -> int:
@@ -1753,10 +2027,20 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         if (label in meta.get("paths", CONV_PATHS)
                 and sum(launches[c] for c in meta["counters"]) == 0):
             rep.fail(f"{label} path: kernel {name} was not launched")
-    # every K8 and K10 launch of the path on the wgmma route (bf16, aligned)
+    # every K8 and K10 launch of the path on the wgmma route (bf16,
+    # aligned), and every A and B launch whose C and F are multiples of 8
+    want = predicted_routes(getattr(algo, path.unet) if path.unet else None,
+                            algo.dtype, STEPS, path.forwards,
+                            path.backwards, path.inner_backwards)
     for name, by_route in routes.items():
-        print(f"{label} routes {name}: {by_route}", flush=True)
-        if by_route["wgmma"] != launches[name] or by_route["mma"]:
+        print(f"{label} routes {name}: {by_route}"
+              + (f" (predicted {want[name]})" if name in want else ""),
+              flush=True)
+        if name in want:
+            if by_route != want[name]:
+                rep.fail(f"{label} path: {name} launches by route "
+                         f"{by_route} != predicted {want[name]}")
+        elif by_route["wgmma"] != launches[name] or by_route["mma"]:
             rep.fail(f"{label} path: {name} launches off the wgmma route: "
                      f"{by_route} of {launches[name]}")
     busy, conv, bn, step_launches = profile_step(trainer, card, label)
@@ -1807,7 +2091,7 @@ def profile_step(trainer, card: str, label: str):
     # the port's conv kernels by name (cuDNN's, on the CTCT path's
     # SegFormer, have "wgrad" in theirs too)
     conv = sum(v[1] for k, v in by_name.items()
-               if re.search(r"\b(conv3x3|wgrad|pair_conv|pair_wgrad)(_bf16)?"
+               if re.search(r"\b(conv3x3|wgrad|conv_sm90|wgrad_sm90)(_bf16)?"
                             r"_kernel\b", k))
     bn = sum(v[1] for k, v in by_name.items()
              if any(f"bn_{n}_kernel" in k for n in ("act", "reduce", "dpre")))
@@ -2326,6 +2610,10 @@ ACDC_SLICES, ACDC_VOLUMES, ACDC_DEPTH, ACDC_HW = 160, 2, 6, (256, 216)
 #: patients, end-diastolic and end-systolic frames, so 40 volumes; 10
 #: slices a volume, the 1,312 training slices of 140 volumes rounded)
 ACDC_EVAL_VOLUMES, ACDC_EVAL_DEPTH = 40, 10
+#: phase 18's own test split: fewer volumes (its check is the ranks'
+#: results bitwise against one process's, which 15 volumes, shared 8 / 7,
+#: test as well as 40; the ACDC-size split stays with phases 13-14)
+SHARDED_EVAL_VOLUMES = 15
 #: the eval models each ACDC CLI run must log at both boundaries
 CLI_ACDC = {MT_CONFIG: ("model1", "model2"),
             HPFG_CONFIG: ("model1", "model2", "ema")}
@@ -2414,18 +2702,19 @@ def check_h5(rep: Report, card: str, root: str) -> dict:
                 contiguous_mb_per_s=vol_rate, contiguous_bytes=vol_bytes)
 
 
-def write_eval_tree(card: str, root: str) -> str:
-    """The synthetic ACDC tree with an ACDC-size test split
-    (ACDC_EVAL_VOLUMES volumes of ACDC_EVAL_DEPTH slices), through the
-    port's writer; returns ``root``."""
+def write_eval_tree(card: str, root: str,
+                    volumes: int = ACDC_EVAL_VOLUMES) -> str:
+    """The synthetic ACDC tree with a test split of ``volumes`` volumes of
+    ACDC_EVAL_DEPTH slices (by default ACDC's size), through the port's
+    writer; returns ``root``."""
     from hpfg_tpu_torch.data.synthetic import make_synthetic_acdc
 
     t0 = time.perf_counter()
     make_synthetic_acdc(root, n_train_slices=ACDC_SLICES,
-                        n_test_volumes=ACDC_EVAL_VOLUMES,
+                        n_test_volumes=volumes,
                         depth=ACDC_EVAL_DEPTH, hw=ACDC_HW)
-    print(f"acdc eval tree: {ACDC_SLICES} slices, {ACDC_EVAL_VOLUMES} test "
-          f"and {ACDC_EVAL_VOLUMES} val volumes of {ACDC_EVAL_DEPTH} x "
+    print(f"acdc eval tree: {ACDC_SLICES} slices, {volumes} test "
+          f"and {volumes} val volumes of {ACDC_EVAL_DEPTH} x "
           f"{ACDC_HW} written in {time.perf_counter() - t0:.1f} s ({card})",
           flush=True)
     return root
@@ -2963,9 +3252,9 @@ def eval_worker(rank: int, world: int, port: int, out_dir: str,
 
 
 def check_sharded_eval(rep: Report, dev, card: str, root: str) -> dict:
-    """Phase 18: on the ACDC-size test split of ``root`` (40 volumes of
-    10 slices), Mean-Teacher's student and EMA teacher, and S4CVNet's
-    SwinUNet and EMA SwinUNet, each pair through one
+    """Phase 18: on the test split of ``root`` (SHARDED_EVAL_VOLUMES
+    volumes of 10 slices), Mean-Teacher's student and EMA teacher, and
+    S4CVNet's SwinUNet and EMA SwinUNet, each pair through one
     ``evaluate_volumes_multi`` call, first in one process here, then over
     DP_WORLD ranks (``--eval-worker`` processes, gloo on this card), each
     rank its share of the volumes: every rank's per-class dice and HD95
@@ -3007,7 +3296,7 @@ def check_sharded_eval(rep: Report, dev, card: str, root: str) -> dict:
                               dice={n: float(v[:, 0].mean())
                                     for n, v in want.items()},
                               hd95_classes_hit=hits)
-        print(f"sharded eval {label} ({sorted(want)}; {ACDC_EVAL_VOLUMES} "
+        print(f"sharded eval {label} ({sorted(want)}; {SHARDED_EVAL_VOLUMES} "
               f"volumes of {ACDC_EVAL_DEPTH} x {ACDC_HW}): per-class dice "
               f"and HD95 on {DP_WORLD} ranks "
               f"{'bitwise equal to' if same else 'DIFFER from'} one "
@@ -3969,9 +4258,9 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-#: the wgmma kernels (K8, K10) whose SASS must hold wgmma and TMA
-#: instructions, not mma.sync's
-WGMMA_KERNELS = ("pair_conv_kernel", "pair_wgrad_kernel")
+#: the wgmma kernels (A and K8, B and K10) whose SASS must hold wgmma and
+#: TMA instructions, not mma.sync's
+WGMMA_KERNELS = ("conv_sm90_kernel", "wgrad_sm90_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -3988,9 +4277,11 @@ def sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            n = re.search(r"_kernelILi(\d+)E", m.group(1))
-            func = next((f"{k}<{n.group(1) if n else ''}>"
-                         for k in WGMMA_KERNELS if k in m.group(1)), None)
+            n = re.search(r"_kernelI((?:L[ib]\d+E)+)E", m.group(1))
+            args = ", ".join(re.findall(r"L[ib](\d+)E", n.group(1))) if n \
+                else ""
+            func = next((f"{k}<{args}>" for k in WGMMA_KERNELS
+                         if k in m.group(1)), None)
             if func:
                 out[func] = dict.fromkeys(SASS_OPS, 0)
             continue
@@ -4041,14 +4332,18 @@ def main() -> int:
     print(f"build: {lib.path.name} in {lib.build_seconds:.1f} s", flush=True)
     for line in ptxas_summary(lib.build_log):
         print(f"  ptxas: {line}")
+    for line in lib.build_log.splitlines():  # wgmma serialized by ptxas
+        if "C7515" in line or "serialized" in line:
+            print(f"  ptxas: {line.strip()}")
     sass = sass_counts(lib.path)
     for func, ops in sass.items():
         print(f"  sass: {func}: {ops}")
     for k in WGMMA_KERNELS:
         insts = [ops for f, ops in sass.items() if f.startswith(k)]
-        if not insts or not all(o["HGMMA"] and o["UTMALDG"] for o in insts):
-            rep.fail(f"{k}: no wgmma (HGMMA) or TMA (UTMALDG) in its SASS: "
-                     f"{insts}")
+        if not insts or not all(o["HGMMA"] and o["UTMALDG"]
+                                and not o["HMMA"] for o in insts):
+            rep.fail(f"{k}: no wgmma (HGMMA) or TMA (UTMALDG), or mma.sync "
+                     f"(HMMA), in its SASS: {insts}")
 
     def phase(name, fn):
         t0 = time.perf_counter()
@@ -4138,8 +4433,10 @@ def main() -> int:
             rep, dev, card, hpfg, acdc_eval)) if hpfg is not None else None)
         del out, hpfg
         torch.cuda.empty_cache()
-        sharded = (phase("sharded eval", lambda: check_sharded_eval(
-            rep, dev, card, acdc_eval)) if acdc_eval is not None else None)
+        sharded = phase("sharded eval", lambda: check_sharded_eval(
+            rep, dev, card, write_eval_tree(
+                card, os.path.join(tmp, "acdc_sharded"),
+                SHARDED_EVAL_VOLUMES)))
         dp = phase("data parallel", lambda: check_data_parallel(rep, dev,
                                                                 card))
         nccl = phase("nccl", lambda: check_nccl(rep, card))

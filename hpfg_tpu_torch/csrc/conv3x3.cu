@@ -68,9 +68,11 @@
 //     loads issued before this step's MMAs, and a CTA walks a run of tiles
 //     so a tile's epilogue overlaps the next tile's loads; the epilogue
 //     rounds into a shared-memory tile and stores, and takes K11's reduce,
-//     in 16-byte groups. mma.sync, not wgmma: its A operand comes from the
-//     shifted halo through ldmatrix at any pixel offset, and TMA could not
-//     apply the per-element prologue; a wgmma/TMA pipeline is later work;
+//     in 16-byte groups. These mma.sync kernels take the calls TMA cannot
+//     (fp32, the C = 1 and 3 stems, the heads, output masks, odd pair
+//     splits); the bf16 A, B, K8 and K10 calls whose channels are
+//     multiples of 8 run conv3x3_sm90.cu's wgmma/TMA kernels, which apply
+//     the prologue to the TMA-staged box in shared memory;
 //   * bf16, wgrad: a split-K GEMM per tap, M = 16 or 32 input channels,
 //     N = up to 32 output channels, K = the pixels of the CTA's run of
 //     tiles; one warp per tap keeps its sums in registers over the run, two

@@ -1,85 +1,119 @@
-// The UpBlock pair convs K8 and K10 in bf16 on Hopper's own tensor-core path:
-// wgmma (warpgroup MMA, fp32 sums in registers) fed by TMA (tensor-map bulk
+// The ConvBlock convs in bf16 on Hopper's own tensor-core path: wgmma
+// (warpgroup MMA, fp32 sums in registers) fed by TMA (tensor-map bulk
 // copies into shared memory, completion on mbarriers). sm_90a only.
 //
 // Replaces (hpfg_tpu/ops/pallas/conv_block.py):
-//   * K8 _conv_stats_cat_kernel (conv_block.py:772): the UpBlock conv1 over
-//     the implicit channel concat (skip || up) + bias, with the BN
-//     [sum, sum^2] of the fp32 result: pair_conv_kernel, launcher
-//     hpfg_pair_conv_sm90;
-//   * K10 _wgrad_pair_kernel (conv_block.py:1453): that conv's weight
-//     gradients, [3,3,Ca,F] then [3,3,Cb,F], in one launch:
-//     pair_wgrad_kernel, launcher hpfg_pair_wgrad_sm90.
-// Both are the identity-operand forms (no BN prologue, no dropout), which
-// is what lets TMA copy their operands untouched. ops/conv_block.py
-// (pair_route) sends a bf16 pair call here when TMA can take its tensors
-// (Ca, Cb and F multiples of 8, 16-byte aligned bases); every other pair
-// call (fp32, odd splits) keeps conv3x3.cu's mma.sync kernels.
+//   * kernel A, the 3x3 conv of one source, in its two operand forms:
+//     identity (_conv_stats_kernel, K1, conv_block.py:734: conv1 + bias +
+//     the BN [sum, sum^2]; _dgrad_kernel, K6, :1176: conv1's input
+//     gradient on the flip-transposed weights; and the plain convs) and
+//     prologue (_bn_act_conv_stats_kernel, K2, :785: conv2 over
+//     lrelu(a*h + b) * mask); and K8 _conv_stats_cat_kernel (:772), the
+//     UpBlock conv1 over the implicit channel concat (skip || up), as its
+//     two-source case: conv_sm90_kernel, launcher hpfg_conv_sm90;
+//   * kernel B, _wgrad_kernel (K7, :1192) with its _fold_wgrad (:1250), in
+//     both operand forms, and K10 _wgrad_pair_kernel (:1453), the pair
+//     conv's weight gradients [3,3,Ca,F] then [3,3,Cb,F] in one launch, as
+//     its two-source case: wgrad_sm90_kernel, launcher hpfg_wgrad_sm90.
+// ops/conv_block.py (conv_route, pair_route) sends a bf16 call here when
+// TMA can take its tensors (channels multiples of 8, 16-byte aligned
+// bases); fp32, the C = 1 and C = 3 stems (K12's), the heads and calls
+// with an output dropout mask keep conv3x3.cu's mma.sync kernels.
 //
-// What bounds them on an H100: each UpBlock conv1 is 14.8 GFLOP at batch
-// 32 (15 us at 989 TFLOP/s); at 28^2 and 56^2 (128 and 64 channels a half)
-// operations bound them, at 112^2 and 224^2 (32 and 16) the bytes of x and
-// y (23 and 46 us at 3.35 TB/s). wgmma is Hopper's only path to its full
-// tensor rate; at the byte-bound shapes what counts is keeping enough
-// copies in flight. K10 also writes a split-K partial row a CTA, which
-// the column sum reads back (19 MB each way at 28^2 and 56^2, batch 32).
+// What bounds them on an H100: each ConvBlock conv of the UNet is 4 to 15
+// GFLOP at batch 32 (4 to 15 us at 989 TFLOP/s); at 14^2 to 56^2 (64 to
+// 256 channels) operations bound them, at 112^2 and 224^2 (16 and 32) the
+// bytes of x and y (up to 46 us at 3.35 TB/s). wgmma is Hopper's only path
+// to its full tensor rate; at the byte-bound stages what counts is keeping
+// enough copies in flight; at 14^2 (32 images of 196 pixels at batch 32) it
+// is filling 132 SMs from few pixels. B also writes a split-K partial row
+// a CTA, which the column sum reads back, and the prologue form of both
+// hashes its dropout mask on the CUDA cores beside the MMAs.
 //
 // What the design does about it:
-//   * operands come by TMA into a ring of stages (four; three in K8 at
-//     N >= 64, whose output tile takes the room), one mbarrier each
+//   * operands come by TMA into a ring of stages (four; three in the conv
+//     at N >= 64, whose output tile takes the room), one mbarrier each
 //     (expect-tx bytes); one thread issues the copies of step s + stages
 //     once every warp is past step s, so the ring's steps of loads are in
-//     flight while the warpgroups multiply (two stages measured as fast
-//     as six: the loads are not what bounds these kernels);
+//     flight while the warpgroups multiply;
 //   * the activations come as a halo box of 16 channels (one source's
-//     channel group: a step's K never spans the two halves, so the concat
-//     is never written) over the tile plus its one-pixel rim, from a 4-D
-//     tensor map [C, W, H, B] of xa or xb. TMA fills what lies outside the
+//     channel group: a step's K never spans the two halves of a pair, so
+//     the concat is never written) over the tile plus its one-pixel rim,
+//     from a 4-D tensor map [C, W, H, B]. TMA fills what lies outside the
 //     image (or past the source's channels) with zeros: that is the SAME
-//     padding, and a split that is a multiple of 8 but not 16 gets a zero
-//     group tail. 32-byte swizzle: the 16-byte halves of eight consecutive
-//     pixels fall in eight different bank groups;
+//     padding of the identity form, and a channel count that is a multiple
+//     of 8 but not 16 gets a zero group tail. 32-byte swizzle: the 16-byte
+//     halves of eight consecutive pixels fall in eight different bank
+//     groups;
+//   * the prologue form (BN affine, LeakyReLU, hash dropout) cannot ride
+//     on TMA, which copies bytes untouched: the raw h box lands by TMA and
+//     the CTA's threads transform it once, in shared memory and in place,
+//     before any warp reads it (prologue_box): each 16-byte half's pixel
+//     and channels come from un-swizzling its address, the affine is a
+//     multiply then an add (no FMA) in fp32, the mask is hash.cuh's
+//     (seed, image id, row, lane = x*C + c) and the result is rounded to
+//     bf16. Pixels outside the image keep TMA's zeros: SAME padding is zeros
+//     of the transformed input (a*0 + b is not zero). One transform serves
+//     all nine taps; a barrier follows it, then the stage's MMAs (the
+//     transform of stage s + 1 beside stage s's wgmmas measured no faster
+//     in the conv and slower in the wgrad);
 //   * A is staged as a tiled halo box and read into registers by ldmatrix
 //     at each tap's shift (wgmma's register-A form), not by im2col boxes
 //     straight into swizzled shared memory: the register fragment of each
 //     warp is mma.sync's, so conv3x3.cu's shifted-halo addressing carries
 //     over, one halo box serves all nine taps (im2col mode would copy it
-//     nine times), and in K8 one fragment serves three taps (ky reuse);
-//   * B comes from shared memory through wgmma descriptors: in K8 the
-//     weights [9 taps][16 channels][N] by one 3-D box per chunk (two for
-//     N = 128), in K10 the dp tile [8 rows][16 pixels][N]; both are N-major
-//     (wgmma's transposed-B form, which 16-bit types allow), with the
-//     swizzle of their row width (32, 64 or 128 bytes), so the canonical
-//     MN-major layout is exactly what TMA writes. K8's weights stay
-//     resident when all chunks fit (Ca + Cb <= 64 at N <= 32);
-//   * K8: a CTA of two warpgroups takes an 8 x 32 pixel tile (16 columns
-//     each), M = 2 x 64 per warpgroup (output rows 2w and 2w + 1 of warp
-//     w), N = up to 128 output channels, K = 9 taps x 16-channel chunks; a
-//     CTA walks a run of tiles, the epilogue adds the bias, takes the
-//     statistics of the fp32 result on in-image pixels and stores bf16 (at
-//     N >= 64 through a swizzled shared-memory tile and a TMA store, which
-//     clips the tile's out-of-image rows and columns; below, from the
-//     registers); the statistics go per tile through shared memory in a
-//     fixed order into per-CTA sums, and the CTA that takes the last
-//     ticket sums the CTAs' rows in row order, so the sums are bitwise the
-//     same from run to run and no column-sum launch follows;
-//   * K10: dW[tap, c, f] = sum_p x[p + tap, c] dp[p, f] as a split-K GEMM,
-//     M = (tap, channel) rows, N = up to 64 output channels, K = pixels. A
-//     CTA of three warpgroups holds four channel groups: warpgroup g takes
-//     the taps of kernel row ky = g, warp q channel group q, and keeps the
-//     three taps kx of its row as three accumulators. So the nine taps
-//     fold into M at any channel count (at 16 and 32 channels a group is
-//     one tap's whole M; the groups a call lacks idle); A comes from the
+//     nine times), and in the conv one fragment serves three taps (ky
+//     reuse);
+//   * B comes from shared memory through wgmma descriptors: in the conv
+//     the weights [9 taps][16 channels][N] by one 3-D box per chunk (two
+//     for N = 128), in the wgrad the dp tile [8 rows][16 pixels][N]; both
+//     are N-major (wgmma's transposed-B form, which 16-bit types allow),
+//     with the swizzle of their row width (32, 64 or 128 bytes), so the
+//     canonical MN-major layout is exactly what TMA writes. The conv's
+//     weights stay resident when all chunks fit;
+//   * the conv: a CTA of two warpgroups takes a tile of 256 pixels, 8 x 32
+//     (warpgroup g the columns 16g..16g + 15) or, where the image is at
+//     most 16 wide, 16 x 16 (warpgroup g the rows 8g..8g + 7), which holds
+//     a 14 x 14 image whole (77% of its pixels live, against 38% in two
+//     8 x 32 tiles); M = 2 x 64 per warpgroup (warp w's rows 2w and 2w + 1
+//     of its part), N = up to 128 output channels (halved, down to 32,
+//     while the grid would leave SMs idle: at 14^2 a batch of 32 has 32
+//     tiles), K = 9 taps x 16-channel chunks; a CTA walks a run of tiles,
+//     the epilogue adds the bias, takes the statistics of the fp32 result
+//     on in-image pixels and stores bf16 (at N >= 64 through a swizzled
+//     shared-memory tile and a TMA store, which clips the tile's
+//     out-of-image rows and columns; below, from the registers); the
+//     statistics go per tile through shared memory in a fixed order into
+//     per-CTA sums, and the CTA that takes the last ticket sums the CTAs'
+//     rows in row order, so the sums are bitwise the same from run to run
+//     and no column-sum launch follows;
+//   * the wgrad: dW[tap, c, f] = sum_p x[p + tap, c] dp[p, f] as a split-K
+//     GEMM, M = (tap, channel) rows, N = up to 64 output channels, K =
+//     pixels. A CTA of three warpgroups holds four channel groups:
+//     warpgroup g takes the taps of kernel row ky = g, warp q channel group
+//     q, and keeps the three taps kx of its row as three accumulators. So
+//     the nine taps fold into M at any channel count; A comes from the
 //     halo by ldmatrix.trans at the tap's shift, one k16 step per tile row
 //     of 16 pixels. A CTA walks a run of 8 x 16 tiles and writes its
-//     partial row, which the fixed-order column sum (colsum_f32) adds, so
-//     dW is bitwise the same from run to run.
+//     partial row, which the fixed-order column sum (colsum_f32) adds (a
+//     grid of one row writes dW itself), so dW is bitwise the same from
+//     run to run.
+//
+// The host encodes each tensor map once per distinct set of encode
+// arguments (pointer, dims, strides, box, swizzle) and keeps it: a
+// CUtensorMap is a pure function of them, and the caching allocator hands
+// the same pointers back step after step.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+#include <mutex>
+#include <unordered_map>
+
+#include "hash.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -87,6 +121,7 @@ namespace {
 constexpr int GC = 16;       // channels of one group: a k16 step
 constexpr int STAGES = 4;    // TMA ring depth
 constexpr int MAX_SMEM = 232448;
+constexpr float kSlope = 0.01f;  // LeakyReLU
 
 // -- mbarrier, TMA, wgmma ---------------------------------------------------
 
@@ -319,18 +354,93 @@ __device__ __forceinline__ bool group_src(int g, int na, int& c) {
   return second;
 }
 
-// -- K8 ---------------------------------------------------------------------
+// -- the prologue -------------------------------------------------------------
 
-constexpr int CV_TH = 8;   // tile rows
-constexpr int CV_TW = 32;  // tile columns: warpgroup g takes 16g..16g+15
-constexpr int CV_HW = CV_TW + 2;
-constexpr int CV_HH = CV_TH + 2;
-constexpr int CV_A_BYTES = CV_HH * CV_HW * GC * 2;               // 10880
-constexpr int CV_A_SLOT = (CV_A_BYTES + 1023) / 1024 * 1024;     // 11264
+// The operand transform of a conv2 (conv3x3.cu's Prologue): z = lrelu(a[c]
+// * x + b[c]) * mask, the mask hash.cuh's hash_keep of (seed, image, row,
+// lane = x*C + c) when has_mask; a null a: the identity operand.
+struct Pro {
+  const float* a;  // [C]
+  const float* b;  // [C]
+  int has_mask;
+  uint32_t seed;
+  uint32_t thresh;
+  float scale;
+  const int* ids;  // [B] each image's index in the global batch, or null
+};
+
+// The prologue on 16-byte chunk j of a raw halo box of one 16-channel
+// group, in place. The box is bw pixels wide, its pixel (r, col) is image
+// pixel (gy0 + r, gx0 + col) of an image whose mask hashes index bi, and
+// its first channel is c0. Chunk j holds pixel p = j / 2's channels
+// c0 + 8h .. c0 + 8h + 7, h the un-swizzled half (halo_byte's inverse:
+// address bit 4 ^= bit 7). A pixel outside the image, or channels at or
+// past C (a multiple of 8), keep TMA's zeros: SAME padding is zeros of
+// the transformed input.
+__device__ __forceinline__ void prologue_chunk(uint8_t* box, int j, int bw,
+                                               int gy0, int gx0, int H,
+                                               int W, int C, int c0,
+                                               const Pro& pro, int bi) {
+  const int p = j >> 1;
+  const int h = (j & 1) ^ ((p >> 2) & 1);
+  const int r = p / bw;
+  const int gy = gy0 + r, gx = gx0 + p - r * bw;
+  const int c = c0 + 8 * h;
+  if (gy < 0 || gy >= H || gx < 0 || gx >= W || c >= C) return;
+  uint4* q = reinterpret_cast<uint4*>(box + 16 * j);
+  const uint4 u = *q;
+  uint32_t v[4] = {u.x, u.y, u.z, u.w};
+  // the affine of channels c..c+7 (16-byte aligned: c % 8 == 0)
+  const float4* a4 = reinterpret_cast<const float4*>(pro.a + c);
+  const float4* b4 = reinterpret_cast<const float4*>(pro.b + c);
+  const float4 a0 = __ldg(a4), a1 = __ldg(a4 + 1);
+  const float4 b0 = __ldg(b4), b1 = __ldg(b4 + 1);
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int sh = 16 * (e & 1);
+    float f = bf2f((v[e >> 1] >> sh) & 0xFFFFu);
+    // multiply and add rounded separately (no FMA), as the plain version
+    // computes them, so both take the same LeakyReLU branch
+    f = __fadd_rn(__fmul_rn(f, av[e]), bv[e]);
+    f = f >= 0.f ? f : f * kSlope;
+    if (pro.has_mask)
+      f *= hash_keep(pro.seed, pro.thresh, pro.scale, bi, gy, W * C,
+                     gx * C + c + e);
+    v[e >> 1] = (v[e >> 1] & ~(0xFFFFu << sh)) | (f2bf(f) << sh);
+  }
+  *q = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// -- the conv: A and K8 -------------------------------------------------------
+
+constexpr int CV_TH = 8;   // the wide tile's rows
+constexpr int CV_TW = 32;  // and columns: warpgroup g takes 16g..16g+15
+constexpr int CV_PIX = CV_TH * CV_TW;  // pixels of either tile
+constexpr int CV_A_SLOT = 11264;  // a halo box of either tile, in 1 KB steps
 constexpr int CV_NT = 256;
 
+// The conv's pixel tile: 8 x 32, its warpgroups side by side, or TALL,
+// 16 x 16, one above the other (an image at most 16 wide); 256 pixels.
+template <bool TALL>
+struct ConvTile {
+  static constexpr int TH = TALL ? 16 : CV_TH;
+  static constexpr int TW = TALL ? 16 : CV_TW;
+  static constexpr int HW = TW + 2;
+  static constexpr int HH = TH + 2;
+  static constexpr int A_BYTES = HH * HW * GC * 2;  // 10880 or 10368
+  // warpgroup g's first row and first column in the tile
+  static __device__ __forceinline__ int row0(int g) { return TALL ? 8 * g : 0; }
+  static __device__ __forceinline__ int col0(int g) { return TALL ? 0 : 16 * g; }
+};
+static_assert(ConvTile<false>::A_BYTES <= CV_A_SLOT &&
+                  ConvTile<true>::A_BYTES <= CV_A_SLOT &&
+                  ConvTile<true>::TH * ConvTile<true>::TW == CV_PIX,
+              "conv tiles");
+
 template <int BN>
-struct PairConv {
+struct ConvSmem {
   static constexpr int NJ = BN / 8;                      // n8 blocks
   static constexpr int BNB = BN < 64 ? BN : 64;          // TMA box width
   static constexpr int SW = BNB * 2;                     // B row bytes
@@ -341,14 +451,14 @@ struct PairConv {
   static constexpr int RED_BYTES = 8 * BN * 2 * 4 > 16 * 256 ? 8 * BN * 2 * 4
                                                              : 16 * 256;
   // N >= 64 (the operation-bound stages): the rounded tile goes out by
-  // TMA from a shared-memory tile, [8 rows][32 pixels][BNB] a 64-wide
-  // half, swizzled as B (measured 9% faster at 28^2 and 56^2 than stores
-  // from the registers, which leave the tile's end exposed); N <= 32: from
-  // the registers, as the extra tile and barriers cost the byte-bound
-  // stages their second CTA an SM (slower at 112^2)
+  // TMA from a shared-memory tile, [256 pixels][BNB] a 64-wide half,
+  // swizzled as B (measured 9% faster at 28^2 and 56^2 than stores from
+  // the registers, which leave the tile's end exposed); N <= 32: from the
+  // registers, as the extra tile and barriers cost the byte-bound stages
+  // their second CTA an SM (slower at 112^2)
   static constexpr bool TMA_Y = BN >= 64;
-  static constexpr int OUT_HALF = CV_TH * CV_TW * BNB * 2;
-  static constexpr int OUT_BYTES = TMA_Y ? CV_TH * CV_TW * BN * 2 : 0;
+  static constexpr int OUT_HALF = CV_PIX * BNB * 2;
+  static constexpr int OUT_BYTES = TMA_Y ? CV_PIX * BN * 2 : 0;
   static constexpr int ST = TMA_Y ? 3 : STAGES;  // ring stages
   // barriers and the bias at the head, then the output tile, the A ring,
   // B, the reduction
@@ -359,28 +469,29 @@ struct PairConv {
   }
 };
 
-struct PairConvMaps {
+struct ConvMaps {
   CUtensorMap xa, xb, w, y;
 };
 
-struct PairConvArgs {
+struct ConvArgs {
   const float* bias;    // [F] or null
-  uint16_t* y;          // [B,H,W,F] bf16 (written by TMA through maps.y)
+  uint16_t* y;          // [B,H,W,F] bf16 (at N >= 64 written through maps.y)
   float* part;          // [gridDim.x, 2F] or null (no statistics)
   float* stats;         // [2F]: the summed [sum, sum^2]
   unsigned* counter;    // the ticket, 0 between launches
-  int H, W, F, ca, cb;
+  Pro pro;              // PRO: xa's prologue (one source)
+  int H, W, F, ca, cb;  // cb = 0: one source
   int tiles_x, tiles_per_img, total_tiles, tiles_per_cta;
   int wres;             // the weights of every chunk stay resident
 };
 
 // N <= 32: two CTAs an SM (at most 128 registers a thread), which the
 // byte-bound stages (112^2, 224^2) need to keep enough copies in flight
-template <int BN>
+template <int BN, bool TALL, bool PRO>
 __global__ void __launch_bounds__(CV_NT, BN <= 32 ? 2 : 1)
-pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
-                 const PairConvArgs a) {
-  using K = PairConv<BN>;
+conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a) {
+  using K = ConvSmem<BN>;
+  using T = ConvTile<TALL>;
   constexpr int NJ = K::NJ, SW = K::SW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -401,8 +512,9 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int wg = tid >> 7;          // warpgroup: pixel columns 16wg..
+  const int wg = tid >> 7;          // warpgroup
   const int w = (tid >> 5) & 3;     // warp of the warpgroup: rows 2w, 2w+1
+  const int r0 = T::row0(wg), q0 = T::col0(wg);  // of its part of the tile
   const int lr = lane & 7, lq = lane >> 3;
   const int n0 = blockIdx.y * BN;
   const int H = a.H, W = a.W, F = a.F;
@@ -413,8 +525,8 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
   auto tile_of = [&](int t, int& b, int& ty0, int& tx0) {
     b = t / a.tiles_per_img;
     const int tt = t - b * a.tiles_per_img;
-    ty0 = (tt / a.tiles_x) * CV_TH;
-    tx0 = (tt % a.tiles_x) * CV_TW;
+    ty0 = (tt / a.tiles_x) * T::TH;
+    tx0 = (tt % a.tiles_x) * T::TW;
   };
   // weights of chunk k (concat channels from its group) into dst
   auto load_w = [&](uint32_t dst, uint64_t* bar, int k) {
@@ -430,12 +542,23 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
     const int k = s % nch;
     int b, ty0, tx0;
     tile_of(t_begin + s / nch, b, ty0, tx0);
-    mbar_expect_tx(&full[st], CV_A_BYTES + (a.wres ? 0 : K::B_BYTES));
+    mbar_expect_tx(&full[st], T::A_BYTES + (a.wres ? 0 : K::B_BYTES));
     int c;
     const bool second = group_src(k, na, c);
     tma_4d(smem_u32(ring_a + st * CV_A_SLOT), second ? &maps.xb : &maps.xa,
            &full[st], c, tx0 - 1, ty0 - 1, b);
     if (!a.wres) load_w(smem_u32(ring_b + st * K::B_SLOT), &full[st], k);
+  };
+  // PRO: step s's halo box (one source: group s % nch) transformed in
+  // place by the CTA's threads
+  auto transform = [&](int s) {
+    int b, ty0, tx0;
+    tile_of(t_begin + s / nch, b, ty0, tx0);
+    const int bi = image_index(a.pro.ids, b);
+    uint8_t* box = ring_a + (s % K::ST) * CV_A_SLOT;
+    for (int j = tid; j < T::A_BYTES / 16; j += CV_NT)
+      prologue_chunk(box, j, T::HW, ty0 - 1, tx0 - 1, H, W, a.ca,
+                     GC * (s % nch), a.pro, bi);
   };
 
   if (tid == 0) {
@@ -467,17 +590,23 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
     const int st = s % K::ST;
     const int k = s % nch;
     mbar_wait(&full[st], (s / K::ST) & 1);
+    if constexpr (PRO) {
+      transform(s);
+      fence_proxy_async();  // these writes before TMA's next into the slot
+      __syncthreads();
+    }
     const uint32_t sa = smem_u32(ring_a + st * CV_A_SLOT);
     const uint32_t sb =
         smem_u32(ring_b + (a.wres ? k : st) * K::B_SLOT);
-    // halo row 2w + r at shift kx is output row 2w + i's A at tap
-    // (r - i, kx): four fragments serve both rows at the three ky
+    // halo row 2w + r (of the warpgroup's part) at shift kx is output row
+    // 2w + i's A at tap (r - i, kx): four fragments serve both rows at the
+    // three ky
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx) {
       uint32_t af[4][4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int p = (2 * w + r) * CV_HW + 16 * wg + kx + lr + 8 * (lq & 1);
+        const int p = (r0 + 2 * w + r) * T::HW + q0 + kx + lr + 8 * (lq & 1);
         ldsm_x4_a(af[r], sa + halo_byte(p, lq >> 1));
       }
       wgmma_fence();
@@ -495,8 +624,8 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
     fence_acc(acc[1]);
 
     if (k == nch - 1) {
-      // the epilogue: acc[i][4j + 2h + e] is pixel (ty0 + 2w + i,
-      // tx0 + 16wg + lane/4 + 8h), channel n0 + 8j + 2(lane%4) + e; the
+      // the epilogue: acc[i][4j + 2h + e] is pixel (ty0 + r0 + 2w + i,
+      // tx0 + q0 + lane/4 + 8h), channel n0 + 8j + 2(lane%4) + e; the
       // rounded tile goes to out_s and leaves by one TMA store a 64-wide
       // half (which writes only what lies in the image and below F)
       int b, ty0, tx0;
@@ -510,13 +639,14 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
       for (int j = 0; j < NJ; ++j) sm[j][0] = sm[j][1] = sq[j][0] = sq[j][1] = 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int oy = ty0 + 2 * w + i;
+        const int rr = r0 + 2 * w + i;  // row in the tile
+        const int oy = ty0 + rr;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int px = 16 * wg + (lane >> 2) + 8 * h;
+          const int px = q0 + (lane >> 2) + 8 * h;
           const int ox = tx0 + px;
           const bool in = oy < H && ox < W;
-          const int pix = (2 * w + i) * CV_TW + px;  // in the tile
+          const int pix = rr * T::TW + px;  // in the tile
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
             const int col = 8 * j + 2 * (lane & 3);
@@ -659,39 +789,41 @@ pair_conv_kernel(const __grid_constant__ PairConvMaps maps,
   if (tid == 0) *a.counter = 0u;
 }
 
-// -- K10 --------------------------------------------------------------------
+// -- the wgrad: B and K10 -----------------------------------------------------
 
 constexpr int WG_TH = 8;   // tile rows: one k16 step each
 constexpr int WG_TW = 16;  // tile columns: the step's 16 pixels
 constexpr int WG_HW = WG_TW + 2;
 constexpr int WG_A_BYTES = (WG_TH + 2) * WG_HW * GC * 2;  // 5760
+constexpr int WG_CHUNKS = WG_A_BYTES / 16;                // 360
 constexpr int WG_A_SLOT = 6144;
 constexpr int WG_GROUPS = 4;   // channel groups a CTA holds: warp q takes q
 constexpr int WG_NT = 384;     // three warpgroups: kernel rows ky = 0, 1, 2
 
 template <int BN>
-struct PairWgrad {
+struct WgradSmem {
   static constexpr int SW = BN * 2;                  // dp row bytes
   static constexpr int D_BYTES = WG_TH * WG_TW * BN * 2;
   static constexpr int STAGE = WG_GROUPS * WG_A_SLOT + D_BYTES;
   static constexpr int SMEM = 1024 + 1024 + STAGES * STAGE;
 };
 
-struct PairWgradMaps {
+struct WgradMaps {
   CUtensorMap xa, xb, dp;
 };
 
-struct PairWgradArgs {
+struct WgradArgs {
   float* part;  // [gridDim.x, 9*(ca+cb)*F]: [3,3,ca,F] then [3,3,cb,F]
+  Pro pro;      // PRO: xa's prologue (one source)
   int H, W, F, ca, cb;
   int tiles_x, tiles_per_img, total_tiles, tiles_per_cta, cblocks;
 };
 
-template <int BN>
+template <int BN, bool PRO>
 __global__ void __launch_bounds__(WG_NT, 1)
-pair_wgrad_kernel(const __grid_constant__ PairWgradMaps maps,
-                  const PairWgradArgs a) {
-  using K = PairWgrad<BN>;
+wgrad_sm90_kernel(const __grid_constant__ WgradMaps maps,
+                  const WgradArgs a) {
+  using K = WgradSmem<BN>;
   constexpr int SW = K::SW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -714,13 +846,16 @@ pair_wgrad_kernel(const __grid_constant__ PairWgradMaps maps,
   const int t_end = min(t_begin + a.tiles_per_cta, a.total_tiles);
   const int nsteps = t_end - t_begin;
 
+  auto tile_of = [&](int t, int& b, int& ty0, int& tx0) {
+    b = t / a.tiles_per_img;
+    const int tt = t - b * a.tiles_per_img;
+    ty0 = (tt / a.tiles_x) * WG_TH;
+    tx0 = (tt % a.tiles_x) * WG_TW;
+  };
   auto issue = [&](int s) {
     const int st = s % STAGES;
-    const int t = t_begin + s;
-    const int b = t / a.tiles_per_img;
-    const int tt = t - b * a.tiles_per_img;
-    const int ty0 = (tt / a.tiles_x) * WG_TH;
-    const int tx0 = (tt % a.tiles_x) * WG_TW;
+    int b, ty0, tx0;
+    tile_of(t_begin + s, b, ty0, tx0);
     const uint32_t base = smem_u32(ring + st * K::STAGE);
     mbar_expect_tx(&full[st], K::D_BYTES + nvalid * WG_A_BYTES);
     for (int gq = 0; gq < nvalid; ++gq) {
@@ -731,6 +866,20 @@ pair_wgrad_kernel(const __grid_constant__ PairWgradMaps maps,
     }
     tma_4d(base + WG_GROUPS * WG_A_SLOT, &maps.dp, &full[st], n0, tx0, ty0,
            b);
+  };
+  // PRO: step s's halo boxes (one source) transformed in place by the
+  // CTA's threads, chunk j of the groups' boxes in turn
+  auto transform = [&](int s) {
+    int b, ty0, tx0;
+    tile_of(t_begin + s, b, ty0, tx0);
+    const int bi = image_index(a.pro.ids, b);
+    uint8_t* base = ring + (s % STAGES) * K::STAGE;
+    for (int j = tid; j < nvalid * WG_CHUNKS; j += WG_NT) {
+      const int gq = j / WG_CHUNKS;
+      prologue_chunk(base + gq * WG_A_SLOT, j - gq * WG_CHUNKS, WG_HW,
+                     ty0 - 1, tx0 - 1, a.H, a.W, a.ca, GC * (g0 + gq), a.pro,
+                     bi);
+    }
   };
 
   if (tid == 0) {
@@ -751,6 +900,11 @@ pair_wgrad_kernel(const __grid_constant__ PairWgradMaps maps,
   for (int s = 0; s < nsteps; ++s) {
     const int st = s % STAGES;
     mbar_wait(&full[st], (s / STAGES) & 1);
+    if constexpr (PRO) {
+      transform(s);
+      fence_proxy_async();  // these writes before TMA's next into the slot
+      __syncthreads();
+    }
     const uint32_t base = smem_u32(ring + st * K::STAGE);
     const uint32_t ga = base + q * WG_A_SLOT;
     const uint32_t gd = base + WG_GROUPS * WG_A_SLOT;
@@ -838,14 +992,33 @@ CUtensorMapSwizzle swizzle_of(int bytes) {
                        : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
+// The encoded tensor maps, keyed on every argument of the encode that
+// varies (pointer, rank, dims, strides, box, swizzle; the element type,
+// interleave, L2 promotion and fill are fixed): a map is a pure function
+// of them, so a kept one is exact. Shared by the launching threads (the
+// overlapped eval launches from its own) under a mutex; emptied when it
+// reaches MAP_CACHE_MAX entries.
+struct MapKey {
+  uint64_t v[17];  // ptr, rank, dims[5], strides[4], box[5], swizzle
+  bool operator==(const MapKey& o) const {
+    return std::memcmp(v, o.v, sizeof v) == 0;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = 1469598103934665603ull;  // FNV-1a over the words
+    for (uint64_t x : k.v) h = (h ^ x) * 1099511628211ull;
+    return (size_t)h;
+  }
+};
+constexpr size_t MAP_CACHE_MAX = 4096;
+
 // A bf16 tensor of dims d[0..rank) (d[0] innermost, dense) as a tensor map
 // with box box[0..rank) and the swizzle of box[0]'s bytes.
 int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
            const uint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_ENCODE;
-  cuuint64_t dims[5], strides[4];
-  cuuint32_t boxes[5], elem[5];
+  cuuint64_t dims[5] = {}, strides[4] = {};
+  cuuint32_t boxes[5] = {}, elem[5];
   uint64_t stride = 2;
   for (int i = 0; i < rank; ++i) {
     dims[i] = d[i];
@@ -854,13 +1027,38 @@ int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
     stride *= d[i];
     if (i + 1 < rank) strides[i] = stride;
   }
+  const CUtensorMapSwizzle swz = swizzle_of(box[0] * 2);
+  MapKey key{};
+  key.v[0] = (uint64_t)(uintptr_t)ptr;
+  key.v[1] = (uint64_t)rank;
+  for (int i = 0; i < 5; ++i) {
+    key.v[2 + i] = dims[i];
+    key.v[11 + i] = boxes[i];
+  }
+  for (int i = 0; i < 4; ++i) key.v[7 + i] = strides[i];
+  key.v[16] = (uint64_t)swz;
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = cache.find(key);
+    if (it != cache.end()) {
+      *map = it->second;
+      return 0;
+    }
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_ENCODE;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         const_cast<void*>(ptr), dims, strides, boxes, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle_of(box[0] * 2),
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache.size() >= MAP_CACHE_MAX) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
 }
 
 // An NHWC activation [B,H,W,C] as halo boxes of one channel group
@@ -871,130 +1069,189 @@ int encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, int C,
   return encode(map, x, 4, d, box);
 }
 
-template <int BN>
-int launch_pair_conv(const void* xa, const void* xb, const void* w,
-                     const PairConvArgs& args, int B, int ctas, int ntn,
-                     cudaStream_t stream) {
-  using K = PairConv<BN>;
-  PairConvMaps maps;
-  const int C = args.ca + args.cb;
-  int err = encode_halo(&maps.xa, xa, B, args.H, args.W, args.ca, CV_HW, CV_HH);
-  if (!err)
-    err = encode_halo(&maps.xb, xb, B, args.H, args.W, args.cb, CV_HW, CV_HH);
-  if (!err) {
-    const uint64_t d[3] = {(uint64_t)args.F, (uint64_t)C, 9};
-    const uint32_t box[3] = {(uint32_t)K::BNB, GC, 9};
-    err = encode(&maps.w, w, 3, d, box);
-  }
-  if (!err) {
-    const uint64_t d[4] = {(uint64_t)args.F, (uint64_t)args.W,
-                           (uint64_t)args.H, (uint64_t)B};
-    const uint32_t box[4] = {(uint32_t)K::BNB, CV_TW, CV_TH, 1};
-    err = encode(&maps.y, args.y, 4, d, box);
-  }
-  if (err) return err;
-  const int nch = (args.ca + GC - 1) / GC + (args.cb + GC - 1) / GC;
+// The two sources' halo maps; one source (cb = 0): xb is xa's map, which
+// the kernels never read then
+int encode_sources(CUtensorMap* ma, CUtensorMap* mb, const void* xa,
+                   const void* xb, int B, int H, int W, int ca, int cb,
+                   int box_w, int box_h) {
+  int err = encode_halo(ma, xa, B, H, W, ca, box_w, box_h);
+  if (!err && cb > 0) err = encode_halo(mb, xb, B, H, W, cb, box_w, box_h);
+  if (!err && cb == 0) *mb = *ma;
+  return err;
+}
+
+template <int BN, bool TALL, bool PRO>
+int launch_conv(const ConvMaps& maps, const ConvArgs& args, int ctas, int ntn,
+                int b_slots, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      pair_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
+      conv_sm90_kernel<BN, TALL, PRO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   (void)attr;  // a refusal shows as the launch's error
-  pair_conv_kernel<BN><<<dim3(ctas, ntn), CV_NT,
-                         K::smem(args.wres ? nch : K::ST), stream>>>(maps,
-                                                                      args);
+  conv_sm90_kernel<BN, TALL, PRO>
+      <<<dim3(ctas, ntn), CV_NT, ConvSmem<BN>::smem(b_slots), stream>>>(
+          maps, args);
   return (int)cudaGetLastError();
 }
 
+// The instantiation of N tile BN for the tile and the prologue: the tall
+// tile is built for N >= 32 only (the wrappers pick it at F >= 32)
 template <int BN>
-int launch_pair_wgrad(const void* xa, const void* xb, const void* dp,
-                      const PairWgradArgs& args, int B, int ctas, int nnb,
-                      cudaStream_t stream) {
-  using K = PairWgrad<BN>;
-  PairWgradMaps maps;
-  int err = encode_halo(&maps.xa, xa, B, args.H, args.W, args.ca, WG_HW,
-                        WG_TH + 2);
-  if (!err)
-    err = encode_halo(&maps.xb, xb, B, args.H, args.W, args.cb, WG_HW,
-                      WG_TH + 2);
-  if (!err) {
-    const uint64_t d[4] = {(uint64_t)args.F, (uint64_t)args.W,
-                           (uint64_t)args.H, (uint64_t)B};
-    const uint32_t box[4] = {(uint32_t)BN, WG_TW, WG_TH, 1};
-    err = encode(&maps.dp, dp, 4, d, box);
+int launch_conv_bn(const ConvMaps& maps, const ConvArgs& args, bool tall,
+                   bool pro, int ctas, int ntn, int b_slots, cudaStream_t s) {
+  if constexpr (BN >= 32) {
+    if (tall)
+      return pro ? launch_conv<BN, true, true>(maps, args, ctas, ntn, b_slots, s)
+                 : launch_conv<BN, true, false>(maps, args, ctas, ntn, b_slots,
+                                                s);
   }
-  if (err) return err;
+  if (tall) return (int)cudaErrorInvalidValue;
+  return pro ? launch_conv<BN, false, true>(maps, args, ctas, ntn, b_slots, s)
+             : launch_conv<BN, false, false>(maps, args, ctas, ntn, b_slots, s);
+}
+
+template <int BN, bool PRO>
+int launch_wgrad(const WgradMaps& maps, const WgradArgs& args, int ctas,
+                 int nnb, cudaStream_t stream) {
+  using K = WgradSmem<BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      pair_wgrad_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wgrad_sm90_kernel<BN, PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       K::SMEM);
   (void)attr;
-  pair_wgrad_kernel<BN><<<dim3(ctas, args.cblocks * nnb), WG_NT, K::SMEM,
-                          stream>>>(maps, args);
+  wgrad_sm90_kernel<BN, PRO><<<dim3(ctas, args.cblocks * nnb), WG_NT, K::SMEM,
+                               stream>>>(maps, args);
   return (int)cudaGetLastError();
+}
+
+Pro make_pro(const void* pa, const void* pb, int has_mask, unsigned seed,
+             unsigned thresh, float scale, const void* ids) {
+  return Pro{static_cast<const float*>(pa), static_cast<const float*>(pb),
+             has_mask, seed, thresh, scale, static_cast<const int*>(ids)};
 }
 
 }  // namespace
 
 extern "C" {
 
-// The wgmma kernels' pixel tiles (rows, columns) of K8 and K10, which the
-// Python geometry (ops/conv_block.py pair_conv_grid, pair_wgrad_grid) sizes
-// the grids and buffers by.
-int hpfg_pair_conv_tile_h() { return CV_TH; }
-int hpfg_pair_conv_tile_w() { return CV_TW; }
+// The wgmma kernels' pixel tiles (rows, columns): the conv's wide (tall =
+// 0) or tall tile, and the wgrad's, which the Python geometry
+// (ops/conv_block.py conv_grid, pair_conv_grid, wgrad_grid,
+// pair_wgrad_grid) sizes the grids and buffers by.
+int hpfg_conv_sm90_tile_h(int tall) {
+  return tall ? ConvTile<true>::TH : ConvTile<false>::TH;
+}
+int hpfg_conv_sm90_tile_w(int tall) {
+  return tall ? ConvTile<true>::TW : ConvTile<false>::TW;
+}
 int hpfg_pair_wgrad_tile_h() { return WG_TH; }
 int hpfg_pair_wgrad_tile_w() { return WG_TW; }
 
-// K8 on wgmma: xa [B,H,W,ca], xb [B,H,W,cb], w [3,3,ca+cb,F] bf16 (16-byte
-// aligned; ca, cb, F multiples of 8), bias [F] fp32 or null, y [B,H,W,F]
-// bf16; part [ctas, 2F] fp32, stats [2F] fp32 and counter (a zeroed uint32
-// the kernel leaves zeroed) or all null (no statistics). bn: the N tile
-// (16, 32, 64 or 128; ntn = ceil(F / bn) tiles over grid.y); a CTA takes
-// tiles_per_cta 8 x 32 tiles in order, ctas of them; wres: every chunk's
-// weights stay resident (sized by the caller).
-int hpfg_pair_conv_sm90(const void* xa, const void* xb, const void* w,
-                        const void* bias, void* y, void* part, void* stats,
-                        void* counter, int B, int H, int W, int ca, int cb,
-                        int F, int bn, int tiles_per_cta, int ctas, int wres,
-                        void* stream) {
-  const int tiles_x = (W + CV_TW - 1) / CV_TW;
-  const int tiles_per_img = tiles_x * ((H + CV_TH - 1) / CV_TH);
-  const PairConvArgs args{static_cast<const float*>(bias),
-                          static_cast<uint16_t*>(y),
-                          static_cast<float*>(part),
-                          static_cast<float*>(stats),
-                          static_cast<unsigned*>(counter),
-                          H, W, F, ca, cb, tiles_x, tiles_per_img,
-                          B * tiles_per_img, tiles_per_cta, wres};
+// A and K8 on wgmma: xa [B,H,W,ca] and xb [B,H,W,cb] (cb = 0: one source,
+// xb unread), w [3,3,ca+cb,F] bf16 (16-byte aligned; ca, cb, F multiples of
+// 8), bias [F] fp32 or null, y [B,H,W,F] bf16; part [ctas, 2F] fp32, stats
+// [2F] fp32 and counter (a zeroed uint32 the kernel leaves zeroed) or all
+// null (no statistics); pa, pb (fp32 [ca]), has_mask, seed, thresh, scale,
+// ids: xa's prologue (one source only), pa null for none. bn: the N tile
+// (16, 32, 64 or 128; ntn = ceil(F / bn) tiles over grid.y); tall: the
+// 16 x 16 tile (bn >= 32), else 8 x 32; a CTA takes tiles_per_cta tiles in
+// order, ctas of them; wres: every chunk's weights stay resident (sized by
+// the caller).
+int hpfg_conv_sm90(const void* xa, const void* xb, const void* w,
+                   const void* bias, void* y, void* part, void* stats,
+                   void* counter, const void* pa, const void* pb,
+                   int has_mask, unsigned seed, unsigned thresh, float scale,
+                   const void* ids, int B, int H, int W, int ca, int cb,
+                   int F, int bn, int tall, int tiles_per_cta, int ctas,
+                   int wres, void* stream) {
+  const int th = hpfg_conv_sm90_tile_h(tall), tw = hpfg_conv_sm90_tile_w(tall);
+  const int tiles_x = (W + tw - 1) / tw;
+  const int tiles_per_img = tiles_x * ((H + th - 1) / th);
+  if (pa != nullptr && cb != 0) return (int)cudaErrorInvalidValue;
+  const ConvArgs args{static_cast<const float*>(bias),
+                      static_cast<uint16_t*>(y),
+                      static_cast<float*>(part),
+                      static_cast<float*>(stats),
+                      static_cast<unsigned*>(counter),
+                      make_pro(pa, pb, has_mask, seed, thresh, scale, ids),
+                      H, W, F, ca, cb, tiles_x, tiles_per_img,
+                      B * tiles_per_img, tiles_per_cta, wres};
+  const int bnb = bn < 64 ? bn : 64;
+  ConvMaps maps;
+  int err = encode_sources(&maps.xa, &maps.xb, xa, xb, B, H, W, ca, cb,
+                           tw + 2, th + 2);
+  if (!err) {
+    const uint64_t d[3] = {(uint64_t)F, (uint64_t)(ca + cb), 9};
+    const uint32_t box[3] = {(uint32_t)bnb, GC, 9};
+    err = encode(&maps.w, w, 3, d, box);
+  }
+  if (!err) {
+    const uint64_t d[4] = {(uint64_t)F, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint32_t box[4] = {(uint32_t)bnb, (uint32_t)tw, (uint32_t)th, 1};
+    err = encode(&maps.y, y, 4, d, box);
+  }
+  if (err) return err;
   const int ntn = (F + bn - 1) / bn;
+  const int nch = (ca + GC - 1) / GC + (cb + GC - 1) / GC;
+  const bool pro = pa != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
-    case 16: return launch_pair_conv<16>(xa, xb, w, args, B, ctas, ntn, s);
-    case 32: return launch_pair_conv<32>(xa, xb, w, args, B, ctas, ntn, s);
-    case 64: return launch_pair_conv<64>(xa, xb, w, args, B, ctas, ntn, s);
-    case 128: return launch_pair_conv<128>(xa, xb, w, args, B, ctas, ntn, s);
+    case 16:
+      return launch_conv_bn<16>(maps, args, tall, pro, ctas, ntn,
+                                wres ? nch : ConvSmem<16>::ST, s);
+    case 32:
+      return launch_conv_bn<32>(maps, args, tall, pro, ctas, ntn,
+                                wres ? nch : ConvSmem<32>::ST, s);
+    case 64:
+      return launch_conv_bn<64>(maps, args, tall, pro, ctas, ntn,
+                                wres ? nch : ConvSmem<64>::ST, s);
+    case 128:
+      return launch_conv_bn<128>(maps, args, tall, pro, ctas, ntn,
+                                 wres ? nch : ConvSmem<128>::ST, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// K10 on wgmma: xa, xb as hpfg_pair_conv_sm90's, dp [B,H,W,F] bf16, part
-// [ctas, 9*(ca+cb)*F] fp32 ([3,3,ca,F] then [3,3,cb,F] a row), summed by
-// hpfg_colsum_f32. bn: the N tile (16, 32 or 64); cblocks: blocks of four
-// 16-channel groups (those of xa, then xb's); grid (ctas, cblocks x
-// ceil(F / bn)); a CTA takes tiles_per_cta 8 x 16 tiles in order.
-int hpfg_pair_wgrad_sm90(const void* xa, const void* xb, const void* dp,
-                         void* part, int B, int H, int W, int ca, int cb,
-                         int F, int bn, int tiles_per_cta, int ctas,
-                         int cblocks, void* stream) {
+// B and K10 on wgmma: xa, xb as hpfg_conv_sm90's (cb = 0: one source),
+// dp [B,H,W,F] bf16, part [ctas, 9*(ca+cb)*F] fp32 ([3,3,ca,F] then
+// [3,3,cb,F] a row), summed by hpfg_colsum_f32 (one row: dW itself); pa
+// .. ids: xa's prologue as hpfg_conv_sm90's. bn: the N tile (16, 32 or
+// 64); cblocks: blocks of four 16-channel groups (those of xa, then
+// xb's); grid (ctas, cblocks x ceil(F / bn)); a CTA takes tiles_per_cta
+// 8 x 16 tiles in order.
+int hpfg_wgrad_sm90(const void* xa, const void* xb, const void* dp,
+                    void* part, const void* pa, const void* pb, int has_mask,
+                    unsigned seed, unsigned thresh, float scale,
+                    const void* ids, int B, int H, int W, int ca, int cb,
+                    int F, int bn, int tiles_per_cta, int ctas, int cblocks,
+                    void* stream) {
   const int tiles_x = (W + WG_TW - 1) / WG_TW;
   const int tiles_per_img = tiles_x * ((H + WG_TH - 1) / WG_TH);
-  const PairWgradArgs args{static_cast<float*>(part), H, W, F, ca, cb,
-                           tiles_x, tiles_per_img, B * tiles_per_img,
-                           tiles_per_cta, cblocks};
+  if (pa != nullptr && cb != 0) return (int)cudaErrorInvalidValue;
+  const WgradArgs args{static_cast<float*>(part),
+                       make_pro(pa, pb, has_mask, seed, thresh, scale, ids),
+                       H, W, F, ca, cb, tiles_x, tiles_per_img,
+                       B * tiles_per_img, tiles_per_cta, cblocks};
+  WgradMaps maps;
+  int err = encode_sources(&maps.xa, &maps.xb, xa, xb, B, H, W, ca, cb,
+                           WG_HW, WG_TH + 2);
+  if (!err) {
+    const uint64_t d[4] = {(uint64_t)F, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint32_t box[4] = {(uint32_t)bn, WG_TW, WG_TH, 1};
+    err = encode(&maps.dp, dp, 4, d, box);
+  }
+  if (err) return err;
   const int nnb = (F + bn - 1) / bn;
+  const bool pro = pa != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
-    case 16: return launch_pair_wgrad<16>(xa, xb, dp, args, B, ctas, nnb, s);
-    case 32: return launch_pair_wgrad<32>(xa, xb, dp, args, B, ctas, nnb, s);
-    case 64: return launch_pair_wgrad<64>(xa, xb, dp, args, B, ctas, nnb, s);
+    case 16:
+      return pro ? launch_wgrad<16, true>(maps, args, ctas, nnb, s)
+                 : launch_wgrad<16, false>(maps, args, ctas, nnb, s);
+    case 32:
+      return pro ? launch_wgrad<32, true>(maps, args, ctas, nnb, s)
+                 : launch_wgrad<32, false>(maps, args, ctas, nnb, s);
+    case 64:
+      return pro ? launch_wgrad<64, true>(maps, args, ctas, nnb, s)
+                 : launch_wgrad<64, false>(maps, args, ctas, nnb, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -48,14 +48,15 @@ _SIGNATURES = {
     "hpfg_conv3x3_wgrad_nhwc": [_P, _P, _I, _P, _P, _P, _I, _U, _U, _F, _P,
                                 _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_colsum_f32": [_P, _P, _I, _I, _I, _P],
-    "hpfg_pair_conv_tile_h": [],
-    "hpfg_pair_conv_tile_w": [],
+    "hpfg_conv_sm90_tile_h": [_I],
+    "hpfg_conv_sm90_tile_w": [_I],
     "hpfg_pair_wgrad_tile_h": [],
     "hpfg_pair_wgrad_tile_w": [],
-    "hpfg_pair_conv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P],
-    "hpfg_pair_wgrad_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
+    "hpfg_conv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _U, _U,
+                       _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
+    "hpfg_wgrad_sm90": [_P, _P, _P, _P, _P, _P, _I, _U, _U, _F, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_attn_max_l": [],
     "hpfg_attn_max_d": [],
     "hpfg_window_attention_fwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I,
@@ -86,9 +87,13 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         # the conv and wgrad kernels' output tile (rows, columns)
         self.tile = (self.lib.hpfg_tile_h(), self.lib.hpfg_tile_w())
-        # the wgmma pair kernels' pixel tiles (K8, K10)
-        self.pair_conv_tile = (self.lib.hpfg_pair_conv_tile_h(),
-                               self.lib.hpfg_pair_conv_tile_w())
+        # the wgmma kernels' pixel tiles: the conv's (A, K8), wide (False)
+        # and tall (True), and the wgrad's (B, K10)
+        self.conv_sm90_tiles = {
+            tall: (self.lib.hpfg_conv_sm90_tile_h(int(tall)),
+                   self.lib.hpfg_conv_sm90_tile_w(int(tall)))
+            for tall in (False, True)}
+        self.pair_conv_tile = self.conv_sm90_tiles[False]
         self.pair_wgrad_tile = (self.lib.hpfg_pair_wgrad_tile_h(),
                                 self.lib.hpfg_pair_wgrad_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()

@@ -26,7 +26,11 @@ gradients (kernels A and B, or for a pair ``conv3x3_dgrad_pair``, K9, and
 Every kernel wrapper takes its plain PyTorch version (``*_reference``) for
 CPU tensors only; a CUDA tensor launches the kernel or raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` and reports its operations
-to an active ``utils.profiling.count_flops`` (``_cuda.counted``).
+to an active ``utils.profiling.count_flops`` (``_cuda.counted``). A, B, K8
+and K10 have two routes on the card, counted in ``<wrapper>.routes``: a
+bf16 call whose channels TMA can take runs csrc/conv3x3_sm90.cu's wgmma
+kernels (``conv_route``, ``pair_route``), every other call the
+mma.sync kernels of csrc/conv3x3.cu.
 """
 
 from __future__ import annotations
@@ -70,18 +74,33 @@ _MUR2 = 0xC2B2AE35
 WGRAD_TARGET_BLOCKS = 2048
 # the most bytes its per-block dW partials may take
 WGRAD_PART_BYTES = 2 ** 25
-# K8 and K10 on wgmma (csrc/conv3x3_sm90.cu): the CTAs per SM each grid
-# aims at (K8: two of two warpgroups; K10: one of three, with four TMA
-# stages of up to 40 KB), the channels of one TMA channel group, K10's
-# groups per CTA, and the most bytes K8's resident weights may take
+# A, B, K8 and K10 on wgmma (csrc/conv3x3_sm90.cu): the CTAs per SM each
+# grid aims at (the conv: two of two warpgroups; the wgrad: one of three,
+# with four TMA stages of up to 40 KB), the channels of one TMA channel
+# group, the wgrad's groups per CTA, and the most bytes the conv's
+# resident weights may take
 PAIR_CONV_CTAS_PER_SM = 2
 PAIR_WGRAD_CTAS_PER_SM = 1
 PAIR_GROUP = 16
 PAIR_WGRAD_GROUPS = 4
 PAIR_RESIDENT_BYTES = 48 * 1024
-#: the routes of K8 and K10: "wgmma" (csrc/conv3x3_sm90.cu) and "mma"
-#: (PR 4's mma.sync kernels of csrc/conv3x3.cu)
-PAIR_ROUTES = ("wgmma", "mma")
+# A on wgmma: the tall 16 x 16 tile serves images at most CONV_TALL_MAX_W
+# wide (at F >= 32); the N tile is halved while the grid's CTAs would
+# number fewer than CONV_MIN_FILL of the SMs. B on wgmma: its fp32 dW
+# partials take at most WGRAD_SM90_PART_RATIO times its operands' bytes
+# (a cap of 1/4 measured 2.2-5.4x slower at 14^2 to 56^2, where fewer
+# CTAs fill the card: PERF.md); its prologue form takes the mma
+# route below WGRAD_PROLOGUE_MIN_C input channels (the 224^2 stage's 16:
+# measured faster there on the mma.sync kernel, two CTAs an SM)
+CONV_TALL_MAX_W = 16
+CONV_MIN_FILL = 0.9
+WGRAD_SM90_PART_RATIO = 4.0
+WGRAD_PROLOGUE_MIN_C = 32
+#: the routes of A, B, K8 and K10: "wgmma" (csrc/conv3x3_sm90.cu) and
+#: "mma" (the mma.sync kernels of csrc/conv3x3.cu)
+ROUTES = ("wgmma", "mma")
+#: the forms of an A or B call that :func:`conv_route` tells apart
+CONV_FORMS = ("conv", "prologue", "out_drop", "wgrad", "wgrad_prologue")
 
 
 @dataclass(frozen=True)
@@ -340,6 +359,27 @@ def pair_route(ca: int, cb: int, f: int, dtype, aligned: bool) -> str:
     return "wgmma" if ok else "mma"
 
 
+def conv_route(c: int, f: int, dtype, aligned: bool, form: str) -> str:
+    """The kernel an A or B call takes on the card: "wgmma"
+    (csrc/conv3x3_sm90.cu) where TMA can take its tensors, as for
+    :func:`pair_route`: bf16, C and F multiples of 8 and 16-byte aligned
+    bases (``aligned``), and no output dropout mask. ``form``: "conv" (A
+    on an identity operand: a conv1 or plain conv forward, a dgrad on the
+    flip-transposed weights), "prologue" (A through BN + LeakyReLU +
+    dropout), "out_drop" (A with an output mask, which no wgmma kernel
+    applies), "wgrad" (B, identity operand) or "wgrad_prologue". The C = 1
+    and C = 3 stems, the F = 4, 2 and 9 heads (and their dgrads), fp32,
+    "out_drop" and "wgrad_prologue" below WGRAD_PROLOGUE_MIN_C channels
+    (a static rule from the card's timings) take "mma": conv3x3.cu's.
+    No call falls back from one to the other."""
+    if form not in CONV_FORMS:
+        raise ValueError(f"form {form!r} not in {CONV_FORMS}")
+    ok = (dtype == torch.bfloat16 and aligned and c % 8 == 0
+          and f % 8 == 0 and form != "out_drop"
+          and not (form == "wgrad_prologue" and c < WGRAD_PROLOGUE_MIN_C))
+    return "wgmma" if ok else "mma"
+
+
 def _n_tile(f: int, most: int) -> int:
     """The wgmma N tile for F output channels: F rounded up to 16, 32, 64
     or 128, at most ``most`` (more channels take more N tiles)."""
@@ -368,18 +408,20 @@ def pair_group(g: int, ca: int) -> tuple[int, int]:
     return (0, PAIR_GROUP * g) if g < na else (1, PAIR_GROUP * (g - na))
 
 
-class PairConvGrid(NamedTuple):
-    """K8's wgmma launch: N tile, tiles a CTA walks, CTAs over the tiles
-    (the rows of its statistics partials), N tiles, resident weights."""
+class ConvGrid(NamedTuple):
+    """A wgmma conv launch (A, K8): N tile, tiles a CTA walks, CTAs over
+    the tiles (the rows of its statistics partials), N tiles, resident
+    weights, the tall 16 x 16 tile (else 8 x 32)."""
     n_tile: int
     tiles_per_cta: int
     ctas: int
     n_tiles: int
     resident: bool
+    tall: bool = False
 
 
 def pair_conv_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
-                   tile: tuple[int, int], sms: int) -> PairConvGrid:
+                   tile: tuple[int, int], sms: int) -> ConvGrid:
     """K8's wgmma grid: CTAs of ``tile`` pixel tiles (8 x 32), about
     PAIR_CONV_CTAS_PER_SM an SM over the N tiles, each walking a run of
     consecutive tiles; the weights of every 16-channel chunk stay resident
@@ -390,13 +432,36 @@ def pair_conv_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
     per = max(1, -(-total * n_tiles // (sms * PAIR_CONV_CTAS_PER_SM)))
     chunks = -(-ca // PAIR_GROUP) + -(-cb // PAIR_GROUP)
     resident = chunks * 9 * PAIR_GROUP * bn * 2 <= PAIR_RESIDENT_BYTES
-    return PairConvGrid(bn, per, -(-total // per), n_tiles, resident)
+    return ConvGrid(bn, per, -(-total // per), n_tiles, resident)
 
 
-class PairWgradGrid(NamedTuple):
-    """K10's wgmma launch: N tile, tiles a CTA walks, CTAs over the tiles
-    (the rows of its dW partials), channel blocks of PAIR_WGRAD_GROUPS
-    16-channel groups, N tiles."""
+def conv_grid(b: int, h: int, w: int, c: int, f: int,
+              tiles: dict, sms: int) -> ConvGrid:
+    """A's wgmma grid for one source of ``c`` channels: the tall tile
+    (``tiles[True]``, 16 x 16) where the image is at most CONV_TALL_MAX_W
+    wide and F >= 32 (a 14 x 14 image fills 77% of one, 38% of two 8 x
+    32), else the wide one (``tiles[False]``); the N tile F rounded up to
+    16, 32, 64 or 128, halved (down to 32 tall, 16 wide) while the CTAs
+    over the tiles and N tiles would number fewer than CONV_MIN_FILL of
+    ``sms`` (14^2 at batch 32: 32 tiles); the run of tiles a CTA walks and
+    the resident weights as :func:`pair_conv_grid`'s."""
+    tall = w <= CONV_TALL_MAX_W and f >= 32
+    total = conv_tiles(b, h, w, tiles[tall])
+    bn = _n_tile(f, 128)
+    while bn > (32 if tall else 16) and total * -(-f // bn) < \
+            CONV_MIN_FILL * sms:
+        bn //= 2
+    n_tiles = -(-f // bn)
+    per = max(1, -(-total * n_tiles // (sms * PAIR_CONV_CTAS_PER_SM)))
+    resident = (-(-c // PAIR_GROUP) * 9 * PAIR_GROUP * bn * 2
+                <= PAIR_RESIDENT_BYTES)
+    return ConvGrid(bn, per, -(-total // per), n_tiles, resident, tall)
+
+
+class WgradGrid(NamedTuple):
+    """A wgmma wgrad launch (B, K10): N tile, tiles a CTA walks, CTAs over
+    the tiles (the rows of its dW partials), channel blocks of
+    PAIR_WGRAD_GROUPS 16-channel groups, N tiles."""
     n_tile: int
     tiles_per_cta: int
     ctas: int
@@ -405,7 +470,7 @@ class PairWgradGrid(NamedTuple):
 
 
 def pair_wgrad_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
-                    tile: tuple[int, int], sms: int) -> PairWgradGrid:
+                    tile: tuple[int, int], sms: int) -> WgradGrid:
     """K10's wgmma grid: 16-channel groups of xa then xb, four a channel
     block; N tiles of up to 64; CTAs of ``tile`` pixel tiles (8 x 16),
     about PAIR_WGRAD_CTAS_PER_SM an SM over the blocks, each walking a run
@@ -417,49 +482,104 @@ def pair_wgrad_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
     blocks = -(-groups // PAIR_WGRAD_GROUPS)
     per = max(1, -(-total * blocks * n_tiles
                    // (sms * PAIR_WGRAD_CTAS_PER_SM)))
-    return PairWgradGrid(bn, per, -(-total // per), blocks, n_tiles)
+    return WgradGrid(bn, per, -(-total // per), blocks, n_tiles)
+
+
+def wgrad_grid(b: int, h: int, w: int, c: int, f: int,
+               tile: tuple[int, int], sms: int) -> WgradGrid:
+    """B's wgmma grid for one source of ``c`` channels: as
+    :func:`pair_wgrad_grid`'s, each CTA's run of tiles lengthened until
+    the [ctas, 9*C*F] fp32 partials take at most WGRAD_SM90_PART_RATIO
+    times the bytes of x and dp (at least one row, which is dW itself)."""
+    g = pair_wgrad_grid(b, h, w, c, 0, f, tile, sms)
+    total = conv_tiles(b, h, w, tile)
+    rows = max(1, int(WGRAD_SM90_PART_RATIO * 2 * b * h * w * (c + f))
+               // (4 * 9 * c * f))
+    per = max(g.tiles_per_cta, -(-total // rows))
+    return g._replace(tiles_per_cta=per, ctas=-(-total // per))
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _launch_pair_conv(xa, xb, w, bias, y, want_stats):
-    """One launch of K8's wgmma kernel (``hpfg_pair_conv_sm90``) into
-    ``y``; its last CTA sums the statistics. Returns them as [2, F] when
-    ``want_stats``, else None."""
+def _sm90_conv(xa, xb, w, bias, y, pro, want_stats, g: ConvGrid):
+    """One launch of the wgmma conv (``hpfg_conv_sm90``) on grid ``g`` into
+    ``y``: K8 over xa || xb, or A over xa alone (``xb`` None) through its
+    prologue ``pro`` (``_prologue_args``); its last CTA sums the
+    statistics. Returns them as [2, F] when ``want_stats``, else None."""
     lib = library(xa.device)
     b, h, wd, ca = xa.shape
-    cb, f = xb.shape[3], w.shape[3]
-    g = pair_conv_grid(b, h, wd, ca, cb, f, lib.pair_conv_tile,
-                       sm_count(xa.device))
+    cb = 0 if xb is None else xb.shape[3]
+    f = w.shape[3]
     part = stats = counter = None
     if want_stats:
         part = torch.empty((g.ctas, 2 * f), dtype=torch.float32,
                            device=xa.device)
         stats = torch.empty(2 * f, dtype=torch.float32, device=xa.device)
-        counter = ticket(xa.device, "pair_conv")
-    lib.call("hpfg_pair_conv_sm90", ptr(xa), ptr(xb), ptr(w), ptr(bias),
-             ptr(y), ptr(part), ptr(stats), ptr(counter), b, h, wd, ca, cb,
-             f, g.n_tile, g.tiles_per_cta, g.ctas, int(g.resident),
-             stream(xa))
+        counter = ticket(xa.device, "conv_sm90")
+    lib.call("hpfg_conv_sm90", ptr(xa), ptr(xb), ptr(w), ptr(bias), ptr(y),
+             ptr(part), ptr(stats), ptr(counter), *pro, b, h, wd, ca, cb, f,
+             g.n_tile, int(g.tall), g.tiles_per_cta, g.ctas,
+             int(g.resident), stream(xa))
     return stats.view(2, f) if want_stats else None
 
 
-def _launch_pair_wgrad(xa, xb, dp):
-    """One launch of K10's wgmma kernel (``hpfg_pair_wgrad_sm90``), then the
-    fixed-order column sum: [9 * C * F] fp32, [3,3,Ca,F] then [3,3,Cb,F]."""
+def _sm90_wgrad(xa, xb, dp, pro, g: WgradGrid):
+    """One launch of the wgmma wgrad (``hpfg_wgrad_sm90``) on grid ``g``
+    (K10 over xa and xb; B over xa alone, ``xb`` None, through ``pro``),
+    then the fixed-order column sum of its partial rows (none for one
+    row): [9 * C * F] fp32, [3,3,Ca,F] then [3,3,Cb,F]."""
     lib = library(xa.device)
     b, h, wd, ca = xa.shape
-    cb, f = xb.shape[3], dp.shape[3]
-    g = pair_wgrad_grid(b, h, wd, ca, cb, f, lib.pair_wgrad_tile,
-                        sm_count(xa.device))
+    cb = 0 if xb is None else xb.shape[3]
+    f = dp.shape[3]
     part = torch.empty((g.ctas, 9 * (ca + cb) * f), dtype=torch.float32,
                        device=xa.device)
-    lib.call("hpfg_pair_wgrad_sm90", ptr(xa), ptr(xb), ptr(dp), ptr(part), b,
-             h, wd, ca, cb, f, g.n_tile, g.tiles_per_cta, g.ctas,
+    lib.call("hpfg_wgrad_sm90", ptr(xa), ptr(xb), ptr(dp), ptr(part), *pro,
+             b, h, wd, ca, cb, f, g.n_tile, g.tiles_per_cta, g.ctas,
              g.channel_blocks, stream(xa))
-    return colsum(part)
+    return part[0] if g.ctas == 1 else colsum(part)
+
+
+def _launch_pair_conv(xa, xb, w, bias, y, want_stats):
+    """K8 on wgmma at :func:`pair_conv_grid`'s grid (``_sm90_conv``)."""
+    lib = library(xa.device)
+    b, h, wd, ca = xa.shape
+    g = pair_conv_grid(b, h, wd, ca, xb.shape[3], w.shape[3],
+                       lib.pair_conv_tile, sm_count(xa.device))
+    return _sm90_conv(xa, xb, w, bias, y, _NO_PROLOGUE, want_stats, g)
+
+
+def _launch_pair_wgrad(xa, xb, dp):
+    """K10 on wgmma at :func:`pair_wgrad_grid`'s grid (``_sm90_wgrad``)."""
+    lib = library(xa.device)
+    b, h, wd, ca = xa.shape
+    g = pair_wgrad_grid(b, h, wd, ca, xb.shape[3], dp.shape[3],
+                        lib.pair_wgrad_tile, sm_count(xa.device))
+    return _sm90_wgrad(xa, xb, dp, _NO_PROLOGUE, g)
+
+
+def _launch_conv_sm90(x, w, y, *, bias=None, pro=None, want_sums=False):
+    """A on wgmma at :func:`conv_grid`'s grid into ``y``, with the
+    arguments of :func:`_launch_conv` (one source, no output mask, no
+    reduce): returns the [2, F] statistics when ``want_sums``, else
+    None."""
+    lib = library(x.device)
+    b, h, wd, c = x.shape
+    g = conv_grid(b, h, wd, c, w.shape[3], lib.conv_sm90_tiles,
+                  sm_count(x.device))
+    return _sm90_conv(x, None, w, bias, y, pro or _NO_PROLOGUE, want_sums, g)
+
+
+def _launch_wgrad_sm90(src, dp, *, pro=None):
+    """B on wgmma at :func:`wgrad_grid`'s grid, with the arguments of
+    :func:`_launch_wgrad` (one source): [9 * C * F] fp32."""
+    lib = library(src.device)
+    b, h, wd, c = src.shape
+    g = wgrad_grid(b, h, wd, c, dp.shape[3], lib.pair_wgrad_tile,
+                   sm_count(src.device))
+    return _sm90_wgrad(src, None, dp, pro or _NO_PROLOGUE, g)
 
 
 def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
@@ -498,7 +618,8 @@ def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
     z = lrelu(a*x + b) on in-image pixels, times ``drop``'s hash mask.
     ``out_drop``: hash mask multiplied on the output (dgrad).
     Returns (y [B,H,W,F] in x's dtype, [2, F] fp32 [sum, sum^2] of the fp32
-    result when ``want_stats``, else None)."""
+    result when ``want_stats``, else None). On the card the call takes
+    :func:`conv_route`'s kernel and counts it in ``routes[route]``."""
     _check_act("x", x)
     b, h, wd, c = x.shape
     f = _check_weight(w, x, c)
@@ -509,8 +630,17 @@ def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
         return conv3x3_reference(x, w, bias, affine, drop, out_drop,
                                  want_stats)
     y = torch.empty((b, h, wd, f), dtype=x.dtype, device=x.device)
-    stats = _launch_conv(x, w, y, bias=bias, pro=pro, out_drop=out_drop,
-                         want_sums=want_stats)
+    form = ("out_drop" if out_drop is not None else
+            "prologue" if affine is not None else "conv")
+    route = conv_route(c, f, x.dtype, _aligned(x, w, *(affine or ())),
+                       form)
+    if route == "wgmma":
+        stats = _launch_conv_sm90(x, w, y, bias=bias, pro=pro,
+                                  want_sums=want_stats)
+    else:
+        stats = _launch_conv(x, w, y, bias=bias, pro=pro, out_drop=out_drop,
+                             want_sums=want_stats)
+    counted(conv3x3_nhwc.routes[route], x)
     counted(conv3x3_nhwc, x, 18 * b * h * wd * c * f)
     return y, stats
 
@@ -612,7 +742,8 @@ def conv3x3_wgrad_nhwc(src, dp, affine=None, drop=None):
     operand was ``src`` [B,H,W,C] (identity, or recomputed through the
     ``affine``/``drop`` prologue as in kernel A) and whose output cotangent
     is ``dp`` [B,H,W,F] (same dtype). Per-block partials over spatial tiles,
-    then a fixed-order column sum."""
+    then a fixed-order column sum. On the card the call takes
+    :func:`conv_route`'s kernel and counts it in ``routes[route]``."""
     _check_act("src", src)
     _check_like("dp", dp, src)
     b, h, w, c = src.shape
@@ -620,7 +751,12 @@ def conv3x3_wgrad_nhwc(src, dp, affine=None, drop=None):
     pro = _prologue_args(affine, drop, c, b, src.device)
     if src.device.type == "cpu":
         return conv3x3_wgrad_reference(src, dp, affine, drop)
-    dw = _launch_wgrad(src, dp, pro=pro).view(3, 3, c, f)
+    form = "wgrad_prologue" if affine is not None else "wgrad"
+    route = conv_route(c, f, src.dtype, _aligned(src, dp, *(affine or ())),
+                       form)
+    launch = _launch_wgrad_sm90 if route == "wgmma" else _launch_wgrad
+    dw = launch(src, dp, pro=pro).view(3, 3, c, f)
+    counted(conv3x3_wgrad_nhwc.routes[route], src)
     counted(conv3x3_wgrad_nhwc, src, 18 * b * h * w * c * f)
     return dw
 
@@ -649,9 +785,10 @@ def conv3x3_wgrad_pair(xa, xb, dp):
             dw[9 * ca * f:].view(3, 3, cb, f))
 
 
-for _fn in (conv3x3_pair_nhwc, conv3x3_wgrad_pair):
+for _fn in (conv3x3_nhwc, conv3x3_wgrad_nhwc, conv3x3_pair_nhwc,
+            conv3x3_wgrad_pair):
     # each route's own launch count, beside the wrapper's total
-    _fn.routes = {r: SimpleNamespace(launches=0) for r in PAIR_ROUTES}
+    _fn.routes = {r: SimpleNamespace(launches=0) for r in ROUTES}
 
 
 # ---------------------------------------------------------------------------

@@ -3,24 +3,28 @@ conv3x3_sm90.cu) against each other on one CUDA card, at every bf16 conv
 form and shape of the full-width UNet's main path (batch 32, 224^2),
 beside cuDNN.
 
-    python3 scripts/tune_conv_kernels.py [--only K8,K10] \
-        DIR[:PART_BYTES[:TARGET_BLOCKS]] ...
+    python3 scripts/tune_conv_kernels.py [--only K8,K10] [--enqueue] \
+        DIR[:PART_BYTES[:TARGET_BLOCKS]][:NAME=VALUE...] ...
 
 Each DIR holds any of the port's CUDA sources (a copy of the repo's with
 one change, say); every DIR's library is built from those and the repo's
 other sources, all DIRs in parallel, as the port builds its own, and
 checked against the first DIR on every case (relative error above 2e-2
-prints MISMATCH). The optional numbers set the wgrad split
-(conv_block.WGRAD_PART_BYTES, WGRAD_TARGET_BLOCKS) for that entry, so one
-build can be timed under several splits. K8 and K10 are timed on the
+prints MISMATCH). The optional numbers set the mma.sync wgrad's split
+(conv_block.WGRAD_PART_BYTES, WGRAD_TARGET_BLOCKS) for that entry, and
+NAME=VALUE any of ``DEFAULTS`` (the wgmma grids' CONV_TALL_MAX_W,
+CONV_MIN_FILL, WGRAD_SM90_PART_RATIO), so one build can be timed under
+several grids. K8 and K10 are timed on the
 route their wrappers take (wgmma for these bf16 shapes) and, as "K8 mma"
 and "K10 mma", on PR 4's mma.sync kernels through the wrappers' other
 launchers, so one call compares the two routes. ``--only`` keeps the
 cases whose name holds one of the words. Each case is timed under each
 entry in turn, 20 calls between CUDA events (host-inclusive), three
 rounds, the least round counting, and once on the device alone
-(chip_smoke.device_ms). Prints one line per case (host-inclusive, then
-device-only ms) and the totals; the rounds go to chiprun_out/tune.json.
+(chip_smoke.device_ms); with ``--enqueue`` also the µs of host time one
+call takes to enqueue (chip_smoke.enqueue_us). Prints one line per case
+(host-inclusive, then device-only ms, then enqueue µs) and the totals;
+the rounds go to chiprun_out/tune.json.
 Needs nvcc and one card; imports no JAX.
 """
 
@@ -78,7 +82,7 @@ def build(dirs):
             continue
         libs[d] = _cuda.KernelLibrary(pathlib.Path(out), 0, log)
         for line in cs.ptxas_summary(log):
-            if "pair" in line or " 0 bytes spill stores" not in line:
+            if "sm90" in line or " 0 bytes spill stores" not in line:
                 print(f"built {d}: {line}", flush=True)
     return libs
 
@@ -178,12 +182,26 @@ def cases(dev):
     return out
 
 
+#: ops/conv_block.py's grid constants as the repo sets them
+DEFAULTS = {name: getattr(cb, name) for name in (
+    "WGRAD_PART_BYTES", "WGRAD_TARGET_BLOCKS", "CONV_TALL_MAX_W",
+    "CONV_MIN_FILL", "WGRAD_SM90_PART_RATIO")}
+
+
 def use(d, libs):
-    """Switch to variant d ("dir" or "dir:part_bytes:target_blocks")."""
+    """Switch to variant d: "dir", "dir:part_bytes:target_blocks" or
+    "dir:NAME=VALUE..." (any of DEFAULTS; the rest keep the repo's)."""
     _cuda._LIB = libs[d.split(":")[0]]
-    parts = d.split(":")
-    cb.WGRAD_PART_BYTES = int(parts[1]) if len(parts) > 1 else 2 ** 25
-    cb.WGRAD_TARGET_BLOCKS = int(parts[2]) if len(parts) > 2 else 2048
+    for name, value in DEFAULTS.items():
+        setattr(cb, name, value)
+    parts = d.split(":")[1:]
+    nums = [p for p in parts if "=" not in p]
+    for name, value in zip(("WGRAD_PART_BYTES", "WGRAD_TARGET_BLOCKS"), nums):
+        setattr(cb, name, int(value))
+    for p in parts:
+        if "=" in p:
+            name, value = p.split("=")
+            setattr(cb, name, type(DEFAULTS[name])(value))
 
 
 def main():
@@ -191,6 +209,8 @@ def main():
     only = []
     if args[:1] == ["--only"]:
         only, args = args[1].split(","), args[2:]
+    enqueue = args[:1] == ["--enqueue"]
+    args = args[1:] if enqueue else args
     dirs = args
     libs = build(sorted({d.split(":")[0] for d in dirs}))
     libs.update({d: libs[d.split(":")[0]] for d in dirs
@@ -203,6 +223,7 @@ def main():
             if not only or any(w in r[0].split() for w in only)]
     res = {name: {d: [] for d in dirs + ["cudnn"]} for name, _, _ in rows}
     dev_ms = {name: {} for name, _, _ in rows}
+    enq_us = {name: {} for name, _, _ in rows}
     # correctness of each variant against the first on every case
     for name, fn, lib_fn in rows:
         outs = []
@@ -226,7 +247,11 @@ def main():
         for d in dirs:
             use(d, libs)
             dev_ms[name][d] = cs.device_ms(fn)
+            if enqueue:
+                enq_us[name][d] = cs.enqueue_us(fn)
         dev_ms[name]["cudnn"] = cs.device_ms(lib_fn)
+        if enqueue:
+            enq_us[name]["cudnn"] = cs.enqueue_us(lib_fn)
     tot = {d: 0.0 for d in dirs + ["cudnn"]}
     dtot = dict(tot)
     for name, r in res.items():
@@ -236,12 +261,14 @@ def main():
             dtot[d] += dev_ms[name][d]
         print(f"{name:18} " + " ".join(
             f"{os.path.basename(d)[-14:]:>14} {best[d]:.4f} "
-            f"{dev_ms[name][d]:.4f}" for d in dirs + ["cudnn"]))
+            f"{dev_ms[name][d]:.4f}"
+            + (f" {enq_us[name][d]:.1f}us" if enqueue else "")
+            for d in dirs + ["cudnn"]))
     print("TOTAL " + " ".join(f"{os.path.basename(d)}={v:.3f}/{dtot[d]:.3f}"
                               for d, v in tot.items()))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "tune.json"), "w") as f:
-        json.dump({"host": res, "device": dev_ms}, f)
+        json.dump({"host": res, "device": dev_ms, "enqueue_us": enq_us}, f)
 
 
 if __name__ == "__main__":

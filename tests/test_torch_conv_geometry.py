@@ -251,3 +251,207 @@ def test_pair_groups_cover_both_sources(ca):
     got = [cb.pair_group(g, ca) for g in range(groups)]
     assert got == ([(0, 16 * i) for i in range(-(-ca // 16))]
                    + [(1, 16 * i) for i in range(-(-cb_ // 16))])
+
+
+# -- A and B on wgmma (csrc/conv3x3_sm90.cu) ----------------------------------
+
+CONV_TILES = {False: (8, 32), True: (16, 16)}  # hpfg_conv_sm90_tile_h / _w
+# (batch, H=W, C, F) of every A and B call that conv_route sends to wgmma
+# (C and F multiples of 8): the ACDC UNet at batches 12 and 32 (14^2 the
+# deepest), ISIC at 40, LIDC 96^2 at 32 (down to 6^2), Building 512^2 at 12
+SM90_SHAPES = sorted(
+    {(b, *s) for b, hw, c_in, f_out in ((12, 224, 1, 4), (32, 224, 1, 4),
+                                        (40, 224, 3, 2), (32, 96, 3, 2),
+                                        (12, 512, 3, 2))
+     for s in unet_shapes(hw, c_in, f_out) if s[1] % 8 == 0 and s[2] % 8 == 0})
+
+
+def _tall_fragment_pixels():
+    """A's warp walk inside a 16 x 16 tile: warpgroup g takes rows 8g..,
+    warp w its rows 2w and 2w + 1 (accumulator i), lane l's halves h the
+    columns l/4 + 8h."""
+    return [(8 * g + 2 * w + i, lane // 4 + 8 * h)
+            for g in range(2) for w in range(4) for i in range(2)
+            for lane in range(0, 32, 4) for h in range(2)]
+
+
+@pytest.mark.parametrize("b,hw,c,f", SM90_SHAPES)
+def test_conv_walk_covers_every_output_once(b, hw, c, f):
+    """A's wgmma grid: the tall 16 x 16 tile at 16 pixels wide and less
+    (F >= 32), else 8 x 32; its CTAs' runs of tiles and the fragments
+    inside a tile hold every output pixel exactly once, its N tiles every
+    channel exactly once; the grid fills the SMs where the N tile allows
+    (halved down to 32 or 16), one statistics row a CTA."""
+    g = cb.conv_grid(b, hw, hw, c, f, CONV_TILES, SMS)
+    assert g.tall == (hw <= cb.CONV_TALL_MAX_W and f >= 32)
+    tile = CONV_TILES[g.tall]
+    frag = _tall_fragment_pixels() if g.tall else _fragment_pixels()
+    assert sorted(frag) == [(r, q) for r in range(tile[0])
+                            for q in range(tile[1])]
+    total = cb.conv_tiles(b, hw, hw, tile)
+    count = np.zeros((b, hw + tile[0], hw + tile[1]), dtype=np.int64)
+    for run in _cta_tiles(g, total):
+        for t in run:
+            bi, ty0, tx0 = cb.pair_tile_origin(t, hw, hw, tile)
+            count[bi, ty0:ty0 + tile[0], tx0:tx0 + tile[1]] += 1
+    assert (count[:, :hw, :hw] == 1).all()
+    assert sorted(_n_walk(f, g.n_tile, g.n_tiles)) == list(range(f))
+    least = 32 if g.tall else 16
+    full = cb._n_tile(f, 128)
+    # halved only while the grid would leave SMs idle, never below least
+    assert least <= g.n_tile <= full or g.n_tile == full
+    if g.n_tile < full:
+        assert total * -(-f // (2 * g.n_tile)) < cb.CONV_MIN_FILL * SMS
+    assert g.ctas <= SMS * cb.PAIR_CONV_CTAS_PER_SM or g.tiles_per_cta == 1
+    assert g.resident == (-(-c // 16) * 9 * 16 * g.n_tile * 2
+                          <= cb.PAIR_RESIDENT_BYTES)
+
+
+@pytest.mark.parametrize("b,hw,c,f", SM90_SHAPES)
+def test_wgrad_walk_takes_every_pixel_once_per_dw_element(b, hw, c, f):
+    """B's wgmma grid (one source): every pixel enters K once per (channel
+    block, N tile) of CTAs, each dW element [tap, c, f] comes from exactly
+    one (channel block, warp, warpgroup, accumulator, N tile) and lane,
+    and the fp32 partial rows stay within WGRAD_SM90_PART_RATIO of the
+    operands' bytes unless one row (dW itself) exceeds it."""
+    g = cb.wgrad_grid(b, hw, hw, c, f, PAIR_WGRAD_TILE, SMS)
+    total = cb.conv_tiles(b, hw, hw, PAIR_WGRAD_TILE)
+    count = np.zeros((b, hw + 8, hw + 16), dtype=np.int64)
+    for run in _cta_tiles(g, total):
+        for t in run:
+            bi, ty0, tx0 = cb.pair_tile_origin(t, hw, hw, PAIR_WGRAD_TILE)
+            count[bi, ty0:ty0 + 8, tx0:tx0 + 16] += 1
+    assert (count[:, :hw, :hw] == 1).all()
+    groups = -(-c // 16)
+    assert g.channel_blocks == -(-groups // cb.PAIR_WGRAD_GROUPS)
+    dw = np.zeros((9, c, f), dtype=np.int64)
+    fs = np.array(_n_walk(f, g.n_tile, g.n_tiles))
+    for grp in range(groups):
+        assert cb.pair_group(grp, c) == (0, 16 * grp)
+        chans = [16 * grp + lane // 4 + 8 * h for lane in range(0, 32, 4)
+                 for h in range(2)]
+        chans = np.array([ch for ch in chans if ch < c])
+        for tap in range(9):
+            np.add.at(dw, (tap, chans[:, None], fs[None, :]), 1)
+    assert (dw == 1).all()
+    row = 4 * 9 * c * f
+    assert g.ctas == 1 or g.ctas * row <= \
+        cb.WGRAD_SM90_PART_RATIO * 2 * b * hw * hw * (c + f)
+    pair = cb.pair_wgrad_grid(b, hw, hw, c, 0, f, PAIR_WGRAD_TILE, SMS)
+    assert g.tiles_per_cta >= pair.tiles_per_cta
+
+
+@pytest.mark.parametrize("c,f,dtype,aligned,form,route", [
+    # the main paths' A calls: conv1 and plain forwards, dgrads, conv2
+    (16, 32, torch.bfloat16, True, "conv", "wgmma"),
+    (256, 128, torch.bfloat16, True, "conv", "wgmma"),
+    (256, 256, torch.bfloat16, True, "prologue", "wgmma"),
+    (16, 16, torch.bfloat16, True, "prologue", "wgmma"),
+    (32, 16, torch.bfloat16, True, "conv", "wgmma"),
+    # B's identity and prologue forms
+    (128, 256, torch.bfloat16, True, "wgrad", "wgmma"),
+    (64, 64, torch.bfloat16, True, "wgrad_prologue", "wgmma"),
+    (32, 32, torch.bfloat16, True, "wgrad_prologue", "wgmma"),
+    (8, 24, torch.bfloat16, True, "wgrad", "wgmma"),
+    # B's prologue form below WGRAD_PROLOGUE_MIN_C (the 224^2 stage's 16)
+    (16, 16, torch.bfloat16, True, "wgrad_prologue", "mma"),
+    (16, 16, torch.bfloat16, True, "wgrad", "wgmma"),
+    # the C = 1 and C = 3 stems, the F = 4, 2, 9 heads and their dgrads
+    (1, 16, torch.bfloat16, True, "conv", "mma"),
+    (3, 16, torch.bfloat16, True, "wgrad", "mma"),
+    (16, 4, torch.bfloat16, True, "conv", "mma"),
+    (2, 16, torch.bfloat16, True, "conv", "mma"),
+    (16, 9, torch.bfloat16, True, "wgrad", "mma"),
+    # an output dropout mask, fp32, unaligned bases
+    (32, 32, torch.bfloat16, True, "out_drop", "mma"),
+    (64, 64, torch.float32, True, "conv", "mma"),
+    (64, 64, torch.float32, True, "wgrad_prologue", "mma"),
+    (64, 64, torch.bfloat16, False, "prologue", "mma")])
+def test_conv_route(c, f, dtype, aligned, form, route):
+    assert cb.conv_route(c, f, dtype, aligned, form) == route
+
+
+def test_conv_route_refuses_an_unknown_form():
+    with pytest.raises(ValueError):
+        cb.conv_route(16, 16, torch.bfloat16, True, "dgrad")
+
+
+def _bf16_bits(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.bfloat16).view(torch.int16).numpy().astype(np.uint16)
+
+
+def _prologue_box(x, affine, drop, bi, gy0, gx0, bw, bh, c0):
+    """A Python mirror of csrc/conv3x3_sm90.cu's prologue on one halo box:
+    TMA's copy of x's channels [c0, c0 + 16) over box pixels (r, col) =
+    image pixels (gy0 + r, gx0 + col) of image bi (zeros outside the image
+    and past C) into 32-byte-swizzled 16-byte chunks, then prologue_chunk
+    on every chunk j: its pixel and channels from un-swizzling its
+    address, the transform on in-image channels below C. Returns the box
+    read back by halo_byte as [pixels, 16] bf16 bits."""
+    _, h, w, c = x.shape
+    pix = bh * bw
+    p = np.arange(pix)
+    gy, gx = gy0 + p // bw, gx0 + p % bw
+    inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+    raw = np.zeros((pix, 16), dtype=np.uint16)
+    xb = _bf16_bits(x[bi])
+    for ch in range(16):
+        if c0 + ch < c:
+            raw[inside, ch] = xb[gy[inside], gx[inside], c0 + ch]
+    swz = lambda q, hh: 2 * q + (hh ^ ((q >> 2) & 1))  # noqa: E731
+    chunks = np.zeros((2 * pix, 8), dtype=np.uint16)
+    for hh in range(2):
+        chunks[swz(p, hh)] = raw[:, 8 * hh:8 * hh + 8]
+    j = np.arange(2 * pix)
+    q = j >> 1
+    hh = (j & 1) ^ ((q >> 2) & 1)
+    cj = c0 + 8 * hh
+    live = inside[q] & (cj < c)
+    a, b = (v.numpy() for v in affine)
+    for e in range(8):
+        jl = j[live]
+        cc = cj[live] + e
+        v = (chunks[jl, e].astype(np.uint32) << 16).view(np.float32)
+        v = np.float32(v * a[cc]) + b[cc]
+        v = np.where(v >= 0, v, v * np.float32(0.01)).astype(np.float32)
+        if drop is not None:
+            img = bi if drop.image_ids is None else int(drop.image_ids[bi])
+            lane = torch.from_numpy((gx[q[jl]] * c + cc).astype(np.int64))
+            v = v * cb.hash_keep(drop.seed, torch.tensor(img),
+                                 torch.from_numpy(gy[q[jl]].astype(np.int64))
+                                 * (w * c) + lane, drop.keep).numpy()
+        chunks[jl, e] = _bf16_bits(torch.from_numpy(v.astype(np.float32)))
+    out = np.zeros((pix, 16), dtype=np.uint16)
+    for hh in range(2):
+        out[:, 8 * hh:8 * hh + 8] = chunks[swz(p, hh)]
+    return out
+
+
+@pytest.mark.parametrize("bw,bh,gy0,gx0,c0,bi,keep,ids", [
+    (18, 18, -1, -1, 0, 0, 0.7, False),   # A's tall box over a whole image
+    (34, 10, -1, 15, 16, 1, 0.5, True),   # A's wide box past the right edge
+    (34, 10, 7, -1, 0, 1, None, False),   # past the bottom, no dropout
+    (18, 10, 3, 3, 16, 0, 0.9, True),     # B's box inside, channels past C
+    (18, 10, -1, -1, 16, 1, 0.8, False)])
+def test_prologue_box_matches_the_plain_operand(bw, bh, gy0, gx0, c0, bi,
+                                                keep, ids):
+    """The prologue box's index math (swizzled address to pixel and
+    channel, zeros outside the image and past C) against conv3x3_reference's
+    operand (``_source``, zero-padded: SAME padding pads the transformed
+    input), bit for bit, on an 8 x 20 image of 24 channels (a second group
+    half past C)."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 20, 24),
+                                             dtype=np.float32)).bfloat16()
+    affine = (torch.from_numpy(rng.uniform(0.5, 1.5, 24).astype(np.float32)),
+              torch.from_numpy(rng.uniform(-0.5, 0.5, 24).astype(np.float32)))
+    drop = None
+    if keep is not None:
+        ids_map = torch.tensor([5, 3], dtype=torch.int32) if ids else None
+        drop = cb.HashDropout(4242, keep, ids_map)
+    got = _prologue_box(x, affine, drop, bi, gy0, gx0, bw, bh, c0)
+    src = cb._source(x, affine, drop).bfloat16()
+    pad = torch.zeros((2, 8 + 2 * bh, 20 + 2 * bw, 40), dtype=torch.bfloat16)
+    pad[:, bh:bh + 8, bw:bw + 20, :24] = src
+    win = pad[bi, bh + gy0:bh + gy0 + bh, bw + gx0:bw + gx0 + bw, c0:c0 + 16]
+    assert np.array_equal(got, _bf16_bits(win).reshape(bh * bw, 16))

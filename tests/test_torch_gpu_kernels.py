@@ -16,7 +16,11 @@ gradients against the plain versions), and D's reduce alone
 (``bn_reduce``). K8 and K10 take their wgmma kernels (bf16, halves and F
 multiples of 8, aligned) at the UNet's four UpBlock shapes at batch 32
 and at 28^2 with batches 12 and 20, with statistics and dW bitwise the
-same in two runs, and each route counts its own launches.
+same in two runs, and each route counts its own launches. A and B take
+theirs (``conv_route``) at every ACDC shape of the main path, in the
+identity, prologue and dgrad forms, each also on the mma.sync route
+against the plain version; the id-map masks, the cross-block sums and
+the ConvBlock backward run on the wgmma route in bf16.
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -349,6 +353,8 @@ def test_block_backward_matches_plain(dev, dtype, pair):
     drop = cb.HashDropout(11, 0.9)
     if pair:
         x = (x[..., :8].contiguous(), x[..., 8:].contiguous())
+    a_mma = cb.conv3x3_nhwc.routes["mma"].launches
+    b_mma = cb.conv3x3_wgrad_nhwc.routes["mma"].launches
     y, st, res = cb.block_forward(x, *p, None, True, drop)
     y_r, st_r, _ = cb.block_forward(_cpu(x), *(t.cpu() for t in p), None,
                                     True, drop)
@@ -362,6 +368,9 @@ def test_block_backward_matches_plain(dev, dtype, pair):
         for gi, ri in zip(*((g, r) if pair and isinstance(g, tuple)
                             else ((g,), (r,)))):
             _close(gi, ri, dtype)
+    if dtype == torch.bfloat16:  # every A and B call took the wgmma route
+        assert cb.conv3x3_nhwc.routes["mma"].launches == a_mma
+        assert cb.conv3x3_wgrad_nhwc.routes["mma"].launches == b_mma
 
 
 def _cpu(t):
@@ -448,8 +457,13 @@ def test_cross_block_sums_are_reproducible(dev, dtype):
                 cb.conv3x3_wgrad_nhwc(x, dp, affine=aff, drop=drop),
                 *cb.conv3x3_wgrad_pair(xa, xb, dp))
 
+    before = (_routes(cb.conv3x3_nhwc), _routes(cb.conv3x3_wgrad_nhwc))
     for a, b in zip(run(), run()):
         assert torch.equal(a, b)
+    if dtype == torch.bfloat16:  # A's statistics and B's dW on wgmma
+        assert _routes(cb.conv3x3_nhwc)["wgmma"] == before[0]["wgmma"] + 2
+        assert _routes(cb.conv3x3_wgrad_nhwc)["wgmma"] == \
+            before[1]["wgmma"] + 2
 
 
 def _ids(dev, lb=4, ub=8, rank=1):
@@ -473,8 +487,11 @@ def test_kernel_hash_masks_with_image_ids_are_bit_exact(dev, keep, dtype):
     full = cb.hash_mask(drop.seed, 12, 20, 20 * c, keep, dev)
     ref = full[ids.long()].view(len(ids), 20, 20, c).to(dtype)
     ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    before = _routes(cb.conv3x3_nhwc)
     assert torch.equal(cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
                                        drop=drop)[0], ref)
+    route = "wgmma" if dtype == torch.bfloat16 else "mma"
+    assert _routes(cb.conv3x3_nhwc)[route] == before[route] + 1
     assert torch.equal(cb.conv3x3_nhwc(x, eye, out_drop=drop)[0], ref)
     assert not torch.equal(ref, full[:len(ids)].view_as(ref).to(dtype))
 
@@ -1032,3 +1049,127 @@ def test_segformer_train_forward_backward_matches_cpu(dev, dtype, seed):
     _, _, grads32, _ = segformer_grads(torch.float32, cpu, seed)
     card, cpu_err = l2_rel(grads, grads32), l2_rel(grads_c, grads32)
     assert card <= SEGFORMER_BF16_MARGIN * cpu_err, (card, cpu_err)
+
+
+# (batch, H=W, C, F, form) of A's and B's calls on the ACDC main path at
+# batch 32 that conv_route sends to wgmma: conv1 forwards (identity, with
+# statistics), conv2 forwards (prologue: the encoder's dropout keep, or
+# None), conv1 and plain-conv dgrads (C -> F here is the dgrad's own), the
+# plain convs' forwards; and batch 12 at 14^2 and 28^2
+ACDC_A_B = ([(32, 224 >> i, c, f, "conv1") for i, c, f in
+             ((1, 16, 32), (2, 32, 64), (3, 64, 128), (4, 128, 256))]
+            + [(32, 224 >> i, f, f, keep) for i, f, keep in
+               ((0, 16, 0.95), (1, 32, 0.9), (2, 64, 0.8), (3, 128, 0.7),
+                (4, 256, 0.5), (3, 128, None), (2, 64, None), (1, 32, None),
+                (0, 16, None))]
+            + [(32, 224 >> i, f, c, "dgrad") for i, c, f in
+               ((1, 16, 32), (2, 32, 64), (3, 64, 128), (4, 128, 256))]
+            + [(32, 224 >> (i + 1), c, c // 2, "plain")
+               for i, c in ((0, 32), (1, 64), (2, 128), (3, 256))]
+            + [(32, 224 >> (i + 1), c // 2, c, "dgrad")
+               for i, c in ((0, 32), (1, 64), (2, 128), (3, 256))]
+            + [(12, 14, 256, 256, 0.5), (12, 28, 64, 128, "conv1")])
+
+
+def _case_args(dev, b, hw, c, f, form):
+    x = _randn(dev, b, hw, hw, c).to(torch.bfloat16)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(torch.bfloat16)
+    kw = {}
+    if form in ("conv1", "plain"):
+        kw["bias"] = _randn(dev, f, scale=0.1)
+        kw["want_stats"] = form == "conv1"
+    elif form != "dgrad":
+        kw = dict(bias=_randn(dev, f, scale=0.1), want_stats=True,
+                  affine=(1 + _randn(dev, c, scale=0.1),
+                          _randn(dev, c, scale=0.1, seed=1)),
+                  drop=None if form is None else cb.HashDropout(31, form))
+    return x, w, kw
+
+
+@pytest.mark.parametrize("b,hw,c,f,form", ACDC_A_B)
+def test_a_and_b_on_both_routes_at_the_acdc_shapes(dev, b, hw, c, f, form):
+    """A (identity, prologue and dgrad forms) and B (identity and prologue)
+    at the ACDC main path's shapes: the wrapper, which takes the wgmma
+    route (B's prologue form below 32 channels the mma route, by
+    conv_route's static rule), and the mma.sync route through its
+    launchers, each against the plain version; A's y and statistics and
+    B's dW bitwise the same in two runs."""
+    x, w, kw = _case_args(dev, b, hw, c, f, form)
+    want = kw.get("want_stats", False)
+    before = _routes(cb.conv3x3_nhwc), _routes(cb.conv3x3_wgrad_nhwc)
+    y, st = cb.conv3x3_nhwc(x, w, **kw)
+    y_r, st_r = cb.conv3x3_reference(x, w, **kw)
+    _close(y, y_r, torch.bfloat16)
+    y2, st2 = cb.conv3x3_nhwc(x, w, **kw)
+    assert torch.equal(y, y2)
+    if want:
+        _close(st, st_r, torch.bfloat16)
+        assert torch.equal(st, st2)
+    pro = cb._prologue_args(kw.get("affine"), kw.get("drop"), c, b, dev)
+    y_m = torch.empty_like(y)
+    st_m = cb._launch_conv(x, w, y_m, bias=kw.get("bias"), pro=pro,
+                           want_sums=want)
+    _close(y_m, y_r, torch.bfloat16)
+    if want:
+        _close(st_m, st_r, torch.bfloat16)
+    dp = _randn(dev, b, hw, hw, f, seed=3).to(torch.bfloat16)
+    wkw = {k: kw[k] for k in ("affine", "drop") if k in kw}
+    dw = cb.conv3x3_wgrad_nhwc(x, dp, **wkw)
+    dw_r = cb.conv3x3_wgrad_reference(x, dp, **wkw)
+    _close(dw, dw_r, torch.bfloat16)
+    assert torch.equal(dw, cb.conv3x3_wgrad_nhwc(x, dp, **wkw))
+    _close(cb._launch_wgrad(x, dp, pro=pro).view_as(dw_r), dw_r,
+           torch.bfloat16)
+    assert _routes(cb.conv3x3_nhwc) == {"wgmma": before[0]["wgmma"] + 2,
+                                        "mma": before[0]["mma"]}
+    b_route = cb.conv_route(c, f, torch.bfloat16, True,
+                            "wgrad_prologue" if wkw else "wgrad")
+    want = dict(before[1])
+    want[b_route] += 2
+    assert _routes(cb.conv3x3_wgrad_nhwc) == want
+
+
+@pytest.mark.parametrize("c,f,dtype,form,route,b_route", [
+    (32, 32, torch.bfloat16, "prologue", "wgmma", "wgmma"),
+    (16, 32, torch.bfloat16, "prologue", "wgmma", "mma"),
+    (24, 136, torch.bfloat16, "conv", "wgmma", "wgmma"),
+    (1, 16, torch.bfloat16, "conv", "mma", "mma"),
+    (16, 4, torch.bfloat16, "prologue", "mma", "mma"),
+    (12, 20, torch.bfloat16, "prologue", "mma", "mma"),
+    (32, 32, torch.bfloat16, "out_drop", "mma", None),
+    (32, 32, torch.float32, "prologue", "mma", "mma")])
+def test_conv_routes_count_their_launches(dev, c, f, dtype, form, route,
+                                          b_route):
+    """Each route of A and B counts its own launches (``routes``): aligned
+    bf16 calls with channels multiples of 8 on wgmma, the stem's C = 1,
+    the head's F = 4, odd channels, an output mask, fp32 and B's prologue
+    form below 32 channels on the mma.sync kernels; the results against
+    the plain versions either way."""
+    x = _randn(dev, 2, 20, 20, c).to(dtype)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dtype)
+    dp = _randn(dev, 2, 20, 20, f, seed=2).to(dtype)
+    drop = cb.HashDropout(5, 0.8)
+    aff = (1 + _randn(dev, c, scale=0.1), _randn(dev, c, scale=0.1, seed=1))
+    kw = ({"out_drop": drop} if form == "out_drop" else
+          dict(affine=aff, drop=drop, want_stats=True)
+          if form == "prologue" else {"want_stats": True})
+    wkw = {k: kw[k] for k in ("affine", "drop") if k in kw}
+    assert cb.conv_route(c, f, dtype, True, form) == route
+    for fn, call, ref in (
+            (cb.conv3x3_nhwc, lambda: cb.conv3x3_nhwc(x, w, **kw),
+             lambda: cb.conv3x3_reference(x, w, **kw)),
+            (cb.conv3x3_wgrad_nhwc,
+             lambda: (cb.conv3x3_wgrad_nhwc(x, dp, **wkw),),
+             lambda: (cb.conv3x3_wgrad_reference(x, dp, **wkw),))):
+        if fn is cb.conv3x3_wgrad_nhwc and form == "out_drop":
+            continue  # B has no output mask
+        expect = route if fn is cb.conv3x3_nhwc else b_route
+        other = "mma" if expect == "wgmma" else "wgmma"
+        before, total = _routes(fn), fn.launches
+        for got, want in zip(call(), ref()):
+            if want is not None:
+                _close(got, want, dtype)
+        after = _routes(fn)
+        assert after[expect] == before[expect] + 1
+        assert after[other] == before[other]
+        assert fn.launches == total + 1
