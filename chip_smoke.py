@@ -29,19 +29,22 @@ Phases, each of which fails the run on error:
      and its FLOPs over 989 TFLOP/s (H100 SXM bf16 peak);
      A's dgrad into F = 1 at the stem (32 x 224^2 x 16 -> 1) is SS-Net's:
      its VAT differentiates the model with respect to its 1-channel image;
-     A, B, K8 and K10 in bf16 take their wgmma/TMA kernels
+     A, B and K8 to K11 in bf16 take their wgmma/TMA kernels
      (csrc/conv3x3_sm90.cu; ops/conv_block.py conv_route, pair_route)
-     where C and F are multiples of 8 (A without an output mask): each
-     such shape also checks the mma.sync route (the wrappers'
-     launchers for fp32, the stems, the heads and odd splits) against the
-     plain version, A's y and statistics, B's and K10's dW and K8's
-     statistics and y bitwise the same in two runs, and times beside the
-     wrapper's host-inclusive ms the device-only ms of both routes and of
-     cuDNN, the mma route's host-inclusive ms and both routes' enqueue
-     µs (the ``route_times`` keys of kernels.jsonl); the build's SASS
-     (cuobjdump) must show wgmma (HGMMA) and TMA (UTMALDG) and no
-     mma.sync (HMMA) in both kernels (conv_sm90_kernel: A and K8;
-     wgrad_sm90_kernel: B and K10);
+     where C and F (and K9's split) are multiples of 8 (A without an
+     output mask), but for conv_route's static rule: each such shape
+     also checks the mma.sync route (the wrappers' launchers for fp32,
+     the stems, the heads and odd splits) against the plain version, A's
+     y and statistics, B's and K10's dW, K8's statistics and y, K9's two
+     outputs and K11's dd and sums bitwise the same in two runs, and
+     times beside the wrapper's host-inclusive ms the device-only ms of
+     both routes and of cuDNN, the mma route's host-inclusive ms and both
+     routes' enqueue µs (the ``route_times`` keys of kernels.jsonl; K9's
+     and K11's at the ACDC shapes); K11's output mask bit-exact on both
+     routes; the build's SASS (cuobjdump) must show wgmma (HGMMA) and TMA
+     (UTMALDG) and no mma.sync (HMMA) in every instantiation of both
+     kernels (conv_sm90_kernel: A, K8, K9 and K11; wgrad_sm90_kernel: B
+     and K10);
   2b. phase 2's kernel checks again at batch 24, the supervised path's,
      and at ICT's batches 20 (the student) and 12 (each teacher half), at
      the same shapes (every shape those paths give A, B, C, D and K8 to
@@ -74,12 +77,14 @@ Phases, each of which fails the run on error:
      in the ACDC layout, 2 warm-up and 5 timed steps, with ``F.conv2d`` /
      ``torch.conv2d`` patched to raise; the launch counters must rise by
      what the model's structure predicts, every K8 and K10 launch
-     must take the wgmma route and A's and B's launches split between
-     the routes as ``predicted_routes`` says (their ``routes``
-     counters: wgmma wherever C and F are multiples of 8); one more
-     step traced (device
-     busy time, the conv kernels' and C's and D's time, and the count of
-     device kernels, copies and memsets in the step);
+     must take the wgmma route and A's, B's, K9's and K11's launches
+     split between the routes as ``predicted_routes`` says (their
+     ``routes`` counters: wgmma wherever C and F are multiples of 8, but
+     for the static rule); one more step traced (device busy time, the
+     conv kernels' and C's and D's time, and the count of device
+     kernels, copies and memsets in the step), whose launches of the
+     wgmma conv kernel (and of its K11 form) and of PR 4's conv kernels
+     must equal the route counters' of a step;
   3b. the HPFG main path the same way, with the values of
      configs/hpfg_unet_plus_30k_224x224_ACDC.yaml (two full-width UNet_Plus
      students and the EMA teacher: three forwards and two backwards a step);
@@ -272,8 +277,9 @@ Phases, each of which fails the run on error:
 
 Phase 2e checks A, B and K11 with a two-segment image-id map (the hash
 dropout of a data-parallel rank: each image hashes its index in the global
-batch) against their plain versions, A's masks bit-exact, and D's reduce
-alone, and times each with and without the ids; then K13 and K14 with
+batch) against their plain versions, A's masks and K11's (on both
+routes) bit-exact, and D's reduce alone, and times each with and without
+the ids; then K13 and K14 with
 that map (each window hashes its index in the global batch's windows) at
 the SwinUNet's first and last stage, their attention-dropout masks
 bit-exact against the full batch's, and times each with and without the
@@ -291,6 +297,13 @@ The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels with their launch counts on each of the eighteen main
 paths and summed over them, errors, times and bounds (at the ACDC paths'
 shapes, and in ``at_geometries`` at each new path's).
+
+``dgrad_kernel_times``, ``conv_kernel_times`` and ``pair_kernel_times``
+run alone (``python3 -c "import chip_smoke as c;
+c.dgrad_kernel_times()"``) time K9 and K11, A and B, K8 and K10 on both
+routes and cuDNN at the main path's shapes, device-only and
+host-inclusive; a copy of this file run from an earlier tree's root
+times that tree's kernels.
 """
 
 from __future__ import annotations
@@ -442,16 +455,18 @@ KERNELS = {
                               replaces=f"{PALLAS}:772", also_replaces=[],
                               counters=["conv3x3_pair_nhwc"],
                               routes={"wgmma": CU90, "mma": CU}),
-    "conv3x3_dgrad_pair": dict(route="cuda", source=CU,
+    "conv3x3_dgrad_pair": dict(route="cuda", source=CU90,
                                replaces=f"{PALLAS}:1364", also_replaces=[],
-                               counters=["conv3x3_dgrad_pair"]),
+                               counters=["conv3x3_dgrad_pair"],
+                               routes={"wgmma": CU90, "mma": CU}),
     "conv3x3_wgrad_pair": dict(route="cuda", source=CU90,
                                replaces=f"{PALLAS}:1453", also_replaces=[],
                                counters=["conv3x3_wgrad_pair"],
                                routes={"wgmma": CU90, "mma": CU}),
-    "conv3x3_dgrad_reduce": dict(route="cuda", source=CU,
+    "conv3x3_dgrad_reduce": dict(route="cuda", source=CU90,
                                  replaces=f"{PALLAS}:1525", also_replaces=[],
                                  counters=["conv3x3_dgrad_reduce"],
+                                 routes={"wgmma": CU90, "mma": CU},
                                  library_note="conv2d_input alone: the dgrad"
                                  " without the reduce, less work"),
     "window_attention_fwd": dict(
@@ -667,7 +682,9 @@ def oihw(w):
 def check_hash_masks(rep: Report, dev) -> None:
     """The hash dropout masks, bit-exact: an all-ones input through the
     prologue a=1, b=0 and a centre-tap identity conv outputs the mask
-    itself (one product each: in bf16 the fp32 mask rounded to bf16)."""
+    itself (one product each: in bf16 the fp32 mask rounded to bf16); so
+    does A's output mask, and K11's on the wrapper's route and on the
+    mma.sync route."""
     import torch
 
     from hpfg_tpu_torch.ops import conv_block as cb
@@ -685,13 +702,23 @@ def check_hash_masks(rep: Report, dev) -> None:
             got_in, _ = cb.conv3x3_nhwc(x, eye, affine=(ones, zeros),
                                         drop=drop)
             got_out, _ = cb.conv3x3_nhwc(x, eye, out_drop=drop)
-            for what, got in (("prologue", got_in), ("output", got_out)):
+            # K11's output mask (the identity dgrad of ones): the wrapper's
+            # route and, in bf16, the mma.sync route beside it
+            unit = (x, ones, zeros, zeros, ones)
+            got_k11 = cb.conv3x3_dgrad_reduce(x, eye, *unit, out_drop=drop)[0]
+            got_k11_mma = torch.empty_like(x)
+            cb._launch_conv(x, eye, got_k11_mma, out_drop=drop, reduce=unit,
+                            want_sums=True)
+            for what, got in (("prologue", got_in), ("output", got_out),
+                              ("K11 output", got_k11),
+                              ("K11 output mma route", got_k11_mma)):
                 if not torch.equal(got, ref):
                     rep.fail(f"hash mask ({what}) keep={keep} {hh}x{hh}x{c} "
                              f"{dt}: {(got != ref).sum().item()} elements "
                              f"differ")
     print("hash masks: bit-exact check done (prologue and output masks, "
-          "keep 0.95..0.5, float32 and bfloat16)", flush=True)
+          "K11's on both routes, keep 0.95..0.5, float32 and bfloat16)",
+          flush=True)
 
 
 def check_kernels(rep: Report, dev, batch: int = BATCH,
@@ -922,7 +949,10 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
     every ConvBlock's conv2 (the encoder's with and without its dropout),
     against their plain versions at ``batch``; ``timed`` as in
     check_kernels, in bf16 beside the library call that computes the same
-    conv."""
+    conv. Where the wrapper takes the wgmma route, the mma.sync route too
+    against the plain version; K8's, K10's, K9's and K11's outputs (and
+    sums) bitwise the same in two runs; in bf16 each row's
+    ``route_times`` (K9's and K11's at the ACDC shapes only)."""
     import torch
     import torch.nn.functional as F
 
@@ -942,6 +972,9 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
         dname = str(dt).split(".")[-1]
         es = dt.itemsize
         lib = clock if dt == torch.bfloat16 else (lambda fn: None)
+        bf16_timed = timed and dt == torch.bfloat16
+        # K9's and K11's routes side by side at the ACDC shapes only
+        both_routes = bf16_timed and geometry is None
         for name, hh, c, f, keep in blocks:
             if not name.startswith("up"):
                 continue
@@ -976,7 +1009,6 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
             ms, pms = clock(k8), pclock(k8_plain)
             lms = lib(k8_cudnn)
             work = conv_work(hh, c, f, es, 2 * f, batch=batch)
-            bf16_timed = timed and dt == torch.bfloat16
             extra = route_times(bf16_timed, k8, k8_mma, k8_cudnn)
             r = max(rep.compare("conv3x3_pair_nhwc", f"{name} fwd{sfx}",
                                 dname, y, y_r, ms, pms, library_ms=lms,
@@ -996,22 +1028,46 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
                         f"{route_note(extra)}")
 
             wf = cb.flip_transpose(w)
-            got = cb.conv3x3_dgrad_pair(dp, wf, ca)
+
+            def k9():
+                return cb.conv3x3_dgrad_pair(dp, wf, ca)
+
+            dxa_m, dxb_m = torch.empty_like(xa), torch.empty_like(xb)
+
+            def k9_mma():  # PR 4's route, which the wrapper keeps for fp32
+                cb._launch_conv(dp, wf, dxa_m, y2=dxb_m)
+                return dxa_m, dxb_m
+
+            def k9_cudnn():
+                return torch.nn.grad.conv2d_input((batch, c, hh, hh), w_c,
+                                                  nchw(dp), padding=1)
+
+            got = k9()
             ref = cb.conv3x3_dgrad_pair_reference(dp, wf, ca)
-            ms = clock(lambda: cb.conv3x3_dgrad_pair(dp, wf, ca))
+            ms = clock(k9)
             pms = pclock(lambda: cb.conv3x3_dgrad_pair_reference(dp, wf, ca))
-            lms = lib(lambda: torch.nn.grad.conv2d_input(
-                (batch, c, hh, hh), w_c, nchw(dp), padding=1))
+            lms = lib(k9_cudnn)
             work = conv_work(hh, f, c, es, batch=batch)
+            k9_route = cb.conv_route(f, c, dt, True, "dgrad_pair", ca)
+            extra = route_times(both_routes, k9, k9_mma, k9_cudnn)
             r = max(rep.compare("conv3x3_dgrad_pair", f"{name} dx_skip{sfx}",
                                 dname, got[0], ref[0], ms, pms,
-                                library_ms=lms, work=work, main=timed),
+                                library_ms=lms, work=work, main=timed,
+                                route=k9_route, **extra),
                     rep.compare("conv3x3_dgrad_pair", f"{name} dx_up{sfx}",
                                 dname, got[1], ref[1]))
             if not (got[0].is_contiguous() and got[1].is_contiguous()):
                 rep.fail(f"conv3x3_dgrad_pair {name}{sfx}: outputs not "
                          f"contiguous")
-            line.append(f"K9 {r:.1e}{perf(ms, pms, lms, work)}")
+            same_twice(rep, f"conv3x3_dgrad_pair {name} {dname}{sfx}", k9)
+            if k9_route == "wgmma":  # the other route at the same shape
+                for half, g_m, g_r in zip(("dx_skip", "dx_up"), k9_mma(),
+                                          ref):
+                    r = max(r, rep.compare(
+                        "conv3x3_dgrad_pair", f"{name} {half} mma route{sfx}",
+                        dname, g_m, g_r, main=False))
+            line.append(f"K9 {k9_route} {r:.1e}{perf(ms, pms, lms, work)}"
+                        f"{route_note(extra)}")
 
             def k10():
                 return cb.conv3x3_wgrad_pair(xa, xb, dp)
@@ -1046,7 +1102,7 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
             line.append(f"K10 {route} {r:.1e}{perf(ms, pms, lms, work)}"
                         f"{route_note(extra)}")
             print(" | ".join(line), flush=True)
-            del xa, xb, cat, dp, y, y_r, y_m, got, ref
+            del xa, xb, cat, dp, y, y_r, y_m, got, ref, dxa_m, dxb_m
             torch.cuda.empty_cache()
 
         # the main path's K11 calls: each encoder conv2 dgrad with its
@@ -1074,27 +1130,51 @@ def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
                 return cb.conv3x3_dgrad_reduce_reference(
                     dp, wf, pre, a, b, m, inv, out_drop=drop)
 
+            dd_m = torch.empty_like(dp)
+
+            def k11_mma():  # PR 4's route, which the wrapper keeps for fp32
+                return dd_m, cb._launch_conv(
+                    dp, wf, dd_m, out_drop=drop, reduce=(pre, a, b, m, inv),
+                    want_sums=True)
+
+            def k11_cudnn():
+                return torch.nn.grad.conv2d_input((batch, f, hh, hh), w2_c,
+                                                  nchw(dp), padding=1)
+
             (dd, s), (dd_r, s_r) = k11(), k11_plain()
-            ms, pms = clock(k11), pclock(k11_plain)
-            lms = lib(lambda: torch.nn.grad.conv2d_input(
-                (batch, f, hh, hh), w2_c, nchw(dp), padding=1))
+            # timed where the main path makes the call: the encoder's
+            # shapes without their dropout are checked alone
+            main = timed and (hh, f, kp) in main_cases
+            ms, pms = (clock(k11), pclock(k11_plain)) if main else (None,
+                                                                    None)
+            lms = lib(k11_cudnn) if main else None
             n = batch * hh * hh * f
             flops, nbytes = conv_work(hh, f, f, es, n, batch=batch)
             work = (flops + 8 * n, nbytes)
             what = f"{name}.conv2 {'keep ' + str(kp) if kp else 'no drop'}"
+            k11_route = cb.conv_route(f, f, dt, True, "dgrad_reduce")
+            extra = route_times(both_routes and main, k11, k11_mma,
+                                k11_cudnn)
             r = max(rep.compare("conv3x3_dgrad_reduce", f"{what} dd{sfx}",
                                 dname, dd, dd_r, ms, pms, library_ms=lms,
-                                work=work,
-                                main=timed and (hh, f, kp) in main_cases),
+                                work=work, main=main, route=k11_route,
+                                **extra),
                     rep.compare("conv3x3_dgrad_reduce", f"{what} sums{sfx}",
                                 dname, s, s_r))
-            same_twice(rep, f"conv3x3_dgrad_reduce {what} sums {dname}{sfx}",
-                       lambda: (k11()[1],))
-            print(f"{dname} {what:>24} {hh:>3}^2 {f}->{f}{sfx}: K11 {r:.1e}"
-                  f"{perf(ms, pms, lms, work)}" + (" (library: the dgrad "
-                                                   "alone)" if timed else ""),
-                  flush=True)
-            del dp, pre, dd, dd_r
+            same_twice(rep, f"conv3x3_dgrad_reduce {what} dd, sums "
+                       f"{dname}{sfx}", k11)
+            if k11_route == "wgmma":  # the other route at the same shape
+                dd_o, s_o = k11_mma()
+                r = max(r, rep.compare(
+                    "conv3x3_dgrad_reduce", f"{what} dd mma route{sfx}",
+                    dname, dd_o, dd_r, main=False), rep.compare(
+                    "conv3x3_dgrad_reduce", f"{what} sums mma route{sfx}",
+                    dname, s_o, s_r, main=False))
+            print(f"{dname} {what:>24} {hh:>3}^2 {f}->{f}{sfx}: K11 "
+                  f"{k11_route} {r:.1e}{perf(ms, pms, lms, work)}"
+                  f"{route_note(extra)}" + (" (library: the dgrad alone)"
+                                            if main else ""), flush=True)
+            del dp, pre, dd, dd_r, dd_m
             torch.cuda.empty_cache()
 
 
@@ -1430,6 +1510,109 @@ def conv_kernel_times(batch: int = BATCH, cases=None) -> dict:
                     t["host_ms"] += row[what]["host_ms"]
     out["total"] = totals
     print("CONV " + json.dumps(out), flush=True)
+    return out
+
+
+def dgrad_cases(blocks=BLOCKS) -> list[tuple]:
+    """The main path's K9 and K11 calls at ``blocks``: (kernel, name, H=W,
+    F = the cotangent's channels, (Ca, Cb) of K9's two outputs or K11's C,
+    keep of K11's output mask or None). K9 runs once per UpBlock backward
+    (conv1's input gradient, split into skip and up), K11 once per
+    ConvBlock backward (conv2's input gradient with the dropout of the
+    encoder's blocks and BN1's backward sums)."""
+    out = [("K9", name, hh, f, (c // 2, c - c // 2), None)
+           for name, hh, c, f, _ in blocks if name.startswith("up")]
+    out += [("K11", name, hh, f, f, keep) for name, hh, _, f, keep in blocks]
+    return out
+
+
+def dgrad_kernel_times(batch: int = BATCH, cases=None) -> dict:
+    """K9 (``conv3x3_dgrad_pair``) and K11 (``conv3x3_dgrad_reduce``) in
+    bf16 at each of the main path's calls (``dgrad_cases``, ACDC shapes at
+    ``batch``): ms per call on the device alone (``device_ms``) and by
+    phase 2's host-inclusive method (``cuda_ms``), and µs of host time to
+    enqueue one call (``enqueue_us``), of the wrapper as a user calls it
+    ("call", with the route it takes), of PR 4's mma.sync kernel through
+    ``_launch_conv`` with its column sum ("mma"), of the wgmma launchers
+    where the tree has them ("wgmma"), and of cuDNN's conv2d_input on
+    channels_last views ("cudnn": the dgrad alone, without K9's split or
+    K11's mask and reduce), each beside the bound (``conv_work``). It
+    calls only the wrappers' long-standing arguments and
+    ``_launch_conv``, so a copy of this file run from an earlier tree's
+    root times that tree's kernels. Printed as one ``DGRAD`` JSON line
+    (with totals by kernel) and returned."""
+    import torch
+
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dt = torch.bfloat16
+    forms = getattr(cb, "CONV_FORMS", ())
+    pair_sm90 = getattr(cb, "_launch_dgrad_pair_sm90", None)
+    reduce_sm90 = getattr(cb, "_launch_dgrad_reduce_sm90", None)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {}
+    for kernel, name, hh, f, c, keep in cases or dgrad_cases():
+        cs = sum(c) if kernel == "K9" else c
+        dp = randn(batch, hh, hh, f).to(dt)
+        w = randn(3, 3, cs, f, scale=(9 * cs) ** -0.5).to(dt)
+        wf = cb.flip_transpose(w)
+        w_c = oihw(w)
+        calls = {"cudnn": lambda: torch.nn.grad.conv2d_input(
+            (batch, cs, hh, hh), w_c, nchw(dp), padding=1)}
+        if kernel == "K9":
+            ca = c[0]
+            dxa = torch.empty((batch, hh, hh, ca), dtype=dt, device=dev)
+            dxb = torch.empty((batch, hh, hh, c[1]), dtype=dt, device=dev)
+            calls["call"] = lambda: cb.conv3x3_dgrad_pair(dp, wf, ca)
+            calls["mma"] = lambda: cb._launch_conv(dp, wf, dxa, y2=dxb)
+            if pair_sm90 is not None and ca % 8 == 0 and c[1] % 8 == 0:
+                calls["wgmma"] = lambda: pair_sm90(dp, wf, dxa, dxb)
+            work = conv_work(hh, f, cs, 2, batch=batch)
+            form, split = "dgrad_pair", ca
+        else:
+            pre = randn(batch, hh, hh, cs).to(dt)
+            a, b = 1.0 + randn(cs, scale=0.1), randn(cs, scale=0.1)
+            m, inv = randn(cs, scale=0.1), 1.0 + randn(cs, scale=0.1).abs()
+            drop = cb.HashDropout(88, keep) if keep else None
+            dd = torch.empty((batch, hh, hh, cs), dtype=dt, device=dev)
+            red = (pre, a, b, m, inv)
+            calls["call"] = lambda: cb.conv3x3_dgrad_reduce(
+                dp, wf, pre, a, b, m, inv, out_drop=drop)
+            calls["mma"] = lambda: cb._launch_conv(
+                dp, wf, dd, out_drop=drop, reduce=red, want_sums=True)
+            if reduce_sm90 is not None and cs % 8 == 0:
+                calls["wgmma"] = lambda: reduce_sm90(dp, wf, dd, red, drop)
+            n = batch * hh * hh * cs
+            flops, nbytes = conv_work(hh, f, cs, 2, n, batch=batch)
+            work = (flops + 8 * n, nbytes)
+            form, split = "dgrad_reduce", None
+        b_ms, b_by = bound(*work)
+        row = dict(kernel=kernel, hh=hh, f=f, c=c, keep=keep,
+                   route=(cb.conv_route(f, cs, dt, True, form, split)
+                          if form in forms else "mma"),
+                   bound_ms=b_ms, bound_by=b_by)
+        for what, fn in calls.items():
+            row[what] = dict(device_ms=device_ms(fn), host_ms=cuda_ms(fn),
+                             enqueue_us=enqueue_us(fn))
+        out[f"{kernel} {name} {hh}^2 {f}->{c}"] = row
+        del dp, w, wf, calls
+        torch.cuda.empty_cache()
+    totals = {}
+    for row in list(out.values()):
+        acc = totals.setdefault(row["kernel"], {"bound_ms": 0.0})
+        acc["bound_ms"] += row["bound_ms"]
+        for what in ("call", "mma", "wgmma", "cudnn"):
+            if what in row:
+                t = acc.setdefault(what, dict(device_ms=0.0, host_ms=0.0))
+                t["device_ms"] += row[what]["device_ms"]
+                t["host_ms"] += row[what]["host_ms"]
+    out["total"] = totals
+    print("DGRAD " + json.dumps(out), flush=True)
     return out
 
 
@@ -1833,61 +2016,72 @@ def counters() -> dict:
 
 
 def route_counters() -> dict:
-    """The wrappers whose launches each route counts too (A, B, K8, K10):
-    ``fn.routes[route].launches``."""
+    """The wrappers whose launches each route counts too (A, B, K8 to
+    K11): ``fn.routes[route].launches``."""
     from hpfg_tpu_torch.ops import conv_block as cb
 
     return {"conv3x3_nhwc": cb.conv3x3_nhwc,
             "conv3x3_wgrad_nhwc": cb.conv3x3_wgrad_nhwc,
             "conv3x3_pair_nhwc": cb.conv3x3_pair_nhwc,
-            "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair}
+            "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair,
+            "conv3x3_dgrad_pair": cb.conv3x3_dgrad_pair,
+            "conv3x3_dgrad_reduce": cb.conv3x3_dgrad_reduce}
 
 
 def predicted_routes(model, dtype, steps: int, forwards: int, backwards: int,
                      inner_backwards: int = 0) -> dict:
-    """A's and B's launches by route per run, walking the convs that
-    ``predicted_launches`` counts: a call takes wgmma where its compute
-    dtype is bf16 and its C and F are multiples of 8, else mma (the C = 1
-    and 3 stems, the F = 4, 2 and 9 heads and their dgrads, fp32), and
-    B's prologue form (conv2's) below WGRAD_PROLOGUE_MIN_C channels mma
-    (ops/conv_block.py's static rule: the 224^2 stage). A
-    forward runs A on each ConvBlock's conv1 (not an UpBlock's, which is
-    K8) and conv2 and on each plain conv (an UpBlock's 1x1, the head); a
-    backward A's dgrad on conv1 (but the stem's) and each plain conv, and
-    B on each conv1 (not an UpBlock's), conv2 and plain conv; a backward to
-    the input A's dgrad on every conv1 (the stem's too) and plain conv."""
+    """A's, B's, K9's and K11's launches by route per run, walking the
+    convs that ``predicted_launches`` counts: a call takes wgmma where its
+    compute dtype is bf16 and its C and F (and K9's split) are multiples
+    of 8, else mma (the C = 1 and 3 stems, the F = 4, 2 and 9 heads and
+    their dgrads, fp32), and B's prologue form (conv2's) below
+    WGRAD_PROLOGUE_MIN_C channels mma (ops/conv_block.py's static rule
+    from the card's timings: the 224^2 stage). A forward runs A on each
+    ConvBlock's conv1 (not an UpBlock's, which is K8) and conv2 and on
+    each plain conv (an UpBlock's 1x1, the
+    head); a backward K11 on each ConvBlock's conv2, K9 on each UpBlock's
+    conv1, A's dgrad on the other conv1s (but the stem's) and each plain
+    conv, and B on each conv1 (not an UpBlock's), conv2 and plain conv; a
+    backward to the input K11 and K9 as a backward does, A's dgrad on
+    every other conv1 (the stem's too) and plain conv."""
     import torch
 
     from hpfg_tpu_torch.models.layers import ConvBlock, UpBlock
     from hpfg_tpu_torch.ops.conv_block import WGRAD_PROLOGUE_MIN_C
 
-    out = {k: {"wgmma": 0, "mma": 0}
-           for k in ("conv3x3_nhwc", "conv3x3_wgrad_nhwc")}
+    a, b = "conv3x3_nhwc", "conv3x3_wgrad_nhwc"
+    k9, k11 = "conv3x3_dgrad_pair", "conv3x3_dgrad_reduce"
+    out = {k: {"wgmma": 0, "mma": 0} for k in (a, b, k9, k11)}
     if model is None:
         return out
     bf16 = dtype == torch.bfloat16
 
-    def add(kernel, c, f, n, prologue=False):
-        route = ("wgmma" if bf16 and c % 8 == 0 and f % 8 == 0 and not (
-            prologue and kernel == b and c < WGRAD_PROLOGUE_MIN_C)
-            else "mma")
+    def add(kernel, c, f, n, prologue=False, split=0):
+        route = ("wgmma" if bf16 and c % 8 == 0 and f % 8 == 0
+                 and split % 8 == 0
+                 and not (prologue and kernel == b
+                          and c < WGRAD_PROLOGUE_MIN_C)
+                 else "mma")
         out[kernel][route] += steps * n
 
     ups = [m for m in model.modules() if isinstance(m, UpBlock)]
-    in_up = {id(u.conv) for u in ups}
+    in_up = {id(u.conv): u for u in ups}
     blocks = [m for m in model.modules() if isinstance(m, ConvBlock)]
     stem = next(b for b in blocks if id(b) not in in_up)
     heads = [m for n, m in model.named_modules()
              if n.split(".")[-1] == "out_conv"]
     plain = [u.conv1x1.kernel.shape[2:] for u in ups] + [
         h.kernel.shape[2:] for h in heads]
-    a, b = "conv3x3_nhwc", "conv3x3_wgrad_nhwc"
+    grads = backwards + inner_backwards  # backwards that reach K9 and K11
     for blk in blocks:
         c, f = blk.conv1.kernel.shape[2:]
-        own = id(blk) not in in_up
         add(a, f, f, forwards)
         add(b, f, f, backwards, prologue=True)
-        if own:
+        add(k11, f, f, grads)
+        if id(blk) in in_up:
+            skip = c - in_up[id(blk)].conv1x1.kernel.shape[3]
+            add(k9, f, c, grads, split=skip)
+        else:
             add(a, c, f, forwards)
             add(b, c, f, backwards)
             add(a, f, c, inner_backwards + (backwards if blk is not stem
@@ -2043,7 +2237,27 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         elif by_route["wgmma"] != launches[name] or by_route["mma"]:
             rep.fail(f"{label} path: {name} launches off the wgmma route: "
                      f"{by_route} of {launches[name]}")
-    busy, conv, bn, step_launches = profile_step(trainer, card, label)
+    busy, conv, bn, step_launches, families = profile_step(trainer, card,
+                                                           label)
+    if families is not None and path.unet:
+        # the traced step's device launches of the conv kernels by route
+        # against the wrappers' route counts of a step
+        want_dev = {
+            fam: sum(routes[k][r] for k in kernels) // STEPS
+            for fam, r, kernels in (
+                ("conv_sm90", "wgmma", ("conv3x3_nhwc", "conv3x3_pair_nhwc",
+                                        "conv3x3_dgrad_pair",
+                                        "conv3x3_dgrad_reduce")),
+                ("conv_sm90 reduce", "wgmma", ("conv3x3_dgrad_reduce",)),
+                ("conv3x3", "mma", ("conv3x3_nhwc", "conv3x3_pair_nhwc",
+                                    "conv3x3_dgrad_pair",
+                                    "conv3x3_dgrad_reduce")))}
+        print(f"{label} traced device launches by family: {families} "
+              f"(predicted {want_dev}; {step_launches} in all)", flush=True)
+        for fam, n in want_dev.items():
+            if families[fam] != n:
+                rep.fail(f"{label} path: the traced step launched "
+                         f"{families[fam]} {fam} kernels, predicted {n}")
     ms = elapsed / STEPS * 1e3
     imgs = images * STEPS / elapsed
     print(f"{label} path: {algo.name} {crop(cfg)}^2 {images} images a step "
@@ -2053,6 +2267,7 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     summary = dict(ms_per_step=ms, img_per_s=imgs, images_per_step=images,
                    peak_gib=peak, traced_busy_ms=busy, traced_conv_ms=conv,
                    traced_bn_ms=bn, traced_device_launches=step_launches,
+                   traced_launches_by_family=families,
                    busy_share=(busy / ms if busy is not None else None),
                    launches_by_route=routes)
     return launches, algo, summary
@@ -2062,8 +2277,10 @@ def profile_step(trainer, card: str, label: str):
     """One more step under torch.profiler: device time by kernel name and
     the device's busy share of the step's wall time (profiler on). Returns
     (busy ms, ms of the conv kernels A, B and K8-K11, ms of kernels C and D,
-    device kernels, copies and memsets in the step), or Nones when the
-    profiler saw no device time."""
+    device kernels, copies and memsets in the step, launches by family:
+    "conv_sm90" the wgmma conv (A, K8, K9, K11), "conv_sm90 reduce" its
+    K11 instantiations, "conv3x3" PR 4's conv kernels, "colsum" the column
+    sums), or Nones when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2081,7 +2298,7 @@ def profile_step(trainer, card: str, label: str):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print("profile: the profiler saw no device time", flush=True)
-        return None, None, None, None
+        return None, None, None, None, None
     by_name: dict[str, list] = {}
     for e in kernels:
         row = by_name.setdefault(e.name, [0, 0.0])
@@ -2096,6 +2313,15 @@ def profile_step(trainer, card: str, label: str):
     bn = sum(v[1] for k, v in by_name.items()
              if any(f"bn_{n}_kernel" in k for n in ("act", "reduce", "dpre")))
     launches = sum(v[0] for v in by_name.values())
+    families = {fam: sum(v[0] for k, v in by_name.items()
+                         if re.search(pattern, k))
+                for fam, pattern in (
+                    ("conv_sm90", r"\bconv_sm90_kernel<"),
+                    # EPI_REDUCE (2), csrc/conv3x3_sm90.cu's K11 epilogue
+                    ("conv_sm90 reduce",
+                     r"\bconv_sm90_kernel<\d+, \w+, \w+, 2>"),
+                    ("conv3x3", r"\bconv3x3(_bf16)?_kernel\b"),
+                    ("colsum", r"\bcolsum_kernel\b"))}
     lines = [f"profile of one {label} step ({card}): wall "
              f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
              f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), conv "
@@ -2110,7 +2336,7 @@ def profile_step(trainer, card: str, label: str):
     prof.export_chrome_trace(os.path.join(OUT_DIR,
                                           f"step_trace_{label}.json"))
     print("\n".join(lines[:25]), flush=True)
-    return busy / 1e3, conv / 1e3, bn / 1e3, launches
+    return busy / 1e3, conv / 1e3, bn / 1e3, launches, families
 
 
 # ---------------------------------------------------------------------------
@@ -3518,9 +3744,9 @@ ID_SHAPES = (("in_conv", 224, 16, 0.95), ("down4", 14, 256, 0.5))
 def check_image_ids(rep: Report, dev) -> None:
     """A, B and K11 with a two-segment image-id map (rank 1's rows of a
     2-rank global batch of 8 + 24: 16 images) against their plain versions
-    at the stem's and the bottleneck's conv2; A's masks bit-exact through
-    the identity conv; D's reduce alone (``bn_reduce``) against its plain
-    version. In bf16 each kernel is timed with and without the ids. The
+    at the stem's and the bottleneck's conv2; A's masks and K11's (on both
+    routes) bit-exact through the identity conv; D's reduce alone
+    (``bn_reduce``) against its plain version. In bf16 each kernel is timed with and without the ids. The
     rows stay out of the kernels' totals (the main paths run one process,
     without ids)."""
     import torch
@@ -3548,14 +3774,21 @@ def check_image_ids(rep: Report, dev) -> None:
             drop = cb.HashDropout(31 + c, keep, ids)
             full = cb.hash_mask(drop.seed, 32, hh, hh * c, keep, dev)
             ref = full[ids.long()].view(n, hh, hh, c).to(dt)
+            unit = (x1, one, zero, zero, one)
+            k11_mma = torch.empty_like(x1)
+            cb._launch_conv(x1, eye, k11_mma, out_drop=drop, reduce=unit,
+                            want_sums=True)
             for what, got in (
                     ("prologue", cb.conv3x3_nhwc(x1, eye, affine=(one, zero),
                                                  drop=drop)[0]),
-                    ("output", cb.conv3x3_nhwc(x1, eye, out_drop=drop)[0])):
+                    ("output", cb.conv3x3_nhwc(x1, eye, out_drop=drop)[0]),
+                    ("K11 output", cb.conv3x3_dgrad_reduce(
+                        x1, eye, *unit, out_drop=drop)[0]),
+                    ("K11 output mma route", k11_mma)):
                 if not torch.equal(got, ref):
                     rep.fail(f"hash mask with ids ({what}) {name} {dname}: "
                              f"{(got != ref).sum().item()} elements differ")
-            del x1, eye, full, ref
+            del x1, eye, full, ref, k11_mma
             x = randn(n, hh, hh, c).to(dt)
             dp = randn(n, hh, hh, c).to(dt)
             w = randn(3, 3, c, c, scale=(9 * c) ** -0.5).to(dt)
@@ -3600,7 +3833,7 @@ def check_image_ids(rep: Report, dev) -> None:
             del x, dp, w
             torch.cuda.empty_cache()
     print("hash masks with ids: bit-exact check done (prologue and output, "
-          "float32 and bfloat16)", flush=True)
+          "K11's on both routes, float32 and bfloat16)", flush=True)
     check_attention_ids(rep, dev)
 
 

@@ -69,10 +69,14 @@
 //     so a tile's epilogue overlaps the next tile's loads; the epilogue
 //     rounds into a shared-memory tile and stores, and takes K11's reduce,
 //     in 16-byte groups. These mma.sync kernels take the calls TMA cannot
-//     (fp32, the C = 1 and 3 stems, the heads, output masks, odd pair
-//     splits); the bf16 A, B, K8 and K10 calls whose channels are
-//     multiples of 8 run conv3x3_sm90.cu's wgmma/TMA kernels, which apply
-//     the prologue to the TMA-staged box in shared memory;
+//     (fp32, the C = 1 and 3 stems, the heads, A's output masks, odd pair
+//     splits) and those a static rule of ops/conv_block.py conv_route
+//     keeps here; the bf16 A, B and K8 to K11 calls whose channels (and
+//     K9's split) are multiples of 8 run conv3x3_sm90.cu's wgmma/TMA
+//     kernels, which apply the prologue to the TMA-staged box in shared
+//     memory, split K9's output and take K11's reduce in their epilogue.
+//     So K9 and K11 run here in fp32, and in bf16 where a channel count
+//     or the split is not a multiple of 8 (the GPU tests' 12 + 20);
 //   * bf16, wgrad: a split-K GEMM per tap, M = 16 or 32 input channels,
 //     N = up to 32 output channels, K = the pixels of the CTA's run of
 //     tiles; one warp per tap keeps its sums in registers over the run, two

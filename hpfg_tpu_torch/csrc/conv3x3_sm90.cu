@@ -11,14 +11,22 @@
 //     lrelu(a*h + b) * mask); and K8 _conv_stats_cat_kernel (:772), the
 //     UpBlock conv1 over the implicit channel concat (skip || up), as its
 //     two-source case: conv_sm90_kernel, launcher hpfg_conv_sm90;
+//   * with the same kernel in dgrad form (flip-transposed weights, an
+//     identity operand, no bias): K9 _dgrad_pair_kernel (:1364), the
+//     UpBlock conv1's input gradient, its output split at Ca into dx_skip
+//     and dx_up (two tensors, two store maps), and K11
+//     _dgrad_reduce_kernel (:1525), conv2's input gradient times the
+//     forward's dropout mask with BN1's backward reduce in the epilogue
+//     (conv_sm90_kernel<N, TALL, false, true>);
 //   * kernel B, _wgrad_kernel (K7, :1192) with its _fold_wgrad (:1250), in
 //     both operand forms, and K10 _wgrad_pair_kernel (:1453), the pair
 //     conv's weight gradients [3,3,Ca,F] then [3,3,Cb,F] in one launch, as
 //     its two-source case: wgrad_sm90_kernel, launcher hpfg_wgrad_sm90.
 // ops/conv_block.py (conv_route, pair_route) sends a bf16 call here when
-// TMA can take its tensors (channels multiples of 8, 16-byte aligned
-// bases); fp32, the C = 1 and C = 3 stems (K12's), the heads and calls
-// with an output dropout mask keep conv3x3.cu's mma.sync kernels.
+// TMA can take its tensors (channels, and K9's split, multiples of 8,
+// 16-byte aligned bases); fp32, the C = 1 and C = 3 stems (K12's), the
+// heads, A with an output dropout mask and the static rules of
+// conv_route keep conv3x3.cu's mma.sync kernels.
 //
 // What bounds them on an H100: each ConvBlock conv of the UNet is 4 to 15
 // GFLOP at batch 32 (4 to 15 us at 989 TFLOP/s); at 14^2 to 56^2 (64 to
@@ -87,6 +95,35 @@
 //     per-CTA sums, and the CTA that takes the last ticket sums the CTAs'
 //     rows in row order, so the sums are bitwise the same from run to run
 //     and no column-sum launch follows;
+//   * K9 and K11 are the conv in dgrad form with their own epilogues
+//     (conv_sm90_kernel's EPI; their arguments in EpiArgs, a kernel
+//     argument of its own: A's prologue form measured 10% slower with them
+//     in ConvArgs, and A and K8 keep their instantiations unchanged). K9
+//     (EPI_SPLIT) writes channel n < Ca to dx_skip at n, the rest to dx_up
+//     at n - Ca, whose store map takes the free source slot xb's (both
+//     read one source). A 64-wide TMA store box must lie in one half, so
+//     the wrapper gives an N tile of 64 or more only where both halves are
+//     multiples of 64 (up1's 128 + 128 in two N tiles, up2's 64 + 64 in
+//     one), else N tiles of at most 32 (up3's 32 + 32: two, one a half),
+//     whose fragments store from the registers, each channel pair into its
+//     half;
+//   * K11 (EPI_REDUCE): the output mask, hash.cuh's of (seed, ids[b] or b,
+//     row, x*F + n), multiplies the fp32 result before it is rounded; then
+//     on the ROUNDED output o, against the residual pre (its tile's box by
+//     TMA through xb's map slot, issued at the tile's first step so it
+//     lands during the MMAs: at N >= 64 into the output tile itself, where
+//     each thread reads its pre and then writes its output, below into a
+//     tile of its own; per-thread global loads in the epilogue measured no
+//     faster than the mma route at 56^2 and 112^2; a per-column a, b, mean
+//     and inv staged in shared memory beside the bias, not in registers,
+//     as the conv at N = 128 already holds 200-odd), dz = o where a*pre +
+//     b (a multiply then an add, no FMA: the plain version's branch) is
+//     >= 0 else 0.01 o, xhat = (pre - mean) * inv, and the [sum dz, sum dz
+//     * xhat] over in-image pixels take the statistics' place in the
+//     per-tile reduction and the last CTA's ticket: K11's column-sum
+//     launches go, and its sums are bitwise the same from run to run. This
+//     epilogue walks the N tile column by column (n8 block j), so a
+//     column's two sums are the only ones live;
 //   * the wgrad: dW[tap, c, f] = sum_p x[p + tap, c] dp[p, f] as a split-K
 //     GEMM, M = (tap, channel) rows, N = up to 64 output channels, K =
 //     pixels. A CTA of three warpgroups holds four channel groups:
@@ -460,24 +497,54 @@ struct ConvSmem {
   static constexpr int OUT_HALF = CV_PIX * BNB * 2;
   static constexpr int OUT_BYTES = TMA_Y ? CV_PIX * BN * 2 : 0;
   static constexpr int ST = TMA_Y ? 3 : STAGES;  // ring stages
-  // barriers and the bias at the head, then the output tile, the A ring,
-  // B, the reduction
+  // RED: K11's per-column constants a, b, mean, inv after the reduction,
+  // and its residual's box by TMA: into the output tile at N >= 64 (each
+  // thread reads its pre where it then writes its output), below into a
+  // tile of its own, [256 pixels][BN] swizzled as B, in the output tile's
+  // place before the A ring
+  static constexpr int RC_BYTES = 4 * BN * 4;
+  static constexpr int PRE_BYTES = TMA_Y ? 0 : CV_PIX * BN * 2;
+  // barriers and the bias at the head, then the output tile (RED at N <=
+  // 32: pre's tile), the A ring, B, the reduction, the reduce constants
   static constexpr int OUT_OFF = 1024;
   static constexpr int A_OFF = OUT_OFF + OUT_BYTES;
-  static int smem(int b_slots) {
-    return 1024 + A_OFF + ST * CV_A_SLOT + b_slots * B_SLOT + RED_BYTES;
+  static int smem(int b_slots, bool red) {
+    return 1024 + A_OFF + ST * CV_A_SLOT + b_slots * B_SLOT + RED_BYTES +
+           (red ? PRE_BYTES + RC_BYTES : 0);
   }
 };
 
+// One source (cb = 0) leaves xb's map free: K9's second output (dx_up)
+// and K11's residual pre take it, with boxes as y's
 struct ConvMaps {
   CUtensorMap xa, xb, w, y;
 };
 
+// K11's output dropout mask: hash.cuh's of (seed, image, row, lane =
+// x*F + n), as conv3x3.cu's OutMask
+struct OutMask {
+  int has_mask;
+  uint32_t seed;
+  uint32_t thresh;
+  float scale;
+  const int* ids;  // [B] each image's index in the global batch, or null
+};
+
+// K11's reduce against the pre-activation residual (maps.xb: [B,H,W,F]
+// bf16) with BN1's per-channel a, b, mean and inv (fp32 [F])
+struct Reduce {
+  const float* a;
+  const float* b;
+  const float* m;
+  const float* inv;
+};
+
 struct ConvArgs {
   const float* bias;    // [F] or null
-  uint16_t* y;          // [B,H,W,F] bf16 (at N >= 64 written through maps.y)
-  float* part;          // [gridDim.x, 2F] or null (no statistics)
-  float* stats;         // [2F]: the summed [sum, sum^2]
+  uint16_t* y;          // [B,H,W,F] bf16 (at N >= 64 written through maps.y;
+                        // SPLIT: [B,H,W,f1])
+  float* part;          // [gridDim.x, 2F] or null (no sums)
+  float* stats;         // [2F]: the summed [sum, sum^2] (RED: [S0, S1])
   unsigned* counter;    // the ticket, 0 between launches
   Pro pro;              // PRO: xa's prologue (one source)
   int H, W, F, ca, cb;  // cb = 0: one source
@@ -485,11 +552,32 @@ struct ConvArgs {
   int wres;             // the weights of every chunk stay resident
 };
 
+// The epilogues of K9 and K11, a kernel argument of their own: ConvArgs
+// stays as A and K8 had it (A's prologue form measured 10% slower with
+// these fields in ConvArgs, or with ConvArgs a grid constant)
+struct EpiArgs {
+  uint16_t* y2;  // SPLIT: [B,H,W,F-f1] bf16, channels f1.. (through maps.xb
+                 // at N >= 64)
+  int f1;        // SPLIT: the split
+  OutMask om;    // RED: the output mask
+  Reduce red;    // RED: the reduce's operands
+};
+
+// The epilogue a conv_sm90_kernel instantiation takes: bias and BN
+// statistics (A, K8), K9's split output, or K11's mask and reduce
+enum Epi { EPI_STATS = 0, EPI_SPLIT = 1, EPI_REDUCE = 2 };
+
 // N <= 32: two CTAs an SM (at most 128 registers a thread), which the
-// byte-bound stages (112^2, 224^2) need to keep enough copies in flight
-template <int BN, bool TALL, bool PRO>
+// byte-bound stages (112^2, 224^2) need to keep enough copies in flight.
+// EPI_SPLIT (K9, one identity source): channels from e.f1 go to e.y2;
+// EPI_REDUCE (K11, one identity source): the output mask, then the
+// BN-backward reduce of the rounded output in place of the statistics.
+template <int BN, bool TALL, bool PRO, int EPI>
 __global__ void __launch_bounds__(CV_NT, BN <= 32 ? 2 : 1)
-conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a) {
+conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a,
+                 const EpiArgs e) {
+  constexpr bool RED = EPI == EPI_REDUCE, SPLIT = EPI == EPI_SPLIT;
+  static_assert(!PRO || EPI == EPI_STATS, "K9 and K11 take identity operands");
   using K = ConvSmem<BN>;
   using T = ConvTile<TALL>;
   constexpr int NJ = K::NJ, SW = K::SW;
@@ -498,17 +586,19 @@ conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a) {
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [K::ST]
   uint64_t* wbar = full + K::ST;
+  uint64_t* pbar = full + K::ST + 1;  // RED: pre's box of the tile
   // the last-CTA flag: dynamic like the rest, as the opt-in of MAX_SMEM
   // bytes leaves no room for static shared memory
   int* s_last = reinterpret_cast<int*>(smem + 48);
   float* s_bias = reinterpret_cast<float*>(smem + 64);  // [BN]
-  uint8_t* out_s = smem + K::OUT_OFF;
-  uint8_t* ring_a = smem + K::A_OFF;
+  uint8_t* out_s = smem + K::OUT_OFF;  // RED: pre's box first
+  uint8_t* ring_a = smem + K::A_OFF + (RED ? K::PRE_BYTES : 0);
   uint8_t* ring_b = ring_a + K::ST * CV_A_SLOT;
   const int na = (a.ca + GC - 1) / GC;
   const int nch = na + (a.cb + GC - 1) / GC;
   float* red = reinterpret_cast<float*>(
       ring_b + (a.wres ? nch : K::ST) * K::B_SLOT);
+  float* s_rc = red + K::RED_BYTES / 4;  // RED: [4][BN] a, b, mean, inv
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -563,11 +653,20 @@ conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a) {
 
   if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i <= K::ST; ++i) mbar_init(&full[i], 1);
+    for (int i = 0; i <= K::ST + (RED ? 1 : 0); ++i) mbar_init(&full[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < BN; i += CV_NT)
     s_bias[i] = a.bias != nullptr && n0 + i < F ? a.bias[n0 + i] : 0.f;
+  if constexpr (RED) {
+    for (int i = tid; i < BN; i += CV_NT) {
+      const bool live = n0 + i < F;
+      s_rc[i] = live ? e.red.a[n0 + i] : 0.f;
+      s_rc[BN + i] = live ? e.red.b[n0 + i] : 0.f;
+      s_rc[2 * BN + i] = live ? e.red.m[n0 + i] : 0.f;
+      s_rc[3 * BN + i] = live ? e.red.inv[n0 + i] : 0.f;
+    }
+  }
   __syncthreads();
   if (tid == 0) {
     if (a.wres) {
@@ -589,6 +688,18 @@ conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a) {
   for (int s = 0; s < nsteps; ++s) {
     const int st = s % K::ST;
     const int k = s % nch;
+    if (RED && k == 0 && tid == 0) {
+      // the tile's pre box, in flight over its MMAs; at N >= 64 into the
+      // output tile, once the last store has read it
+      int b, ty0, tx0;
+      tile_of(t_begin + s / nch, b, ty0, tx0);
+      if constexpr (K::TMA_Y) bulk_wait_read();
+      mbar_expect_tx(pbar, CV_PIX * BN * 2);
+#pragma unroll
+      for (int hb = 0; hb < BN / K::BNB; ++hb)
+        tma_4d(smem_u32(out_s + hb * K::OUT_HALF), &maps.xb, pbar,
+               n0 + hb * K::BNB, tx0, ty0, b);
+    }
     mbar_wait(&full[st], (s / K::ST) & 1);
     if constexpr (PRO) {
       transform(s);
@@ -627,85 +738,184 @@ conv_sm90_kernel(const __grid_constant__ ConvMaps maps, const ConvArgs a) {
       // the epilogue: acc[i][4j + 2h + e] is pixel (ty0 + r0 + 2w + i,
       // tx0 + q0 + lane/4 + 8h), channel n0 + 8j + 2(lane%4) + e; the
       // rounded tile goes to out_s and leaves by one TMA store a 64-wide
-      // half (which writes only what lies in the image and below F)
+      // half (which writes only what lies in the image and below F), into
+      // y below f1 and y2 from it (K9's split); each column's sums over
+      // the warp's pixels in a fixed order (i, then h), then over its
+      // lanes by shuffles, go into red: BN statistics [o, o^2] of the fp32
+      // result, or RED's [dz, dz * xhat] of the rounded one
       int b, ty0, tx0;
       tile_of(t_begin + s / nch, b, ty0, tx0);
-      if constexpr (K::TMA_Y) {
-        if (tid == 0) bulk_wait_read();  // the last store has read out_s
-        __syncthreads();
-      }
-      float sm[NJ][2], sq[NJ][2];
+      if constexpr (RED) {
+        // pre's box (issued after the last store read out_s) is in
+        mbar_wait(pbar, (s / nch) & 1);
+        const int bi = image_index(e.om.ids, b);  // the mask's image
+        const int wid = tid >> 5;                 // warp of the CTA, 0..7
+        // column by column (n8 block j), so a column's two sums are the
+        // only ones live
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) sm[j][0] = sm[j][1] = sq[j][0] = sq[j][1] = 0.f;
+        for (int j = 0; j < NJ; ++j) {
+          const int col = 8 * j + 2 * (lane & 3);
+          const int n = n0 + col;  // F % 8 == 0: n + 1 < F with n
+          float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int rr = r0 + 2 * w + i;  // row in the tile
-        const int oy = ty0 + rr;
+          for (int i = 0; i < 2; ++i) {
+            const int rr = r0 + 2 * w + i;  // row in the tile
+            const int oy = ty0 + rr;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int px = q0 + (lane >> 2) + 8 * h;
-          const int ox = tx0 + px;
-          const bool in = oy < H && ox < W;
-          const int pix = rr * T::TW + px;  // in the tile
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            const int col = 8 * j + 2 * (lane & 3);
-            const float o0 = acc[i][4 * j + 2 * h] + s_bias[col];
-            const float o1 = acc[i][4 * j + 2 * h + 1] + s_bias[col + 1];
-            acc[i][4 * j + 2 * h] = 0.f;
-            acc[i][4 * j + 2 * h + 1] = 0.f;
-            if (in && n0 + col < F) {  // F % 8 == 0: col + 1 < F too
-              sm[j][0] += o0;
-              sq[j][0] += o0 * o0;
-              sm[j][1] += o1;
-              sq[j][1] += o1 * o1;
-              if constexpr (!K::TMA_Y)
-                *reinterpret_cast<uint32_t*>(
-                    a.y + (((size_t)b * H + oy) * W + ox) * F + n0 + col) =
-                    pack_bf16(o0, o1);
-            }
-            if constexpr (K::TMA_Y) {
-              // 16-byte chunk (col % BNB) / 8 of row pix, swizzled as TMA
-              // lays a row of SW bytes (chunk ^= address bits 7.. of it)
+            for (int h = 0; h < 2; ++h) {
+              const int px = q0 + (lane >> 2) + 8 * h;
+              const int ox = tx0 + px;
+              const bool live = oy < H && ox < W && n < F;
+              float o0 = acc[i][4 * j + 2 * h];
+              float o1 = acc[i][4 * j + 2 * h + 1];
+              acc[i][4 * j + 2 * h] = 0.f;
+              acc[i][4 * j + 2 * h + 1] = 0.f;
+              // the pair's place in the output tile and pre's (as below)
+              const int pix = rr * T::TW + px;
               const int hc = (col % K::BNB) >> 3;
               const uint32_t off =
                   (col / K::BNB) * K::OUT_HALF + pix * SW +
                   ((hc ^ ((pix * SW >> 7) & (SW / 16 - 1))) << 4) +
                   (col & 7) * 2;
-              *reinterpret_cast<uint32_t*>(out_s + off) = pack_bf16(o0, o1);
+              if (e.om.has_mask && live) {
+                o0 *= hash_keep(e.om.seed, e.om.thresh, e.om.scale, bi, oy,
+                                W * F, ox * F + n);
+                o1 *= hash_keep(e.om.seed, e.om.thresh, e.om.scale, bi, oy,
+                                W * F, ox * F + n + 1);
+              }
+              const uint32_t ob = pack_bf16(o0, o1);
+              if (live) {
+                // on the rounded output; a*pre + b as a multiply then an
+                // add (no FMA), as the plain version, for the same branch
+                const uint32_t pp =
+                    *reinterpret_cast<const uint32_t*>(out_s + off);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int c = col + e;
+                  const float d = bf2f((ob >> (16 * e)) & 0xFFFFu);
+                  const float p = bf2f((pp >> (16 * e)) & 0xFFFFu);
+                  const float z =
+                      __fadd_rn(__fmul_rn(p, s_rc[c]), s_rc[BN + c]);
+                  const float dz = z >= 0.f ? d : d * kSlope;
+                  s0[e] += dz;
+                  s1[e] += dz * ((p - s_rc[2 * BN + c]) * s_rc[3 * BN + c]);
+                }
+                if constexpr (!K::TMA_Y)
+                  *reinterpret_cast<uint32_t*>(
+                      a.y + (((size_t)b * H + oy) * W + ox) * F + n) = ob;
+              }
+              if constexpr (K::TMA_Y)
+                *reinterpret_cast<uint32_t*>(out_s + off) = ob;
             }
           }
-        }
-      }
-      if (a.part != nullptr) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
 #pragma unroll
-            for (int off = 4; off < 32; off <<= 1) {
-              sm[j][e] += __shfl_xor_sync(0xffffffffu, sm[j][e], off);
-              sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], off);
+            for (int sh = 4; sh < 32; sh <<= 1) {
+              s0[e] += __shfl_xor_sync(0xffffffffu, s0[e], sh);
+              s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], sh);
             }
-        if (lane < 4) {
-          const int wv = (tid >> 5);  // warp of the CTA, 0..7
+          if (lane < 4) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              red[(wid * BN + col + e) * 2] = s0[e];
+              red[(wid * BN + col + e) * 2 + 1] = s1[e];
+            }
+          }
+        }
+      } else {
+        if constexpr (K::TMA_Y) {
+          if (tid == 0) bulk_wait_read();  // the last store has read out_s
+          __syncthreads();
+        }
+        float sm[NJ][2], sq[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          sm[j][0] = sm[j][1] = sq[j][0] = sq[j][1] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int rr = r0 + 2 * w + i;  // row in the tile
+          const int oy = ty0 + rr;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int px = q0 + (lane >> 2) + 8 * h;
+            const int ox = tx0 + px;
+            const bool in = oy < H && ox < W;
+            const int pix = rr * T::TW + px;  // in the tile
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              const int col = 8 * j + 2 * (lane & 3);
+              const float o0 = acc[i][4 * j + 2 * h] + s_bias[col];
+              const float o1 = acc[i][4 * j + 2 * h + 1] + s_bias[col + 1];
+              acc[i][4 * j + 2 * h] = 0.f;
+              acc[i][4 * j + 2 * h + 1] = 0.f;
+              if (in && n0 + col < F) {  // F % 8 == 0: col + 1 < F too
+                sm[j][0] += o0;
+                sq[j][0] += o0 * o0;
+                sm[j][1] += o1;
+                sq[j][1] += o1 * o1;
+                if constexpr (!K::TMA_Y && SPLIT) {
+                  // a pair never straddles the split (e.f1 % 8 == 0)
+                  const int n = n0 + col;
+                  const size_t gp = ((size_t)b * H + oy) * W + ox;
+                  *reinterpret_cast<uint32_t*>(
+                      n < e.f1 ? a.y + gp * e.f1 + n
+                               : e.y2 + gp * (F - e.f1) + (n - e.f1)) =
+                      pack_bf16(o0, o1);
+                } else if constexpr (!K::TMA_Y) {
+                  *reinterpret_cast<uint32_t*>(
+                      a.y + (((size_t)b * H + oy) * W + ox) * F + n0 + col) =
+                      pack_bf16(o0, o1);
+                }
+              }
+              if constexpr (K::TMA_Y) {
+                // 16-byte chunk (col % BNB) / 8 of row pix, swizzled as TMA
+                // lays a row of SW bytes (chunk ^= address bits 7.. of it)
+                const int hc = (col % K::BNB) >> 3;
+                const uint32_t off =
+                    (col / K::BNB) * K::OUT_HALF + pix * SW +
+                    ((hc ^ ((pix * SW >> 7) & (SW / 16 - 1))) << 4) +
+                    (col & 7) * 2;
+                *reinterpret_cast<uint32_t*>(out_s + off) =
+                    pack_bf16(o0, o1);
+              }
+            }
+          }
+        }
+        if (a.part != nullptr) {
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 8 * j + 2 * lane + e;
-              red[(wv * BN + col) * 2] = sm[j][e];
-              red[(wv * BN + col) * 2 + 1] = sq[j][e];
-            }
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1) {
+                sm[j][e] += __shfl_xor_sync(0xffffffffu, sm[j][e], off);
+                sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], off);
+              }
+          if (lane < 4) {
+            const int wv = (tid >> 5);  // warp of the CTA, 0..7
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * j + 2 * lane + e;
+                red[(wv * BN + col) * 2] = sm[j][e];
+                red[(wv * BN + col) * 2 + 1] = sq[j][e];
+              }
+          }
         }
       }
       if constexpr (K::TMA_Y) fence_proxy_async();
       __syncthreads();
       if (K::TMA_Y && tid == 0) {
 #pragma unroll
-        for (int hb = 0; hb < BN / K::BNB; ++hb)
-          tma_store_4d(&maps.y, smem_u32(out_s + hb * K::OUT_HALF),
-                       n0 + hb * K::BNB, tx0, ty0, b);
+        for (int hb = 0; hb < BN / K::BNB; ++hb) {
+          const int nb = n0 + hb * K::BNB;  // SPLIT: a box never straddles
+          const bool second = SPLIT && nb >= e.f1;  // y2 through maps.xb
+          tma_store_4d(second ? &maps.xb : &maps.y,
+                       smem_u32(out_s + hb * K::OUT_HALF),
+                       second ? nb - e.f1 : nb, tx0, ty0, b);
+        }
         bulk_commit();
       }
       if (a.part != nullptr && tid < BN) {
@@ -1080,33 +1290,56 @@ int encode_sources(CUtensorMap* ma, CUtensorMap* mb, const void* xa,
   return err;
 }
 
-template <int BN, bool TALL, bool PRO>
-int launch_conv(const ConvMaps& maps, const ConvArgs& args, int ctas, int ntn,
-                int b_slots, cudaStream_t stream) {
+template <int BN, bool TALL, bool PRO, int EPI>
+int launch_conv(const ConvMaps& maps, const ConvArgs& args,
+                const EpiArgs& epi, int ctas, int ntn, int b_slots,
+                cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_sm90_kernel<BN, TALL, PRO>,
+      conv_sm90_kernel<BN, TALL, PRO, EPI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   (void)attr;  // a refusal shows as the launch's error
-  conv_sm90_kernel<BN, TALL, PRO>
-      <<<dim3(ctas, ntn), CV_NT, ConvSmem<BN>::smem(b_slots), stream>>>(
-          maps, args);
+  conv_sm90_kernel<BN, TALL, PRO, EPI>
+      <<<dim3(ctas, ntn), CV_NT,
+         ConvSmem<BN>::smem(b_slots, EPI == EPI_REDUCE), stream>>>(maps, args,
+                                                                  epi);
   return (int)cudaGetLastError();
 }
 
-// The instantiation of N tile BN for the tile and the prologue: the tall
-// tile is built for N >= 32 only (the wrappers pick it at F >= 32)
+// The instantiation of N tile BN for the tile, the prologue (A's conv2)
+// and the epilogue (K9's split, K11's reduce); the tall tile is built for
+// N >= 32 only (the wrappers pick it at F >= 32)
+template <int BN, bool TALL>
+int launch_conv_tile(const ConvMaps& maps, const ConvArgs& args,
+                     const EpiArgs& epi, bool pro, int mode, int ctas,
+                     int ntn, int b_slots, cudaStream_t s) {
+  if (pro)
+    return launch_conv<BN, TALL, true, EPI_STATS>(maps, args, epi, ctas, ntn,
+                                                  b_slots, s);
+  switch (mode) {
+    case EPI_SPLIT:
+      return launch_conv<BN, TALL, false, EPI_SPLIT>(maps, args, epi, ctas,
+                                                     ntn, b_slots, s);
+    case EPI_REDUCE:
+      return launch_conv<BN, TALL, false, EPI_REDUCE>(maps, args, epi, ctas,
+                                                      ntn, b_slots, s);
+    default:
+      return launch_conv<BN, TALL, false, EPI_STATS>(maps, args, epi, ctas,
+                                                     ntn, b_slots, s);
+  }
+}
+
 template <int BN>
-int launch_conv_bn(const ConvMaps& maps, const ConvArgs& args, bool tall,
-                   bool pro, int ctas, int ntn, int b_slots, cudaStream_t s) {
+int launch_conv_bn(const ConvMaps& maps, const ConvArgs& args,
+                   const EpiArgs& epi, bool tall, bool pro, int mode,
+                   int ctas, int ntn, int b_slots, cudaStream_t s) {
   if constexpr (BN >= 32) {
     if (tall)
-      return pro ? launch_conv<BN, true, true>(maps, args, ctas, ntn, b_slots, s)
-                 : launch_conv<BN, true, false>(maps, args, ctas, ntn, b_slots,
-                                                s);
+      return launch_conv_tile<BN, true>(maps, args, epi, pro, mode, ctas, ntn,
+                                        b_slots, s);
   }
   if (tall) return (int)cudaErrorInvalidValue;
-  return pro ? launch_conv<BN, false, true>(maps, args, ctas, ntn, b_slots, s)
-             : launch_conv<BN, false, false>(maps, args, ctas, ntn, b_slots, s);
+  return launch_conv_tile<BN, false>(maps, args, epi, pro, mode, ctas, ntn,
+                                     b_slots, s);
 }
 
 template <int BN, bool PRO>
@@ -1145,27 +1378,44 @@ int hpfg_conv_sm90_tile_w(int tall) {
 int hpfg_pair_wgrad_tile_h() { return WG_TH; }
 int hpfg_pair_wgrad_tile_w() { return WG_TW; }
 
-// A and K8 on wgmma: xa [B,H,W,ca] and xb [B,H,W,cb] (cb = 0: one source,
-// xb unread), w [3,3,ca+cb,F] bf16 (16-byte aligned; ca, cb, F multiples of
-// 8), bias [F] fp32 or null, y [B,H,W,F] bf16; part [ctas, 2F] fp32, stats
-// [2F] fp32 and counter (a zeroed uint32 the kernel leaves zeroed) or all
-// null (no statistics); pa, pb (fp32 [ca]), has_mask, seed, thresh, scale,
-// ids: xa's prologue (one source only), pa null for none. bn: the N tile
-// (16, 32, 64 or 128; ntn = ceil(F / bn) tiles over grid.y); tall: the
-// 16 x 16 tile (bn >= 32), else 8 x 32; a CTA takes tiles_per_cta tiles in
-// order, ctas of them; wres: every chunk's weights stay resident (sized by
-// the caller).
+// A, K8, K9 and K11 on wgmma: xa [B,H,W,ca] and xb [B,H,W,cb] (cb = 0:
+// one source, xb unread), w [3,3,ca+cb,F] bf16 (16-byte aligned; ca, cb,
+// F multiples of 8), bias [F] fp32 or null; y [B,H,W,f1] and y2
+// [B,H,W,F-f1] bf16, the output's channels below f1 and from it (f1 = F:
+// y alone, y2 unread; at bn >= 64, f1 and F - f1 multiples of 64, so no
+// 64-wide store box straddles them); part [ctas, 2F] fp32, stats [2F]
+// fp32 and counter (a zeroed uint32 the kernel leaves zeroed) or all null
+// (no sums); pa, pb (fp32 [ca]), has_mask, seed, thresh, scale, ids: xa's
+// prologue (one source only), pa null for none; om_*: the output mask
+// (K11; om_has 0 for none); pre [B,H,W,F] bf16 and ra, rb, rm, rinv fp32
+// [F]: K11's reduce, whose [S0, S1] take the statistics' place (one
+// identity source, no bias, sums required), pre null for none. bn: the N
+// tile (16, 32, 64 or 128; ntn = ceil(F / bn) tiles over grid.y); tall:
+// the 16 x 16 tile (bn >= 32), else 8 x 32; a CTA takes tiles_per_cta
+// tiles in order, ctas of them; wres: every chunk's weights stay resident
+// (sized by the caller).
 int hpfg_conv_sm90(const void* xa, const void* xb, const void* w,
-                   const void* bias, void* y, void* part, void* stats,
-                   void* counter, const void* pa, const void* pb,
+                   const void* bias, void* y, void* y2, void* part,
+                   void* stats, void* counter, const void* pa, const void* pb,
                    int has_mask, unsigned seed, unsigned thresh, float scale,
-                   const void* ids, int B, int H, int W, int ca, int cb,
-                   int F, int bn, int tall, int tiles_per_cta, int ctas,
-                   int wres, void* stream) {
+                   const void* ids, int om_has, unsigned om_seed,
+                   unsigned om_thresh, float om_scale, const void* om_ids,
+                   const void* pre, const void* ra, const void* rb,
+                   const void* rm, const void* rinv, int B, int H, int W,
+                   int ca, int cb, int F, int f1, int bn, int tall,
+                   int tiles_per_cta, int ctas, int wres, void* stream) {
   const int th = hpfg_conv_sm90_tile_h(tall), tw = hpfg_conv_sm90_tile_w(tall);
   const int tiles_x = (W + tw - 1) / tw;
   const int tiles_per_img = tiles_x * ((H + th - 1) / th);
-  if (pa != nullptr && cb != 0) return (int)cudaErrorInvalidValue;
+  const bool pro = pa != nullptr, red = pre != nullptr;
+  const int bnb = bn < 64 ? bn : 64;
+  if ((pro || red) && cb != 0) return (int)cudaErrorInvalidValue;
+  if (red && (pro || part == nullptr || bias != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (f1 <= 0 || f1 > F ||
+      (f1 < F && (y2 == nullptr || red || cb != 0 ||
+                  (bn >= 64 && (f1 % bnb != 0 || (F - f1) % bnb != 0)))))
+    return (int)cudaErrorInvalidValue;
   const ConvArgs args{static_cast<const float*>(bias),
                       static_cast<uint16_t*>(y),
                       static_cast<float*>(part),
@@ -1174,7 +1424,14 @@ int hpfg_conv_sm90(const void* xa, const void* xb, const void* w,
                       make_pro(pa, pb, has_mask, seed, thresh, scale, ids),
                       H, W, F, ca, cb, tiles_x, tiles_per_img,
                       B * tiles_per_img, tiles_per_cta, wres};
-  const int bnb = bn < 64 ? bn : 64;
+  const EpiArgs epi{static_cast<uint16_t*>(y2), f1,
+                    OutMask{om_has, om_seed, om_thresh, om_scale,
+                            static_cast<const int*>(om_ids)},
+                    Reduce{static_cast<const float*>(ra),
+                           static_cast<const float*>(rb),
+                           static_cast<const float*>(rm),
+                           static_cast<const float*>(rinv)}};
+  const int mode = red ? EPI_REDUCE : f1 < F ? EPI_SPLIT : EPI_STATS;
   ConvMaps maps;
   int err = encode_sources(&maps.xa, &maps.xb, xa, xb, B, H, W, ca, cb,
                            tw + 2, th + 2);
@@ -1183,29 +1440,40 @@ int hpfg_conv_sm90(const void* xa, const void* xb, const void* w,
     const uint32_t box[3] = {(uint32_t)bnb, GC, 9};
     err = encode(&maps.w, w, 3, d, box);
   }
+  const uint32_t ybox[4] = {(uint32_t)bnb, (uint32_t)tw, (uint32_t)th, 1};
   if (!err) {
-    const uint64_t d[4] = {(uint64_t)F, (uint64_t)W, (uint64_t)H, (uint64_t)B};
-    const uint32_t box[4] = {(uint32_t)bnb, (uint32_t)tw, (uint32_t)th, 1};
-    err = encode(&maps.y, y, 4, d, box);
+    const uint64_t d[4] = {(uint64_t)f1, (uint64_t)W, (uint64_t)H,
+                           (uint64_t)B};
+    err = encode(&maps.y, y, 4, d, ybox);
+  }
+  // one source: K9's dx_up or K11's pre in xb's place
+  if (!err && f1 < F) {
+    const uint64_t d[4] = {(uint64_t)(F - f1), (uint64_t)W, (uint64_t)H,
+                           (uint64_t)B};
+    err = encode(&maps.xb, y2, 4, d, ybox);
+  }
+  if (!err && red) {
+    const uint64_t d[4] = {(uint64_t)F, (uint64_t)W, (uint64_t)H,
+                           (uint64_t)B};
+    err = encode(&maps.xb, pre, 4, d, ybox);
   }
   if (err) return err;
   const int ntn = (F + bn - 1) / bn;
   const int nch = (ca + GC - 1) / GC + (cb + GC - 1) / GC;
-  const bool pro = pa != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 16:
-      return launch_conv_bn<16>(maps, args, tall, pro, ctas, ntn,
-                                wres ? nch : ConvSmem<16>::ST, s);
+      return launch_conv_bn<16>(maps, args, epi, tall, pro, mode, ctas,
+                                ntn, wres ? nch : ConvSmem<16>::ST, s);
     case 32:
-      return launch_conv_bn<32>(maps, args, tall, pro, ctas, ntn,
-                                wres ? nch : ConvSmem<32>::ST, s);
+      return launch_conv_bn<32>(maps, args, epi, tall, pro, mode, ctas,
+                                ntn, wres ? nch : ConvSmem<32>::ST, s);
     case 64:
-      return launch_conv_bn<64>(maps, args, tall, pro, ctas, ntn,
-                                wres ? nch : ConvSmem<64>::ST, s);
+      return launch_conv_bn<64>(maps, args, epi, tall, pro, mode, ctas,
+                                ntn, wres ? nch : ConvSmem<64>::ST, s);
     case 128:
-      return launch_conv_bn<128>(maps, args, tall, pro, ctas, ntn,
-                                 wres ? nch : ConvSmem<128>::ST, s);
+      return launch_conv_bn<128>(maps, args, epi, tall, pro, mode, ctas,
+                                 ntn, wres ? nch : ConvSmem<128>::ST, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -52,9 +52,9 @@ _SIGNATURES = {
     "hpfg_conv_sm90_tile_w": [_I],
     "hpfg_pair_wgrad_tile_h": [],
     "hpfg_pair_wgrad_tile_w": [],
-    "hpfg_conv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _U, _U,
-                       _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P],
+    "hpfg_conv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _U,
+                       _U, _F, _P, _I, _U, _U, _F, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_wgrad_sm90": [_P, _P, _P, _P, _P, _P, _I, _U, _U, _F, _P, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_attn_max_l": [],

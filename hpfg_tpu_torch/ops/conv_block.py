@@ -26,11 +26,20 @@ gradients (kernels A and B, or for a pair ``conv3x3_dgrad_pair``, K9, and
 Every kernel wrapper takes its plain PyTorch version (``*_reference``) for
 CPU tensors only; a CUDA tensor launches the kernel or raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` and reports its operations
-to an active ``utils.profiling.count_flops`` (``_cuda.counted``). A, B, K8
-and K10 have two routes on the card, counted in ``<wrapper>.routes``: a
+to an active ``utils.profiling.count_flops`` (``_cuda.counted``). A, B and
+K8 to K11 have two routes on the card, counted in ``<wrapper>.routes``: a
 bf16 call whose channels TMA can take runs csrc/conv3x3_sm90.cu's wgmma
-kernels (``conv_route``, ``pair_route``), every other call the
-mma.sync kernels of csrc/conv3x3.cu.
+kernels (``conv_route``, with the forms "dgrad_pair" for K9 and
+"dgrad_reduce" for K11, and ``pair_route`` for K8 and K10), every other
+call the mma.sync kernels of csrc/conv3x3.cu: fp32, channels (or K9's
+split) not multiples of 8, unaligned bases, A with an output mask, and
+B's prologue form below WGRAD_PROLOGUE_MIN_C channels (a static rule
+from the card's timings; K9 and K11 on wgmma measured faster than on
+mma.sync at every main-path shape, so they need none). No call falls
+back from one route to the other. On wgmma, A, K8 and K11 take their
+sums (BN statistics, or K11's [sum dz, sum dz * xhat]) in the kernel's
+last CTA, so no column-sum launch follows; K9's two outputs leave one
+kernel.
 """
 
 from __future__ import annotations
@@ -96,11 +105,18 @@ CONV_TALL_MAX_W = 16
 CONV_MIN_FILL = 0.9
 WGRAD_SM90_PART_RATIO = 4.0
 WGRAD_PROLOGUE_MIN_C = 32
-#: the routes of A, B, K8 and K10: "wgmma" (csrc/conv3x3_sm90.cu) and
+#: K9 on wgmma: the 64-wide TMA store boxes of an N tile of 64 or more
+#: must not straddle the split, so a split whose halves are not both
+#: multiples of PAIR_STORE_BOX caps the N tile at 32 (stored from the
+#: registers, which may straddle at any multiple of 8)
+PAIR_STORE_BOX = 64
+#: the routes of A, B and K8 to K11: "wgmma" (csrc/conv3x3_sm90.cu) and
 #: "mma" (the mma.sync kernels of csrc/conv3x3.cu)
 ROUTES = ("wgmma", "mma")
-#: the forms of an A or B call that :func:`conv_route` tells apart
-CONV_FORMS = ("conv", "prologue", "out_drop", "wgrad", "wgrad_prologue")
+#: the forms of a call that :func:`conv_route` tells apart: A's and B's,
+#: then K9's and K11's
+CONV_FORMS = ("conv", "prologue", "out_drop", "wgrad", "wgrad_prologue",
+              "dgrad_pair", "dgrad_reduce")
 
 
 @dataclass(frozen=True)
@@ -359,24 +375,34 @@ def pair_route(ca: int, cb: int, f: int, dtype, aligned: bool) -> str:
     return "wgmma" if ok else "mma"
 
 
-def conv_route(c: int, f: int, dtype, aligned: bool, form: str) -> str:
-    """The kernel an A or B call takes on the card: "wgmma"
+def conv_route(c: int, f: int, dtype, aligned: bool, form: str,
+               split: int | None = None) -> str:
+    """The kernel an A, B, K9 or K11 call takes on the card: "wgmma"
     (csrc/conv3x3_sm90.cu) where TMA can take its tensors, as for
     :func:`pair_route`: bf16, C and F multiples of 8 and 16-byte aligned
-    bases (``aligned``), and no output dropout mask. ``form``: "conv" (A
-    on an identity operand: a conv1 or plain conv forward, a dgrad on the
+    bases (``aligned``). ``c``, ``f``: the conv's input and output
+    channels (a dgrad's input is the cotangent). ``form``: "conv" (A on
+    an identity operand: a conv1 or plain conv forward, a dgrad on the
     flip-transposed weights), "prologue" (A through BN + LeakyReLU +
-    dropout), "out_drop" (A with an output mask, which no wgmma kernel
-    applies), "wgrad" (B, identity operand) or "wgrad_prologue". The C = 1
-    and C = 3 stems, the F = 4, 2 and 9 heads (and their dgrads), fp32,
-    "out_drop" and "wgrad_prologue" below WGRAD_PROLOGUE_MIN_C channels
-    (a static rule from the card's timings) take "mma": conv3x3.cu's.
-    No call falls back from one to the other."""
+    dropout), "out_drop" (A with an output mask, which only K11's wgmma
+    epilogue applies), "wgrad" (B, identity operand), "wgrad_prologue",
+    "dgrad_pair" (K9: F = Ca + Cb split at ``split`` = Ca, which must be
+    a multiple of 8 too: the GPU tests' 12 + 20 is not) or
+    "dgrad_reduce" (K11: the dgrad with its output mask and BN1's
+    backward reduce). The C = 1 and C = 3 stems, the F = 4, 2 and 9 heads
+    (and their dgrads), fp32, "out_drop" and, by a static rule from the
+    card's timings, "wgrad_prologue" below WGRAD_PROLOGUE_MIN_C channels
+    take "mma": conv3x3.cu's (K9 and K11 on wgmma measured faster than on
+    mma at every main-path shape, 224^2 included). No call falls back
+    from one to the other."""
     if form not in CONV_FORMS:
         raise ValueError(f"form {form!r} not in {CONV_FORMS}")
+    if (form == "dgrad_pair") != (split is not None):
+        raise ValueError("a split goes with the dgrad_pair form alone")
     ok = (dtype == torch.bfloat16 and aligned and c % 8 == 0
           and f % 8 == 0 and form != "out_drop"
-          and not (form == "wgrad_prologue" and c < WGRAD_PROLOGUE_MIN_C))
+          and not (form == "wgrad_prologue" and c < WGRAD_PROLOGUE_MIN_C)
+          and not (form == "dgrad_pair" and split % 8))
     return "wgmma" if ok else "mma"
 
 
@@ -436,18 +462,19 @@ def pair_conv_grid(b: int, h: int, w: int, ca: int, cb: int, f: int,
 
 
 def conv_grid(b: int, h: int, w: int, c: int, f: int,
-              tiles: dict, sms: int) -> ConvGrid:
-    """A's wgmma grid for one source of ``c`` channels: the tall tile
-    (``tiles[True]``, 16 x 16) where the image is at most CONV_TALL_MAX_W
-    wide and F >= 32 (a 14 x 14 image fills 77% of one, 38% of two 8 x
-    32), else the wide one (``tiles[False]``); the N tile F rounded up to
-    16, 32, 64 or 128, halved (down to 32 tall, 16 wide) while the CTAs
-    over the tiles and N tiles would number fewer than CONV_MIN_FILL of
+              tiles: dict, sms: int, most: int = 128) -> ConvGrid:
+    """A's and K11's wgmma grid for one source of ``c`` channels (K9's
+    with ``most``): the tall tile (``tiles[True]``, 16 x 16) where the
+    image is at most CONV_TALL_MAX_W wide and F >= 32 (a 14 x 14 image
+    fills 77% of one, 38% of two 8 x 32), else the wide one
+    (``tiles[False]``); the N tile F rounded up to 16, 32, 64 or 128, at
+    most ``most``, halved (down to 32 tall, 16 wide) while the CTAs over
+    the tiles and N tiles would number fewer than CONV_MIN_FILL of
     ``sms`` (14^2 at batch 32: 32 tiles); the run of tiles a CTA walks and
     the resident weights as :func:`pair_conv_grid`'s."""
     tall = w <= CONV_TALL_MAX_W and f >= 32
     total = conv_tiles(b, h, w, tiles[tall])
-    bn = _n_tile(f, 128)
+    bn = _n_tile(f, most)
     while bn > (32 if tall else 16) and total * -(-f // bn) < \
             CONV_MIN_FILL * sms:
         bn //= 2
@@ -456,6 +483,18 @@ def conv_grid(b: int, h: int, w: int, c: int, f: int,
     resident = (-(-c // PAIR_GROUP) * 9 * PAIR_GROUP * bn * 2
                 <= PAIR_RESIDENT_BYTES)
     return ConvGrid(bn, per, -(-total // per), n_tiles, resident, tall)
+
+
+def dgrad_pair_grid(b: int, h: int, w: int, f: int, ca: int, cb: int,
+                    tiles: dict, sms: int) -> ConvGrid:
+    """K9's wgmma grid: :func:`conv_grid`'s for the dgrad from ``f`` to Ca +
+    Cb channels, its N tile at most 32 unless both halves are multiples of
+    PAIR_STORE_BOX (an N tile of 64 or more stores 64-wide TMA boxes,
+    which must each lie in one half: at 32 + 32 two N tiles of 32, one a
+    half, stored from the registers)."""
+    most = (128 if ca % PAIR_STORE_BOX == 0 and cb % PAIR_STORE_BOX == 0
+            else 32)
+    return conv_grid(b, h, w, f, ca + cb, tiles, sms, most)
 
 
 class WgradGrid(NamedTuple):
@@ -503,11 +542,30 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _sm90_conv(xa, xb, w, bias, y, pro, want_stats, g: ConvGrid):
+def _mask_args(out_drop) -> list:
+    """The output-mask arguments of a launch: ``out_drop``'s, or none."""
+    if out_drop is None:
+        return _NO_MASK
+    return [1, out_drop.seed, out_drop.thresh, out_drop.scale,
+            ptr(out_drop.image_ids)]
+
+
+def _reduce_args(reduce) -> list:
+    """K11's reduce arguments (pre, a, b, mean, inv) of a launch, or
+    none."""
+    return [ptr(t) for t in reduce] if reduce is not None else [None] * 5
+
+
+def _sm90_conv(xa, xb, w, bias, y, pro, want_stats, g: ConvGrid, *,
+               y2=None, out_drop=None, reduce=None):
     """One launch of the wgmma conv (``hpfg_conv_sm90``) on grid ``g`` into
     ``y``: K8 over xa || xb, or A over xa alone (``xb`` None) through its
-    prologue ``pro`` (``_prologue_args``); its last CTA sums the
-    statistics. Returns them as [2, F] when ``want_stats``, else None."""
+    prologue ``pro`` (``_prologue_args``); with ``y2`` the output's
+    channels from y's count on go there (K9's split); ``reduce`` = (pre,
+    a, b, mean, inv): K11's epilogue, ``out_drop``'s mask then BN1's
+    backward sums in place of the statistics. Its last CTA sums the
+    statistics (or those sums). Returns them as [2, F] when
+    ``want_stats``, else None."""
     lib = library(xa.device)
     b, h, wd, ca = xa.shape
     cb = 0 if xb is None else xb.shape[3]
@@ -519,8 +577,9 @@ def _sm90_conv(xa, xb, w, bias, y, pro, want_stats, g: ConvGrid):
         stats = torch.empty(2 * f, dtype=torch.float32, device=xa.device)
         counter = ticket(xa.device, "conv_sm90")
     lib.call("hpfg_conv_sm90", ptr(xa), ptr(xb), ptr(w), ptr(bias), ptr(y),
-             ptr(part), ptr(stats), ptr(counter), *pro, b, h, wd, ca, cb, f,
-             g.n_tile, int(g.tall), g.tiles_per_cta, g.ctas,
+             ptr(y2), ptr(part), ptr(stats), ptr(counter), *pro,
+             *_mask_args(out_drop), *_reduce_args(reduce), b, h, wd, ca, cb,
+             f, y.shape[3], g.n_tile, int(g.tall), g.tiles_per_cta, g.ctas,
              int(g.resident), stream(xa))
     return stats.view(2, f) if want_stats else None
 
@@ -582,6 +641,27 @@ def _launch_wgrad_sm90(src, dp, *, pro=None):
     return _sm90_wgrad(src, None, dp, pro or _NO_PROLOGUE, g)
 
 
+def _launch_dgrad_pair_sm90(dp, wf, dxa, dxb):
+    """K9 on wgmma at :func:`dgrad_pair_grid`'s grid into ``dxa`` and
+    ``dxb`` (``_sm90_conv`` with a split output)."""
+    lib = library(dp.device)
+    b, h, wd, f = dp.shape
+    g = dgrad_pair_grid(b, h, wd, f, dxa.shape[3], dxb.shape[3],
+                        lib.conv_sm90_tiles, sm_count(dp.device))
+    _sm90_conv(dp, None, wf, None, dxa, _NO_PROLOGUE, False, g, y2=dxb)
+
+
+def _launch_dgrad_reduce_sm90(dp, wf, dd, reduce, out_drop=None):
+    """K11 on wgmma at :func:`conv_grid`'s grid into ``dd`` (``_sm90_conv``
+    with the mask and reduce epilogue): returns the [2, C] sums."""
+    lib = library(dp.device)
+    b, h, wd, f = dp.shape
+    g = conv_grid(b, h, wd, f, dd.shape[3], lib.conv_sm90_tiles,
+                  sm_count(dp.device))
+    return _sm90_conv(dp, None, wf, None, dd, _NO_PROLOGUE, True, g,
+                      out_drop=out_drop, reduce=reduce)
+
+
 def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
                  reduce=None, y2=None, want_sums=False):
     """One launch of the CUDA conv kernel (csrc/conv3x3.cu
@@ -596,15 +676,10 @@ def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
     if want_sums:
         part = torch.empty((conv_tiles(b, h, wd, lib.tile), 2 * f),
                            dtype=torch.float32, device=x.device)
-    om = _NO_MASK
-    if out_drop is not None:
-        om = [1, out_drop.seed, out_drop.thresh, out_drop.scale,
-              ptr(out_drop.image_ids)]
-    red = [ptr(t) for t in reduce] if reduce is not None else [None] * 5
     lib.call("hpfg_conv3x3_nhwc", ptr(x), ptr(x2), c1, ptr(w), ptr(bias),
-             *(pro or _NO_PROLOGUE), *om, *red, ptr(y), ptr(y2),
-             y.shape[-1], ptr(part), b, h, wd, c, f,
-             int(x.dtype == torch.bfloat16), stream(x))
+             *(pro or _NO_PROLOGUE), *_mask_args(out_drop),
+             *_reduce_args(reduce), ptr(y), ptr(y2), y.shape[-1], ptr(part),
+             b, h, wd, c, f, int(x.dtype == torch.bfloat16), stream(x))
     return colsum(part).view(2, f) if want_sums else None
 
 
@@ -673,7 +748,9 @@ def conv3x3_pair_nhwc(xa, xb, w, bias=None, want_stats=False):
 def conv3x3_dgrad_pair(dp, wf, ca: int):
     """K9: the pair conv's input gradients from ``dp`` [B,H,W,F] and the
     flip-transposed weights ``wf`` [3,3,F,Ca+Cb], in one pass: returns
-    (dx_skip [B,H,W,Ca], dx_up [B,H,W,Cb]), each contiguous."""
+    (dx_skip [B,H,W,Ca], dx_up [B,H,W,Cb]), each contiguous. On the card
+    the call takes :func:`conv_route`'s kernel (form "dgrad_pair") and
+    counts it in ``routes[route]``."""
     _check_act("dp", dp)
     b, h, wd, f = dp.shape
     c = _check_weight(wf, dp, f)
@@ -683,7 +760,12 @@ def conv3x3_dgrad_pair(dp, wf, ca: int):
         return conv3x3_dgrad_pair_reference(dp, wf, ca)
     dxa = torch.empty((b, h, wd, ca), dtype=dp.dtype, device=dp.device)
     dxb = torch.empty((b, h, wd, c - ca), dtype=dp.dtype, device=dp.device)
-    _launch_conv(dp, wf, dxa, y2=dxb)
+    route = conv_route(f, c, dp.dtype, _aligned(dp, wf), "dgrad_pair", ca)
+    if route == "wgmma":
+        _launch_dgrad_pair_sm90(dp, wf, dxa, dxb)
+    else:
+        _launch_conv(dp, wf, dxa, y2=dxb)
+    counted(conv3x3_dgrad_pair.routes[route], dp)
     counted(conv3x3_dgrad_pair, dp, 18 * b * h * wd * c * f)
     return dxa, dxb
 
@@ -697,7 +779,9 @@ def conv3x3_dgrad_reduce(dp, wf, pre, a, b, mean, inv, out_drop=None):
     xhat = (pre - mean) * inv, taken on dd as stored (rounded to its dtype).
     ``pre`` [B,H,W,C] is that stage's conv output, a/b/mean/inv fp32 [C].
     Returns (dd [B,H,W,C], sums [2, C] fp32 = [dbias, dscale]);
-    ``bn_act_dpre`` finishes that stage's backward from them."""
+    ``bn_act_dpre`` finishes that stage's backward from them. On the card
+    the call takes :func:`conv_route`'s kernel (form "dgrad_reduce") and
+    counts it in ``routes[route]``."""
     _check_act("dp", dp)
     bb, h, wd, f = dp.shape
     c = _check_weight(wf, dp, f)
@@ -711,8 +795,15 @@ def conv3x3_dgrad_reduce(dp, wf, pre, a, b, mean, inv, out_drop=None):
         return conv3x3_dgrad_reduce_reference(dp, wf, pre, a, b, mean, inv,
                                               out_drop)
     dd = torch.empty((bb, h, wd, c), dtype=dp.dtype, device=dp.device)
-    sums = _launch_conv(dp, wf, dd, out_drop=out_drop,
-                        reduce=(pre, a, b, mean, inv), want_sums=True)
+    red = (pre, a, b, mean, inv)
+    route = conv_route(f, c, dp.dtype, _aligned(dp, wf, *red),
+                       "dgrad_reduce")
+    if route == "wgmma":
+        sums = _launch_dgrad_reduce_sm90(dp, wf, dd, red, out_drop)
+    else:
+        sums = _launch_conv(dp, wf, dd, out_drop=out_drop, reduce=red,
+                            want_sums=True)
+    counted(conv3x3_dgrad_reduce.routes[route], dp)
     counted(conv3x3_dgrad_reduce, dp, 18 * bb * h * wd * c * f)
     return dd, sums
 
@@ -786,7 +877,7 @@ def conv3x3_wgrad_pair(xa, xb, dp):
 
 
 for _fn in (conv3x3_nhwc, conv3x3_wgrad_nhwc, conv3x3_pair_nhwc,
-            conv3x3_wgrad_pair):
+            conv3x3_wgrad_pair, conv3x3_dgrad_pair, conv3x3_dgrad_reduce):
     # each route's own launch count, beside the wrapper's total
     _fn.routes = {r: SimpleNamespace(launches=0) for r in ROUTES}
 

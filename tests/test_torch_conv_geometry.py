@@ -455,3 +455,205 @@ def test_prologue_box_matches_the_plain_operand(bw, bh, gy0, gx0, c0, bi,
     pad[:, bh:bh + 8, bw:bw + 20, :24] = src
     win = pad[bi, bh + gy0:bh + gy0 + bh, bw + gx0:bw + gx0 + bw, c0:c0 + 16]
     assert np.array_equal(got, _bf16_bits(win).reshape(bh * bw, 16))
+
+
+# -- K9 and K11 on wgmma (csrc/conv3x3_sm90.cu) -------------------------------
+
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("f,c,dtype,aligned,form,split,route", [
+    # K9 at the main paths' UpBlocks: the cotangent's F -> Ca + Cb
+    (16, 32, BF16, True, "dgrad_pair", 16, "wgmma"),
+    (32, 64, BF16, True, "dgrad_pair", 32, "wgmma"),
+    (64, 128, BF16, True, "dgrad_pair", 64, "wgmma"),
+    (128, 256, BF16, True, "dgrad_pair", 128, "wgmma"),
+    # the GPU tests' pairs: 8 + 24 (a zero group tail), 12 + 20 and 24 + 8
+    # into F = 20 (splits and channels not multiples of 8)
+    (64, 32, BF16, True, "dgrad_pair", 8, "wgmma"),
+    (24, 32, BF16, True, "dgrad_pair", 12, "mma"),
+    (20, 32, BF16, True, "dgrad_pair", 24, "mma"),
+    # fp32 and unaligned bases keep PR 4's kernel
+    (16, 32, FP32, True, "dgrad_pair", 16, "mma"),
+    (128, 256, BF16, False, "dgrad_pair", 128, "mma"),
+    # K11 at every ConvBlock's conv2 (C -> C) and the GPU tests' 24 and 20
+    (16, 16, BF16, True, "dgrad_reduce", None, "wgmma"),
+    (32, 32, BF16, True, "dgrad_reduce", None, "wgmma"),
+    (64, 64, BF16, True, "dgrad_reduce", None, "wgmma"),
+    (128, 128, BF16, True, "dgrad_reduce", None, "wgmma"),
+    (256, 256, BF16, True, "dgrad_reduce", None, "wgmma"),
+    (24, 24, BF16, True, "dgrad_reduce", None, "wgmma"),
+    (20, 20, BF16, True, "dgrad_reduce", None, "mma"),
+    (64, 64, FP32, True, "dgrad_reduce", None, "mma"),
+    (64, 64, BF16, False, "dgrad_reduce", None, "mma")])
+def test_dgrad_route(f, c, dtype, aligned, form, split, route):
+    """K9's and K11's route (``conv_route``'s "dgrad_pair" and
+    "dgrad_reduce" forms): wgmma for aligned bf16 calls whose channels
+    (and K9's split) are multiples of 8, else PR 4's mma.sync kernel."""
+    assert cb.conv_route(f, c, dtype, aligned, form, split) == route
+
+
+@pytest.mark.parametrize("form,split", [("dgrad_pair", None),
+                                        ("dgrad_reduce", 16),
+                                        ("conv", 16)])
+def test_conv_route_takes_a_split_with_the_pair_form_alone(form, split):
+    with pytest.raises(ValueError):
+        cb.conv_route(32, 32, BF16, True, form, split)
+
+
+# (batch, H=W, F, Ca, Cb) of every K9 call on the main paths (the UpBlocks
+# of ACDC 224^2 at batches 12, 20, 24, 32, ISIC 224^2 at 40, LIDC 96^2 at
+# 32 and Building 512^2 at 12) and of the GPU tests' aligned pairs
+K9_SHAPES = sorted(
+    {(b, hw >> (4 - i), _FEATS[4 - i], _FEATS[4 - i], _FEATS[4 - i])
+     for b, hw in ((12, 224), (20, 224), (24, 224), (32, 224), (40, 224),
+                   (32, 96), (12, 512)) for i in range(1, 5)}
+    | {(2, 20, 16, 16, 16), (2, 20, 16, 16, 32), (2, 20, 128, 128, 128),
+       (2, 20, 64, 8, 24)})
+
+
+def _k9_writes(ca, cb_, g) -> list[np.ndarray]:
+    """How often the wgmma epilogue writes each channel of dxa [Ca] and dxb
+    [Cb] for one pixel: N tile y's channels n0 = y * n_tile.. go out as
+    64-wide TMA boxes at n_tile >= 64 (box hb at n0 + 64 hb into the half
+    it starts in, at its offset there; TMA clips it to that half's
+    channels; it must not straddle the split) or from the registers below
+    (each fragment's channel pair n, n + 1 < Ca + Cb into dxa below Ca, else
+    dxb at n - Ca; a pair must not straddle either)."""
+    sizes = (ca, cb_)
+    count = [np.zeros(ca, dtype=np.int64), np.zeros(cb_, dtype=np.int64)]
+    for y in range(g.n_tiles):
+        n0 = y * g.n_tile
+        if g.n_tile >= cb.PAIR_STORE_BOX:
+            for hb in range(g.n_tile // cb.PAIR_STORE_BOX):
+                nb = n0 + hb * cb.PAIR_STORE_BOX
+                half = int(nb >= ca)
+                assert half or nb + cb.PAIR_STORE_BOX <= ca, "straddles"
+                off = nb - ca * half
+                count[half][off:min(off + cb.PAIR_STORE_BOX,
+                                    sizes[half])] += 1
+        else:
+            for n in _n_walk(ca + cb_, g.n_tile, g.n_tiles):
+                if n // g.n_tile != y or n % 2:
+                    continue  # the pair's first channel, this N tile
+                half = int(n >= ca)
+                assert int(n + 1 >= ca) == half, "a pair straddles"
+                count[half][n - ca * half:n - ca * half + 2] += 1
+    return count
+
+
+@pytest.mark.parametrize("b,hw,f,ca,cb_", K9_SHAPES + [(2, 20, 24, 12, 20)])
+def test_dgrad_pair_split_writes_every_channel_once(b, hw, f, ca, cb_):
+    """K9's wgmma epilogue writes every channel of dxa and dxb exactly once
+    for every N tile and store width it uses (the 16 + 16 and 32 + 32
+    splits in N tiles of 32 from the registers, 64 + 64 and 128 + 128 in
+    N tiles of 128 by 64-wide TMA boxes, one half each), its grid's tiles
+    hold every pixel once, and no call trips the launcher's refusal of a
+    store box across the split; the odd 12 + 20 split routes to mma."""
+    if cb.conv_route(f, ca + cb_, BF16, True, "dgrad_pair", ca) == "mma":
+        assert ca % 8 or cb_ % 8 or f % 8
+        return
+    g = cb.dgrad_pair_grid(b, hw, hw, f, ca, cb_, CONV_TILES, SMS)
+    if g.n_tile >= cb.PAIR_STORE_BOX:
+        assert ca % cb.PAIR_STORE_BOX == 0 and cb_ % cb.PAIR_STORE_BOX == 0
+    assert all((c == 1).all() for c in _k9_writes(ca, cb_, g))
+    tile = CONV_TILES[g.tall]
+    total = cb.conv_tiles(b, hw, hw, tile)
+    count = np.zeros((b, hw + tile[0], hw + tile[1]), dtype=np.int64)
+    for run in _cta_tiles(g, total):
+        for t in run:
+            bi, ty0, tx0 = cb.pair_tile_origin(t, hw, hw, tile)
+            count[bi, ty0:ty0 + tile[0], tx0:tx0 + tile[1]] += 1
+    assert (count[:, :hw, :hw] == 1).all()
+
+
+@pytest.mark.parametrize("f,ca,cb_,n_tile", [
+    (16, 16, 16, 32), (32, 32, 32, 32), (64, 64, 64, 128),
+    (128, 128, 128, 128)])
+def test_dgrad_pair_n_tile_at_the_acdc_upblocks(f, ca, cb_, n_tile):
+    """K9's N tile at the four ACDC UpBlocks (batch 32): 32 + 32 is capped
+    at 32 (two N tiles, one a half) where A's grid would take one of 64
+    with a box across the split; 64 + 64 and 128 + 128 take 128."""
+    hw = {16: 224, 32: 112, 64: 56, 128: 28}[f]
+    g = cb.dgrad_pair_grid(32, hw, hw, f, ca, cb_, CONV_TILES, SMS)
+    assert g.n_tile == n_tile
+    assert g.n_tiles == -(-(ca + cb_) // n_tile)
+
+
+def _tma_box(x, b, y0, x0, c0, th, tw, width):
+    """A Python mirror of TMA's load of x's box [th rows][tw columns][width
+    channels from c0] of image b at (y0, x0) into shared memory as
+    conv_sm90_kernel lays it (its own tile, or the output tile at N >= 64):
+    box rows of ``width`` bf16 (sw = 2 * width bytes) pixel after pixel,
+    16-byte chunk q of byte address A stored at chunk q ^ ((A >> 7) &
+    (sw / 16 - 1)) (TMA's 32, 64 or 128-byte swizzle), zeros outside the
+    image and past C. Returns the box as bytes."""
+    _, h, w, c = x.shape
+    sw = 2 * width
+    bits = _bf16_bits(x[b])
+    box = np.zeros(th * tw * sw, dtype=np.uint8)
+    for p in range(th * tw):
+        gy, gx = y0 + p // tw, x0 + p % tw
+        row = np.zeros(width, dtype=np.uint16)
+        if gy < h and gx < w:
+            n = max(0, min(width, c - c0))
+            row[:n] = bits[gy, gx, c0:c0 + n]
+        raw = row.view(np.uint8)
+        for q in range(sw // 16):
+            addr = p * sw + 16 * q
+            phys = p * sw + 16 * (q ^ ((addr >> 7) & (sw // 16 - 1)))
+            box[phys:phys + 16] = raw[16 * q:16 * q + 16]
+    return box
+
+
+@pytest.mark.parametrize("bn,tall,b,y0,x0,n0", [
+    (16, False, 1, 216, 192, 0),   # 224^2 (C = 16): the last tile row
+    (32, False, 0, 104, 96, 0),    # 112^2: past the right edge
+    (64, False, 1, 48, 32, 64),    # 56^2, the second N tile of 128
+    (128, False, 0, 24, 0, 128),   # 28^2, a 28-row image's last tile row
+    (64, True, 1, 0, 0, 192)])     # 14^2 in the tall tile, N tile 4 of 4
+def test_k11_pre_tile_addressing_matches_the_plain_operand(bn, tall, b, y0,
+                                                           x0, n0):
+    """K11's epilogue reads each fragment's pre (channel pair n, n + 1 of
+    pixel (oy, ox)) from the TMA-staged box at the swizzled address where
+    it writes its output (``off`` in conv_sm90_kernel: 64-wide boxes
+    OUT_HALF apart at N >= 64, one box of N below): the value read there
+    is the plain residual's, for every in-image pixel and live channel of
+    the tile."""
+    tile = CONV_TILES[tall]
+    th, tw = tile
+    hw = {16: 224, 32: 112, 64: 56 if not tall else 14, 128: 28}[bn]
+    c = 256 if tall else max(bn, n0 + bn)
+    rng = np.random.default_rng(bn)
+    pre = torch.from_numpy(rng.standard_normal((2, hw, hw, c),
+                                               dtype=np.float32)).bfloat16()
+    bnb = min(bn, 64)
+    sw = 2 * bnb
+    half = th * tw * sw  # OUT_HALF
+    smem = np.concatenate([_tma_box(pre, b, y0, x0, n0 + hb * bnb, th, tw,
+                                    bnb) for hb in range(bn // bnb)])
+    bits = _bf16_bits(pre[b])
+    seen = 0
+    for g in range(2):
+        r0, q0 = (8 * g, 0) if tall else (0, 16 * g)
+        for w in range(4):
+            for lane in range(32):
+                for j in range(bn // 8):
+                    col = 8 * j + 2 * (lane & 3)
+                    for i in range(2):
+                        rr = r0 + 2 * w + i
+                        for h in range(2):
+                            px = q0 + (lane >> 2) + 8 * h
+                            oy, ox, n = y0 + rr, x0 + px, n0 + col
+                            if oy >= hw or ox >= hw or n >= c:
+                                continue
+                            pix = rr * tw + px
+                            hc = (col % bnb) >> 3
+                            off = ((col // bnb) * half + pix * sw
+                                   + ((hc ^ ((pix * sw >> 7)
+                                             & (sw // 16 - 1))) << 4)
+                                   + (col & 7) * 2)
+                            got = smem[off:off + 4].view(np.uint16)
+                            assert list(got) == list(bits[oy, ox, n:n + 2])
+                            seen += 1
+    assert seen > 0

@@ -20,7 +20,11 @@ same in two runs, and each route counts its own launches. A and B take
 theirs (``conv_route``) at every ACDC shape of the main path, in the
 identity, prologue and dgrad forms, each also on the mma.sync route
 against the plain version; the id-map masks, the cross-block sums and
-the ConvBlock backward run on the wgmma route in bf16.
+the ConvBlock backward run on the wgmma route in bf16. K9 and K11 take
+the same wgmma conv (``conv_route``'s "dgrad_pair" and "dgrad_reduce"
+forms) at the UpBlock and conv2 shapes at batch 32 (and 12), each beside
+its mma.sync route, with K11's output mask bit-exact on both routes with
+a two-segment id map and its sums bitwise the same in two runs.
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -1171,5 +1175,165 @@ def test_conv_routes_count_their_launches(dev, c, f, dtype, form, route,
                 _close(got, want, dtype)
         after = _routes(fn)
         assert after[expect] == before[expect] + 1
+        assert after[other] == before[other]
+        assert fn.launches == total + 1
+
+
+# (batch, H=W, F = the cotangent's channels, Ca, Cb) of K9 at the UNet's
+# four UpBlocks at batch 32, and 28^2 at batch 12; (batch, H=W, C, keep of
+# the output mask or None) of K11 at every ConvBlock's conv2 at batch 32
+# (the encoder's with its dropout, the decoder's without), and 14^2 at 12
+ACDC_K9 = [(32, 28, 128, 128, 128), (32, 56, 64, 64, 64),
+           (32, 112, 32, 32, 32), (32, 224, 16, 16, 16),
+           (12, 28, 128, 128, 128)]
+ACDC_K11 = [(32, 224, 16, 0.95), (32, 112, 32, 0.9), (32, 56, 64, 0.8),
+            (32, 28, 128, 0.7), (32, 14, 256, 0.5), (32, 28, 128, None),
+            (32, 56, 64, None), (32, 112, 32, None), (32, 224, 16, None),
+            (12, 14, 256, 0.5)]
+
+
+def _k11_args(dev, dtype, b, hw, c, seed=0):
+    dp = _randn(dev, b, hw, hw, c, seed=seed).to(dtype)
+    w = _randn(dev, 3, 3, c, c, scale=(9 * c) ** -0.5, seed=seed).to(dtype)
+    pre = _randn(dev, b, hw, hw, c, seed=seed + 1).to(dtype)
+    a = 1 + _randn(dev, c, scale=0.1, seed=seed)
+    bb = _randn(dev, c, scale=0.1, seed=seed + 1)
+    m, inv = _randn(dev, c, scale=0.1, seed=seed + 2), 1 + _randn(dev, c).abs()
+    return dp, cb.flip_transpose(w), (pre, a, bb, m, inv)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hw,f,ca,cu", ACDC_K9)
+def test_k9_on_both_routes_at_the_acdc_shapes(dev, dtype, b, hw, f, ca, cu):
+    """K9 at the UpBlock shapes: the wrapper (bf16: the wgmma route; fp32:
+    the mma route) and, in bf16, PR 4's mma.sync route through its
+    launcher, each output against the plain version; the wrapper's
+    outputs bitwise the same in two runs; each launch counted on its
+    route."""
+    dp = _randn(dev, b, hw, hw, f).to(dtype)
+    w = _randn(dev, 3, 3, ca + cu, f, scale=(9 * (ca + cu)) ** -0.5).to(dtype)
+    wf = cb.flip_transpose(w)
+    route = cb.conv_route(f, ca + cu, dtype, True, "dgrad_pair", ca)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "mma")
+    before = _routes(cb.conv3x3_dgrad_pair)
+    got = cb.conv3x3_dgrad_pair(dp, wf, ca)
+    ref = cb.conv3x3_dgrad_pair_reference(dp, wf, ca)
+    for g, r in zip(got, ref):
+        assert g.is_contiguous()
+        _close(g, r, dtype)
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, cb.conv3x3_dgrad_pair(dp, wf, ca)))
+    want = dict(before)
+    want[route] += 2
+    assert _routes(cb.conv3x3_dgrad_pair) == want
+    if route == "wgmma":  # the other route at the same shape
+        dxa, dxb = torch.empty_like(got[0]), torch.empty_like(got[1])
+        cb._launch_conv(dp, wf, dxa, y2=dxb)
+        _close(dxa, ref[0], dtype)
+        _close(dxb, ref[1], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hw,c,keep", ACDC_K11)
+def test_k11_on_both_routes_at_the_acdc_shapes(dev, dtype, b, hw, c, keep):
+    """K11 at every ConvBlock's conv2 shape, with the encoder's output mask
+    or without: the wrapper (bf16: the wgmma route; fp32: the mma route)
+    and, in bf16, both routes through their launchers, dd and the sums
+    against the plain version; the wrapper's dd and sums bitwise the same
+    in two runs; each launch counted on its route."""
+    dp, wf, red = _k11_args(dev, dtype, b, hw, c)
+    drop = None if keep is None else cb.HashDropout(17, keep)
+    route = cb.conv_route(c, c, dtype, True, "dgrad_reduce")
+    before = _routes(cb.conv3x3_dgrad_reduce)
+    dd, s = cb.conv3x3_dgrad_reduce(dp, wf, *red, out_drop=drop)
+    dd_r, s_r = cb.conv3x3_dgrad_reduce_reference(dp, wf, *red,
+                                                  out_drop=drop)
+    _close(dd, dd_r, dtype)
+    _close(s, s_r, dtype)
+    dd2, s2 = cb.conv3x3_dgrad_reduce(dp, wf, *red, out_drop=drop)
+    assert torch.equal(dd, dd2) and torch.equal(s, s2)
+    want = dict(before)
+    want[route] += 2
+    assert _routes(cb.conv3x3_dgrad_reduce) == want
+    if dtype == torch.bfloat16:  # both routes, whichever the wrapper took
+        dd_w = torch.empty_like(dd)
+        s_w = cb._launch_dgrad_reduce_sm90(dp, wf, dd_w, red, drop)
+        dd_m = torch.empty_like(dd)
+        s_m = cb._launch_conv(dp, wf, dd_m, out_drop=drop, reduce=red,
+                              want_sums=True)
+        for got_dd, got_s in ((dd_w, s_w), (dd_m, s_m)):
+            _close(got_dd, dd_r, dtype)
+            _close(got_s, s_r, dtype)
+        # the same rounded output on both routes, so the same mask
+        assert torch.equal(dd_w == 0, dd_m == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hw,c,keep", [(16, 224, 16, 0.95),
+                                         (16, 28, 128, 0.7),
+                                         (16, 14, 256, 0.5)])
+def test_k11_with_image_ids_on_both_routes(dev, dtype, b, hw, c, keep):
+    """K11's output mask with a two-segment image-id map (rank 1's rows of
+    a 2-rank global batch of 8 + 24): bit-exact through the identity
+    dgrad of an all-ones cotangent on both routes (the mask rows of the
+    global batch, not the local ones), and dd and the sums against the
+    plain version."""
+    ids = _ids(dev, 8, 24)
+    assert len(ids) == b
+    drop = cb.HashDropout(1234 + c, keep, ids)
+    ones = torch.ones((b, hw, hw, c), device=dev, dtype=dtype)
+    eye = torch.zeros((3, 3, c, c), device=dev, dtype=dtype)
+    eye[1, 1] = torch.eye(c, device=dev, dtype=dtype)
+    one, zero = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    unit = (ones, one, zero, zero, one)
+    full = cb.hash_mask(drop.seed, 32, hw, hw * c, keep, dev)
+    ref = full[ids.long()].view(b, hw, hw, c).to(dtype)
+    got = cb.conv3x3_dgrad_reduce(ones, eye, *unit, out_drop=drop)[0]
+    assert torch.equal(got, ref)
+    y = torch.empty_like(ones)
+    if dtype == torch.bfloat16:
+        cb._launch_dgrad_reduce_sm90(ones, eye, y, unit, drop)
+        assert torch.equal(y, ref)
+    cb._launch_conv(ones, eye, y, out_drop=drop, reduce=unit, want_sums=True)
+    assert torch.equal(y, ref)
+    assert not torch.equal(ref, full[:b].view_as(ref).to(dtype))
+    dp, wf, red = _k11_args(dev, dtype, b, hw, c, seed=5)
+    for g, r in zip(cb.conv3x3_dgrad_reduce(dp, wf, *red, out_drop=drop),
+                    cb.conv3x3_dgrad_reduce_reference(dp, wf, *red,
+                                                      out_drop=drop)):
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("ca,cu,f,c,dtype,route", [
+    (16, 16, 16, 16, torch.bfloat16, "wgmma"),
+    (8, 24, 64, 24, torch.bfloat16, "wgmma"),
+    (12, 20, 24, 20, torch.bfloat16, "mma"),
+    (16, 16, 16, 16, torch.float32, "mma")])
+def test_k9_and_k11_routes_count_their_launches(dev, ca, cu, f, c, dtype,
+                                                route):
+    """Each route of K9 and K11 counts its own launches (``routes``): aligned
+    bf16 calls whose channels are multiples of 8 on wgmma (8 + 24: a zero
+    group tail in the cotangent's 24 channels for K11), the 12 + 20 split,
+    20 channels and fp32 on PR 4's mma.sync kernel; the results against
+    the plain versions either way."""
+    dp = _randn(dev, 2, 20, 20, f, seed=2).to(dtype)
+    w = _randn(dev, 3, 3, ca + cu, f, scale=(9 * (ca + cu)) ** -0.5).to(dtype)
+    dp11, wf11, red = _k11_args(dev, dtype, 2, 20, c)
+    drop = cb.HashDropout(5, 0.8)
+    other = "mma" if route == "wgmma" else "wgmma"
+    for fn, call, ref in (
+            (cb.conv3x3_dgrad_pair,
+             lambda: cb.conv3x3_dgrad_pair(dp, cb.flip_transpose(w), ca),
+             lambda: cb.conv3x3_dgrad_pair_reference(
+                 dp, cb.flip_transpose(w), ca)),
+            (cb.conv3x3_dgrad_reduce,
+             lambda: cb.conv3x3_dgrad_reduce(dp11, wf11, *red, out_drop=drop),
+             lambda: cb.conv3x3_dgrad_reduce_reference(dp11, wf11, *red,
+                                                       out_drop=drop))):
+        before, total = _routes(fn), fn.launches
+        for got, want in zip(call(), ref()):
+            _close(got, want, dtype)
+        after = _routes(fn)
+        assert after[route] == before[route] + 1
         assert after[other] == before[other]
         assert fn.launches == total + 1
