@@ -335,6 +335,7 @@ BF16_FLOPS_PER_S = 989e12
 CU = "hpfg_tpu_torch/csrc/conv3x3.cu"
 CU90 = "hpfg_tpu_torch/csrc/conv3x3_sm90.cu"
 ATTN_CU = "hpfg_tpu_torch/csrc/window_attention.cu"
+ATTN_CU90 = "hpfg_tpu_torch/csrc/window_attention_sm90.cu"
 BN_CU = "hpfg_tpu_torch/csrc/bn_act.cu"
 PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
 ATTN_PALLAS = "hpfg_tpu/ops/pallas/window_attention.py"
@@ -470,15 +471,15 @@ KERNELS = {
                                  library_note="conv2d_input alone: the dgrad"
                                  " without the reduce, less work"),
     "window_attention_fwd": dict(
-        route="cuda", source=ATTN_CU, replaces=f"{ATTN_PALLAS}:66",
+        route="cuda", source=ATTN_CU90, replaces=f"{ATTN_PALLAS}:66",
         also_replaces=[], counters=["window_attention_fwd"],
-        paths=ATTN_PATHS,
+        paths=ATTN_PATHS, routes={"wgmma": ATTN_CU90, "mma": ATTN_CU},
         library_note="F.scaled_dot_product_attention on [Bn, H, L, D] with "
         "attn_mask = bias + mask"),
     "window_attention_bwd": dict(
-        route="cuda", source=ATTN_CU, replaces=f"{ATTN_PALLAS}:153",
+        route="cuda", source=ATTN_CU90, replaces=f"{ATTN_PALLAS}:153",
         also_replaces=[], counters=["window_attention_bwd"],
-        paths=ATTN_PATHS,
+        paths=ATTN_PATHS, routes={"wgmma": ATTN_CU90, "mma": ATTN_CU},
         library_note="autograd backward of that SDPA call for q, k, v and "
         "the bias"),
 }
@@ -1273,19 +1274,25 @@ def masked_kernel_times() -> dict:
     return out
 
 
-def route_times(timed: bool, call, mma, library) -> dict:
-    """Phase 2's K8 and K10 rows beside the wrapper's host-inclusive ms
-    (``cuda_ms``): ms on the device alone (``device_ms``) of the wrapper's
-    call, of PR 4's mma.sync route at the same shape and of the library
-    call, the mma route's host-inclusive ms, and the µs the wrapper's call
-    and the mma route take to enqueue (the wgmma route encodes its tensor
-    maps on the host at every call). Empty when untimed."""
+def route_times(timed: bool, call, mma, library,
+                library_device=None, enqueue: bool = True) -> dict:
+    """Phase 2's rows of the kernels with two routes beside the wrapper's
+    host-inclusive ms (``cuda_ms``): ms on the device alone
+    (``device_ms``) of the wrapper's call, of the mma.sync route at the
+    same shape and of the library call (or ``library_device``, its
+    device-only ms taken already), the mma route's host-inclusive ms, and
+    the µs the wrapper's call and the mma route take to enqueue (the wgmma
+    route encodes its tensor maps on the host at every call). Empty when
+    untimed. A library of None: ``library_device`` (None where it
+    failed); ``enqueue`` False: no enqueue times (None)."""
     if not timed:
         return {}
     return dict(device_ms=device_ms(call), mma_ms=cuda_ms(mma),
                 mma_device_ms=device_ms(mma),
-                library_device_ms=device_ms(library),
-                enqueue_us=enqueue_us(call), mma_enqueue_us=enqueue_us(mma))
+                library_device_ms=(library_device if library is None
+                                   else device_ms(library)),
+                enqueue_us=enqueue_us(call) if enqueue else None,
+                mma_enqueue_us=enqueue_us(mma) if enqueue else None)
 
 
 def route_note(extra: dict) -> str:
@@ -1293,10 +1300,12 @@ def route_note(extra: dict) -> str:
     ``route_times``."""
     if not extra:
         return ""
+    lib, enq = extra["library_device_ms"], extra["enqueue_us"]
     return (f" device {extra['device_ms']:.4f}/{extra['mma_device_ms']:.4f}/"
-            f"{extra['library_device_ms']:.4f}ms (mma host "
-            f"{extra['mma_ms']:.4f}ms) enqueue {extra['enqueue_us']:.0f}/"
-            f"{extra['mma_enqueue_us']:.0f}us")
+            f"{'n/a' if lib is None else f'{lib:.4f}'}ms (mma host "
+            f"{extra['mma_ms']:.4f}ms)" + (
+                "" if enq is None else
+                f" enqueue {enq:.0f}/{extra['mma_enqueue_us']:.0f}us"))
 
 
 def enqueue_us(fn, reps: int = 20, rounds: int = 3) -> float:
@@ -1616,6 +1625,112 @@ def dgrad_kernel_times(batch: int = BATCH, cases=None) -> dict:
     return out
 
 
+def attention_cases() -> list[tuple]:
+    """The main path's K13 and K14 shapes: (label, batch, stage, token
+    side, heads, window, shifted). The ACDC SwinUNet's four stages at
+    batch 32 (S4CVNet) and at Swin-MAE's 24, the LIDC SwinUNet's four at
+    its 24 (L = 9); unshifted, and shifted where a stage has more than one
+    window."""
+    out = []
+    for label, batch, stages, ws in (("acdc", BATCH, ATTN_STAGES, ATTN_WS),
+                                     ("mae", MAE_BATCH, ATTN_STAGES, ATTN_WS),
+                                     ("lidc", LIDC_SWIN_BATCH,
+                                      LIDC_ATTN_STAGES, LIDC_WS)):
+        for stage, side, heads in stages:
+            for shifted in ((False, True) if side > ws else (False,)):
+                out.append((label, batch, stage, side, heads, ws, shifted))
+    return out
+
+
+def attention_kernel_times(cases=None) -> dict:
+    """K13 (``window_attention_fwd``) and K14 (``window_attention_bwd``) in
+    bf16 with attention dropout at keep 0.9, at every main-path shape
+    (``attention_cases``): ms per call on the device alone (``device_ms``)
+    and by phase 2's host-inclusive method (``cuda_ms``), and µs of host
+    time to enqueue one call (``enqueue_us``), of the wrapper as a user
+    calls it ("call", with the route it takes where the tree routes) and,
+    where the tree has them, of each route forced ("wgmma", "mma"); beside
+    one SDPA call on the device alone (forward, and its autograd backward
+    with the bias gradient; no dropout) and the bound (``attn_work``). It
+    calls only the wrappers' long-standing arguments (and the route
+    launchers where they exist), so a copy of this file run from an earlier
+    tree's root times that tree's kernels. Printed as one ``ATTN`` JSON
+    line (with totals by kernel and group) and returned."""
+    import torch
+
+    from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
+    from hpfg_tpu_torch.ops import window_attention as wa
+    from hpfg_tpu_torch.ops.conv_block import HashDropout
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dt = torch.bfloat16
+    forced = getattr(wa, "_launch", None)
+    route_of = getattr(wa, "attn_route", None)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    out = {}
+    for label, batch, stage, side, heads, ws, shifted in (
+            cases or attention_cases()):
+        l, nw = ws * ws, (side // ws) ** 2
+        bn, c = batch * nw, heads * ATTN_D
+        qkv = randn(bn, l, 3 * c).to(dt)
+        do = randn(bn, l, c).to(dt)
+        bias = randn(heads, l, l, scale=0.02)
+        mask = (torch.from_numpy(_shift_attention_mask(
+            side, side, ws, ws // 2)).to(dev) if shifted else None)
+        drop = HashDropout(66 + stage, 0.9)
+        n_mask = 0 if mask is None else mask.shape[0]
+        q, k, v = qkv.split(c, dim=-1)
+        s_fwd, s_bwd = sdpa_ms(q, k, v, bias, mask, do, heads, device_ms)
+        for kernel, backward in (("K13", False), ("K14", True)):
+            args = ((qkv, bias, mask, do, heads, drop) if backward
+                    else (qkv, bias, mask, heads, drop))
+            fn = wa.window_attention_bwd if backward else \
+                wa.window_attention_fwd
+            calls = {"call": lambda fn=fn, args=args: fn(*args)}
+            if forced is not None:
+                for route in ("wgmma", "mma"):
+                    if route == "mma" or route_of(
+                            qkv.dtype, ATTN_D, l, True) == "wgmma":
+                        calls[route] = (lambda route=route, args=args,
+                                        backward=backward:
+                                        forced(route, backward, *args))
+            b_ms, b_by = bound(*attn_work(bn, heads, l, ATTN_D, 2, n_mask,
+                                          backward))
+            row = dict(kernel=kernel, group=label, batch=batch, stage=stage,
+                       bn=bn, heads=heads, l=l, shifted=shifted,
+                       route=(route_of(qkv.dtype, ATTN_D, l, True)
+                              if route_of else "mma"),
+                       sdpa_device_ms=s_bwd if backward else s_fwd,
+                       bound_ms=b_ms, bound_by=b_by)
+            for what, f in calls.items():
+                row[what] = dict(device_ms=device_ms(f), host_ms=cuda_ms(f),
+                                 enqueue_us=enqueue_us(f))
+            out[f"{kernel} {label} stage {stage} "
+                f"{'shifted' if shifted else 'unshifted'}"] = row
+        del qkv, do, q, k, v
+        torch.cuda.empty_cache()
+    totals = {}
+    for row in list(out.values()):
+        for key in (row["kernel"], f"{row['kernel']} {row['group']}"):
+            acc = totals.setdefault(key, {"bound_ms": 0.0,
+                                          "sdpa_device_ms": 0.0})
+            acc["bound_ms"] += row["bound_ms"]
+            acc["sdpa_device_ms"] += row["sdpa_device_ms"] or 0.0
+            for what in ("call", "wgmma", "mma"):
+                if what in row:
+                    t = acc.setdefault(what, dict(device_ms=0.0,
+                                                  host_ms=0.0))
+                    t["device_ms"] += row[what]["device_ms"]
+                    t["host_ms"] += row[what]["host_ms"]
+    out["total"] = totals
+    print("ATTN " + json.dumps(out), flush=True)
+    return out
+
+
 def attn_work(bn, heads, l, d, es, n_mask, backward):
     """(FLOPs, bytes) of one window-attention call over Bn windows: q, k, v
     (and do) read once, o (or dq, dk, dv and the fp32 dbias) written once,
@@ -1737,19 +1852,37 @@ def check_attention_kernels(rep: Report, dev, batch: int = BATCH,
                         return wa.window_attention_bwd_reference(
                             q, k, v, bias, mask, do, heads, drop)
 
+                    def fwd_mma():  # the mma route, which fp32 keeps
+                        return wa._launch("mma", False, qkv, bias, mask,
+                                          heads, drop)
+
+                    def bwd_mma():
+                        return wa._launch("mma", True, qkv, bias, mask, do,
+                                          heads, drop)
+
                     # timed in bf16 without dropout, where SDPA computes
                     # the same function
                     timed = bf16 and drop is None
                     ms = pms = lms = bms = bpms = blms = None
+                    fx = bx = {}
                     if timed:
                         ms, pms = cuda_ms(fwd), cuda_ms(fwd_plain)
                         bms, bpms = cuda_ms(bwd), cuda_ms(bwd_plain)
                         lms, blms = sdpa_ms(q, k, v, bias, mask, do, heads)
+                        dlms, dblms = sdpa_ms(q, k, v, bias, mask, do, heads,
+                                              device_ms)
+                        # (enqueue µs: attention_kernel_times)
+                        fx = route_times(True, fwd, fwd_mma, None, dlms,
+                                         enqueue=False)
+                        bx = route_times(True, bwd, bwd_mma, None, dblms,
+                                         enqueue=False)
+                    route = wa.attn_route(dt, ATTN_D, l, True)
                     r = rep.compare("window_attention_fwd", f"{what} {tag}",
                                     dname, fwd(), fwd_plain(), ms, pms,
                                     library_ms=lms, main=timed,
                                     work=attn_work(bn, heads, l, ATTN_D, es,
-                                                   n_mask, False))
+                                                   n_mask, False),
+                                    route=route, **fx)
                     (dqkv, dbias), (*ref, dbias_r) = bwd(), bwd_plain()
                     got = dict(zip(("dq", "dk", "dv"), dqkv.split(c, -1)),
                                dbias=dbias)
@@ -1762,19 +1895,32 @@ def check_attention_kernels(rep: Report, dev, batch: int = BATCH,
                         library_ms=blms if g == "dbias" else None,
                         main=timed and g == "dbias",
                         work=(attn_work(bn, heads, l, ATTN_D, es, n_mask,
-                                        True) if g == "dbias" else None))
+                                        True) if g == "dbias" else None),
+                        route=route, **(bx if g == "dbias" else {}))
                         for g in got)
                     if not torch.equal(bwd()[1], dbias):
                         rep.fail(f"window_attention_bwd {what} {tag} "
                                  f"{dname}: dbias differs between two runs")
-                    line.append(f"{tag}: K13 {r:.1e} K14 {rb:.1e}" + (
-                        f" {times(ms, pms, lms)} / {times(bms, bpms, blms)}ms"
-                        if timed else ""))
+                    if route == "wgmma":  # the mma route beside it
+                        r = max(r, rep.compare(
+                            "window_attention_fwd", f"{what} {tag} mma",
+                            dname, fwd_mma(), fwd_plain(), main=False))
+                        (dqkv, dbias) = bwd_mma()
+                        rb = max(rb, *(rep.compare(
+                            "window_attention_bwd", f"{what} {tag} {g} mma",
+                            dname, a, want[g], main=False)
+                            for g, a in zip(got, (*dqkv.split(c, -1),
+                                                  dbias))))
+                    line.append(f"{tag}: K13 {route} {r:.1e} K14 {rb:.1e}"
+                                + (f" {times(ms, pms, lms)} / "
+                                   f"{times(bms, bpms, blms)}ms" if timed
+                                   else ""))
                     if timed:
                         rates = ("  K13 " + rate(attn_work(
                             bn, heads, l, ATTN_D, es, n_mask, False), ms)
-                            + "; K14 " + rate(attn_work(
-                                bn, heads, l, ATTN_D, es, n_mask, True), bms))
+                            + route_note(fx) + "; K14 " + rate(attn_work(
+                                bn, heads, l, ATTN_D, es, n_mask, True), bms)
+                            + route_note(bx))
                 print(" | ".join(line), flush=True)
                 if bf16:
                     print(rates, flush=True)
@@ -1782,8 +1928,9 @@ def check_attention_kernels(rep: Report, dev, batch: int = BATCH,
             torch.cuda.empty_cache()
 
 
-def sdpa_ms(q, k, v, bias, mask, do, heads):
-    """The library yardstick of K13 and K14 in ms: one
+def sdpa_ms(q, k, v, bias, mask, do, heads, clock=None):
+    """The library yardstick of K13 and K14 in ms (by ``clock``: phase 2's
+    ``cuda_ms`` by default, or ``device_ms``): one
     F.scaled_dot_product_attention call on [Bn, H, L, D] with attn_mask =
     bias + mask, and the autograd backward of that call for q, k, v and the
     bias (the attn_mask gradient summed over windows). (None, None) if the
@@ -1796,12 +1943,13 @@ def sdpa_ms(q, k, v, bias, mask, do, heads):
     def heads_first(t):
         return t.reshape(bn, l, heads, c // heads).transpose(1, 2).contiguous()
 
+    clock = clock or cuda_ms
     try:
         qh, kh, vh, doh = (heads_first(t) for t in (q, k, v, do))
         full = bias[None] if mask is None else (
             bias[None] + mask.repeat(bn // mask.shape[0], 1, 1)[:, None])
         am = full.to(q.dtype)
-        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        fwd_ms = clock(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=am))
         leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
         b_leaf = bias.detach().to(q.dtype).requires_grad_(True)
@@ -1809,7 +1957,7 @@ def sdpa_ms(q, k, v, bias, mask, do, heads):
             b_leaf[None] + mask.repeat(bn // mask.shape[0], 1, 1)[:, None]
             .to(q.dtype))
         out = F.scaled_dot_product_attention(*leaves, attn_mask=am_g)
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        bwd_ms = clock(lambda: torch.autograd.grad(
             out, (*leaves, b_leaf), doh, retain_graph=True))
         return fwd_ms, bwd_ms
     except Exception as exc:  # the yardstick is optional, the kernel is not
@@ -1983,18 +2131,33 @@ def predicted_launches(model, steps: int, forwards: int, backwards: int,
             for k in counters()}
 
 
-def predicted_attention(algo, steps: int, fwd_models, bwd_models) -> dict:
+def predicted_attention(algo, steps: int, fwd_models, bwd_models,
+                        by_route: bool = False) -> dict:
     """K13 and K14 launches per run: one K13 for each WindowAttention of the
     models that forward a step (``fwd_models``), one K14 for each of those
-    that also backward (``bwd_models``)."""
+    that also backward (``bwd_models``). ``by_route``: the launches by
+    route, each WindowAttention's by ``attn_route`` of the algorithm's
+    compute dtype, its head width and window (wgmma for every bf16 one of
+    the configs: D = 32; the tensors are aligned)."""
     from hpfg_tpu_torch.models.swinunet import WindowAttention
+    from hpfg_tpu_torch.ops import window_attention as wa
 
-    def n(attr):
-        return sum(isinstance(m, WindowAttention)
-                   for m in getattr(algo, attr).modules())
+    def mods(attr):
+        return [m for m in getattr(algo, attr).modules()
+                if isinstance(m, WindowAttention)]
 
-    return {"window_attention_fwd": steps * sum(n(a) for a in fwd_models),
-            "window_attention_bwd": steps * sum(n(a) for a in bwd_models)}
+    def count(models):
+        if not by_route:
+            return steps * sum(len(mods(a)) for a in models)
+        out = dict.fromkeys(wa.ROUTES, 0)
+        for a in models:
+            for m in mods(a):
+                out[wa.attn_route(algo.dtype, m.dim // m.heads,
+                                  m.ws * m.ws, True)] += steps
+        return out
+
+    return {"window_attention_fwd": count(fwd_models),
+            "window_attention_bwd": count(bwd_models)}
 
 
 def counters() -> dict:
@@ -2017,10 +2180,13 @@ def counters() -> dict:
 
 def route_counters() -> dict:
     """The wrappers whose launches each route counts too (A, B, K8 to
-    K11): ``fn.routes[route].launches``."""
+    K11, K13, K14): ``fn.routes[route].launches``."""
     from hpfg_tpu_torch.ops import conv_block as cb
+    from hpfg_tpu_torch.ops import window_attention as wa
 
-    return {"conv3x3_nhwc": cb.conv3x3_nhwc,
+    return {"window_attention_fwd": wa.window_attention_fwd,
+            "window_attention_bwd": wa.window_attention_bwd,
+            "conv3x3_nhwc": cb.conv3x3_nhwc,
             "conv3x3_wgrad_nhwc": cb.conv3x3_wgrad_nhwc,
             "conv3x3_pair_nhwc": cb.conv3x3_pair_nhwc,
             "conv3x3_wgrad_pair": cb.conv3x3_wgrad_pair,
@@ -2226,6 +2392,8 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
     want = predicted_routes(getattr(algo, path.unet) if path.unet else None,
                             algo.dtype, STEPS, path.forwards,
                             path.backwards, path.inner_backwards)
+    want.update(predicted_attention(algo, STEPS, path.attn_fwd,
+                                    path.attn_bwd, by_route=True))
     for name, by_route in routes.items():
         print(f"{label} routes {name}: {by_route}"
               + (f" (predicted {want[name]})" if name in want else ""),
@@ -2255,6 +2423,23 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         print(f"{label} traced device launches by family: {families} "
               f"(predicted {want_dev}; {step_launches} in all)", flush=True)
         for fam, n in want_dev.items():
+            if families[fam] != n:
+                rep.fail(f"{label} path: the traced step launched "
+                         f"{families[fam]} {fam} kernels, predicted {n}")
+    if families is not None and path.attn_fwd:
+        # the traced step's K13 and K14 launches by route against the
+        # wrappers' route counts of a step; K14 on wgmma sums dbias in the
+        # kernel, so a path without a UNet launches no column sum
+        att = ("window_attention_fwd", "window_attention_bwd")
+        want_att = {fam: sum(routes[k][r] for k in att) // STEPS
+                    for fam, r in (("attn_sm90", "wgmma"),
+                                   ("attn mma", "mma"))}
+        if not path.unet and not routes["window_attention_bwd"]["mma"]:
+            want_att["colsum"] = 0
+        print(f"{label} traced attention launches: "
+              f"{ {k: families[k] for k in want_att} } (predicted "
+              f"{want_att}; {step_launches} in all)", flush=True)
+        for fam, n in want_att.items():
             if families[fam] != n:
                 rep.fail(f"{label} path: the traced step launched "
                          f"{families[fam]} {fam} kernels, predicted {n}")
@@ -2321,7 +2506,11 @@ def profile_step(trainer, card: str, label: str):
                     ("conv_sm90 reduce",
                      r"\bconv_sm90_kernel<\d+, \w+, \w+, 2>"),
                     ("conv3x3", r"\bconv3x3(_bf16)?_kernel\b"),
-                    ("colsum", r"\bcolsum_kernel\b"))}
+                    ("colsum", r"\bcolsum_kernel\b"),
+                    # K13 and K14: csrc/window_attention_sm90.cu's, and
+                    # csrc/window_attention.cu's (bf16 and fp32)
+                    ("attn_sm90", r"\battn_(fwd|bwd)_sm90_kernel<"),
+                    ("attn mma", r"\battn_(fwd|bwd)(_bf16)?_kernel<"))}
     lines = [f"profile of one {label} step ({card}): wall "
              f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
              f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), conv "
@@ -3678,8 +3867,55 @@ def kernel_line(rep: Report, paths: dict, routes: dict | None = None
                if "library_note" in meta else {}),
             **(route_line(meta["routes"], name, timed, routes or {})
                if "routes" in meta else {}),
-            timed_shapes=len(timed), at_geometries=at))
+            timed_shapes=len(timed), at_geometries=at,
+            **({"by_tpu_kernel": {k: v for k, v in tpu_kernel_split(
+                rows).items() if v["wrapper"] == name}}
+               if name in TPU_FORMS else {})))
     return kernels
+
+
+#: the TPU kernels whose work a wrapper's timed rows split into, by the
+#: row's label: A's stem conv1 (K12, C = 1 on ACDC), its conv2 forwards
+#: (K2, the prologue form), its dgrads (K6) and the rest (K1: the conv1s,
+#: 1x1s and head); D's sums (K4) and its dpre-only entry (K5)
+TPU_FORMS = {
+    "conv3x3_nhwc": (("K12", lambda w: w.startswith("in_conv.conv1 fwd")),
+                     ("K2", lambda w: ".conv2 fwd" in w),
+                     ("K6", lambda w: " dgrad" in w),
+                     ("K1", lambda w: True)),
+    "bn_act_bwd": (("K5", lambda w: "dpre-only" in w),
+                   ("K4", lambda w: True))}
+
+
+def tpu_kernel_split(rows) -> dict:
+    """A's and D's timed bf16 rows of the ACDC main path (phase 2; a list
+    of kernels.jsonl rows, or the path of such a file) summed by the TPU
+    kernel each form replaces (``TPU_FORMS``): ms (host-inclusive),
+    device_ms, plain_ms, library_ms (None where a row has none), bound_ms
+    and the shapes. Printed as one ``FORMS`` JSON line and returned."""
+    if isinstance(rows, str):
+        with open(rows, encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+    out = {}
+    for kernel, forms in TPU_FORMS.items():
+        for r in rows:
+            if not (r["kernel"] == kernel and r["ms"] is not None
+                    and r["main"] and r["dtype"] == "bfloat16"
+                    and r["geometry"] is None):
+                continue
+            tpu = next(k for k, pick in forms if pick(r["what"]))
+            acc = out.setdefault(tpu, dict(
+                wrapper=kernel, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                library_ms=0.0, bound_ms=0.0, shapes=0))
+            acc["shapes"] += 1
+            for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                        "bound_ms"):
+                if acc[key] is None or r.get(key) is None:
+                    acc[key] = None
+                else:
+                    acc[key] += r[key]
+    print("FORMS " + json.dumps(out), flush=True)
+    return out
 
 
 def route_line(sources: dict, name: str, timed: list, routes: dict) -> dict:
@@ -3848,8 +4084,9 @@ def check_attention_ids(rep: Report, dev) -> None:
     0.9) against their plain versions at ID_ATTN_STAGES, unshifted and
     shifted; the masks bit-exact (K13's output and K14's dv with q = k = 0
     and v, do the identity) and equal to the full batch's masks at those
-    windows; in bf16 each timed with and without the ids. The rows stay
-    out of the kernels' totals."""
+    windows; in bf16 on both routes (``attn_route``'s and the mma route
+    forced), each on the device alone with the ids (and the wrapper's
+    route without them). The rows stay out of the kernels' totals."""
     import torch
 
     from hpfg_tpu_torch.models.swinunet import _shift_attention_mask
@@ -3897,7 +4134,7 @@ def check_attention_ids(rep: Report, dev) -> None:
 
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[-1]
-        clock = cuda_ms if dt == torch.bfloat16 else (lambda fn: None)
+        clock = device_ms if dt == torch.bfloat16 else None
         for stage, side, heads in ID_ATTN_STAGES:
             nw = (side // ws) ** 2
             bn, c = n * nw, heads * ATTN_D
@@ -3926,20 +4163,39 @@ def check_attention_ids(rep: Report, dev) -> None:
                          for g, a, b in zip(("dq", "dk", "dv", "dbias"),
                                             (*dqkv.split(c, -1), dbias),
                                             (*ref, dbias_r)))
+                route = wa.attn_route(dt, ATTN_D, l, True)
+                if route == "wgmma":  # the mma route beside it
+                    r = max(r, rep.compare(
+                        "window_attention_fwd", f"{what} mma", dname,
+                        wa._launch("mma", False, qkv, bias, mask, heads,
+                                   drop),
+                        wa.window_attention_reference(q, k, v, bias, mask,
+                                                      heads, drop),
+                        main=False))
+                    dqkv, dbias = wa._launch("mma", True, qkv, bias, mask, do,
+                                             heads, drop)
+                    rb = max(rb, *(rep.compare(
+                        "window_attention_bwd", f"{what} {g} mma", dname, a,
+                        b, main=False)
+                        for g, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                           (*dqkv.split(c, -1), dbias),
+                                           (*ref, dbias_r))))
                 line = (f"{dname} attention {what} Bn={bn} H={heads} L={l}, "
-                        f"{n} images with ids: K13 {r:.1e} K14 {rb:.1e}")
-                ms = clock(lambda: wa.window_attention_fwd(
-                    qkv, bias, mask, heads, drop))
-                if ms is not None:
-                    ms0 = clock(lambda: wa.window_attention_fwd(
-                        qkv, bias, mask, heads, plain))
-                    bms = clock(lambda: wa.window_attention_bwd(
-                        qkv, bias, mask, do, heads, drop))
-                    bms0 = clock(lambda: wa.window_attention_bwd(
-                        qkv, bias, mask, do, heads, plain))
-                    line += (f" | K13 {ms:.3f} ms with ids, {ms0:.3f} "
-                             f"without | K14 {bms:.3f} ms with ids, "
-                             f"{bms0:.3f} without")
+                        f"{n} images with ids: K13 {route} {r:.1e} K14 "
+                        f"{rb:.1e}")
+                if clock is not None:
+                    # device-only ms: the wrapper's route with ids and
+                    # without, the mma route with ids
+                    def t(rt, bwd_, d_):
+                        a_ = ((qkv, bias, mask, do, heads, d_) if bwd_
+                              else (qkv, bias, mask, heads, d_))
+                        return clock(lambda: wa._launch(rt, bwd_, *a_))
+
+                    for bwd_, kname in ((False, "K13"), (True, "K14")):
+                        line += (f" | {kname} device {route} "
+                                 f"{t(route, bwd_, drop):.4f} ms with ids, "
+                                 f"{t(route, bwd_, plain):.4f} without; mma "
+                                 f"{t('mma', bwd_, drop):.4f} with ids")
                 print(line, flush=True)
             del qkv, do, q, k, v
             torch.cuda.empty_cache()
@@ -4491,9 +4747,10 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-#: the wgmma kernels (A and K8, B and K10) whose SASS must hold wgmma and
-#: TMA instructions, not mma.sync's
-WGMMA_KERNELS = ("conv_sm90_kernel", "wgrad_sm90_kernel")
+#: the wgmma kernels (A, K8, K9 and K11; B and K10; K13; K14) whose SASS
+#: must hold wgmma and TMA instructions, not mma.sync's
+WGMMA_KERNELS = ("conv_sm90_kernel", "wgrad_sm90_kernel",
+                 "attn_fwd_sm90_kernel", "attn_bwd_sm90_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 

@@ -146,12 +146,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cstring>
-#include <mutex>
-#include <unordered_map>
-
 #include "hash.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -160,221 +157,6 @@ constexpr int STAGES = 4;    // TMA ring depth
 constexpr int MAX_SMEM = 232448;
 constexpr float kSlope = 0.01f;  // LeakyReLU
 
-// -- mbarrier, TMA, wgmma ---------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1,
-                                       int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1, int c2,
-                                       int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the committed stores have read their shared memory (it may be rewritten)
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// generic-proxy shared-memory writes made visible to TMA (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_a(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t_a(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across a
-// wgmma wait or fence (the asm statements do not name them).
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The shared-memory descriptor of an N-major (MN-major) B operand with the
-// swizzle of its row width sw (32, 64 or 128 bytes): k16 rows of sw bytes,
-// eight-row groups sbo = 8 sw bytes apart, 64-column atoms lbo bytes apart
-// (only N = 128 has two). Layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo,
-                                            int sw) {
-  const uint64_t type = sw == 128 ? 1 : sw == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(((8 * sw) >> 4) & 0x3FFF) << 32) | (type << 62);
-}
-
-// d (this warp's 16 rows of a 64 x N tile) += a (its 16 x 16 fragment, in
-// registers, mma.sync's A layout) * B (16 x N at desc_b, transposed: N-major)
-static __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-static __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-static __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-static __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                                     const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, desc_b);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
-  else wgmma_rs_n128(d, a, desc_b);
-}
 
 // Byte offset of 16-byte half h (channels 8h..8h+7) of pixel p in a halo
 // box of 16-channel (32-byte) pixels, as TMA's 32-byte swizzle lays it out
@@ -1169,107 +951,6 @@ wgrad_sm90_kernel(const __grid_constant__ WgradMaps maps,
 }
 
 // -- host --------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, fetched once through the runtime
-// (cudaGetDriverEntryPoint), so the build links nothing beyond cudart.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// launcher errors that are not CUDA's: the driver entry point is missing
-// (1000), or the driver refused a tensor map (1000 + its CUresult)
-constexpr int ERR_ENCODE = 1000;
-
-CUtensorMapSwizzle swizzle_of(int bytes) {
-  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                       : CU_TENSOR_MAP_SWIZZLE_32B;
-}
-
-// The encoded tensor maps, keyed on every argument of the encode that
-// varies (pointer, rank, dims, strides, box, swizzle; the element type,
-// interleave, L2 promotion and fill are fixed): a map is a pure function
-// of them, so a kept one is exact. Shared by the launching threads (the
-// overlapped eval launches from its own) under a mutex; emptied when it
-// reaches MAP_CACHE_MAX entries.
-struct MapKey {
-  uint64_t v[17];  // ptr, rank, dims[5], strides[4], box[5], swizzle
-  bool operator==(const MapKey& o) const {
-    return std::memcmp(v, o.v, sizeof v) == 0;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    uint64_t h = 1469598103934665603ull;  // FNV-1a over the words
-    for (uint64_t x : k.v) h = (h ^ x) * 1099511628211ull;
-    return (size_t)h;
-  }
-};
-constexpr size_t MAP_CACHE_MAX = 4096;
-
-// A bf16 tensor of dims d[0..rank) (d[0] innermost, dense) as a tensor map
-// with box box[0..rank) and the swizzle of box[0]'s bytes.
-int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
-           const uint32_t* box) {
-  cuuint64_t dims[5] = {}, strides[4] = {};
-  cuuint32_t boxes[5] = {}, elem[5];
-  uint64_t stride = 2;
-  for (int i = 0; i < rank; ++i) {
-    dims[i] = d[i];
-    boxes[i] = box[i];
-    elem[i] = 1;
-    stride *= d[i];
-    if (i + 1 < rank) strides[i] = stride;
-  }
-  const CUtensorMapSwizzle swz = swizzle_of(box[0] * 2);
-  MapKey key{};
-  key.v[0] = (uint64_t)(uintptr_t)ptr;
-  key.v[1] = (uint64_t)rank;
-  for (int i = 0; i < 5; ++i) {
-    key.v[2 + i] = dims[i];
-    key.v[11 + i] = boxes[i];
-  }
-  for (int i = 0; i < 4; ++i) key.v[7 + i] = strides[i];
-  key.v[16] = (uint64_t)swz;
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const auto it = cache.find(key);
-    if (it != cache.end()) {
-      *map = it->second;
-      return 0;
-    }
-  }
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_ENCODE;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(ptr), dims, strides, boxes, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
-  std::lock_guard<std::mutex> lock(mu);
-  if (cache.size() >= MAP_CACHE_MAX) cache.clear();
-  cache.emplace(key, *map);
-  return 0;
-}
 
 // An NHWC activation [B,H,W,C] as halo boxes of one channel group
 int encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, int C,

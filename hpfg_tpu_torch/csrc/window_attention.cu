@@ -12,10 +12,16 @@
 //     each CTA sums its own windows in registers and writes one partial row,
 //     and colsum_f32 (conv3x3.cu) adds the rows in a fixed order, so dbias is
 //     bitwise the same from run to run.
-// The dtype picks the kernel (is_bf16): bf16, which every config trains in,
-// runs attn_fwd_bf16_kernel / attn_bwd_bf16_kernel on the tensor cores;
-// fp32 has no tensor-core product at fp32 precision, so it keeps the
-// CUDA-core attn_fwd_kernel / attn_bwd_kernel.
+// The dtype picks the kernel (is_bf16): bf16 runs attn_fwd_bf16_kernel /
+// attn_bwd_bf16_kernel on the tensor cores (mma.sync); fp32 has no
+// tensor-core product at fp32 precision, so it keeps the CUDA-core
+// attn_fwd_kernel / attn_bwd_kernel. Since window_attention_sm90.cu (wgmma
+// and TMA) took the bf16 calls at head widths 16, 32 and 64, which every
+// config's SwinUNet uses (D = 32), this file takes what attn_route
+// (ops/window_attention.py) leaves it: fp32, bf16 at the other head widths
+// (8, 12, 40 and 48 in the tests) and tensors TMA cannot take (a base not
+// 16-byte aligned); chip_smoke.py and the GPU tests run its bf16 kernels
+// beside the wgmma ones.
 //
 // Layout: q, k and v are read straight from the packed qkv Dense output
 // [Bn, L, 3C] (channel offsets 0, C, 2C, row stride 3C; head h is channels

@@ -27,8 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("conv3x3.cu", "conv3x3_sm90.cu", "window_attention.cu",
-           "bn_act.cu")
-HEADERS = ("hash.cuh", "mma.cuh")
+           "window_attention_sm90.cu", "bn_act.cu")
+HEADERS = ("hash.cuh", "mma.cuh", "sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -64,6 +64,12 @@ _SIGNATURES = {
     "hpfg_window_attention_bwd": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _I, _U, _U, _F, _P, _I, _I, _I, _I, _I,
                                   _P],
+    "hpfg_attn_sm90_fwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _U,
+                           _U, _F, _P, _I, _I, _I, _I, _I, _P],
+    "hpfg_attn_sm90_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _F, _I, _U, _U, _F, _P, _I, _I, _I, _I,
+                           _I, _P],
+    "hpfg_attn_sm90_dbias_group": [],
     "hpfg_bn_reduce_ctas_per_sm": [_I],
     "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_bn_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
@@ -98,6 +104,8 @@ class KernelLibrary:
                                 self.lib.hpfg_pair_wgrad_tile_w())
         self.attn_max_l = self.lib.hpfg_attn_max_l()
         self.attn_max_d = self.lib.hpfg_attn_max_d()
+        # K14's dbias groups on the wgmma route (partial rows a group sums)
+        self.attn_dbias_group = self.lib.hpfg_attn_sm90_dbias_group()
         self._bn_occupancy: dict[bool, int] = {}
 
     def wgrad_tile(self, c: int, f: int, bf16: bool) -> tuple[int, int]:
@@ -254,13 +262,14 @@ def sm_count(device: torch.device) -> int:
     return _SMS[device.index]
 
 
-def ticket(device: torch.device, kernel: str) -> torch.Tensor:
-    """The ticket counter of ``kernel``'s last-CTA reduction on CUDA
-    ``device``: an int32 allocated zeroed once, which the kernel's last CTA
-    resets to 0 at every launch."""
+def ticket(device: torch.device, kernel: str, n: int = 1) -> torch.Tensor:
+    """The ticket counters of ``kernel``'s last-CTA reductions on CUDA
+    ``device``: at least ``n`` int32, allocated zeroed (again, larger, when
+    a launch needs more), which the kernel's last CTAs reset to 0 at every
+    launch."""
     key = (device.index, kernel)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+    if key not in _TICKETS or _TICKETS[key].numel() < n:
+        _TICKETS[key] = torch.zeros(n, dtype=torch.int32,
                                     device=torch.device("cuda", key[0]))
     return _TICKETS[key]
 

@@ -6,11 +6,21 @@ Port of ``hpfg_tpu/ops/pallas/window_attention.py``. Per window and head:
 
 with the softmax in fp32, q/k/v/o in the compute dtype (bf16 or fp32),
 head-major channels ``h*D + d``. The forward is kernel K13
-(``window_attention_fwd``, ``csrc/window_attention.cu``) and the backward
-kernel K14 (``window_attention_bwd``): the softmax recomputed, then dq, dk,
-dv and the relative-position bias gradient summed over windows, from
-per-CTA partials added in a fixed order (``colsum``), so it is bitwise
-reproducible. The mask gets no gradient, as in the JAX VJP.
+(``window_attention_fwd``) and the backward kernel K14
+(``window_attention_bwd``): the softmax recomputed, then dq, dk, dv and the
+relative-position bias gradient summed over windows in a fixed order, so it
+is bitwise reproducible. The mask gets no gradient, as in the JAX VJP.
+
+Each has two routes on the card (``attn_route``), counted in
+``<wrapper>.routes``: "wgmma" (``csrc/window_attention_sm90.cu``: TMA in and
+out, wgmma, G = 64 // L windows of one head and mask class packed into one
+64-row tile (``packed_walk``), K14's dbias summed inside the kernel through
+group and head tickets) for bf16 at head widths 16, 32 and 64; "mma"
+(``csrc/window_attention.cu``: its mma.sync kernels for the other bf16
+calls, the CUDA-core kernels for fp32; a grid of (CTAs, heads) in which a
+CTA walks a run of windows of one head and one mask class
+(``attention_walk``), K14's dbias from per-CTA partial rows added by
+``colsum``). No call falls back from one route to the other.
 
 The kernels take the packed ``qkv`` Dense output [Bn, L, 3C] as it is (q,
 k, v at channel offsets 0, C, 2C) and the backward returns its gradient in
@@ -20,16 +30,12 @@ same function as the JAX entry's tiled [Bn, L, L] mask, which is never
 built here. Attention dropout (``HashDropout``: keep probability and a host
 seed in [0, 2^23)) is the JAX package's in-kernel hash, keyed on
 b_idx = (w // blk) * 1024 + h and row = (w % blk) * L + i with
-blk = min(16, the global window count), whatever tile the kernels use; w is
-the window's index in the global batch. Under data parallelism the
-dropout's ``image_ids`` (``Rows.ids``) place the local windows there: local
-window w of image w // nW is global window ids[w // nW] * nW + w % nW, and
-its ``total`` is the global image count. Without ids w is the local index
-and blk = min(16, Bn), as in one process.
-
-Both kernels run on a grid of (CTAs, heads) in which a CTA walks a run of
-windows of one head and one mask class (``attention_walk``); in bf16 they
-compute every product on the tensor cores, in fp32 on the CUDA cores.
+blk = min(16, the global window count), whatever tile, slot or CTA the
+kernels use; w is the window's index in the global batch. Under data
+parallelism the dropout's ``image_ids`` (``Rows.ids``) place the local
+windows there: local window w of image w // nW is global window
+ids[w // nW] * nW + w % nW, and its ``total`` is the global image count.
+Without ids w is the local index and blk = min(16, Bn), as in one process.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises. Each counts its launches in
@@ -38,6 +44,7 @@ tensor launches the kernel or raises. Each counts its launches in
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -49,15 +56,25 @@ from hpfg_tpu_torch.ops._cuda import (
     launch_counter,
     library,
     ptr,
+    sm_count,
     stream,
+    ticket,
 )
 from hpfg_tpu_torch.ops.conv_block import HashDropout, hash_keep
 
 #: windows per hash block (the TPU kernel's WINDOW_BLOCK): part of the
 #: dropout hash's index formula, not a tile size of the CUDA kernels
 WINDOW_BLOCK = 16
-#: CTAs to aim for in a K13 or K14 launch (8 per SM of an H100)
+#: CTAs to aim for in a K13 or K14 launch on the mma route (8 per SM of
+#: an H100)
 TARGET_CTAS = 1056
+#: the two routes of K13 and K14 on the card
+ROUTES = ("wgmma", "mma")
+#: head widths the wgmma route takes: a row of 2D bytes is a TMA swizzle
+#: width (32, 64 or 128 bytes); D = 48's 96 bytes is none, so it keeps mma
+SM90_HEAD_WIDTHS = (16, 32, 64)
+#: rows of the wgmma route's tile: G = TILE_ROWS // L windows a tile
+TILE_ROWS = 64
 
 
 class AttentionWalk(NamedTuple):
@@ -89,6 +106,98 @@ def attention_walk(bn: int, heads: int, n_mask: int) -> AttentionWalk:
     per = bn // n_mask
     wpc = min(per, max(1, -(-bn * heads // TARGET_CTAS)))
     return AttentionWalk(wpc, n_mask * -(-per // wpc), n_mask, bn)
+
+
+def attn_route(dtype, d: int, l: int, aligned: bool) -> str:
+    """The kernel a K13 or K14 call takes on the card: "wgmma"
+    (csrc/window_attention_sm90.cu) where TMA and the packed tile can take
+    it: bf16, head width ``d`` in SM90_HEAD_WIDTHS (16, 32 or 64), ``l`` <=
+    TILE_ROWS tokens a window and 16-byte aligned bases (``aligned``; the
+    row strides 3C and C are then multiples of 16 bytes too); else "mma"
+    (csrc/window_attention.cu): fp32 (the CUDA-core kernels), the head
+    widths 8, 12, 40 and 48 and unaligned tensors (its mma.sync
+    kernels). No call falls back from one to the other."""
+    ok = (dtype == torch.bfloat16 and d in SM90_HEAD_WIDTHS
+          and l <= TILE_ROWS and aligned)
+    return "wgmma" if ok else "mma"
+
+
+class PackedWalk(NamedTuple):
+    """How the wgmma route splits Bn windows x H heads: a tile packs
+    ``g`` windows of one head and one mask class r (w = r + n_mask * b,
+    consecutive b), class r's tiles are tiles r * tiles_per_class ..;
+    the grid is (``ctas``, H) and CTA x of head h takes tiles
+    [x * tiles_per_cta, (x + 1) * tiles_per_cta). K14 writes one dbias
+    partial row a CTA and one group row a group of ``group`` CTAs
+    (``tile_of`` and ``dbias_tickets`` in csrc/window_attention_sm90.cu)."""
+
+    g: int
+    n_mask: int
+    per: int
+    tiles_per_class: int
+    tiles: int
+    tiles_per_cta: int
+    ctas: int
+    group: int
+
+    def slots(self, tau: int) -> list[int]:
+        """The windows of tile ``tau`` in slot order (TMA's box reads zeros
+        past the class's last window: those slots hold none)."""
+        r, t = divmod(tau, self.tiles_per_class)
+        b0 = t * self.g
+        return [r + self.n_mask * b
+                for b in range(b0, min(b0 + self.g, self.per))]
+
+    def tiles_of(self, x: int) -> range:
+        """The tiles CTA x walks, in order."""
+        return range(x * self.tiles_per_cta,
+                     min((x + 1) * self.tiles_per_cta, self.tiles))
+
+    @property
+    def groups(self) -> int:
+        """K14's dbias groups a head: group rows the last closer sums."""
+        return -(-self.ctas // self.group)
+
+
+#: CTAs an SM of the wgmma route, at D <= 32 and at D = 64: K13's
+#: (False) and K14's (True), as many as fit an SM at once (the kernels'
+#: __launch_bounds__ and shared memory)
+SM90_CTAS_PER_SM = {False: (4, 2), True: (3, 1)}
+
+
+def sm90_target(backward: bool, d: int, sms: int) -> int:
+    """CTAs to aim for in a wgmma-route launch on ``sms`` SMs."""
+    return SM90_CTAS_PER_SM[backward][d > 32] * sms
+
+
+def packed_walk(bn: int, heads: int, n_mask: int, l: int, target: int,
+                group: int = 8) -> PackedWalk:
+    """The wgmma route's walk for Bn windows of L tokens, H heads and a
+    mask of n_mask windows per image (1 when unshifted): G = TILE_ROWS //
+    L windows a tile (at most the class's Bn / n_mask, so TMA's box fits
+    the tensor), and the shortest run of tiles per CTA that keeps the
+    grid within about ``target`` CTAs (every CTA takes at least one)."""
+    per = bn // n_mask
+    g = min(TILE_ROWS // l, per)
+    tpc = -(-per // g)
+    tiles = n_mask * tpc
+    tpx = -(-tiles // max(1, min(tiles, -(-target // heads))))
+    return PackedWalk(g, n_mask, per, tpc, tiles, tpx, -(-tiles // tpx),
+                      group)
+
+
+def tile_bias(bias_h: torch.Tensor, mask_r: torch.Tensor | None, l: int,
+              g: int) -> torch.Tensor:
+    """The wgmma route's additive score term of a packed tile: [64, 64]
+    fp32 with bias[h] (+ mask[r]) [L, L] down the diagonal for each of the
+    g slots, -inf between slots and past them, 0 in the rows past g * L
+    (never stored): ``load_bm`` in csrc/window_attention_sm90.cu."""
+    block = bias_h.float() + (0 if mask_r is None else mask_r.float())
+    out = torch.full((TILE_ROWS, TILE_ROWS), float("-inf"))
+    out[g * l:] = 0.0
+    for s in range(g):
+        out[s * l:(s + 1) * l, s * l:(s + 1) * l] = block
+    return out
 
 
 def window_block(bn: int, image_ids: torch.Tensor | None = None,
@@ -254,6 +363,59 @@ def _kernel_args(qkv, mask, heads: int, drop: HashDropout | None):
                  ptr(ids), nw, blk]
 
 
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Every tensor's base 16-byte aligned (TMA's rule)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _launch(route: str, backward: bool, qkv, bias, mask, *rest):
+    """Launch K13 (``backward`` False, ``rest`` = heads, drop: returns o)
+    or K14 (``rest`` = do, heads, drop: returns dqkv, dbias) on ``route``
+    for arguments the wrapper has checked. The wrappers call it with
+    ``attn_route``'s route; chip_smoke.py times each route through it."""
+    heads, drop = rest[-2:]
+    lib, args = _kernel_args(qkv, mask, heads, drop)
+    bn, l, c3 = qkv.shape
+    c = c3 // 3
+    n_mask = 1 if mask is None else mask.shape[0]
+    dev = qkv.device
+    if route == "wgmma":
+        walk = packed_walk(bn, heads, n_mask, l,
+                           sm90_target(backward, c // heads, sm_count(dev)),
+                           lib.attn_dbias_group)
+        tail = (walk.g, walk.tiles_per_cta, walk.ctas, stream(qkv))
+        if not backward:
+            out = torch.empty((bn, l, c), dtype=qkv.dtype, device=dev)
+            lib.call("hpfg_attn_sm90_fwd", ptr(qkv), ptr(bias), ptr(mask),
+                     n_mask, ptr(out), *args, *tail)
+            return out
+        dqkv = torch.empty_like(qkv)
+        llp = -(-l * l // 4) * 4
+        f32 = dict(dtype=torch.float32, device=dev)
+        part = torch.empty((heads, walk.ctas, llp), **f32)
+        grp = torch.empty((heads, walk.groups, llp), **f32)
+        dbias = torch.empty((heads, l, l), **f32)
+        tk = ticket(dev, "attn_sm90_bwd", heads * (walk.groups + 1))
+        lib.call("hpfg_attn_sm90_bwd", ptr(qkv), ptr(bias), ptr(mask),
+                 n_mask, ptr(rest[0]), ptr(dqkv), ptr(part), ptr(grp),
+                 ptr(dbias), ptr(tk), *args, *tail)
+        return dqkv, dbias
+    walk = attention_walk(bn, heads, n_mask)
+    tail = (walk.windows_per_cta, walk.ctas,
+            int(qkv.dtype == torch.bfloat16), stream(qkv))
+    if not backward:
+        out = torch.empty((bn, l, c), dtype=qkv.dtype, device=dev)
+        lib.call("hpfg_window_attention_fwd", ptr(qkv), ptr(bias), ptr(mask),
+                 n_mask, ptr(out), *args, *tail)
+        return out
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((walk.ctas, heads * l * l), dtype=torch.float32,
+                       device=dev)
+    lib.call("hpfg_window_attention_bwd", ptr(qkv), ptr(bias), ptr(mask),
+             n_mask, ptr(rest[0]), ptr(dqkv), ptr(part), *args, *tail)
+    return dqkv, colsum(part).view(heads, l, l)
+
+
 @launch_counter
 def window_attention_fwd(qkv, bias, mask, heads: int,
                          drop: HashDropout | None = None):
@@ -266,13 +428,9 @@ def window_attention_fwd(qkv, bias, mask, heads: int,
     if qkv.device.type == "cpu":
         q, k, v = qkv.split(c, dim=-1)
         return window_attention_reference(q, k, v, bias, mask, heads, drop)
-    lib, args = _kernel_args(qkv, mask, heads, drop)
-    n_mask = 1 if mask is None else mask.shape[0]
-    walk = attention_walk(bn, heads, n_mask)
-    out = torch.empty((bn, l, c), dtype=qkv.dtype, device=qkv.device)
-    lib.call("hpfg_window_attention_fwd", ptr(qkv), ptr(bias), ptr(mask),
-             n_mask, ptr(out), *args, walk.windows_per_cta, walk.ctas,
-             int(qkv.dtype == torch.bfloat16), stream(qkv))
+    route = attn_route(qkv.dtype, c // heads, l, _aligned(qkv))
+    out = _launch(route, False, qkv, bias, mask, heads, drop)
+    counted(window_attention_fwd.routes[route], qkv)
     counted(window_attention_fwd, qkv, 4 * bn * l * l * c)
     return out
 
@@ -294,18 +452,16 @@ def window_attention_bwd(qkv, bias, mask, do, heads: int,
         *dqkv, dbias = window_attention_bwd_reference(q, k, v, bias, mask,
                                                       do, heads, drop)
         return torch.cat(dqkv, dim=-1), dbias
-    lib, args = _kernel_args(qkv, mask, heads, drop)
-    n_mask = 1 if mask is None else mask.shape[0]
-    walk = attention_walk(bn, heads, n_mask)
-    dqkv = torch.empty_like(qkv)
-    part = torch.empty((walk.ctas, heads * l * l), dtype=torch.float32,
-                       device=qkv.device)
-    lib.call("hpfg_window_attention_bwd", ptr(qkv), ptr(bias), ptr(mask),
-             n_mask, ptr(do), ptr(dqkv), ptr(part), *args,
-             walk.windows_per_cta, walk.ctas,
-             int(qkv.dtype == torch.bfloat16), stream(qkv))
+    route = attn_route(qkv.dtype, c // heads, l, _aligned(qkv, do))
+    out = _launch(route, True, qkv, bias, mask, do, heads, drop)
+    counted(window_attention_bwd.routes[route], qkv)
     counted(window_attention_bwd, qkv, 8 * bn * l * l * c)
-    return dqkv, colsum(part).view(heads, l, l)
+    return out
+
+
+for _fn in (window_attention_fwd, window_attention_bwd):
+    # each route's own launch count, beside the wrapper's total
+    _fn.routes = {r: SimpleNamespace(launches=0) for r in ROUTES}
 
 
 class WindowAttentionFn(torch.autograd.Function):

@@ -96,3 +96,125 @@ def test_lidc_shift_masks_have_one_class_per_window(side):
     seam = {r * g + c for r in range(g) for c in range(g)
             if r == g - 1 or c == g - 1}
     assert {w for w in range(n) if mask[w].any()} == seam
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route (csrc/window_attention_sm90.cu): its route rule, its
+# packed walk and K14's dbias groups
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,l,aligned,route", [
+    ("bfloat16", 32, 49, True, "wgmma"),   # the SwinUNets' calls
+    ("bfloat16", 32, 9, True, "wgmma"),
+    ("bfloat16", 16, 16, True, "wgmma"),
+    ("bfloat16", 64, 64, True, "wgmma"),
+    ("bfloat16", 32, 49, False, "mma"),    # a base TMA cannot take
+    ("bfloat16", 8, 49, True, "mma"),      # 16-byte rows: no swizzle width
+    ("bfloat16", 12, 16, True, "mma"),
+    ("bfloat16", 40, 16, True, "mma"),
+    ("bfloat16", 48, 49, True, "mma"),     # 96-byte rows: no swizzle width
+    ("bfloat16", 32, 65, True, "mma"),     # past one 64-row tile
+    ("float32", 32, 49, True, "mma"),      # fp32 keeps the CUDA cores
+    ("float32", 64, 9, True, "mma"),
+])
+def test_attn_route(dtype, d, l, aligned, route):
+    import torch
+
+    assert wa.attn_route(getattr(torch, dtype), d, l, aligned) == route
+
+
+# (L, the walks' window counts): the SwinUNet's and Swin-MAE's window 7,
+# the LIDC SwinUNet's window 3, and L = 16 and 25 over both
+PACKED = sorted({(l, bn, heads, m) for l in (9, 16, 25, 49)
+                 for bn, heads, m in SWIN + LIDC})
+
+
+@pytest.mark.parametrize("l,bn,heads,n_mask", PACKED)
+def test_packed_walk_covers_every_window_once(l, bn, heads, n_mask):
+    """Every window lands in exactly one slot of one tile (the heads are
+    the grid's second axis), all windows of a tile share one mask class
+    and are consecutive in it, a tile packs G = 64 // L of them (the last
+    of a class may hold fewer; TMA reads zeros past it), and every CTA of
+    the grid walks at least one tile, none twice."""
+    walk = wa.packed_walk(bn, heads, n_mask, l,
+                          wa.sm90_target(False, 32, SM_COUNT))
+    assert walk.g == min(64 // l, bn // n_mask) and walk.g * l <= 64
+    slots = [walk.slots(t) for t in range(walk.tiles)]
+    assert sorted(w for s in slots for w in s) == list(range(bn))
+    for s in slots:
+        assert 1 <= len(s) <= walk.g
+        assert len({w % n_mask for w in s}) == 1
+        assert [w // n_mask for w in s] == list(range(
+            s[0] // n_mask, s[0] // n_mask + len(s)))
+    walked = [t for x in range(walk.ctas) for t in walk.tiles_of(x)]
+    assert walked == list(range(walk.tiles))
+    assert all(len(walk.tiles_of(x)) >= 1 for x in range(walk.ctas))
+
+
+@pytest.mark.parametrize("l,bn,heads,n_mask", PACKED)
+def test_packed_walk_dbias_groups(l, bn, heads, n_mask):
+    """K14's dbias partials a head: one row a CTA, about three CTAs an SM
+    over the heads (or one a tile), in groups of 8 whose last CTA sums
+    the group and whose group rows the last closer sums: every CTA's row
+    in exactly one group, at most 8 rows a group and ceil(ctas / 8) group
+    rows."""
+    target = wa.sm90_target(True, 32, SM_COUNT)
+    walk = wa.packed_walk(bn, heads, n_mask, l, target)
+    assert walk.ctas <= walk.tiles
+    assert walk.ctas * heads <= target + heads
+    assert walk.ctas * heads >= min(walk.tiles * heads, SM_COUNT) or \
+        walk.tiles_per_cta == 1
+    groups = [list(range(g * walk.group, min((g + 1) * walk.group,
+                                             walk.ctas)))
+              for g in range(walk.groups)]
+    assert sorted(x for grp in groups for x in grp) == list(range(walk.ctas))
+    assert all(1 <= len(grp) <= 8 for grp in groups)
+
+
+# the dbias partial rows a head at the stage shapes of the main paths
+# (batch, stage side, heads, window, shifted) on an H100's 132 SMs (K14 at
+# D = 32: three CTAs an SM): CTAs and group rows
+STAGE_PARTIALS = [
+    (32, 56, 3, 7, True, 128, 16), (32, 56, 3, 7, False, 128, 16),
+    (32, 28, 6, 7, True, 64, 8), (32, 14, 12, 7, True, 32, 4),
+    (32, 7, 24, 7, False, 16, 2), (24, 56, 3, 7, True, 128, 16),
+    (24, 7, 24, 7, False, 12, 2), (24, 48, 3, 3, True, 128, 16),
+    (24, 24, 6, 3, True, 64, 8), (24, 12, 12, 3, True, 32, 4),
+    (24, 6, 24, 3, True, 16, 2)]
+
+
+@pytest.mark.parametrize("batch,side,heads,ws,shifted,ctas,groups",
+                         STAGE_PARTIALS)
+def test_dbias_partials_at_the_stage_shapes(batch, side, heads, ws, shifted,
+                                            ctas, groups):
+    nw = (side // ws) ** 2
+    walk = wa.packed_walk(batch * nw, heads, nw if shifted else 1, ws * ws,
+                          wa.sm90_target(True, 32, SM_COUNT))
+    assert (walk.ctas, walk.groups) == (ctas, groups)
+    assert walk.ctas * heads <= wa.sm90_target(True, 32, SM_COUNT) + heads
+
+
+@pytest.mark.parametrize("l", [9, 16, 25, 49])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_packed_tile_softmax_is_block_diagonal(l, shifted):
+    """The packed tile's score term (``tile_bias``: bias[h] + mask[r] down
+    the diagonal, -inf between windows) makes the softmax of a 64-row tile
+    of G windows the per-window softmax of each, and exactly 0 between
+    windows."""
+    import torch
+
+    gen = torch.Generator().manual_seed(l)
+    g = 64 // l
+    bias = torch.randn((l, l), generator=gen) * 0.5
+    mask = (torch.where(torch.randn((l, l), generator=gen) > 0.8, -100.0,
+                        0.0) if shifted else None)
+    s = torch.randn((64, 64), generator=gen)
+    p = torch.softmax(s + wa.tile_bias(bias, mask, l, g), dim=-1)
+    block = bias + (0 if mask is None else mask)
+    for w in range(g):
+        rows = slice(w * l, (w + 1) * l)
+        want = torch.softmax(s[rows, rows] + block, dim=-1)
+        assert torch.allclose(p[rows, rows], want, rtol=1e-6, atol=1e-7)
+        off = torch.ones(64, dtype=torch.bool)
+        off[rows] = False
+        assert not p[rows][:, off].any()

@@ -24,7 +24,12 @@ the ConvBlock backward run on the wgmma route in bf16. K9 and K11 take
 the same wgmma conv (``conv_route``'s "dgrad_pair" and "dgrad_reduce"
 forms) at the UpBlock and conv2 shapes at batch 32 (and 12), each beside
 its mma.sync route, with K11's output mask bit-exact on both routes with
-a two-segment id map and its sums bitwise the same in two runs.
+a two-segment id map and its sums bitwise the same in two runs. K13
+and K14 on both routes (``attn_route``: the wgmma route packs 64 // L
+windows a tile and sums K14's dbias in the kernel) at L = 9, 16 and 49
+and head widths 8 to 64, their masks bit-exact on both with and without
+an id map, the wgmma route's dbias bitwise the same in two runs, and
+each route's launch count.
 
 Marked ``gpu``: without a card every test skips. On the card (which has no
 jax, so the JAX-side conftest is left out):
@@ -733,6 +738,111 @@ def test_attention_function_launches_both_kernels(dev):
     assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1]
     dqkv, dbias = wa.window_attention_bwd(qkv, bias, mask, do, 2)
     assert torch.equal(x.grad, dqkv) and torch.equal(b.grad, dbias)
+
+
+# both routes of K13 and K14 (attn_route): wgmma takes bf16 at head widths
+# 16, 32 and 64; the mma route every dtype and width
+ROUTE_CASES = [(route, dtype, l, d)
+               for l in (9, 16, 49) for d in (8, 12, 16, 32, 40, 64)
+               for route, dtype in (("wgmma", torch.bfloat16),
+                                    ("mma", torch.bfloat16),
+                                    ("mma", torch.float32))
+               if route == "mma" or d in wa.SM90_HEAD_WIDTHS]
+
+
+@pytest.mark.parametrize("route,dtype,l,d", ROUTE_CASES)
+def test_attention_routes_match_plain(dev, route, dtype, l, d):
+    """K13 (output) and K14 (dq, dk, dv, dbias) on each route, forced
+    through ``_launch``, against their plain versions at L = 9, 16 and 49
+    (the wgmma route packs 7, 4 and 1 windows a tile) and head widths 8 to
+    64, unshifted (Bn = 19) and shifted (Bn = 24 over 4 mask classes),
+    with attention dropout at keep 0.9 and without."""
+    heads = 3
+    for bn, n_mask in ((19, 1), (24, 4)):
+        qkv, bias, mask, do = _attn_inputs(dev, dtype, bn, l, n_mask, heads,
+                                           d)
+        q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+        m = None if n_mask == 1 else mask
+        for drop in (None, cb.HashDropout(323, 0.9)):
+            _close(wa._launch(route, False, qkv, bias, m, heads, drop),
+                   wa.window_attention_reference(q, k, v, bias, m, heads,
+                                                 drop), dtype)
+            dqkv, dbias = wa._launch(route, True, qkv, bias, m, do, heads,
+                                     drop)
+            *ref, dbias_r = wa.window_attention_bwd_reference(
+                q, k, v, bias, m, do, heads, drop)
+            for got, r in zip(dqkv.split(q.shape[-1], dim=-1), ref):
+                _close(got, r, dtype)
+            _close(dbias, dbias_r, dtype)
+
+
+@pytest.mark.parametrize("route", wa.ROUTES)
+@pytest.mark.parametrize("l,d", [(9, 16), (16, 16), (49, 64)])
+@pytest.mark.parametrize("ids", [False, True])
+def test_attention_masks_on_both_routes_are_bit_exact(dev, route, l, d, ids):
+    """bf16 K13's output and K14's dv (v and do the identity) carry
+    fl(1/L) * attn_drop_mask bit for bit on each route, packed (L = 9 and
+    16: 7 and 4 windows a tile on the wgmma route) or not, without and
+    with a two-segment image-id map (each window hashing its global
+    index)."""
+    heads, keep = 2, 0.9
+    if ids:
+        rows = _two_segment_rows(dev, 8, 24)
+        bn = len(rows.ids) * 16
+        drop = cb.HashDropout(4244, keep, rows.ids, rows.total)
+        ref = wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev,
+                                rows.ids, rows.total)
+    else:
+        bn = 40
+        drop = cb.HashDropout(4244, keep)
+        ref = wa.attn_drop_mask(drop.seed, bn, heads, l, keep, dev)
+    qkv, do = _mask_inputs(dev, torch.bfloat16, bn, heads, d, l)
+    ref = (ref * (torch.tensor(1.0, device=dev) / l)).to(torch.bfloat16)
+    zero = torch.zeros((heads, l, l), device=dev)
+    out = wa._launch(route, False, qkv, zero, None, heads, drop).view(
+        bn, l, heads, d)
+    assert torch.equal(out[..., :l].permute(0, 2, 1, 3), ref)
+    assert not out[..., l:].any()
+    dqkv, _ = wa._launch(route, True, qkv, zero, None, do, heads, drop)
+    dv = dqkv[..., 2 * heads * d:].reshape(bn, l, heads, d)
+    assert torch.equal(dv[..., :l].permute(0, 2, 3, 1), ref)
+
+
+@pytest.mark.parametrize("l,bn,n_mask,heads", [(9, 6144, 256, 3),
+                                               (49, 2048, 64, 3),
+                                               (16, 40, 1, 2)])
+def test_wgmma_attention_dbias_is_reproducible(dev, l, bn, n_mask, heads):
+    """The wgmma route's dbias (per-CTA rows, group rows and the head sum,
+    each in a fixed order through the tickets) and dqkv bitwise the same in
+    two runs, at the LIDC and ACDC stage-0 shapes (86 CTAs a head: eleven
+    groups) and a one-group grid; the tickets are left at zero."""
+    qkv, bias, mask, do = _attn_inputs(dev, torch.bfloat16, bn, l, n_mask,
+                                       heads)
+    drop = cb.HashDropout(78, 0.9)
+    runs = [wa._launch("wgmma", True, qkv, bias, mask, do, heads, drop)
+            for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0], runs[1][0])
+    from hpfg_tpu_torch.ops._cuda import ticket
+
+    assert not ticket(dev, "attn_sm90_bwd").any()
+
+
+def test_attention_routes_count_their_launches(dev):
+    """Each wrapper call bumps its route's count once: bf16 at D = 32 the
+    wgmma route, bf16 at D = 40 and fp32 the mma route."""
+    fns = (wa.window_attention_fwd, wa.window_attention_bwd)
+    for dtype, d, route in ((torch.bfloat16, 32, "wgmma"),
+                            (torch.bfloat16, 40, "mma"),
+                            (torch.float32, 32, "mma")):
+        qkv, bias, mask, do = _attn_inputs(dev, dtype, 8, 49, 4, 2, d)
+        before = [{r: c.launches for r, c in fn.routes.items()}
+                  for fn in fns]
+        wa.window_attention_fwd(qkv, bias, mask, 2)
+        wa.window_attention_bwd(qkv, bias, mask, do, 2)
+        for fn, b in zip(fns, before):
+            assert {r: c.launches - b[r] for r, c in fn.routes.items()} == {
+                r: int(r == route) for r in wa.ROUTES}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
