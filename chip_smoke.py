@@ -44,7 +44,18 @@ Phases, each of which fails the run on error:
      routes; the build's SASS (cuobjdump) must show wgmma (HGMMA) and TMA
      (UTMALDG) and no mma.sync (HMMA) in every instantiation of both
      kernels (conv_sm90_kernel: A, K8, K9 and K11; wgrad_sm90_kernel: B
-     and K10);
+     and K10), of K13's and K14's, and of K12's; D's cooperative kernel
+     bulk copies (UBLKCP) and no mma.sync (``sass_rule``);
+     K12, the bf16 stem (C = 1 or 3, ``conv_route``'s "stem": its own
+     kernel, csrc/stem_sm90.cu), is its own entry of the kernels line
+     (``conv3x3_stem``): its forward checked against the plain version
+     (statistics at fp32's tolerance, bitwise the same in two runs) and
+     on the mma route, timed on the device beside it and cuDNN; D (``bn_act_bwd``: one launch of
+     the cooperative kernel, csrc/bn_act.cu ``bn_coop_kernel``, in its
+     "hold" or "stream" form) checked in its other form and against PR
+     6's two kernels ("walk"), dpre bitwise the plain version from the
+     kernel's own sums, each timed on the device (``bn_forms``), and C
+     beside it;
   2b. phase 2's kernel checks again at batch 24, the supervised path's,
      and at ICT's batches 20 (the student) and 12 (each teacher half), at
      the same shapes (every shape those paths give A, B, C, D and K8 to
@@ -83,8 +94,10 @@ Phases, each of which fails the run on error:
      for the static rule); one more step traced (device busy time, the
      conv kernels' and C's and D's time, and the count of device
      kernels, copies and memsets in the step), whose launches of the
-     wgmma conv kernel (and of its K11 form) and of PR 4's conv kernels
-     must equal the route counters' of a step;
+     wgmma conv kernel (and of its K11 form), of PR 4's conv kernels, of
+     K12's kernel and of D's cooperative kernel (and of PR 6's reduce and
+     dpre) must equal the route counters' of a step; every D a step one
+     cooperative launch, and no column sum right after a stem kernel;
   3b. the HPFG main path the same way, with the values of
      configs/hpfg_unet_plus_30k_224x224_ACDC.yaml (two full-width UNet_Plus
      students and the EMA teacher: three forwards and two backwards a step);
@@ -222,7 +235,7 @@ Phases, each of which fails the run on error:
      ``evaluate_volumes_multi`` call and each through ``evaluate_volumes``
      (its one-model call) on that ACDC-size split: exactly equal, both
      times;
-  15. ``dp``: data parallelism over processes on this one card. Three
+  15. ``dp``: data parallelism over processes on this one card. Two
      one-process steps of ten paths at the configs' full width and global
      batches (bf16): Mean-Teacher, HPFG, UAMT, ICT, SS-Net, S4CVNet (8 + 24
      at 224^2), Swin-MAE (24), CMT and UniFormer HPFG (8 + 24) and the
@@ -257,8 +270,8 @@ Phases, each of which fails the run on error:
   18. ``sharded eval`` (after phase 14): Mean-Teacher's student and EMA
      teacher, and S4CVNet's SwinUNet and EMA SwinUNet (K13 in their
      forwards; its UNet is Mean-Teacher's student at this seed), over a
-     test split of 15 volumes of 10 slices (phase 13's ACDC-size one cut
-     for time: the ranks' shares are 8 and 7) in one process and on 2
+     test split of 10 volumes of 10 slices (phase 13's ACDC-size one cut
+     for time: the ranks' shares are 5 and 5) in one process and on 2
      gloo ranks on the card (``--eval-worker``), each rank its share:
      per-class dice and HD95 bitwise equal to the one process's; the
      eval's wall time in one process and on each rank;
@@ -298,8 +311,10 @@ lists the kernels with their launch counts on each of the eighteen main
 paths and summed over them, errors, times and bounds (at the ACDC paths'
 shapes, and in ``at_geometries`` at each new path's).
 
-``dgrad_kernel_times``, ``conv_kernel_times`` and ``pair_kernel_times``
-run alone (``python3 -c "import chip_smoke as c;
+``bn_stem_kernel_times`` times K12 (both forms, the mma route, cuDNN) at
+the four stems and C and D (both forms, PR 6's two kernels) at the five
+ACDC stages on the device; ``dgrad_kernel_times``, ``conv_kernel_times``
+and ``pair_kernel_times`` run alone (``python3 -c "import chip_smoke as c;
 c.dgrad_kernel_times()"``) time K9 and K11, A and B, K8 and K10 on both
 routes and cuDNN at the main path's shapes, device-only and
 host-inclusive; a copy of this file run from an earlier tree's root
@@ -308,6 +323,7 @@ times that tree's kernels.
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import json
 import os
@@ -337,6 +353,7 @@ CU90 = "hpfg_tpu_torch/csrc/conv3x3_sm90.cu"
 ATTN_CU = "hpfg_tpu_torch/csrc/window_attention.cu"
 ATTN_CU90 = "hpfg_tpu_torch/csrc/window_attention_sm90.cu"
 BN_CU = "hpfg_tpu_torch/csrc/bn_act.cu"
+STEM_CU90 = "hpfg_tpu_torch/csrc/stem_sm90.cu"
 PALLAS = "hpfg_tpu/ops/pallas/conv_block.py"
 ATTN_PALLAS = "hpfg_tpu/ops/pallas/window_attention.py"
 S4_CONFIG = "configs/s4cvnet_unet_30k_224x224_ACDC.yaml"
@@ -438,10 +455,16 @@ ATTN_PATHS = tuple(p.label for p in PATHS if p.attn_fwd)
 KERNELS = {
     "conv3x3_nhwc": dict(route="cuda", source=CU90,
                          replaces=f"{PALLAS}:734",
-                         also_replaces=[f"{PALLAS}:785", f"{PALLAS}:1176",
-                                        f"{PALLAS}:746"],
+                         also_replaces=[f"{PALLAS}:785", f"{PALLAS}:1176"],
                          counters=["conv3x3_nhwc"],
-                         routes={"wgmma": CU90, "mma": CU}),
+                         routes={"wgmma": CU90, "mma": CU,
+                                 "stem": STEM_CU90}),
+    # K12: A's calls on the stem route (its launches: that route's count)
+    "conv3x3_stem": dict(route="cuda", source=STEM_CU90,
+                         replaces=f"{PALLAS}:746", also_replaces=[],
+                         counters=[], route_of=("conv3x3_nhwc", "stem"),
+                         routes={"stem": STEM_CU90},
+                         library_note="F.conv2d alone: no statistics"),
     "conv3x3_wgrad_nhwc": dict(route="cuda", source=CU90,
                                replaces=f"{PALLAS}:1192", also_replaces=[],
                                counters=["conv3x3_wgrad_nhwc"],
@@ -451,7 +474,9 @@ KERNELS = {
     "bn_act_bwd": dict(route="cuda", source=BN_CU,
                        replaces=f"{PALLAS}:1151",
                        also_replaces=[f"{PALLAS}:1166"],
-                       counters=["bn_act_bwd", "bn_act_dpre", "bn_reduce"]),
+                       counters=["bn_act_bwd", "bn_act_dpre", "bn_reduce"],
+                       routes={"hold": BN_CU, "stream": BN_CU,
+                               "walk": BN_CU}),
     "conv3x3_pair_nhwc": dict(route="cuda", source=CU90,
                               replaces=f"{PALLAS}:772", also_replaces=[],
                               counters=["conv3x3_pair_nhwc"],
@@ -797,7 +822,8 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
             cms = lib(lambda: F.conv2d(nchw(x), w_c, bias_c, padding=1))
             work = conv_work(hh, c, f, es, 2 * f, batch=batch)
             route = cb.conv_route(c, f, dt, True,
-                                  "conv" if keep is None else "prologue")
+                                  "conv" if keep is None else "prologue",
+                                  width=hh)
             pro = cb._prologue_args(args.get("affine"), args.get("drop"), c,
                                     batch, dev)
             y_m = torch.empty_like(y)
@@ -810,22 +836,26 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
                                 lambda: cb.conv3x3_nhwc(x, w, **args), a_mma,
                                 lambda: F.conv2d(nchw(x), w_c, bias_c,
                                                  padding=1))
-            r1 = rep.compare("conv3x3_nhwc", f"{name} fwd{sfx}", dname, y,
+            # K12 (the stem route) is its own kernel in the kernels line
+            kname = "conv3x3_stem" if route == "stem" else "conv3x3_nhwc"
+            r1 = rep.compare(kname, f"{name} fwd{sfx}", dname, y,
                              y_r, ms, pms, library_ms=cms,
                              main=timed and not concat, work=work,
                              route=route, **extra)
-            r2 = rep.compare("conv3x3_nhwc", f"{name} stats{sfx}", dname, st,
-                             st_r)
-            same_twice(rep, f"conv3x3_nhwc {name} y, stats {dname}{sfx}",
+            r2 = rep.compare(kname, f"{name} stats{sfx}", dname, st,
+                             st_r, tol=TOL["float32"] if route == "stem"
+                             else None)
+            same_twice(rep, f"{kname} {name} y, stats {dname}{sfx}",
                        lambda: cb.conv3x3_nhwc(x, w, **args))
-            if route == "wgmma":  # the other route at the same shape
+            if route in ("wgmma", "stem"):  # the other routes, same shape
                 got_m, st_m = a_mma()
                 r2 = max(r2, rep.compare(
-                    "conv3x3_nhwc", f"{name} fwd mma route{sfx}", dname,
+                    kname, f"{name} fwd mma route{sfx}", dname,
                     got_m, y_r, main=False), rep.compare(
-                    "conv3x3_nhwc", f"{name} stats mma route{sfx}", dname,
+                    kname, f"{name} stats mma route{sfx}", dname,
                     st_m, st_r, main=False))
-            line.append(f"A {route} fwd {max(r1, r2):.1e}"
+            line.append(f"{'K12' if route == 'stem' else 'A'} {route} fwd "
+                        f"{max(r1, r2):.1e}"
                         f"{perf(ms, pms, cms, work)}{route_note(extra)}")
 
             wf = cb.flip_transpose(w)
@@ -907,8 +937,11 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
                 pms = pclock(lambda: ba.bn_act_reference(g, a2, b2))
                 y_r = ba.bn_act_reference(g, a2, b2)
                 work = (3 * n, 2 * es * n)
+                c_extra = (dict(device_ms=device_ms(
+                    lambda: ba.bn_act(g, a2, b2))) if both_routes else {})
                 r = rep.compare("bn_act", f"{name} bn_act{sfx}", dname, y,
-                                y_r, ms, pms, work=work, main=timed)
+                                y_r, ms, pms, work=work, main=timed,
+                                **c_extra)
                 if not torch.equal(y, y_r):
                     rep.fail(f"bn_act {name} {dname}{sfx}: not bitwise equal "
                              f"to the plain version")
@@ -920,28 +953,108 @@ def check_kernels(rep: Report, dev, batch: int = BATCH,
                 pms = pclock(lambda: ba.bn_act_bwd_reference(dp, g, a2, b2,
                                                             m, inv))
                 work = (17 * n, 3 * es * n)
+                d_extra, forms = bn_forms(both_routes, dp, g, a2, b2, m, inv)
                 # the sums are fp32 in both dtypes: the fp32 tolerance
                 r1 = rep.compare("bn_act_bwd", f"{name} sums{sfx}", dname, s,
                                  s_r, ms, pms, tol=TOL["float32"], work=work,
-                                 main=timed)
+                                 main=timed, route=bn_form(dp, g, a2, b2, m,
+                                                           inv), **d_extra)
                 r2 = rep.compare("bn_act_bwd", f"{name} dpre{sfx}", dname, d,
                                  d_r)
+                if not torch.equal(d, ba.bn_act_dpre_reference(
+                        dp, g, a2, b2, m, inv, s)):
+                    rep.fail(f"bn_act_bwd {name} {dname}{sfx}: dpre not "
+                             f"bitwise the plain version from its sums")
                 same_twice(rep, f"bn_act_bwd {name} sums {dname}{sfx}",
                            lambda: (ba.bn_act_bwd(dp, g, a2, b2, m, inv)[0],))
-                line.append(f"D {max(r1, r2):.1e}{perf(ms, pms, work=work)}")
+                for form, (s_f, d_f) in forms.items():  # the other forms
+                    r2 = max(r2, rep.compare(
+                        "bn_act_bwd", f"{name} sums {form} form{sfx}", dname,
+                        s_f, s_r, tol=TOL["float32"], main=False),
+                        rep.compare("bn_act_bwd", f"{name} dpre {form} "
+                                    f"form{sfx}", dname, d_f, d_r,
+                                    main=False))
+                line.append(f"D {max(r1, r2):.1e}{perf(ms, pms, work=work)}"
+                            f"{bn_note(d_extra)}")
                 d = ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r)
                 ms = clock(lambda: ba.bn_act_dpre(dp, g, a2, b2, m, inv, s_r))
                 pms = pclock(lambda: ba.bn_act_dpre_reference(
                     dp, g, a2, b2, m, inv, s_r))
                 work = (9 * n, 3 * es * n)
+                # K5 alone on the device (its row in the kernels line's
+                # by_tpu_kernel split)
+                p_extra = (dict(device_ms=device_ms(lambda: ba.bn_act_dpre(
+                    dp, g, a2, b2, m, inv, s_r))) if both_routes else {})
                 r = rep.compare("bn_act_bwd", f"{name} dpre-only{sfx}", dname,
                                 d, ba.bn_act_dpre_reference(dp, g, a2, b2, m,
                                                             inv, s_r),
-                                ms, pms, work=work, main=timed)
+                                ms, pms, work=work, main=timed, **p_extra)
                 line.append(f"D dpre {r:.1e}{perf(ms, pms, work=work)}")
             print(" | ".join(line), flush=True)
             del x, w, dp, y, y_r, dx, dx_r
             torch.cuda.empty_cache()
+
+
+def bn_form(dy, pre, a, b, mean, inv) -> str:
+    """The route D's wrapper takes for these tensors: "walk" (PR 6's two
+    kernels) or the cooperative kernel's form, "hold" or "stream"."""
+    from hpfg_tpu_torch.ops import bn_act as ba
+
+    route = ba._route(dy, pre, a, b, mean, inv)
+    return route if route == "walk" else ba._plan(dy, False).form
+
+
+def bn_forms(timed: bool, dy, pre, a, b, mean, inv) -> tuple[dict, dict]:
+    """D beside the wrapper's own call: the cooperative kernel's other form
+    (the hold form where it fits) and PR 6's two kernels ("walk": reduce,
+    then dpre from its sums). Returns (timings: device-only ms of the
+    wrapper's call and of each form, "walk" also host-inclusive; empty
+    untimed, {form: (sums, dpre)} of the forms the wrapper did not
+    take)."""
+    import torch
+
+    from hpfg_tpu_torch.ops import bn_act as ba
+
+    args = (dy, pre, a, b, mean, inv)
+    own = bn_form(*args)
+
+    def coop(form):
+        def run():
+            d = torch.empty_like(dy)
+            return ba._coop(*args, d, form=form)[0], d
+        return run
+
+    def walk():
+        s = ba._reduce(*args)
+        return s, ba._dpre(*args, s)
+
+    calls = {"walk": walk}
+    if own != "walk":
+        calls["stream"] = coop("stream")
+        try:
+            ba._plan(dy, False, "hold")
+            calls["hold"] = coop("hold")
+        except ValueError:  # dy and pre do not fit the resident CTAs
+            pass
+    forms = {k: fn() for k, fn in calls.items() if k != own}
+    extra = {}
+    if timed:
+        extra["device_ms"] = device_ms(lambda: ba.bn_act_bwd(*args))
+        for k, fn in calls.items():
+            extra[f"{k}_device_ms"] = device_ms(fn)
+        extra["walk_ms"] = cuda_ms(walk)
+    return extra, forms
+
+
+def bn_note(extra: dict) -> str:
+    """' device call/hold/stream/walk ms (walk host ...)' of ``bn_forms``."""
+    if not extra:
+        return ""
+    parts = [f"{extra[k]:.4f}" if k in extra else "n/a"
+             for k in ("device_ms", "hold_device_ms", "stream_device_ms",
+                       "walk_device_ms")]
+    return (f" device call/hold/stream/walk {'/'.join(parts)}ms (walk host "
+            f"{extra['walk_ms']:.4f}ms)")
 
 
 def check_pair_kernels(rep: Report, dev, batch: int = BATCH,
@@ -1497,9 +1610,12 @@ def conv_kernel_times(batch: int = BATCH, cases=None) -> dict:
                 calls["wgmma"] = lambda: sm90_wgrad(x, dp, pro=pro)
             work = conv_work(hh, c, f, 2, w_es=4, batch=batch)
         b_ms, b_by = bound(*work)
+        # an earlier tree's rule may not take the width (K12's stem route)
+        wide = ({"width": hh} if route_of and "width" in
+                inspect.signature(route_of).parameters else {})
         row = dict(kernel=kernel, form=form, hh=hh, c=c, f=f, keep=keep,
-                   route=(route_of(c, f, dt, True, ROUTE_FORMS[kernel, form])
-                          if route_of else "mma"),
+                   route=(route_of(c, f, dt, True, ROUTE_FORMS[kernel, form],
+                                   **wide) if route_of else "mma"),
                    bound_ms=b_ms, bound_by=b_by)
         for what, fn in calls.items():
             row[what] = dict(device_ms=device_ms(fn), host_ms=cuda_ms(fn),
@@ -1728,6 +1844,118 @@ def attention_kernel_times(cases=None) -> dict:
                     t["host_ms"] += row[what]["host_ms"]
     out["total"] = totals
     print("ATTN " + json.dumps(out), flush=True)
+    return out
+
+
+#: K12's main-path shapes: (label, batch, side, C) of the bf16 stems,
+#: F = 16 (ACDC and Synapse 224^2 at 32; LIDC 96^2 at 32; ISIC 224^2 at
+#: 40; Building 512^2 at 12)
+STEM_CASES = (("acdc", BATCH, HW, 1), ("lidc", 32, 96, 3),
+              ("isic", 40, 224, 3), ("building", 12, 512, 3))
+
+
+def bn_stem_kernel_times() -> dict:
+    """K12 and C and D in bf16 at their main-path shapes: ms per call on
+    the device alone (``device_ms``), host-inclusive (``cuda_ms``) and the
+    µs to enqueue one wrapper call. K12 at ``STEM_CASES`` with its
+    statistics: the wrapper ("call": K12's own kernel where the tree has
+    it) and PR 4's mma.sync route ("mma"), beside cuDNN's F.conv2d alone
+    and the bound; C (``bn_act``) and D
+    (``bn_act_bwd``) at the five ACDC stages at batch 32: D's wrapper,
+    PR 6's two kernels ("walk"), and where the tree has the cooperative
+    kernel its forms ("hold" where dy and pre fit, "stream"), beside the
+    bound (D: three passes). It calls the wrappers' long-standing
+    arguments and the launchers a tree has, so a copy of this file run
+    from an earlier tree's root times that tree's kernels. Printed as one
+    ``BNSTEM`` JSON line (with totals) and returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from hpfg_tpu_torch.ops import bn_act as ba
+    from hpfg_tpu_torch.ops import conv_block as cb
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dt = torch.bfloat16
+    coop = getattr(ba, "_coop", None)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def timed(calls: dict, row: dict) -> dict:
+        for what, fn in calls.items():
+            row[what] = dict(device_ms=device_ms(fn), host_ms=cuda_ms(fn))
+        row["call"]["enqueue_us"] = enqueue_us(calls["call"])
+        return row
+
+    out = {}
+    for label, b, hw, c in STEM_CASES:
+        f = 16
+        x = randn(b, hw, hw, c).to(dt)
+        w = randn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
+        bias = randn(f, scale=0.1)
+        y = torch.empty((b, hw, hw, f), device=dev, dtype=dt)
+        calls = {"call": lambda: cb.conv3x3_nhwc(x, w, bias,
+                                                 want_stats=True),
+                 "mma": lambda: cb._launch_conv(x, w, y, bias=bias,
+                                                want_sums=True)}
+        xc, wc, bc = nchw(x), oihw(w), bias.to(dt)
+        b_ms, b_by = bound(*conv_work(hw, c, f, 2, 2 * f, batch=b))
+        out[f"K12 {label}"] = timed(calls, dict(
+            kernel="K12", batch=b, side=hw, c=c, f=f,
+            cudnn_device_ms=device_ms(lambda: F.conv2d(xc, wc, bc,
+                                                       padding=1)),
+            bound_ms=b_ms, bound_by=b_by))
+        del x, y, xc
+        torch.cuda.empty_cache()
+    for name, hh, _, f, _ in BLOCKS[:5]:
+        shape = (BATCH, hh, hh, f)
+        n = BATCH * hh * hh * f
+        g, dy = randn(*shape).to(dt), randn(*shape).to(dt)
+        a, bb = 1.0 + randn(f, scale=0.1), randn(f, scale=0.1)
+        m, inv = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1).abs()
+        args = (dy, g, a, bb, m, inv)
+        out[f"C {name}"] = timed(
+            {"call": lambda: ba.bn_act(g, a, bb)},
+            dict(kernel="C", stage=name, bound_ms=2 * 2 * n / HBM_BYTES_PER_S
+                 * 1e3))
+
+        def walk():
+            return ba._dpre(*args, ba._reduce(*args))
+
+        calls = {"call": lambda: ba.bn_act_bwd(*args), "walk": walk}
+        form = "walk"
+        if coop is not None:
+            form = bn_form(*args)
+            for what in ("hold", "stream"):
+                try:
+                    ba._plan(dy, False, what)
+                except ValueError:  # hold: does not fit
+                    continue
+                calls[what] = (lambda what=what: coop(
+                    *args, torch.empty_like(dy), form=what))
+        out[f"D {name}"] = timed(calls, dict(
+            kernel="D", stage=name, route=form,
+            bound_ms=3 * 2 * n / HBM_BYTES_PER_S * 1e3))
+        del g, dy
+        torch.cuda.empty_cache()
+    totals = {}
+    for row in list(out.values()):
+        acc = totals.setdefault(row["kernel"], {"bound_ms": 0.0})
+        acc["bound_ms"] += row["bound_ms"]
+        if "cudnn_device_ms" in row:
+            acc["cudnn_device_ms"] = (acc.get("cudnn_device_ms", 0.0)
+                                      + row["cudnn_device_ms"])
+        for what in ("call", "mma", "walk", "hold",
+                     "stream"):
+            if what in row:
+                t = acc.setdefault(what, dict(device_ms=0.0, host_ms=0.0,
+                                              shapes=0))
+                t["device_ms"] += row[what]["device_ms"]
+                t["host_ms"] += row[what]["host_ms"]
+                t["shapes"] += 1
+    out["total"] = totals
+    print("BNSTEM " + json.dumps(out), flush=True)
     return out
 
 
@@ -2180,11 +2408,13 @@ def counters() -> dict:
 
 def route_counters() -> dict:
     """The wrappers whose launches each route counts too (A, B, K8 to
-    K11, K13, K14): ``fn.routes[route].launches``."""
+    K11, K13, K14, D): ``fn.routes[route].launches``."""
+    from hpfg_tpu_torch.ops import bn_act as ba
     from hpfg_tpu_torch.ops import conv_block as cb
     from hpfg_tpu_torch.ops import window_attention as wa
 
-    return {"window_attention_fwd": wa.window_attention_fwd,
+    return {"bn_act_bwd": ba.bn_act_bwd, "bn_reduce": ba.bn_reduce,
+            "window_attention_fwd": wa.window_attention_fwd,
             "window_attention_bwd": wa.window_attention_bwd,
             "conv3x3_nhwc": cb.conv3x3_nhwc,
             "conv3x3_wgrad_nhwc": cb.conv3x3_wgrad_nhwc,
@@ -2195,7 +2425,7 @@ def route_counters() -> dict:
 
 
 def predicted_routes(model, dtype, steps: int, forwards: int, backwards: int,
-                     inner_backwards: int = 0) -> dict:
+                     inner_backwards: int = 0, width: int = HW) -> dict:
     """A's, B's, K9's and K11's launches by route per run, walking the
     convs that ``predicted_launches`` counts: a call takes wgmma where its
     compute dtype is bf16 and its C and F (and K9's split) are multiples
@@ -2209,21 +2439,26 @@ def predicted_routes(model, dtype, steps: int, forwards: int, backwards: int,
     conv1, A's dgrad on the other conv1s (but the stem's) and each plain
     conv, and B on each conv1 (not an UpBlock's), conv2 and plain conv; a
     backward to the input K11 and K9 as a backward does, A's dgrad on
-    every other conv1 (the stem's too) and plain conv."""
+    every other conv1 (the stem's too) and plain conv. A stem's forward
+    (C = 1 or 3 into 16 or 32, bf16, rows of ``width`` pixels in whole
+    16-byte units) takes "stem", K12's kernel (``stem_ok``)."""
     import torch
 
     from hpfg_tpu_torch.models.layers import ConvBlock, UpBlock
-    from hpfg_tpu_torch.ops.conv_block import WGRAD_PROLOGUE_MIN_C
+    from hpfg_tpu_torch.ops.conv_block import WGRAD_PROLOGUE_MIN_C, stem_ok
 
     a, b = "conv3x3_nhwc", "conv3x3_wgrad_nhwc"
     k9, k11 = "conv3x3_dgrad_pair", "conv3x3_dgrad_reduce"
     out = {k: {"wgmma": 0, "mma": 0} for k in (a, b, k9, k11)}
+    out[a]["stem"] = 0
     if model is None:
         return out
     bf16 = dtype == torch.bfloat16
 
     def add(kernel, c, f, n, prologue=False, split=0):
-        route = ("wgmma" if bf16 and c % 8 == 0 and f % 8 == 0
+        route = ("stem" if kernel == a and stem_ok(c, f, dtype, True, width)
+                 else
+                 "wgmma" if bf16 and c % 8 == 0 and f % 8 == 0
                  and split % 8 == 0
                  and not (prologue and kernel == b
                           and c < WGRAD_PROLOGUE_MIN_C)
@@ -2385,13 +2620,14 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
                      f"{expected[k]}")
     for name, meta in KERNELS.items():
         if (label in meta.get("paths", CONV_PATHS)
-                and sum(launches[c] for c in meta["counters"]) == 0):
+                and launched(meta, launches, routes) == 0):
             rep.fail(f"{label} path: kernel {name} was not launched")
     # every K8 and K10 launch of the path on the wgmma route (bf16,
     # aligned), and every A and B launch whose C and F are multiples of 8
     want = predicted_routes(getattr(algo, path.unet) if path.unet else None,
                             algo.dtype, STEPS, path.forwards,
-                            path.backwards, path.inner_backwards)
+                            path.backwards, path.inner_backwards,
+                            width=crop(cfg))
     want.update(predicted_attention(algo, STEPS, path.attn_fwd,
                                     path.attn_bwd, by_route=True))
     for name, by_route in routes.items():
@@ -2402,6 +2638,14 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
             if by_route != want[name]:
                 rep.fail(f"{label} path: {name} launches by route "
                          f"{by_route} != predicted {want[name]}")
+        elif name in ("bn_act_bwd", "bn_reduce"):
+            # D: one cooperative launch a call (hold or stream), never PR
+            # 6's two (the UNets' F are multiples of 8)
+            if by_route["walk"] or (by_route["hold"] + by_route["stream"]
+                                    != launches[name]):
+                rep.fail(f"{label} path: {name} launches off the "
+                         f"cooperative kernel: {by_route} of "
+                         f"{launches[name]}")
         elif by_route["wgmma"] != launches[name] or by_route["mma"]:
             rep.fail(f"{label} path: {name} launches off the wgmma route: "
                      f"{by_route} of {launches[name]}")
@@ -2411,15 +2655,25 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
         # the traced step's device launches of the conv kernels by route
         # against the wrappers' route counts of a step
         want_dev = {
-            fam: sum(routes[k][r] for k in kernels) // STEPS
-            for fam, r, kernels in (
-                ("conv_sm90", "wgmma", ("conv3x3_nhwc", "conv3x3_pair_nhwc",
-                                        "conv3x3_dgrad_pair",
-                                        "conv3x3_dgrad_reduce")),
-                ("conv_sm90 reduce", "wgmma", ("conv3x3_dgrad_reduce",)),
-                ("conv3x3", "mma", ("conv3x3_nhwc", "conv3x3_pair_nhwc",
-                                    "conv3x3_dgrad_pair",
-                                    "conv3x3_dgrad_reduce")))}
+            fam: sum(routes[k][r] for k in kernels for r in rs) // STEPS
+            for fam, rs, kernels in (
+                ("conv_sm90", ("wgmma",), ("conv3x3_nhwc",
+                                           "conv3x3_pair_nhwc",
+                                           "conv3x3_dgrad_pair",
+                                           "conv3x3_dgrad_reduce")),
+                ("conv_sm90 reduce", ("wgmma",), ("conv3x3_dgrad_reduce",)),
+                ("conv3x3", ("mma",), ("conv3x3_nhwc", "conv3x3_pair_nhwc",
+                                       "conv3x3_dgrad_pair",
+                                       "conv3x3_dgrad_reduce")),
+                # K12 and D: one launch a call, PR 6's kernels for none
+                ("stem_sm90", ("stem",), ("conv3x3_nhwc",)),
+                ("bn_coop", ("hold", "stream"), ("bn_act_bwd",
+                                                 "bn_reduce")),
+                ("bn_reduce", ("walk",), ("bn_act_bwd", "bn_reduce")))}
+        want_dev["bn_dpre"] = (launches["bn_act_dpre"]
+                               + routes["bn_act_bwd"]["walk"]) // STEPS
+        # the stem's statistics are summed in its kernel
+        want_dev["colsum after stem"] = 0
         print(f"{label} traced device launches by family: {families} "
               f"(predicted {want_dev}; {step_launches} in all)", flush=True)
         for fam, n in want_dev.items():
@@ -2461,11 +2715,14 @@ def run_main_path(rep: Report, dev, card: str, path: MainPath):
 def profile_step(trainer, card: str, label: str):
     """One more step under torch.profiler: device time by kernel name and
     the device's busy share of the step's wall time (profiler on). Returns
-    (busy ms, ms of the conv kernels A, B and K8-K11, ms of kernels C and D,
+    (busy ms, ms of the conv kernels A, B, K8-K12, ms of kernels C and D,
     device kernels, copies and memsets in the step, launches by family:
     "conv_sm90" the wgmma conv (A, K8, K9, K11), "conv_sm90 reduce" its
     K11 instantiations, "conv3x3" PR 4's conv kernels, "colsum" the column
-    sums), or Nones when the profiler saw no device time."""
+    sums, "stem_sm90" K12's kernel, "bn_coop" D's cooperative kernel,
+    "bn_reduce" and "bn_dpre" PR 6's, "colsum after stem" the column sums
+    that follow a stem kernel), or Nones when the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2493,10 +2750,11 @@ def profile_step(trainer, card: str, label: str):
     # the port's conv kernels by name (cuDNN's, on the CTCT path's
     # SegFormer, have "wgrad" in theirs too)
     conv = sum(v[1] for k, v in by_name.items()
-               if re.search(r"\b(conv3x3|wgrad|conv_sm90|wgrad_sm90)(_bf16)?"
-                            r"_kernel\b", k))
+               if re.search(r"\b(conv3x3|wgrad|conv_sm90|wgrad_sm90|stem_sm90)"
+                            r"(_bf16)?_kernel\b", k))
     bn = sum(v[1] for k, v in by_name.items()
-             if any(f"bn_{n}_kernel" in k for n in ("act", "reduce", "dpre")))
+             if any(f"bn_{n}_kernel" in k
+                    for n in ("act", "reduce", "dpre", "coop")))
     launches = sum(v[0] for v in by_name.values())
     families = {fam: sum(v[0] for k, v in by_name.items()
                          if re.search(pattern, k))
@@ -2510,7 +2768,18 @@ def profile_step(trainer, card: str, label: str):
                     # K13 and K14: csrc/window_attention_sm90.cu's, and
                     # csrc/window_attention.cu's (bf16 and fp32)
                     ("attn_sm90", r"\battn_(fwd|bwd)_sm90_kernel<"),
-                    ("attn mma", r"\battn_(fwd|bwd)(_bf16)?_kernel<"))}
+                    ("attn mma", r"\battn_(fwd|bwd)(_bf16)?_kernel<"),
+                    # K12's kernel; D's cooperative kernel and PR 6's two
+                    ("stem_sm90", r"\bstem_sm90_kernel<"),
+                    ("bn_coop", r"\bbn_coop_kernel<"),
+                    ("bn_reduce", r"\bbn_reduce_kernel<"),
+                    ("bn_dpre", r"\bbn_dpre_kernel<"))}
+    # a column sum launched right after a stem kernel (its statistics'
+    # second pass, which K12's kernel has no more)
+    order = sorted(kernels, key=lambda e: e.time_range.start)
+    families["colsum after stem"] = sum(
+        1 for e, nxt in zip(order, order[1:])
+        if "stem_sm90_kernel" in e.name and "colsum_kernel" in nxt.name)
     lines = [f"profile of one {label} step ({card}): wall "
              f"{wall_us / 1e3:.2f} ms with the profiler on, device busy "
              f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), conv "
@@ -3026,9 +3295,9 @@ ACDC_SLICES, ACDC_VOLUMES, ACDC_DEPTH, ACDC_HW = 160, 2, 6, (256, 216)
 #: slices a volume, the 1,312 training slices of 140 volumes rounded)
 ACDC_EVAL_VOLUMES, ACDC_EVAL_DEPTH = 40, 10
 #: phase 18's own test split: fewer volumes (its check is the ranks'
-#: results bitwise against one process's, which 15 volumes, shared 8 / 7,
+#: results bitwise against one process's, which 10 volumes, shared 5 / 5,
 #: test as well as 40; the ACDC-size split stays with phases 13-14)
-SHARDED_EVAL_VOLUMES = 15
+SHARDED_EVAL_VOLUMES = 10
 #: the eval models each ACDC CLI run must log at both boundaries
 CLI_ACDC = {MT_CONFIG: ("model1", "model2"),
             HPFG_CONFIG: ("model1", "model2", "ema")}
@@ -3814,6 +4083,16 @@ def _leaves(tree):
         yield tree
 
 
+def launched(meta: dict, launches: dict, routes: dict) -> int:
+    """A KERNELS entry's launches in one run: its wrappers' counts, or for
+    a kernel that is one route of a wrapper (``route_of``: K12) that
+    route's count (``routes``: the run's launches by route)."""
+    if "route_of" in meta:
+        wrapper, route = meta["route_of"]
+        return routes.get(wrapper, {}).get(route, 0)
+    return sum(launches.get(c, 0) for c in meta["counters"])
+
+
 def kernel_line(rep: Report, paths: dict, routes: dict | None = None
                 ) -> list[dict]:
     """The per-kernel summary: launches on each main path's timed run and
@@ -3824,7 +4103,8 @@ def kernel_line(rep: Report, paths: dict, routes: dict | None = None
     route) gives ``launches_by_route`` summed over the paths, and their
     rows' device-only times give ``device_ms`` (the route the wrapper
     takes), ``mma_ms`` / ``mma_device_ms`` (PR 4's mma.sync kernels) and
-    ``library_device_ms``, each summed like ``ms``."""
+    ``library_device_ms``, each summed like ``ms``; a kernel without
+    routes whose rows all have it (C) gets ``device_ms`` alone."""
     kernels = []
     for name, meta in KERNELS.items():
         rows = [r for r in rep.rows if r["kernel"] == name]
@@ -3833,7 +4113,8 @@ def kernel_line(rep: Report, paths: dict, routes: dict | None = None
         t_ops = sum(r["flops"] / BF16_FLOPS_PER_S * 1e3 for r in timed)
         t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S * 1e3 for r in timed)
         lib = [r["library_ms"] for r in timed]
-        by_path = {p: sum(launches.get(c, 0) for c in meta["counters"])
+        dev = [r.get("device_ms") for r in timed]
+        by_path = {p: launched(meta, launches, (routes or {}).get(p, {}))
                    for p, launches in paths.items()}
         at = {}
         for geo in sorted({r["geometry"] for r in rows} - {None}):
@@ -3865,8 +4146,10 @@ def kernel_line(rep: Report, paths: dict, routes: dict | None = None
             library_ms=(sum(lib) if lib and None not in lib else None),
             **({"library_note": meta["library_note"]}
                if "library_note" in meta else {}),
-            **(route_line(meta["routes"], name, timed, routes or {})
-               if "routes" in meta else {}),
+            **(route_line(meta["routes"], meta.get("route_of", (name,))[0],
+                          timed, routes or {})
+               if "routes" in meta else
+               {"device_ms": sum(dev)} if dev and None not in dev else {}),
             timed_shapes=len(timed), at_geometries=at,
             **({"by_tpu_kernel": {k: v for k, v in tpu_kernel_split(
                 rows).items() if v["wrapper"] == name}}
@@ -3875,12 +4158,12 @@ def kernel_line(rep: Report, paths: dict, routes: dict | None = None
 
 
 #: the TPU kernels whose work a wrapper's timed rows split into, by the
-#: row's label: A's stem conv1 (K12, C = 1 on ACDC), its conv2 forwards
-#: (K2, the prologue form), its dgrads (K6) and the rest (K1: the conv1s,
-#: 1x1s and head); D's sums (K4) and its dpre-only entry (K5)
+#: row's label: A's conv2 forwards (K2, the prologue form), its dgrads (K6)
+#: and the rest (K1: the conv1s, 1x1s and head; the stem's is K12's own
+#: entry, ``conv3x3_stem``); D's full calls (K4, with the dpre of K5 in
+#: the same launch) and its dpre-only entry (K5)
 TPU_FORMS = {
-    "conv3x3_nhwc": (("K12", lambda w: w.startswith("in_conv.conv1 fwd")),
-                     ("K2", lambda w: ".conv2 fwd" in w),
+    "conv3x3_nhwc": (("K2", lambda w: ".conv2 fwd" in w),
                      ("K6", lambda w: " dgrad" in w),
                      ("K1", lambda w: True)),
     "bn_act_bwd": (("K5", lambda w: "dpre-only" in w),
@@ -3918,18 +4201,28 @@ def tpu_kernel_split(rows) -> dict:
     return out
 
 
+#: the device-only keys of phase 2's rows (``route_times``, ``bn_forms``)
+#: that a kernel's routes line sums over its shapes
+ROUTE_KEYS = ("device_ms", "mma_ms", "mma_device_ms", "library_device_ms",
+              "hold_device_ms", "stream_device_ms", "walk_device_ms",
+              "walk_ms")
+
+
 def route_line(sources: dict, name: str, timed: list, routes: dict) -> dict:
-    """K8's or K10's keys of the kernels line for its two routes."""
+    """The keys of the kernels line of a kernel with routes (A, B, K8 to
+    K11, K13, K14, D): launches by route over the paths, and the
+    ROUTE_KEYS its timed rows have, each summed over them (None where a
+    row lacks it) and by shape."""
     out = dict(route_sources=sources, launches_by_route={
         r: sum(by.get(name, {}).get(r, 0) for by in routes.values())
         for r in sources})
-    for key in ("device_ms", "mma_ms", "mma_device_ms", "library_device_ms"):
+    for key in ROUTE_KEYS:
         vals = [r.get(key) for r in timed]
-        out[key] = sum(vals) if vals and None not in vals else None
+        if any(v is not None for v in vals) or key in ROUTE_KEYS[:4]:
+            out[key] = sum(vals) if vals and None not in vals else None
     out["ms_by_shape"] = {r["what"]: {k: r.get(k) for k in (
-        "ms", "device_ms", "mma_ms", "mma_device_ms", "library_ms",
-        "library_device_ms", "bound_ms", "enqueue_us", "mma_enqueue_us")}
-        for r in timed}
+        "ms", "library_ms", "bound_ms", "enqueue_us", "mma_enqueue_us",
+        "route") + ROUTE_KEYS if k in r} for r in timed}
     return out
 
 
@@ -3940,7 +4233,7 @@ def route_line(sources: dict, name: str, timed: list, routes: dict) -> dict:
 
 #: the global batches of the data-parallel phase (the configs' 8 + 24)
 #: and its ranks, all on the one card over gloo
-DP_WORLD, DP_STEPS = 2, 3
+DP_WORLD, DP_STEPS = 2, 2
 #: the bounds of the data-parallel phase against one process, each step
 #: taken from the one process's state: the step's loss (relative) and the
 #: parameters and BN buffers after it (over each model's largest
@@ -4622,9 +4915,11 @@ def check_data_parallel(rep: Report, dev, card: str) -> dict:
                   f"collectives a step {got['collectives']}" + (
                       f"; not held in bf16: {list(unmet)}, unmet: "
                       f"{unmet_now}" if unmet else ""), flush=True)
-        row["ms_per_step_1"] = ref["ms"][1]
-        row["ms_per_step_rank"] = [res[label]["ms"][1] for res in ranks]
-        print(f"dp {label}: ms/step (step 2 of {DP_STEPS}, a single "
+        # the last step a rank does not spend timing its collectives
+        last = DP_STEPS - 2
+        row["ms_per_step_1"] = ref["ms"][last]
+        row["ms_per_step_rank"] = [res[label]["ms"][last] for res in ranks]
+        print(f"dp {label}: ms/step (step {last + 1} of {DP_STEPS}, a single "
               f"sample) one process {row['ms_per_step_1']:.1f}, per rank, "
               f"{where}: {[round(v, 1) for v in row['ms_per_step_rank']]} "
               f"({card})", flush=True)
@@ -4747,11 +5042,22 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-#: the wgmma kernels (A, K8, K9 and K11; B and K10; K13; K14) whose SASS
-#: must hold wgmma and TMA instructions, not mma.sync's
+#: the sm_90a kernels (A, K8, K9 and K11; B and K10; K13; K14; K12; D's
+#: cooperative kernel) and the SASS instructions each instantiation must
+#: hold and must not: wgmma (HGMMA) and TMA loads (UTMALDG), never
+#: mma.sync (HMMA); D's kernel plain bulk copies (UBLKCP)
 WGMMA_KERNELS = ("conv_sm90_kernel", "wgrad_sm90_kernel",
-                 "attn_fwd_sm90_kernel", "attn_bwd_sm90_kernel")
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+                 "attn_fwd_sm90_kernel", "attn_bwd_sm90_kernel",
+                 "stem_sm90_kernel", "bn_coop_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP", "HMMA")
+
+
+def sass_rule(func: str) -> tuple[tuple, tuple]:
+    """(instructions required, instructions refused) of one instantiation
+    ``name<args>`` of WGMMA_KERNELS."""
+    if func.startswith("bn_coop_kernel"):
+        return ("UBLKCP",), ("HMMA",)
+    return ("HGMMA", "UTMALDG"), ("HMMA",)
 
 
 def sass_counts(lib_path) -> dict:
@@ -4829,11 +5135,13 @@ def main() -> int:
     for func, ops in sass.items():
         print(f"  sass: {func}: {ops}")
     for k in WGMMA_KERNELS:
-        insts = [ops for f, ops in sass.items() if f.startswith(k)]
-        if not insts or not all(o["HGMMA"] and o["UTMALDG"]
-                                and not o["HMMA"] for o in insts):
-            rep.fail(f"{k}: no wgmma (HGMMA) or TMA (UTMALDG), or mma.sync "
-                     f"(HMMA), in its SASS: {insts}")
+        insts = {f: ops for f, ops in sass.items() if f.startswith(k)}
+        bad = {f: ops for f, ops in insts.items()
+               if not all(ops[o] for o in sass_rule(f)[0])
+               or any(ops[o] for o in sass_rule(f)[1])}
+        if not insts or bad:
+            rep.fail(f"{k}: SASS without its instructions, or with refused "
+                     f"ones (sass_rule): {bad or 'no instantiation'}")
 
     def phase(name, fn):
         t0 = time.perf_counter()

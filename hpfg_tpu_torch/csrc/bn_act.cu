@@ -4,8 +4,11 @@
 // Replaces (hpfg_tpu/ops/pallas/conv_block.py):
 //   * bn_act_kernel, launcher hpfg_bn_act: kernel C, _bn_act_kernel (K3,
 //     body :810, pallas_call :957): y = lrelu(a*g + b), stored in g's type;
-//   * bn_reduce_kernel, launcher hpfg_bn_reduce: D's reduce,
-//     _bwd_reduce_kernel (K4, body :1151, pallas_call :1274): per channel
+//   * bn_coop_kernel, launcher hpfg_bn_coop: the full D (and D's reduce
+//     alone) on the vector path, K4 and K5 in one cooperative launch
+//     (below);
+//   * bn_reduce_kernel, launcher hpfg_bn_reduce: D's reduce on the element
+//     path, _bwd_reduce_kernel (K4, body :1151, pallas_call :1274): per channel
 //     S0 = sum dz and S1 = sum dz*xhat, dz = dy*lrelu'(a*pre + b),
 //     xhat = (pre - mean)*inv, the cross-CTA sum finished inside the kernel;
 //   * bn_dpre_kernel, launcher hpfg_bn_dpre: D's elementwise pass,
@@ -44,9 +47,9 @@
 //     that arrives last sums every partial row in a fixed order (16-byte
 //     loads, 16 in flight a thread), writes sums [2, F] and resets the
 //     counter for the next call on the stream. No float atomics: the sums
-//     are bitwise the same from run to run, and a full backward is two
-//     launches (reduce, dpre);
-//   * dy and pre are read twice by a full backward (5 passes against the
+//     are bitwise the same from run to run, and a full backward on the
+//     element path is two launches (reduce, dpre);
+//   * dy and pre are read twice by such a backward (5 passes against the
 //     bound's 3): dpre walks the rows from the last, so it first reads what
 //     the reduce read last, while that is still in the 50 MB L2. L2
 //     eviction-priority hints (evict_last on the rows dpre reads first,
@@ -59,14 +62,65 @@
 //     bitwise equal to its plain version on the card, and so is dpre from
 //     given sums.
 //
-// One counter per device: two backward reduces must not run at once on
-// different streams of one device (the port runs one stream).
+// D's cooperative form (bn_coop_kernel, launcher hpfg_bn_coop): a full
+// backward in ONE launch, the reduce and the dpre of K4 and K5 with the
+// cross-CTA sum between them, on a grid that fills the card. ops/bn_act.py
+// (bn_route, coop_plan) sends bf16 and fp32 calls on the vector path
+// (F % V == 0, 16-byte aligned pointers) here; the element path keeps
+// bn_reduce_kernel and bn_dpre_kernel, as does bn_act_dpre after K11:
+//   * the grid: every SM, one or two CTAs each, from the occupancy API at
+//     the chosen dynamic shared memory, launched with
+//     cudaLaunchCooperativeKernel, which refuses a grid that cannot be
+//     co-resident rather than hanging at a barrier. The rows go in chunks
+//     of CR rows (at most 8 KB of each tensor, sized so the chunks split
+//     evenly over the grid), CTA i taking chunks i, i + grid, ...: the
+//     grid reads one moving window of dy and of pre, not 2 x grid streams
+//     far apart;
+//   * phase 1, the reduce: one thread copies each chunk of dy and of pre
+//     into a shared-memory stage by bulk copies (cp.async.bulk, expect-tx
+//     on the stage's mbarrier), so a CTA has up to its whole ring in
+//     flight; a thread owns one channel group of V channels and rows rr,
+//     rr + R, ... of each chunk (R = 256 / G), and sums dz and dz*xhat in
+//     fp32 in bn_reduce_kernel's z, dz and xhat order; the CTA's threads
+//     then fold rows in a fixed tree into one partial row;
+//   * a grid barrier (a per-device counter: each CTA adds one and waits
+//     for the grid's count, acquire loads; it is the epoch of the
+//     launch, and the last CTA to leave resets it to 0 for the next
+//     launch on the stream), then phase 2, the finish in parallel: the
+//     2F columns in 16-byte units, unit u to warp u of the grid's warps
+//     (u, u + 8 grid, ...); a lane sums rows lane, lane + 32, ... in
+//     order, a fixed shuffle tree adds the lanes, lane 0 writes sums. No
+//     single CTA reads every partial row, and the sums are bitwise the
+//     same from run to run;
+//   * a second grid barrier, then phase 3, dpre: each thread reads its
+//     channels' sums (bypassing L1) and writes dpre for its rows. The
+//     hold form keeps every chunk of the CTA's range in its own stage
+//     (at 14^2, 28^2 and 56^2 at batch 32 dy and pre fit the resident
+//     CTAs' shared memory), so dpre reads them from there: three HBM
+//     passes, the bound. The stream form passes a CTA's chunks through a
+//     ring of four stages but keeps its last chunks in as many held
+//     stages as fit beside the ring; dpre takes the held chunks from
+//     shared memory and reads the others again in reverse chunk order,
+//     first what phase 1 read last (still in L2), as bn_dpre_kernel
+//     does. ops/bn_act.py coop_plan picks the form from the bytes and
+//     the occupancy API, never at run time;
+//   * bn_reduce alone (a data-parallel rank) is phases 1 and 2 in the
+//     stream form: one barrier;
+//   * numerics as the two-launch D: z = a*pre + b as a multiply then an
+//     add, S/N as S * (1/N); dpre is bitwise equal to the plain version
+//     from the kernel's own sums.
+//
+// One counter per device for each of D's forms: two backward reduces must
+// not run at once on different streams of one device (the port runs one
+// stream).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -469,6 +523,294 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// -- D's cooperative form -----------------------------------------------
+
+constexpr int COOP_MAX_STAGES = 32;  // mbarriers: the hold form's chunks
+constexpr int COOP_WARPS = NT / 32;
+// static shared memory of bn_coop_kernel (the bf16 tree, the barriers):
+// the dynamic ring may take the rest of an SM's 227 KB
+constexpr int COOP_STATIC = 2 * 8 * NT * 4 + COOP_MAX_STAGES * 8;
+constexpr int COOP_MAX_DYNAMIC = 232448 - COOP_STATIC;
+
+struct CoopArgs {
+  const void* dy;
+  const void* pre;
+  const float* a;
+  const float* b;
+  const float* m;
+  const float* inv;
+  float* part;        // [gridDim.x][2F]: the CTAs' partial rows
+  float* sums;        // [2F]: [S0, S1]
+  void* out;          // dpre [P, F], or null: the reduce alone
+  unsigned* counter;  // the grid barrier's, 0 between launches
+  long long P;
+  // CR rows a chunk; S ring stages (0 in the hold form) and H held
+  // stages after them: a CTA's last H chunks land in the held stages and
+  // stay, the others pass through the ring
+  int F, chunk_rows, stages, held;
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Every CTA of the (co-resident) grid arrives, then waits until the count
+// reaches target: the k-th barrier of a launch waits for k * grid.
+__device__ __forceinline__ void grid_barrier(unsigned* counter,
+                                             unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    while (ld_acquire(counter) < target) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(NT) bn_coop_kernel(const CoopArgs ca) {
+  using PK = Pack<BF16, true>;
+  using Raw = typename PK::Raw;  // 16 bytes
+  constexpr int N = PK::N;
+  constexpr int ES = BF16 ? 2 : 4;
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ uint64_t bar[COOP_MAX_STAGES];
+  __shared__ float red[2 * N][NT];
+  const int tid = threadIdx.x;
+  const int F = ca.F, G = F / N, R = NT / G;
+  const int rr = tid / G, c = tid % G, ch = c * N;
+  const bool active = rr < R;
+  const unsigned grid = gridDim.x;
+  // the rows in chunks of CR; this CTA's chunk k is the grid's chunk
+  // blockIdx.x + k * grid, so the grid reads one moving window of rows
+  const int CR = ca.chunk_rows, S = ca.stages, H = ca.held;
+  const long long chunks = (ca.P + CR - 1) / CR;
+  const int nck = (int)((chunks - blockIdx.x + grid - 1) / grid);
+  const int nr = max(0, nck - H);  // chunks through the ring: the first
+  const int row_bytes = F * ES;
+  const int half = CR * row_bytes;  // dy's part of a stage, then pre's
+  const uint8_t* dy = static_cast<const uint8_t*>(ca.dy);
+  const uint8_t* pre = static_cast<const uint8_t*>(ca.pre);
+
+  if (tid == 0) {
+    for (int s = 0; s < S + H; ++s) mbar_init(&bar[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto row_of = [&](int k) {
+    return ((long long)blockIdx.x + (long long)k * grid) * CR;
+  };
+  auto chunk_n = [&](int k) { return (int)min((long long)CR, ca.P - row_of(k)); };
+  // chunk k's stage: the ring's k % S, or held stage S + (k - nr)
+  auto stage_of = [&](int k) { return k < nr ? k % S : S + (k - nr); };
+  auto issue = [&](int k, int s) {
+    const uint32_t bytes = (uint32_t)(chunk_n(k) * row_bytes);
+    const size_t off = (size_t)row_of(k) * row_bytes;
+    uint8_t* d = ring + (size_t)s * 2 * half;
+    mbar_expect_tx(&bar[s], 2 * bytes);
+    bulk_g2s(d, dy + off, bytes, &bar[s]);
+    bulk_g2s(d + half, pre + off, bytes, &bar[s]);
+  };
+  if (tid == 0) {
+    for (int k = 0; k < min(S, nr); ++k) issue(k, k);
+    for (int k = nr; k < nck; ++k) issue(k, stage_of(k));
+  }
+
+  float a[N], b[N], m[N], inv[N], s0[N], s1[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) s0[j] = s1[j] = 0.f;
+  if (active) {
+    load_vec<N, true>(ca.a, ch, a);
+    load_vec<N, true>(ca.b, ch, b);
+    load_vec<N, true>(ca.m, ch, m);
+    load_vec<N, true>(ca.inv, ch, inv);
+  }
+
+  // phase 1: the reduce over the CTA's chunks, in order
+  for (int k = 0; k < nck; ++k) {
+    const int s = stage_of(k);
+    mbar_wait(&bar[s], k < nr ? (k / S) & 1 : 0);
+    const uint8_t* d = ring + (size_t)s * 2 * half;
+    const int n = chunk_n(k);
+    if (active) {
+#pragma unroll 4
+      for (int r = rr; r < n; r += R) {
+        float dv[N], pv[N];
+        PK::unpack(*reinterpret_cast<const Raw*>(d + r * row_bytes + c * 16),
+                   dv);
+        PK::unpack(*reinterpret_cast<const Raw*>(d + half + r * row_bytes +
+                                                 c * 16),
+                   pv);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float z = __fadd_rn(__fmul_rn(pv[j], a[j]), b[j]);
+          const float dz = z >= 0.f ? dv[j] : __fmul_rn(dv[j], SLOPE);
+          const float xhat = __fmul_rn(__fsub_rn(pv[j], m[j]), inv[j]);
+          s0[j] += dz;
+          s1[j] += dz * xhat;
+        }
+      }
+    }
+    if (k + S < nr) {  // the ring's stage takes its next chunk
+      __syncthreads();
+      if (tid == 0) issue(k + S, s);
+    }
+  }
+
+  // the CTA's partial row: rows rr of one group summed in a fixed tree
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    red[j][tid] = s0[j];
+    red[N + j][tid] = s1[j];
+  }
+  __syncthreads();
+  int h = 1;
+  while (h < R) h <<= 1;
+  for (h >>= 1; h >= 1; h >>= 1) {
+    if (rr < h && rr + h < R) {
+#pragma unroll
+      for (int j = 0; j < 2 * N; ++j) red[j][tid] += red[j][tid + h * G];
+    }
+    __syncthreads();
+  }
+  float* prow = ca.part + (size_t)blockIdx.x * 2 * F;
+  if (rr == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      prow[ch + j] = red[j][tid];
+      prow[F + ch + j] = red[N + j][tid];
+    }
+  }
+  grid_barrier(ca.counter, grid);
+
+  // phase 2: unit u (4 columns of 2F) to warp u of the grid's warps; a
+  // lane sums rows lane, lane + 32, ... in order, a fixed shuffle tree
+  // adds the lanes
+  {
+    const int lane = tid & 31, wid = tid >> 5, units = 2 * F / 4;
+    const float4* p4 = reinterpret_cast<const float4*>(ca.part);
+    for (int u = blockIdx.x * COOP_WARPS + wid; u < units;
+         u += grid * COOP_WARPS) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int r = lane; r < (int)grid; r += 32) {
+        const float4 v = __ldcg(p4 + (size_t)r * units + u);
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) {
+        acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+        acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+        acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+        acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+      }
+      if (lane == 0) reinterpret_cast<float4*>(ca.sums)[u] = acc;
+    }
+  }
+  const unsigned barriers = ca.out != nullptr ? 2u : 1u;
+  if (ca.out != nullptr) {
+    grid_barrier(ca.counter, 2 * grid);
+
+    // phase 3: dpre from the grid's sums
+    float u0[N], u1[N];
+    if (active) {
+      const float inv_n = __fdiv_rn(1.f, static_cast<float>(ca.P));
+#pragma unroll
+      for (int j = 0; j < N; j += 4) {
+        const float4 q0 = __ldcg(reinterpret_cast<const float4*>(
+            ca.sums + ch + j));
+        const float4 q1 = __ldcg(reinterpret_cast<const float4*>(
+            ca.sums + F + ch + j));
+        u0[j] = q0.x;
+        u0[j + 1] = q0.y;
+        u0[j + 2] = q0.z;
+        u0[j + 3] = q0.w;
+        u1[j] = q1.x;
+        u1[j + 1] = q1.y;
+        u1[j + 2] = q1.z;
+        u1[j + 3] = q1.w;
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        u0[j] = __fmul_rn(u0[j], inv_n);
+        u1[j] = __fmul_rn(u1[j], inv_n);
+      }
+    }
+    Raw* out = static_cast<Raw*>(ca.out);
+    auto dpre_chunk = [&](int k, int s) {
+      const uint8_t* d = ring + (size_t)s * 2 * half;
+      const int n = chunk_n(k);
+      const long long row0 = row_of(k);
+      if (!active) return;
+#pragma unroll 4
+      for (int r = rr; r < n; r += R) {
+        float dv[N], pv[N];
+        PK::unpack(*reinterpret_cast<const Raw*>(d + r * row_bytes + c * 16),
+                   dv);
+        PK::unpack(*reinterpret_cast<const Raw*>(d + half + r * row_bytes +
+                                                 c * 16),
+                   pv);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float z = __fadd_rn(__fmul_rn(pv[j], a[j]), b[j]);
+          const float dz = z >= 0.f ? dv[j] : __fmul_rn(dv[j], SLOPE);
+          const float xhat = __fmul_rn(__fsub_rn(pv[j], m[j]), inv[j]);
+          dv[j] = __fmul_rn(a[j], __fsub_rn(__fsub_rn(dz, u0[j]),
+                                            __fmul_rn(xhat, u1[j])));
+        }
+        out[(row0 + r) * G + c] = PK::pack(dv);
+      }
+    };
+    // the ring's chunks again, last first (what phase 1 read last, still
+    // in L2), their loads issued before the held chunks' dpre; a ring
+    // stage's phase goes on from its fills of phase 1
+    auto fills = [&](int s) { return s < nr ? (nr - 1 - s) / S + 1 : 0; };
+    if (tid == 0)
+      for (int q = 0; q < min(S, nr); ++q) issue(nr - 1 - q, q);
+    for (int k = nr; k < nck; ++k) dpre_chunk(k, stage_of(k));
+    for (int q = 0; q < nr; ++q) {
+      const int s = q % S;
+      mbar_wait(&bar[s], (fills(s) + q / S) & 1);
+      dpre_chunk(nr - 1 - q, s);
+      if (q + S < nr) {
+        __syncthreads();
+        if (tid == 0) issue(nr - 1 - (q + S), s);
+      }
+    }
+  }
+  // the last CTA to leave resets the counter for the next launch
+  __syncthreads();
+  if (tid == 0 && atomicAdd(ca.counter, 1u) == (barriers + 1) * grid - 1)
+    atomicExch(ca.counter, 0u);
+}
+
+template <bool BF16>
+cudaError_t coop_attr() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      bn_coop_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      COOP_MAX_DYNAMIC);
+  return e;
+}
+
+template <bool BF16>
+int coop_occupancy(int smem) {
+  cudaError_t e = coop_attr<BF16>();
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, bn_coop_kernel<BF16>, NT, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 template <bool BF16>
 int reduce_occupancy() {
   int n = 0;
@@ -508,6 +850,75 @@ extern "C" {
 // or fp32: its persistent grid; a negative value is a CUDA error.
 int hpfg_bn_reduce_ctas_per_sm(int is_bf16) {
   return is_bf16 ? reduce_occupancy<true>() : reduce_occupancy<false>();
+}
+
+// CTAs of 256 threads an SM can hold of D's cooperative kernel in bf16 or
+// fp32 with smem bytes of dynamic shared memory; a negative value is a
+// CUDA error.
+int hpfg_bn_coop_ctas_per_sm(int is_bf16, int smem) {
+  return is_bf16 ? coop_occupancy<true>(smem) : coop_occupancy<false>(smem);
+}
+
+// D's cooperative kernel: dy, pre, out [P, F] (bf16 when is_bf16, else
+// fp32; out null: the reduce alone); a, b, mean, inv [F] fp32; part
+// [ctas, 2F] fp32 scratch; sums [2F] fp32 out; counter: this device's
+// zeroed unsigned (the kernel leaves it zeroed). The plan of
+// ops/bn_act.py coop_plan: chunk_rows rows a chunk, stages ring stages
+// and held stages of 2 * chunk_rows * F elements each (the hold form: no
+// ring, a held stage per chunk of the longest range), ctas CTAs
+// (co-resident), smem dynamic bytes. Every pointer 16-byte aligned, F a
+// multiple of 16 bytes' elements, F / V <= 256.
+int hpfg_bn_coop(const void* dy, const void* pre, const void* a,
+                 const void* b, const void* mean, const void* inv, void* part,
+                 void* sums, void* out, void* counter, long long P, int F,
+                 int chunk_rows, int stages, int held, int is_bf16, int ctas,
+                 int smem, void* stream) {
+  const int v = is_bf16 ? 8 : 4;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(pre) |
+                         reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(mean) |
+                         reinterpret_cast<uintptr_t>(inv) |
+                         reinterpret_cast<uintptr_t>(sums) |
+                         reinterpret_cast<uintptr_t>(part);
+  const long long chunks = (P + chunk_rows - 1) / (chunk_rows > 0 ? chunk_rows : 1);
+  const long long longest = (chunks + ctas - 1) / (ctas > 0 ? ctas : 1);
+  if (F % v || F / v > NT || F < v || ctas < 1 || chunk_rows < 1 ||
+      stages < 0 || held < 0 || stages + held > COOP_MAX_STAGES ||
+      (ptrs & 15) ||
+      smem < 2LL * (stages + held) * chunk_rows * F * (is_bf16 ? 2 : 4) ||
+      smem > COOP_MAX_DYNAMIC ||
+      (stages == 0 && held < longest))
+    return (int)cudaErrorInvalidValue;
+  CoopArgs ca{dy,
+              pre,
+              static_cast<const float*>(a),
+              static_cast<const float*>(b),
+              static_cast<const float*>(mean),
+              static_cast<const float*>(inv),
+              static_cast<float*>(part),
+              static_cast<float*>(sums),
+              out,
+              static_cast<unsigned*>(counter),
+              P,
+              F,
+              chunk_rows,
+              stages,
+              held};
+  void* args[] = {&ca};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = is_bf16 ? coop_attr<true>() : coop_attr<false>();
+  if (e != cudaSuccess) return (int)e;
+  e = is_bf16 ? cudaLaunchCooperativeKernel(
+                    reinterpret_cast<void*>(bn_coop_kernel<true>), ctas, NT,
+                    args, smem, s)
+              : cudaLaunchCooperativeKernel(
+                    reinterpret_cast<void*>(bn_coop_kernel<false>), ctas, NT,
+                    args, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // g, y [P, F] (bf16 when is_bf16, else fp32); a, b [F] fp32; vec: 16-byte

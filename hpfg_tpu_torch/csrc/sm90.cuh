@@ -1,6 +1,7 @@
-// Hopper's own path, shared by the wgmma kernels of hpfg_tpu_torch/csrc
-// (conv3x3_sm90.cu, window_attention_sm90.cu): mbarriers, TMA loads and
-// stores (cp.async.bulk.tensor), warpgroup MMA (wgmma) with its
+// Hopper's own path, shared by the sm_90a kernels of hpfg_tpu_torch/csrc
+// (conv3x3_sm90.cu, window_attention_sm90.cu, stem_sm90.cu, bn_act.cu's
+// cooperative kernel): mbarriers, TMA loads and stores
+// (cp.async.bulk.tensor), plain bulk copies, warpgroup MMA (wgmma) with its
 // shared-memory descriptors, and on the host the CUDA driver's tensor-map
 // encoder with a cache of encoded maps. sm_90a only.
 
@@ -94,6 +95,20 @@ __device__ __forceinline__ void bulk_commit() {
 // the committed stores have read their shared memory (it may be rewritten)
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// every committed store but the newest has read its shared memory
+__device__ __forceinline__ void bulk_wait_read_1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by one bulk copy, completing on bar (expect-tx bytes)
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -394,9 +409,10 @@ struct MapKeyHash {
 constexpr size_t MAP_CACHE_MAX = 4096;
 
 // A bf16 tensor of dims d[0..rank) (d[0] innermost, dense) as a tensor map
-// with box box[0..rank) and the swizzle of box[0]'s bytes.
+// with box box[0..rank) and the swizzle of box[0]'s bytes, or none
+// (``swizzle`` false: the box lands dense, row after row).
 int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
-           const uint32_t* box) {
+           const uint32_t* box, bool swizzle = true) {
   cuuint64_t dims[5] = {}, strides[4] = {};
   cuuint32_t boxes[5] = {}, elem[5];
   uint64_t stride = 2;
@@ -407,7 +423,8 @@ int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
     stride *= d[i];
     if (i + 1 < rank) strides[i] = stride;
   }
-  const CUtensorMapSwizzle swz = swizzle_of(box[0] * 2);
+  const CUtensorMapSwizzle swz =
+      swizzle ? swizzle_of(box[0] * 2) : CU_TENSOR_MAP_SWIZZLE_NONE;
   MapKey key{};
   key.v[0] = (uint64_t)(uintptr_t)ptr;
   key.v[1] = (uint64_t)rank;

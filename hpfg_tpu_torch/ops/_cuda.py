@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("conv3x3.cu", "conv3x3_sm90.cu", "window_attention.cu",
-           "window_attention_sm90.cu", "bn_act.cu")
+           "window_attention_sm90.cu", "bn_act.cu", "stem_sm90.cu")
 HEADERS = ("hash.cuh", "mma.cuh", "sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -70,12 +70,19 @@ _SIGNATURES = {
                            _I, _I, _F, _I, _U, _U, _F, _P, _I, _I, _I, _I,
                            _I, _P],
     "hpfg_attn_sm90_dbias_group": [],
+    "hpfg_stem_tile_h": [_I],
+    "hpfg_stem_tile_w": [],
+    "hpfg_stem_sm90": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P],
     "hpfg_bn_reduce_ctas_per_sm": [_I],
     "hpfg_bn_act": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "hpfg_bn_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P],
     "hpfg_bn_dpre": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                      _I, _I, _P],
+    "hpfg_bn_coop_ctas_per_sm": [_I, _I],
+    "hpfg_bn_coop": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                     _I, _I, _I, _I, _P],
 }
 
 
@@ -106,7 +113,11 @@ class KernelLibrary:
         self.attn_max_d = self.lib.hpfg_attn_max_d()
         # K14's dbias groups on the wgmma route (partial rows a group sums)
         self.attn_dbias_group = self.lib.hpfg_attn_sm90_dbias_group()
+        # K12's stem tile (rows, columns) at F = 16 and 32 output channels
+        self.stem_tiles = {f: (self.lib.hpfg_stem_tile_h(f),
+                               self.lib.hpfg_stem_tile_w()) for f in (16, 32)}
         self._bn_occupancy: dict[bool, int] = {}
+        self._coop_occupancy: dict[tuple[bool, int], int] = {}
 
     def wgrad_tile(self, c: int, f: int, bf16: bool) -> tuple[int, int]:
         """The wgrad kernel's (input, output) channel tile for ``c`` input
@@ -124,6 +135,19 @@ class KernelLibrary:
                     f"hpfg_bn_reduce_ctas_per_sm: CUDA error {-n}")
             self._bn_occupancy[bf16] = n
         return self._bn_occupancy[bf16]
+
+    def bn_coop_ctas_per_sm(self, bf16: bool, smem: int) -> int:
+        """CTAs an SM holds of D's cooperative kernel in that dtype with
+        ``smem`` bytes of dynamic shared memory (occupancy API, current
+        device)."""
+        key = (bf16, smem)
+        if key not in self._coop_occupancy:
+            n = self.lib.hpfg_bn_coop_ctas_per_sm(int(bf16), smem)
+            if n < 0:
+                raise RuntimeError(
+                    f"hpfg_bn_coop_ctas_per_sm: CUDA error {-n}")
+            self._coop_occupancy[key] = n
+        return self._coop_occupancy[key]
 
     def call(self, name: str, *args) -> None:
         """Call one launcher; raise if the launch was refused."""

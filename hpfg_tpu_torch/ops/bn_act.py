@@ -18,8 +18,18 @@ thread owns a fixed group of channels and loads four steps of rows before
 it uses the first (``bn_walk`` sizes it: one CTA per turn for C and dpre, a
 persistent grid for D's reduce), 16-byte accesses, and D's cross-CTA sum
 finished inside its reduce kernel by the last CTA to arrive, in a fixed
-order. A full ``bn_act_bwd`` is two launches (reduce, dpre); ``bn_act`` and
-``bn_act_dpre`` one each.
+order. ``bn_act`` and ``bn_act_dpre`` are one launch each.
+
+A full ``bn_act_bwd`` is one launch of D's cooperative kernel
+(``bn_coop_kernel``) where the vector path applies (:func:`bn_route`): a
+grid that fills the card, the reduce, a grid barrier, the column sums
+finished in parallel, a second barrier, then dpre, either from the rows
+each CTA still holds in shared memory (form "hold", where dy and pre fit
+the resident CTAs: three HBM passes) or streamed again in reverse ("stream");
+:func:`coop_plan` picks the form from the bytes and the occupancy API.
+``bn_reduce`` alone takes the same kernel's first two phases. The element
+path keeps PR 6's two kernels ("walk": reduce, then dpre). Each route
+counts its launches in ``<wrapper>.routes``.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; for a CUDA
 tensor it launches its kernel or raises.
@@ -28,6 +38,7 @@ tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -146,6 +157,117 @@ def bn_walk(p: int, f: int, elem_bytes: int, aligned: bool = True,
                   -(-2 * f // 4) * 4, p)
 
 
+# ---------------------------------------------------------------------------
+# D's cooperative kernel (csrc/bn_act.cu bn_coop_kernel)
+# ---------------------------------------------------------------------------
+
+#: D's routes: "hold" and "stream", the cooperative kernel's two forms (one
+#: launch), and "walk", PR 6's reduce and dpre kernels (two launches)
+BN_ROUTES = ("hold", "stream", "walk")
+#: bytes of each of dy and pre in one ring stage of the cooperative kernel
+COOP_CHUNK_BYTES = 8192
+#: ring stages of the stream form
+COOP_STREAM_STAGES = 4
+#: the most CTAs an SM the cooperative grid takes in the hold and the
+#: stream form (the hold form at one: a CTA of an SM's whole shared memory
+#: timed faster than two of half at 14^2-56^2, scripts/tune_bn_act.py;
+#: PERF.md), and the most held stages the stream form keeps beside its
+#: ring
+COOP_HOLD_CTAS_PER_SM = 1
+COOP_STREAM_CTAS_PER_SM = 2
+COOP_MAX_HELD = 32
+#: the kernel's limits (bn_act.cu COOP_MAX_STAGES, COOP_MAX_DYNAMIC)
+COOP_MAX_STAGES = 32
+COOP_MAX_DYNAMIC = 232448 - (2 * 8 * CTA_THREADS * 4 + COOP_MAX_STAGES * 8)
+
+
+def bn_route(f: int, elem_bytes: int, aligned: bool) -> str:
+    """Whether D takes its cooperative kernel ("coop") or PR 6's two
+    kernels ("walk"): the bulk copies need rows of whole 16-byte groups
+    (F a multiple of 16 / elem_bytes) and 16-byte aligned pointers, and a
+    CTA of 256 threads at most 256 groups."""
+    v = 16 // elem_bytes
+    ok = aligned and f % v == 0 and f // v <= CTA_THREADS
+    return "coop" if ok else "walk"
+
+
+class CoopPlan(NamedTuple):
+    """A launch of D's cooperative kernel: ``form`` "hold" or "stream",
+    ``ctas`` (every SM, ``ctas`` / SMs CTAs each), ``chunk_rows`` rows a
+    chunk (CTA i takes chunks i, i + ctas, ...: :func:`coop_chunks`),
+    ``stages`` ring stages (none in the hold form), ``held`` stages that
+    keep a CTA's last chunks (hold: one per chunk of the CTA with the
+    most), ``smem`` dynamic bytes."""
+
+    form: str
+    ctas: int
+    chunk_rows: int
+    stages: int
+    held: int
+    smem: int
+
+
+def coop_plan(p: int, f: int, elem_bytes: int, sms: int, occupancy,
+              reduce_only: bool = False, form: str | None = None
+              ) -> CoopPlan:
+    """The cooperative kernel's plan for p rows of f channels: "hold" where
+    every CTA's chunks of dy and pre fit its shared memory at k CTAs an SM
+    (k = COOP_HOLD_CTAS_PER_SM, then fewer) and the occupancy API
+    (``occupancy(smem)``: CTAs an SM at that dynamic shared memory) holds
+    k of them; else "stream": a ring of COOP_STREAM_STAGES stages at the
+    most CTAs an SM (at most COOP_STREAM_CTAS_PER_SM) the occupancy API holds
+    with it, and beside the ring as many held stages (at most
+    COOP_MAX_HELD) as keep that many CTAs an SM. The reduce alone
+    (``reduce_only``) streams, with no held stage: it reads each row
+    once. ``form`` forces "stream", or
+    "hold" where it fits (else ValueError): the timings and tests of both
+    forms at one shape."""
+    row = f * elem_bytes
+    if not reduce_only and form != "stream":
+        for k in range(COOP_HOLD_CTAS_PER_SM, 0, -1):
+            cr = coop_chunk_rows(p, row, sms * k)
+            nck = -(-(-(-p // cr)) // (sms * k))
+            smem = nck * 2 * cr * row
+            if (nck <= COOP_MAX_STAGES and smem <= COOP_MAX_DYNAMIC
+                    and occupancy(smem) >= k):
+                return CoopPlan("hold", sms * k, cr, 0, nck, smem)
+    if form == "hold":
+        raise ValueError(f"the hold form does not fit {p} rows of {f}")
+    ring = COOP_STREAM_STAGES
+    most = 2 * max(1, COOP_CHUNK_BYTES // row) * row  # a stage at most
+    k = min(COOP_STREAM_CTAS_PER_SM, occupancy(ring * most))
+    if k < 1:
+        raise RuntimeError(f"bn_coop_kernel: no CTA of {ring * most} "
+                           f"bytes fits an SM")
+    cr = coop_chunk_rows(p, row, sms * k)
+    stage = 2 * cr * row
+    held = 0
+    while (not reduce_only and held < COOP_MAX_HELD
+           and ring + held + 1 <= COOP_MAX_STAGES
+           and (ring + held + 1) * stage <= COOP_MAX_DYNAMIC
+           and occupancy((ring + held + 1) * stage) >= k):
+        held += 1
+    return CoopPlan("stream", sms * k, cr, ring, held,
+                    (ring + held) * stage)
+
+
+def coop_chunk_rows(p: int, row_bytes: int, ctas: int) -> int:
+    """Rows a chunk of the cooperative kernel: at most COOP_CHUNK_BYTES of
+    each tensor, and as many as split the p rows evenly over ``ctas``
+    CTAs (each takes the same number of chunks, but the last few)."""
+    most = max(1, COOP_CHUNK_BYTES // row_bytes)
+    per_cta = -(-p // (ctas * most))
+    return max(1, -(-p // (ctas * per_cta)))
+
+
+def coop_chunks(p: int, plan: CoopPlan, cta: int) -> list[tuple[int, int]]:
+    """(first row, rows) of CTA ``cta``'s chunks, in its order: the grid's
+    chunks of ``plan.chunk_rows`` rows, cta, cta + ctas, ..."""
+    cr = plan.chunk_rows
+    return [(g * cr, min(cr, p - g * cr))
+            for g in range(cta, -(-p // cr), plan.ctas)]
+
+
 _WALKS: dict[tuple, BnWalk] = {}
 
 
@@ -239,8 +361,14 @@ def bn_act_bwd(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     if dy.device.type == "cpu":
         return bn_act_bwd_reference(dy, pre, a, b, mean, inv)
     _require_cuda(dy)
-    sums = _reduce(dy, pre, a, b, mean, inv)
-    dpre = _dpre(dy, pre, a, b, mean, inv, sums)
+    route = _route(dy, pre, a, b, mean, inv)
+    if route == "walk":
+        sums = _reduce(dy, pre, a, b, mean, inv)
+        dpre = _dpre(dy, pre, a, b, mean, inv, sums)
+    else:
+        dpre = torch.empty_like(dy)
+        sums, route = _coop(dy, pre, a, b, mean, inv, dpre)
+    counted(bn_act_bwd.routes[route], dy)
     counted(bn_act_bwd, dy)
     return sums, dpre
 
@@ -260,9 +388,61 @@ def bn_reduce(dy: torch.Tensor, pre: torch.Tensor, a: torch.Tensor,
     if dy.device.type == "cpu":
         return bn_reduce_reference(dy, pre, a, b, mean, inv)
     _require_cuda(dy)
-    sums = _reduce(dy, pre, a, b, mean, inv)
+    route = _route(dy, pre, a, b, mean, inv)
+    if route == "walk":
+        sums = _reduce(dy, pre, a, b, mean, inv)
+    else:
+        sums, route = _coop(dy, pre, a, b, mean, inv, None)
+    counted(bn_reduce.routes[route], dy)
     counted(bn_reduce, dy)
     return sums
+
+
+def _route(dy, pre, a, b, mean, inv) -> str:
+    """:func:`bn_route` of a call (its pointers' alignment included)."""
+    aligned = not any(t.data_ptr() & 15 for t in (dy, pre, a, b, mean, inv))
+    return bn_route(dy.shape[-1], dy.element_size(), aligned)
+
+
+_PLANS: dict[tuple, CoopPlan] = {}
+
+
+def _plan(dy, reduce_only: bool, form: str | None = None) -> CoopPlan:
+    """:func:`coop_plan` of a call on CUDA ``dy`` [..., F] (cached by
+    shape), from the device's SMs and the occupancy API."""
+    f = dy.shape[-1]
+    p = dy.numel() // f
+    bf16 = dy.dtype == torch.bfloat16
+    key = (p, f, bf16, dy.device.index, reduce_only, form)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = library(dy.device)
+        plan = _PLANS[key] = coop_plan(
+            p, f, dy.element_size(), sm_count(dy.device),
+            lambda smem: lib.bn_coop_ctas_per_sm(bf16, smem),
+            reduce_only=reduce_only, form=form)
+    return plan
+
+
+def _coop(dy, pre, a, b, mean, inv, dpre, form=None):
+    """One launch of D's cooperative kernel: the full backward into
+    ``dpre``, or the reduce alone (``dpre`` None). Returns (sums [2, F],
+    the plan's form). ``form``: :func:`coop_plan`'s."""
+    lib = library(dy.device)
+    f = dy.shape[-1]
+    p = dy.numel() // f
+    bf16 = dy.dtype == torch.bfloat16
+    plan = _plan(dy, dpre is None, form)
+    # one buffer: the CTAs' partial rows, then the sums [2, F]
+    buf = torch.empty((plan.ctas + 1) * 2 * f, dtype=torch.float32,
+                      device=dy.device)
+    sums = buf[plan.ctas * 2 * f:].view(2, f)
+    lib.call("hpfg_bn_coop", ptr(dy), ptr(pre), ptr(a), ptr(b), ptr(mean),
+             ptr(inv), ptr(buf), ptr(sums), ptr(dpre),
+             ptr(ticket(dy.device, "bn_coop")), p, f, plan.chunk_rows,
+             plan.stages, plan.held, int(bf16), plan.ctas, plan.smem,
+             stream(dy))
+    return sums, plan.form
 
 
 def _reduce(dy, pre, a, b, mean, inv):
@@ -317,3 +497,8 @@ def _dpre(dy, pre, a, b, mean, inv, sums):
 def _require_cuda(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"kernels run on CUDA tensors, got {t.device}")
+
+
+for _fn in (bn_act_bwd, bn_reduce):
+    # each route's own launch count, beside the wrapper's total
+    _fn.routes = {r: SimpleNamespace(launches=0) for r in BN_ROUTES}

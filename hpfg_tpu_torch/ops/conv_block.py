@@ -39,7 +39,10 @@ mma.sync at every main-path shape, so they need none). No call falls
 back from one route to the other. On wgmma, A, K8 and K11 take their
 sums (BN statistics, or K11's [sum dz, sum dz * xhat]) in the kernel's
 last CTA, so no column-sum launch follows; K9's two outputs leave one
-kernel.
+kernel. A has a third route, "stem": a bf16 stem forward (C = 1 or 3 into
+F = 16 or 32, rows of whole 16-byte units: ``stem_ok``) takes K12's own
+kernel (csrc/stem_sm90.cu: the taps packed into the MMA's K, the halo and
+the output by TMA, the statistics summed in the kernel), one launch.
 """
 
 from __future__ import annotations
@@ -111,8 +114,15 @@ WGRAD_PROLOGUE_MIN_C = 32
 #: registers, which may straddle at any multiple of 8)
 PAIR_STORE_BOX = 64
 #: the routes of A, B and K8 to K11: "wgmma" (csrc/conv3x3_sm90.cu) and
-#: "mma" (the mma.sync kernels of csrc/conv3x3.cu)
+#: "mma" (the mma.sync kernels of csrc/conv3x3.cu); A has a third, "stem"
+#: (K12, csrc/stem_sm90.cu)
 ROUTES = ("wgmma", "mma")
+#: K12 on its own kernel: the stems' input and output channels, and the
+#: CTAs an SM of its persistent grid (two timed faster than one,
+#: scripts/tune_conv_kernels.py; PERF.md)
+STEM_CHANNELS = (1, 3)
+STEM_FEATURES = (16, 32)
+STEM_CTAS_PER_SM = 2
 #: the forms of a call that :func:`conv_route` tells apart: A's and B's,
 #: then K9's and K11's
 CONV_FORMS = ("conv", "prologue", "out_drop", "wgrad", "wgrad_prologue",
@@ -375,8 +385,18 @@ def pair_route(ca: int, cb: int, f: int, dtype, aligned: bool) -> str:
     return "wgmma" if ok else "mma"
 
 
+def stem_ok(c: int, f: int, dtype, aligned: bool, width: int) -> bool:
+    """Whether a plain conv forward (form "conv") is a stem that K12's
+    kernel takes: bf16, C = 1 or 3 into F = 16 or 32, 16-byte aligned
+    bases, and image rows of whole 16-byte units (W * C * 2 bytes: the
+    stride of the TMA map over x viewed as [B, H, W * C]). An odd eval
+    width fails the last and keeps the mma route."""
+    return (dtype == torch.bfloat16 and aligned and c in STEM_CHANNELS
+            and f in STEM_FEATURES and width * c * 2 % 16 == 0)
+
+
 def conv_route(c: int, f: int, dtype, aligned: bool, form: str,
-               split: int | None = None) -> str:
+               split: int | None = None, width: int | None = None) -> str:
     """The kernel an A, B, K9 or K11 call takes on the card: "wgmma"
     (csrc/conv3x3_sm90.cu) where TMA can take its tensors, as for
     :func:`pair_route`: bf16, C and F multiples of 8 and 16-byte aligned
@@ -389,16 +409,21 @@ def conv_route(c: int, f: int, dtype, aligned: bool, form: str,
     "dgrad_pair" (K9: F = Ca + Cb split at ``split`` = Ca, which must be
     a multiple of 8 too: the GPU tests' 12 + 20 is not) or
     "dgrad_reduce" (K11: the dgrad with its output mask and BN1's
-    backward reduce). The C = 1 and C = 3 stems, the F = 4, 2 and 9 heads
-    (and their dgrads), fp32, "out_drop" and, by a static rule from the
-    card's timings, "wgrad_prologue" below WGRAD_PROLOGUE_MIN_C channels
-    take "mma": conv3x3.cu's (K9 and K11 on wgmma measured faster than on
-    mma at every main-path shape, 224^2 included). No call falls back
-    from one to the other."""
+    backward reduce). A "conv" call whose image is ``width`` wide takes
+    "stem" (K12's kernel, csrc/stem_sm90.cu) where :func:`stem_ok` holds.
+    The other C = 1 and C = 3 stems, the F = 4, 2 and 9 heads (and their
+    dgrads), fp32, "out_drop" and, by a static rule from the card's
+    timings, "wgrad_prologue" below WGRAD_PROLOGUE_MIN_C channels take
+    "mma": conv3x3.cu's (K9 and K11 on wgmma measured faster than on mma
+    at every main-path shape, 224^2 included). No call falls back from
+    one to the other."""
     if form not in CONV_FORMS:
         raise ValueError(f"form {form!r} not in {CONV_FORMS}")
     if (form == "dgrad_pair") != (split is not None):
         raise ValueError("a split goes with the dgrad_pair form alone")
+    if form == "conv" and width is not None and stem_ok(c, f, dtype,
+                                                        aligned, width):
+        return "stem"
     ok = (dtype == torch.bfloat16 and aligned and c % 8 == 0
           and f % 8 == 0 and form != "out_drop"
           and not (form == "wgrad_prologue" and c < WGRAD_PROLOGUE_MIN_C)
@@ -662,6 +687,32 @@ def _launch_dgrad_reduce_sm90(dp, wf, dd, reduce, out_drop=None):
                       out_drop=out_drop, reduce=reduce)
 
 
+def stem_grid(b: int, h: int, w: int, tile: tuple[int, int],
+              sms: int) -> int:
+    """K12's persistent grid: STEM_CTAS_PER_SM CTAs an SM, at most one a
+    tile of ``tile`` pixels (the rows of its statistics partials)."""
+    return min(conv_tiles(b, h, w, tile), sms * STEM_CTAS_PER_SM)
+
+
+def _launch_stem(x, w, y, *, bias=None, want_sums=False):
+    """K12's kernel (csrc/stem_sm90.cu ``hpfg_stem_sm90``) into ``y``:
+    returns the [2, F] statistics when ``want_sums`` (summed by its last
+    CTA), else None."""
+    lib = library(x.device)
+    b, h, wd, c = x.shape
+    f = w.shape[3]
+    ctas = stem_grid(b, h, wd, lib.stem_tiles[f], sm_count(x.device))
+    buf = counter = None
+    if want_sums:  # the CTAs' partial rows, then the statistics
+        buf = torch.empty((ctas + 1) * 2 * f, dtype=torch.float32,
+                          device=x.device)
+        counter = ticket(x.device, "stem")
+    stats = None if buf is None else buf[ctas * 2 * f:]
+    lib.call("hpfg_stem_sm90", ptr(x), ptr(w), ptr(bias), ptr(y), ptr(buf),
+             ptr(stats), ptr(counter), b, h, wd, c, f, ctas, stream(x))
+    return None if stats is None else stats.view(2, f)
+
+
 def _launch_conv(x, w, y, *, x2=None, bias=None, pro=None, out_drop=None,
                  reduce=None, y2=None, want_sums=False):
     """One launch of the CUDA conv kernel (csrc/conv3x3.cu
@@ -708,8 +759,10 @@ def conv3x3_nhwc(x, w, bias=None, affine=None, drop=None, out_drop=None,
     form = ("out_drop" if out_drop is not None else
             "prologue" if affine is not None else "conv")
     route = conv_route(c, f, x.dtype, _aligned(x, w, *(affine or ())),
-                       form)
-    if route == "wgmma":
+                       form, width=wd)
+    if route == "stem":
+        stats = _launch_stem(x, w, y, bias=bias, want_sums=want_stats)
+    elif route == "wgmma":
         stats = _launch_conv_sm90(x, w, y, bias=bias, pro=pro,
                                   want_sums=want_stats)
     else:
@@ -880,6 +933,7 @@ for _fn in (conv3x3_nhwc, conv3x3_wgrad_nhwc, conv3x3_pair_nhwc,
             conv3x3_wgrad_pair, conv3x3_dgrad_pair, conv3x3_dgrad_reduce):
     # each route's own launch count, beside the wrapper's total
     _fn.routes = {r: SimpleNamespace(launches=0) for r in ROUTES}
+conv3x3_nhwc.routes["stem"] = SimpleNamespace(launches=0)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,17 @@ same process.
 Each DIR holds a bn_act.cu (a copy of the repo's with one change, say, in a
 directory that .gitignore lists); all are built in parallel with the repo's
 other sources. The optional NAME=VALUE pairs set constants of
-``ops/bn_act.py`` (CTA_THREADS, TURN_STEPS) while that entry runs, for a
-copy whose NT or U differs from the repo's. Without a DIR the repo's source
-is the one entry.
+``ops/bn_act.py`` while that entry runs: CTA_THREADS, TURN_STEPS (for a
+copy whose NT or U differs from the repo's), and the cooperative kernel's
+plan, COOP_CHUNK_BYTES, COOP_STREAM_STAGES, COOP_HOLD_CTAS_PER_SM,
+COOP_STREAM_CTAS_PER_SM, COOP_MAX_HELD. Without a
+DIR the repo's source is the one entry.
+
+Cases per shape: C (``bn_act``), D (``bn_act_bwd`` as the wrapper routes
+it: one launch of the cooperative kernel), D's forms forced ("hold" where
+dy and pre fit the resident CTAs, "stream"), PR 6's two kernels ("walk":
+reduce, then dpre from its sums), D's reduce alone (``bn_reduce``) and its
+dpre alone (``bn_act_dpre``).
 
 Two times per case, in ms per call:
   * host: ``chip_smoke.cuda_ms``, CUDA events around 10 back-to-back wrapper
@@ -74,8 +82,9 @@ def build(entries):
     for name, d, _ in entries:
         out = Path(_cuda.BUILD_ROOT) / f"tune_{name}" / "libhpfg_kernels.so"
         out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
-               str(out), os.path.join(d, "bn_act.cu"), *others]
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
+               str(_cuda.CSRC), "-o", str(out), os.path.join(d, "bn_act.cu"),
+               *others]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), out)
@@ -91,10 +100,18 @@ def build(entries):
                 print(f"  {name} ptxas: {line}", flush=True)
         print(f"  {name} reduce CTAs per SM, bf16: "
               f"{libs[name].bn_reduce_ctas_per_sm(True)}", flush=True)
+        for line in cs.ptxas_summary(log):
+            if line.startswith("bn_coop"):
+                print(f"  {name} ptxas: {line}", flush=True)
     return libs
 
 
-DEFAULTS = dict(CTA_THREADS=ba.CTA_THREADS, TURN_STEPS=ba.TURN_STEPS)
+DEFAULTS = dict(CTA_THREADS=ba.CTA_THREADS, TURN_STEPS=ba.TURN_STEPS,
+                COOP_CHUNK_BYTES=ba.COOP_CHUNK_BYTES,
+                COOP_STREAM_STAGES=ba.COOP_STREAM_STAGES,
+                COOP_HOLD_CTAS_PER_SM=ba.COOP_HOLD_CTAS_PER_SM,
+                COOP_STREAM_CTAS_PER_SM=ba.COOP_STREAM_CTAS_PER_SM,
+                COOP_MAX_HELD=ba.COOP_MAX_HELD)
 
 
 def use(libs, consts, name):
@@ -104,6 +121,7 @@ def use(libs, consts, name):
     for k, v in {**DEFAULTS, **consts.get(name, {})}.items():
         setattr(ba, k, v)
     ba._WALKS.clear()
+    ba._PLANS.clear()
 
 
 def device_ms(fn, flush, calls=10):
@@ -189,10 +207,25 @@ def main():
         s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
         y_r = ba.bn_act_reference(g, a, b)
         n = g.numel()
+        args = (dy, g, a, b, m, inv)
+
+        def coop(form):
+            return lambda: ba._coop(*args, torch.empty_like(dy), form=form)
+
         mine = dict(C=lambda: ba.bn_act(g, a, b),
-                    D=lambda: ba.bn_act_bwd(dy, g, a, b, m, inv),
+                    D=lambda: ba.bn_act_bwd(*args),
+                    hold=coop("hold"), stream=coop("stream"),
+                    walk=lambda: ba._dpre(*args, ba._reduce(*args)),
+                    reduce=lambda: ba.bn_reduce(*args),
                     dpre=lambda: ba.bn_act_dpre(dy, g, a, b, m, inv, s_r))
-        calls = {name: mine for name in libs}
+        calls = {}
+        for name in libs:
+            use(libs, consts, name)
+            calls[name] = dict(mine)
+            try:
+                ba._plan(dy, False, "hold")
+            except ValueError:  # dy and pre do not fit the resident CTAs
+                del calls[name]["hold"]
         if earlier is not None:
             calls["earlier"] = dict(
                 C=lambda: earlier.bn_act(g, a, b),
@@ -206,10 +239,19 @@ def main():
             use(libs, consts, name)
             if not torch.equal(ba.bn_act(g, a, b), y_r):
                 print(f"MISMATCH C {hh}^2 {name}", flush=True)
-            s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
-            if rel(s, s_r) > 1e-4 or rel(d, d_r) > 2e-2:
-                print(f"MISMATCH D {hh}^2 {name}", flush=True)
-        nbytes = dict(C=4 * n, D=6 * n, dpre=6 * n)
+            for form in ("D", "hold", "stream"):
+                if form not in calls[name]:
+                    continue
+                d = torch.empty_like(dy)
+                s = (ba.bn_act_bwd(*args) if form == "D" else
+                     ba._coop(*args, d, form=form))
+                s, d = s if form == "D" else (s[0], d)
+                if (rel(s, s_r) > 1e-4 or rel(d, d_r) > 2e-2
+                        or not torch.equal(d, ba.bn_act_dpre_reference(
+                            *args, s))):
+                    print(f"MISMATCH D {form} {hh}^2 {name}", flush=True)
+        nbytes = dict(C=4 * n, D=6 * n, hold=6 * n, stream=6 * n, walk=6 * n,
+                      reduce=4 * n, dpre=6 * n)
         # host-inclusive times first, before any profiler runs
         rows = {name: {} for name in names}
         for name in names:

@@ -1,7 +1,9 @@
-"""Time variants of the conv kernels (hpfg_tpu_torch/csrc/conv3x3.cu and
-conv3x3_sm90.cu) against each other on one CUDA card, at every bf16 conv
-form and shape of the full-width UNet's main path (batch 32, 224^2),
-beside cuDNN.
+"""Time variants of the conv kernels (hpfg_tpu_torch/csrc/conv3x3.cu,
+conv3x3_sm90.cu and stem_sm90.cu) against each other on one CUDA card, at
+every bf16 conv form and shape of the full-width UNet's main path (batch
+32, 224^2) and K12's stems at the 2-D datasets' shapes (``K12 <label>``:
+chip_smoke.STEM_CASES; ``K12 <label> mma``: PR 4's mma.sync route), beside
+cuDNN.
 
     python3 scripts/tune_conv_kernels.py [--only K8,K10] [--enqueue] \
         DIR[:PART_BYTES[:TARGET_BLOCKS]][:NAME=VALUE...] ...
@@ -13,8 +15,8 @@ checked against the first DIR on every case (relative error above 2e-2
 prints MISMATCH). The optional numbers set the mma.sync wgrad's split
 (conv_block.WGRAD_PART_BYTES, WGRAD_TARGET_BLOCKS) for that entry, and
 NAME=VALUE any of ``DEFAULTS`` (the wgmma grids' CONV_TALL_MAX_W,
-CONV_MIN_FILL, WGRAD_SM90_PART_RATIO), so one build can be timed under
-several grids. K8 and K10 are timed on the
+CONV_MIN_FILL, WGRAD_SM90_PART_RATIO; K12's STEM_CTAS_PER_SM), so one
+build can be timed under several grids. K8 and K10 are timed on the
 route their wrappers take (wgmma for these bf16 shapes) and, as "K8 mma"
 and "K10 mma", on PR 4's mma.sync kernels through the wrappers' other
 launchers, so one call compares the two routes. ``--only`` keeps the
@@ -167,6 +169,17 @@ def cases(dev):
                     cb.conv3x3_wgrad_nhwc(h, dp, affine=(a, bb), drop=d),
                     lambda h=h, dp=dp, f=f: torch.nn.grad.conv2d_weight(
                         cs.nchw(h), (f, f, 3, 3), cs.nchw(dp), padding=1)))
+    for label, b, hh, c in cs.STEM_CASES:
+        x = rn(b, hh, hh, c).to(dt)
+        w = rn(3, 3, c, 16, scale=(9 * c) ** -0.5).to(dt)
+        bias = rn(16, scale=0.1)
+        y = torch.empty((b, hh, hh, 16), dtype=dt, device=dev)
+        out.append((f"K12 {label}", lambda x=x, w=w, b=bias:
+                    cb.conv3x3_nhwc(x, w, b, want_stats=True),
+                    lambda x=x, w=w: F.conv2d(cs.nchw(x), cs.oihw(w), padding=1)))
+        out.append((f"K12 {label} mma", lambda x=x, w=w, b=bias, y=y:
+                    (y, cb._launch_conv(x, w, y, bias=b, want_sums=True)),
+                    lambda x=x, w=w: F.conv2d(cs.nchw(x), cs.oihw(w), padding=1)))
     for name, hh, c, f, _ in cs.PLAIN:
         x = rn(B, hh, hh, c).to(dt)
         w = rn(3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
@@ -185,7 +198,7 @@ def cases(dev):
 #: ops/conv_block.py's grid constants as the repo sets them
 DEFAULTS = {name: getattr(cb, name) for name in (
     "WGRAD_PART_BYTES", "WGRAD_TARGET_BLOCKS", "CONV_TALL_MAX_W",
-    "CONV_MIN_FILL", "WGRAD_SM90_PART_RATIO")}
+    "CONV_MIN_FILL", "WGRAD_SM90_PART_RATIO", "STEM_CTAS_PER_SM")}
 
 
 def use(d, libs):

@@ -45,6 +45,19 @@ the attention's output and bias gradient are bitwise the same from run to
 run. C, and D's dpre from given sums, round as their plain versions and
 are bitwise equal to them; D's sums are bitwise the same from run to run.
 
+K12, the bf16 stem (C = 1 and 3 into F = 16 and 32), takes its own
+kernel (``conv_route``'s "stem", ``csrc/stem_sm90.cu``) where TMA can
+take its rows, against the plain version at 96^2, 224^2 and 512^2 with
+batches 1 to 48, with and without
+statistics and bias, its statistics bitwise the same in two calls; an
+odd width keeps the mma.sync route. D's full backward takes its
+cooperative kernel in one launch, in the hold and the stream form, at
+the five ACDC stages and the 2-D datasets' stages: sums bitwise the same
+in back-to-back calls on one stream, dpre bitwise equal to the plain
+version from the kernel's own sums, the barrier's counter back at 0;
+``bn_reduce`` alone likewise; F % 8 != 0 keeps PR 6's two kernels. Each
+route counts its launches.
+
 Beside the kernels: A and D at the supervised path's batch of 24 at 224^2
 and 14^2; A to D and K8 to K11 at the LIDC, ISIC and Building shapes (the
 C = 3 stem, 96^2 stages down to 6^2, 512^2 at batch 12), the F = 2 and
@@ -190,7 +203,10 @@ def test_bn_reduce_last_cta_finish_is_reproducible(dev, dtype):
     partials in a fixed order and resets the device's counter), within
     tolerance of the plain version."""
     g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (16, 112, 112, 32))
-    runs = [ba.bn_act_bwd(dy, g, a, b, m, inv) for _ in range(3)]
+    # PR 6's reduce (the element path's; the vector path takes the
+    # cooperative kernel), then dpre from its sums
+    runs = [ba._reduce(dy, g, a, b, m, inv) for _ in range(3)]
+    runs = [(s, ba._dpre(dy, g, a, b, m, inv, s)) for s in runs]
     # the walk the wrapper launched: several turns a CTA
     _, w = ba._walk(True, dy, tuple(t.data_ptr() for t in
                                     (dy, g, a, b, m, inv)))
@@ -1235,7 +1251,8 @@ def test_a_and_b_on_both_routes_at_the_acdc_shapes(dev, b, hw, c, f, form):
     _close(cb._launch_wgrad(x, dp, pro=pro).view_as(dw_r), dw_r,
            torch.bfloat16)
     assert _routes(cb.conv3x3_nhwc) == {"wgmma": before[0]["wgmma"] + 2,
-                                        "mma": before[0]["mma"]}
+                                        "mma": before[0]["mma"],
+                                        "stem": before[0]["stem"]}
     b_route = cb.conv_route(c, f, torch.bfloat16, True,
                             "wgrad_prologue" if wkw else "wgrad")
     want = dict(before[1])
@@ -1447,3 +1464,135 @@ def test_k9_and_k11_routes_count_their_launches(dev, ca, cu, f, c, dtype,
         assert after[route] == before[route] + 1
         assert after[other] == before[other]
         assert fn.launches == total + 1
+
+
+# ---------------------------------------------------------------------------
+# K12 on its own kernel, D on its cooperative kernel
+# ---------------------------------------------------------------------------
+
+STEM_CASES = [(1, 16, 32, 224), (1, 16, 1, 224), (3, 16, 32, 96),
+              (3, 16, 48, 96), (3, 16, 2, 512), (3, 16, 4, 224),
+              (1, 32, 3, 224), (3, 32, 2, 96), (1, 16, 2, 100),
+              (3, 16, 2, 90)]
+
+
+@pytest.mark.parametrize("c,f,b,hw", STEM_CASES)
+@pytest.mark.parametrize("stats,bias", [(True, True), (False, True),
+                                        (True, False)])
+def test_stem_route_matches_plain(dev, c, f, b, hw, stats, bias):
+    """The wrapper's route (stem where the rows are whole 16-byte units:
+    100 x 1 and 90 x 3 bf16 are not, and keep mma) and, on the stem
+    route, both forms of the kernel; y within bf16 tolerance, the
+    statistics within fp32's, and bitwise the same in two calls."""
+    dt = torch.bfloat16
+    x = _randn(dev, b, hw, hw, c).to(dt)
+    w = _randn(dev, 3, 3, c, f, scale=(9 * c) ** -0.5).to(dt)
+    kw = dict(bias=_randn(dev, f, scale=0.1) if bias else None,
+              want_stats=stats)
+    route = cb.conv_route(c, f, dt, True, "conv", width=hw)
+    assert route == ("stem" if hw * c * 2 % 16 == 0 else "mma")
+    before = cb.conv3x3_nhwc.routes[route].launches
+    y, st = cb.conv3x3_nhwc(x, w, **kw)
+    assert cb.conv3x3_nhwc.routes[route].launches == before + 1
+    y_r, st_r = cb.conv3x3_reference(x, w, **kw)
+    _close(y, y_r, dt)
+    assert (st is None) == (not stats)
+    if stats:
+        _close(st, st_r, torch.float32)
+        assert torch.equal(st, cb.conv3x3_nhwc(x, w, **kw)[1])
+    if route != "stem":
+        return
+    y2 = torch.empty_like(y)
+    st2 = cb._launch_stem(x, w, y2, bias=kw["bias"], want_sums=stats)
+    assert torch.equal(y2, y)  # the launcher alone: the wrapper's result
+    if stats:
+        assert torch.equal(st2, st)
+    assert int(cb.ticket(dev, "stem").item()) == 0
+
+
+#: (batch, side, channels) of the ConvBlock outputs D sees: the ACDC
+#: stages at batch 32, the LIDC ones (96^2) at 32, the ISIC ones (224^2)
+#: at 40 and the Building ones (512^2) at 12
+BN_STAGES = ([(32, 224 >> i, 16 << i) for i in range(5)]
+             + [(32, 96 >> i, 16 << i) for i in range(5)]
+             + [(40, 224 >> i, 16 << i) for i in range(5)]
+             + [(12, 512 >> i, 16 << i) for i in range(5)])
+
+
+def _coop_checks(dev, dtype, shape, form):
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, shape)
+    counter = ba.ticket(dev, "bn_coop")
+    runs = []
+    for _ in range(3):  # back to back on one stream
+        d = torch.empty_like(dy)
+        s, got = ba._coop(dy, g, a, b, m, inv, d, form=form)
+        runs.append((s.clone(), d))
+    assert got == (form or got)
+    for s, d in runs[1:]:
+        assert torch.equal(s, runs[0][0])
+        assert torch.equal(d, runs[0][1])
+    s, d = runs[0]
+    s_r, d_r = ba.bn_act_bwd_reference(dy, g, a, b, m, inv)
+    _close(s, s_r, torch.float32)
+    _close(d, d_r, dtype)
+    assert torch.equal(d, ba.bn_act_dpre_reference(dy, g, a, b, m, inv, s))
+    assert int(counter.item()) == 0
+    return got
+
+
+@pytest.mark.parametrize("b,hw,f", BN_STAGES)
+def test_bn_coop_at_the_main_path_stages(dev, b, hw, f):
+    """The wrapper's form (hold where dy and pre fit the resident CTAs)
+    and, where that is hold, the stream form at the same shape."""
+    shape = (b, hw, hw, f)
+    form = _coop_checks(dev, torch.bfloat16, shape, None)
+    g, dy, a, bb, m, inv = _bn_inputs(dev, torch.bfloat16, shape)
+    before = {r: c.launches for r, c in ba.bn_act_bwd.routes.items()}
+    ba.bn_act_bwd(dy, g, a, bb, m, inv)
+    after = {r: c.launches for r, c in ba.bn_act_bwd.routes.items()}
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == form) for r in after}
+    if form == "hold":
+        _coop_checks(dev, torch.bfloat16, shape, "stream")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 20, 20, 16), (3, 7, 7, 256),
+                                   (1, 5, 5, 8), (32, 28, 28, 128)])
+def test_bn_coop_both_forms_both_dtypes(dev, dtype, shape):
+    for form in ("hold", "stream"):
+        _coop_checks(dev, dtype, shape, form)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(32, 14, 14, 256), (32, 112, 112, 32),
+                                   (2, 20, 20, 48)])
+def test_bn_reduce_alone_on_the_cooperative_kernel(dev, dtype, shape):
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, shape)
+    before = {r: c.launches for r, c in ba.bn_reduce.routes.items()}
+    runs = [ba.bn_reduce(dy, g, a, b, m, inv) for _ in range(3)]
+    after = {r: c.launches for r, c in ba.bn_reduce.routes.items()}
+    assert {r: after[r] - before[r] for r in after} == {
+        "hold": 0, "stream": 3, "walk": 0}
+    for s in runs[1:]:
+        assert torch.equal(s, runs[0])
+    _close(runs[0], ba.bn_reduce_reference(dy, g, a, b, m, inv),
+           torch.float32)
+    assert int(ba.ticket(dev, "bn_coop").item()) == 0
+
+
+@pytest.mark.parametrize("dtype,f,route", [
+    (torch.bfloat16, 12, "walk"), (torch.bfloat16, 20, "walk"),
+    (torch.float32, 6, "walk"), (torch.bfloat16, 300, "walk"),
+    (torch.bfloat16, 16, "hold"), (torch.float32, 12, "hold")])
+def test_bn_routes_count_their_launches(dev, dtype, f, route):
+    """F % V != 0 (and more than 256 channel groups) keep PR 6's two
+    kernels; a small aligned call holds. Each call counts on its route."""
+    g, dy, a, b, m, inv = _bn_inputs(dev, dtype, (2, 20, 20, f))
+    before = {r: c.launches for r, c in ba.bn_act_bwd.routes.items()}
+    s, d = ba.bn_act_bwd(dy, g, a, b, m, inv)
+    after = {r: c.launches for r, c in ba.bn_act_bwd.routes.items()}
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    _close(s, ba.bn_reduce_reference(dy, g, a, b, m, inv), torch.float32)
+    assert torch.equal(d, ba.bn_act_dpre_reference(dy, g, a, b, m, inv, s))
